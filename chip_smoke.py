@@ -5,8 +5,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Environment: requires a CUDA card (exits 1 otherwise; there is no CPU
    path) and prints its name and power limit.
-2. Builds the LDPC belief-propagation kernel (csrc/ldpc_bp.cu) with nvcc and
-   prints the build time and the ptxas register/shared-memory report.
+2. Builds both kernels in parallel with nvcc, one process per source (the
+   LDPC belief-propagation kernel csrc/ldpc_bp.cu and the Viterbi kernel
+   csrc/viterbi.cu), and prints the BP kernel's build time and ptxas
+   register/shared-memory report.
 3. Kernel vs plain torch version for N512R12, N576R23 and N512R34 under each
    decode rule: 3072 decodable codewords (±4 LLRs, BP_FLIPS flips) plus 256
    random-normal rows. Tolerance: exact — bits and unsatisfied-check counts
@@ -23,14 +25,37 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    the single-symbol channel estimate does not carry QAM-16/64) at random
    gaps, 37 Hz CFO, fed to OfdmFrameStreamDemod in 20 000-sample chunks;
    all 4 payloads in order.
-6. Prints the kernels' JSON line, then the result line
-   {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
+6. Viterbi build: the Viterbi kernel's build time and ptxas report.
+7. Viterbi kernel vs plain torch version, exact equality of bits on every
+   lane: chunked dvb_k7 at the DVB-T decode operating point (3168 lanes =
+   32 frames x 99 chunks, 1216 steps) on integer-valued and on normal float
+   LLRs, with random initial-metric rows and chunk-0-pinned rows; terminated
+   k5 and dvb_k7 at 128 codewords x 4096 info bits, rates 1/2 and 3/4.
+   Times kernel and plain version with CUDA events after warm-up.
+8. DVB-T batch (main path): 32 full frames of QPSK r1/2 GI 1/8 (9537-byte
+   payloads, 68 symbols) modulated on the card by DvbTFrameMod, AWGN at
+   6 dB SNR, decoded by DvbTFrameDemod(device="cuda").decode_batch; then 8
+   full frames of 16-QAM r3/4 at 15 dB. Every payload and TPS word must
+   come back and the Viterbi launch count must rise. Three timed runs after
+   a warm-up on the full batch; frames/s and Msps of the median (host clock
+   around work that ends in torch.cuda.synchronize()), and modulate
+   frames/s.
+9. DVB-T single frame at an unknown offset: 777 leading zeros, 4 dB, payload
+   seed 7, noise seed 8, through decode; payload and every TPS field.
+10. COFDM conv link batch: 64 frames of 300 bytes on a conv K=7 r1/2 +
+   RS(204,188) MCS with a block inner interleaver, through
+   OfdmFrameDemod.decode_batch: the terminated mode of the Viterbi kernel
+   on the COFDM path; all 64 payloads and a rising launch count.
+11. Prints the kernels' JSON line, the card's name and power limit, then the
+   result line {"ok": true, "device": {...}} last. Any failure exits
+   non-zero before it.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,10 +69,20 @@ BP_GARBAGE = 256
 # code, fewer on the higher rates (their weight-3 columns leave small
 # distances, so more flips would often land on another codeword)
 BP_FLIPS = {"N512R12": 6, "N576R23": 4, "N512R34": 3}
+# the Viterbi operating point: 32 DVB-T frames x 99 chunks of 1216 steps
+VIT_LANES, VIT_SPAN = 32 * 99, 1216
+DVB_FRAMES, DVB_QAM_FRAMES = 32, 8
+COFDM_CONV_FRAMES = 64
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def print_ptxas(built):
+    for line in built.log.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print("   ", line.strip())
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -231,6 +266,191 @@ def stream_path(P, ldpc_bp, dev, rng):
         fail("the stream demod lost or reordered frames")
 
 
+def viterbi_vs_plain(viterbi, dev, rng):
+    """Phase 7: returns (max |kernel − plain| over every bit, kernel ms,
+    plain ms) at the chunked operating point on float LLRs."""
+    from orion_sdr_tpu_torch.fec.conv import punctured_coded_len
+    max_err = 0.0
+
+    def check(name, got, want):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        print(f"  {name}: {got.shape[0]} lanes x {got.shape[1]} bits, "
+              f"max|kernel-plain|={err:g}")
+        if err != 0.0:
+            fail(f"Viterbi {name}: kernel and plain version differ")
+
+    L, T = VIT_LANES, VIT_SPAN
+    pm0 = torch.as_tensor(rng.integers(-30, 1, (L, 64)), dtype=torch.float32,
+                          device=dev)
+    pm0[::99] = -1e30                       # chunk-0 rows pinned at state 0
+    pm0[::99, 0] = 0.0
+    ints = [torch.as_tensor(rng.integers(-8, 9, (L, T)), dtype=torch.float32,
+                            device=dev) for _ in range(2)]
+    floats = [torch.as_tensor(rng.standard_normal((L, T)), dtype=torch.float32,
+                              device=dev) for _ in range(2)]
+    for kind, (c0, c1) in (("integer", ints), ("float", floats)):
+        check(f"chunked dvb_k7 {kind} LLRs",
+              viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7"),
+              viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7"))
+    c0, c1 = floats
+    k_ms = cuda_ms(lambda: viterbi.viterbi_chunks_kernel(c0, c1, pm0,
+                                                         "dvb_k7"))
+    p_ms = cuda_ms(lambda: viterbi.viterbi_chunks_reference(c0, c1, pm0,
+                                                            "dvb_k7"),
+                   reps=2, warmup=1)
+    print(f"  chunked dvb_k7 L={L} T={T}: kernel {k_ms:.4f} ms "
+          f"({L * 1024 / k_ms * 1e3:.4g} info bits/s), plain {p_ms:.4f} ms")
+    for code in ("k5", "dvb_k7"):
+        for rate in ("1/2", "3/4"):
+            n = 4096
+            llr = torch.as_tensor(
+                rng.standard_normal((128, punctured_coded_len(n, rate, code)))
+                * 2.0, dtype=torch.float32, device=dev)
+            check(f"terminated {code} {rate}",
+                  viterbi.viterbi_decode_soft_kernel(llr, n, rate, code),
+                  viterbi.viterbi_terminated_reference(llr, n, rate, code))
+            tk = cuda_ms(lambda: viterbi.viterbi_decode_soft_kernel(
+                llr, n, rate, code))
+            tp = cuda_ms(lambda: viterbi.viterbi_terminated_reference(
+                llr, n, rate, code), reps=1, warmup=0)
+            print(f"  terminated {code} {rate} 128 x {n}: kernel {tk:.4f} ms, "
+                  f"plain {tp:.4f} ms")
+    return max_err, k_ms, p_ms
+
+
+def dvb_t_full_payload(P, params):
+    """Largest whole-packet payload whose coded stream fits a 68-symbol
+    frame."""
+    from orion_sdr_tpu_torch.modulate.dvb_t_frame import _coded_bits_for_packets
+    from orion_sdr_tpu_torch.constellation import BITS_PER_SYMBOL
+    capacity = 68 * 1512 * BITS_PER_SYMBOL[params.link.constellation]
+    n_pkt = 1
+    while _coded_bits_for_packets(n_pkt + 1, params) <= capacity:
+        n_pkt += 1
+    return n_pkt * 187
+
+
+def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
+    """Modulate n_frames full frames on the card, add AWGN, decode them with
+    decode_batch three times after a warm-up; returns the Viterbi launch
+    count of the timed runs."""
+    base = P.DvbTFrameParams(P.DvbTLinkParams(*link))
+    n_bytes = dvb_t_full_payload(P, base)
+    frames = [(P.DvbTFrameParams(base.link, i % 4, (17 * i) & 0xFF),
+               rng.integers(0, 256, n_bytes).astype(np.uint8))
+              for i in range(n_frames)]
+    P.DvbTFrameMod(frames[0][0], device=dev).modulate(frames[0][1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mods = [P.DvbTFrameMod(params, device=dev).modulate(data)
+            for params, data in frames]
+    torch.cuda.synchronize()
+    t_mod = time.perf_counter() - t0
+    n_sym = mods[0].n_symbols
+    n_samp = sum(len(m.iq) for m in mods)
+    print(f"  {link}: {n_frames} frames x {n_bytes} B, {n_sym} symbols; "
+          f"modulate {t_mod:.4f} s = {n_frames / t_mod:.4g} frames/s, "
+          f"{n_samp / t_mod / 1e6:.4g} Msps")
+    batch = np.stack([m.iq for m in mods])
+    sig = float(np.mean(np.abs(batch) ** 2))
+    batch = batch + ((rng.standard_normal(batch.shape)
+                      + 1j * rng.standard_normal(batch.shape))
+                     * np.sqrt(sig / 10 ** (snr_db / 10) / 2)
+                     ).astype(np.complex64)
+    iq_dev = torch.as_tensor(batch, device=dev)
+    demod = P.DvbTFrameDemod(base, device=dev)
+    demod.decode_batch(iq_dev, n_sym, n_bytes)       # warm-up
+    torch.cuda.synchronize()
+    viterbi.viterbi_chunks_kernel.launches = 0
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = demod.decode_batch(iq_dev, n_sym, n_bytes)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        good = sum(np.array_equal(o.payload, data)
+                   and o.tps == params.tps_word()
+                   for o, (params, data) in zip(out, frames))
+        if good != n_frames:
+            fail(f"DVB-T decode_batch {link}: {n_frames - good} frames lost")
+    n = viterbi.viterbi_chunks_kernel.launches
+    if n <= 0:
+        fail("the DVB-T path launched no Viterbi kernel")
+    dt = sorted(secs)[1]
+    print(f"  decode_batch: {n_frames}/{n_frames} payloads and TPS words in "
+          f"each of 3 runs, {n} Viterbi launches; runs "
+          f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
+          f"{n_frames / dt:.4g} frames/s, {batch.size / dt / 1e6:.4g} Msps")
+    return n
+
+
+def dvb_t_batch(P, viterbi, dev, rng):
+    """Phase 8: returns the Viterbi launch count of the QPSK main-path run."""
+    launches = dvb_t_run(P, viterbi, dev, rng, ("1/8", "qpsk", "1/2"),
+                         DVB_FRAMES, 6.0)
+    dvb_t_run(P, viterbi, dev, rng, ("1/8", "qam16", "3/4"), DVB_QAM_FRAMES,
+              15.0)
+    return launches
+
+
+def dvb_t_unknown_offset(P, dev):
+    """Phase 9: the JAX package's unknown-offset capstone setup."""
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/32", "qpsk", "1/2"), 1,
+                               0x5A)
+    payload = np.random.default_rng(7).integers(0, 256, 500).astype(np.uint8)
+    frame = P.DvbTFrameMod(params, device=dev).modulate(payload)
+    rng = np.random.default_rng(8)
+    buf = np.concatenate([np.zeros(777, np.complex64), frame.iq,
+                          np.zeros(2000, np.complex64)])
+    sig_p = float(np.mean(np.abs(frame.iq) ** 2))
+    buf += ((rng.standard_normal(len(buf)) + 1j * rng.standard_normal(len(buf)))
+            .astype(np.complex64) * np.sqrt(sig_p / 10 ** 0.4 / 2))
+    rx = P.DvbTFrameDemod(params, device=dev).decode(buf, frame.n_symbols,
+                                                     len(payload))
+    ok = np.array_equal(rx.payload, payload) and rx.tps == params.tps_word()
+    print(f"  payload and TPS {rx.tps} recovered: {ok}")
+    if not ok:
+        fail("the DVB-T frame at an unknown offset did not decode")
+
+
+def cofdm_conv_batch(P, viterbi, dev, rng):
+    """Phase 10: the conv+RS COFDM link through decode_batch."""
+    cfg, pre, _ = link(P)
+    cfg = cfg.with_inner_interleaver(P.InterleaverKind.block(32, 48))
+    table = P.McsTable([P.Mcs("qpsk", P.InnerFec.convolutional("1/2", "dvb_k7"),
+                              P.OuterFec.reed_solomon(204, 16))])
+    mod = P.OfdmFrameMod(cfg, table, pre, device=dev)
+    frames = [(P.FrameMetadata(sequence_num=i, mcs_index=0),
+               rng.integers(0, 256, 300).astype(np.uint8), 1000 + i)
+              for i in range(COFDM_CONV_FRAMES)]
+    bodies = [mod.modulate_frame(P.FramePacket(meta, data), seed)
+              [pre.total_len():] for meta, data, seed in frames]
+    batch = np.stack(bodies)
+    sig = float(np.mean(np.abs(batch) ** 2))
+    batch = batch + ((rng.standard_normal(batch.shape)
+                      + 1j * rng.standard_normal(batch.shape))
+                     * np.sqrt(sig * 0.02 / 2)).astype(np.complex64)
+    viterbi.viterbi_decode_soft_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = P.OfdmFrameDemod(cfg, table, device=dev).decode_batch(
+        torch.as_tensor(batch, device=dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = viterbi.viterbi_decode_soft_kernel.launches
+    good = sum(isinstance(got, P.FramePacket)
+               and np.array_equal(got.payload, data) and got.metadata == meta
+               for got, (meta, data, _) in zip(out, frames))
+    print(f"  {good}/{COFDM_CONV_FRAMES} frames recovered in {dt:.4f} s "
+          f"(first run), {n} terminated Viterbi launches")
+    if good != COFDM_CONV_FRAMES:
+        fail(f"COFDM conv link: {COFDM_CONV_FRAMES - good} frames lost")
+    if n <= 0:
+        fail("the COFDM conv link launched no Viterbi kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -246,14 +466,16 @@ def main() -> int:
                          text=True, timeout=60)
     print(f"[1] device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi gave nothing: {smi.stderr.strip()}")
+    smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                else f"nvidia-smi gave nothing: {smi.stderr.strip()}")
+    print(smi_line)
 
-    built = ldpc_bp.build()
+    from orion_sdr_tpu_torch.ops import viterbi
+    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
+        builds = [pool.submit(ldpc_bp.build), pool.submit(viterbi.build)]
+        built, vit_built = [b.result() for b in builds]
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("   ", line.strip())
+    print_ptxas(built)
 
     rng = np.random.default_rng(SEED)
     print(f"[3] BP kernel vs plain version (exact), B={BP_BATCH}+{BP_GARBAGE}")
@@ -265,13 +487,36 @@ def main() -> int:
     print("[5] stream path: 4 frames, 37 Hz CFO, 20000-sample chunks")
     stream_path(P, ldpc_bp, dev, rng)
 
+    print(f"[6] built {vit_built.path} in {vit_built.seconds:.2f} s")
+    print_ptxas(vit_built)
+
+    print(f"[7] Viterbi kernel vs plain version (exact): chunked dvb_k7 "
+          f"L={VIT_LANES} x {VIT_SPAN}, terminated 128 x 4096")
+    vit_err, vit_ms, vit_plain_ms = viterbi_vs_plain(viterbi, dev, rng)
+
+    print(f"[8] DVB-T batch: {DVB_FRAMES} QPSK r1/2 GI 1/8 frames at 6 dB, "
+          f"{DVB_QAM_FRAMES} 16-QAM r3/4 frames at 15 dB")
+    vit_launches = dvb_t_batch(P, viterbi, dev, rng)
+
+    print("[9] DVB-T single frame at an unknown offset, 4 dB")
+    dvb_t_unknown_offset(P, dev)
+
+    print(f"[10] COFDM conv+RS link: {COFDM_CONV_FRAMES} frames x 300 B")
+    cofdm_conv_batch(P, viterbi, dev, rng)
+
     k_ms, p_ms = times["sum_product"]
     print(json.dumps({"kernels": [{
         "name": "ldpc_bp_decode", "route": "cuda",
         "source": "orion_sdr_tpu_torch/csrc/ldpc_bp.cu",
         "replaces": "orion_sdr_tpu/ops/ldpc_bp.py:256",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "viterbi_acs_traceback", "route": "cuda",
+        "source": "orion_sdr_tpu_torch/csrc/viterbi.cu",
+        "replaces": "orion_sdr_tpu/ops/viterbi.py:200",
+        "launches": vit_launches, "max_abs_err": vit_err,
+        "ms": vit_ms, "plain_ms": vit_plain_ms}]}))
+    print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

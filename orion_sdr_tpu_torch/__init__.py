@@ -1,11 +1,15 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-This first slice is the coded COFDM frame link (LDPC inner code, BCH outer
-code): frame modulation, batch and streaming demodulation, with LDPC belief
-propagation in a hand-written Hopper kernel (``ops/ldpc_bp.py``,
-``csrc/ldpc_bp.cu``). Every constructor and entry point that takes host data
-takes an explicit ``device``; at the frame layer bytes go in and numpy
-complex64 IQ comes out, as in the JAX package.
+Two slices so far. The coded COFDM frame link (LDPC or convolutional inner
+code, BCH or RS outer code, block/Forney interleavers, additive or DVB
+scramblers): frame modulation, batch and streaming demodulation. And the
+conformant DVB-T 2K frame link: ``DvbTFrameMod`` and ``DvbTFrameDemod``
+(GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)).
+Two hand-written Hopper kernels carry them: LDPC belief propagation
+(``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``) and the Viterbi ACS + traceback
+(``ops/viterbi.py``, ``csrc/viterbi.cu``). Every constructor and entry point
+that takes host data takes an explicit ``device``; at the frame layer bytes
+go in and numpy complex64 IQ comes out, as in the JAX package.
 """
 
 from .frame import (
@@ -20,7 +24,8 @@ from .frame import (
     check_and_strip_crc, scramble_bytes, scramble_bits, apply_pn_to_llrs,
     interleave_bits, deinterleave_bits, deinterleave_llrs,
     outer_encode, outer_decode, inner_encode, inner_decode,
-    shortened_bch_for,
+    inner_decode_batch, outer_decode_batch, shortened_bch_for, rs_for,
+    CONV_TERMINATED_MAX_INFO,
     HEADER_FIELD_BYTES, HEADER_CONSTELLATION, HEADER_LDPC,
     pack_header_fields, header_block_plan, symbols_for_coded_bits,
     OfdmFrameMod,
@@ -30,3 +35,7 @@ from .frame import (
 from .multicarrier import CarrierPlan, CarrierGrid
 from .ofdm import OfdmConfig
 from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
+from .waveform import (DvbTLinkParams, DvbTFrameParams, TpsWord,
+                       dvb_t_mcs_table, energy_disperse)
+from .modulate import DvbTFrame, DvbTFrameMod
+from .demodulate import DvbTFrameDemod, DvbTRxError, DvbTRxFrame

@@ -13,6 +13,7 @@ from .multicarrier import CarrierPlan
 from .ofdm import OfdmConfig
 from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
 from .unported import TX_LOWPASS, not_ported
+from .waveform.dvb_t import DvbTFrameParams, DvbTLinkParams
 
 
 def ldpc_graph_from_fields(d: dict) -> LdpcGraph:
@@ -57,3 +58,15 @@ def preamble_from_fields(d: dict) -> OfdmPreamble:
     t = d.get("training_symbol")
     return OfdmPreamble(int(d["num_repeats"]), int(d["repeat_len"]),
                         TrainingSymbol(**t) if t is not None else None)
+
+
+def dvb_t_link_params_from_fields(d: dict) -> DvbTLinkParams:
+    return DvbTLinkParams(guard=str(d["guard"]),
+                          constellation=str(d["constellation"]),
+                          code_rate=str(d["code_rate"]))
+
+
+def dvb_t_frame_params_from_fields(d: dict) -> DvbTFrameParams:
+    return DvbTFrameParams(link=dvb_t_link_params_from_fields(d["link"]),
+                           frame_number=int(d["frame_number"]),
+                           cell_id=int(d["cell_id"]))

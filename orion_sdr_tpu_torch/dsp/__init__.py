@@ -1,2 +1,2 @@
-from .osc import rotate
+from .osc import rotate, rotate_host
 from .device import sanitize_iq

@@ -1,5 +1,13 @@
 from .crc import crc16, crc32
 from .scrambler import pn_sequence
-from .galois import GF_EXP, GF_LOG, gf_mul, Bch, BchError
+from .galois import (GF_EXP, GF_LOG, gf_mul, Bch, BchError, ReedSolomon,
+                     RsError)
 from .ldpc import (LDPC_CODES, LdpcGraph, ldpc_graph, ldpc_encode,
                    ldpc_decode, bp_decode)
+from .conv import (CONV_CODES, PUNCTURE, tail_bits, conv_encode,
+                   conv_encode_punctured, punctured_coded_len,
+                   depuncture_llrs, viterbi_decode_soft,
+                   viterbi_decode_soft_chunked)
+from .interleave import (block_interleave, block_deinterleave,
+                         conv_roundtrip_delay, ForneyState,
+                         forney_interleave, forney_deinterleave, forney_flush)

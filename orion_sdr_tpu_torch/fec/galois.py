@@ -1,9 +1,10 @@
-"""GF(2^8) tables and the host binary BCH code (counterpart of
-``orion_sdr_tpu/fec/galois.py``).
+"""GF(2^8) tables and the host binary BCH and Reed–Solomon codes
+(counterpart of ``orion_sdr_tpu/fec/galois.py``).
 
 Primitive polynomial 0x11D; BCH generator = lcm of the minimal polynomials
-of α^1..α^2t; shortened codes occupy the high end of the length-255 frame.
-BCH runs on the host through the native batch encoder/decoder
+of α^1..α^2t; RS generator = Π(x + α^i), i = 0..n_parity−1 (FCR = 0);
+shortened codes occupy the high end of the length-255 frame. Both run on
+the host through the native batch encoders/decoders
 (``orion_sdr_tpu_torch.native``).
 """
 
@@ -108,3 +109,63 @@ class Bch:
         prefix."""
         r = np.asarray(received_bits, np.uint8) & 1
         return native.bch_decode_batch(self.n, self.k, self.t, r)
+
+
+# ── Reed-Solomon ─────────────────────────────────────────────────────────────
+
+
+class RsError(ValueError):
+    pass
+
+
+@lru_cache(maxsize=None)
+def _rs_generator(n_parity: int) -> tuple:
+    """Π(x + α^i), i = 0..n_parity−1, low-degree-first."""
+    g = np.array([1], np.uint8)
+    for i in range(n_parity):
+        g = _poly_mul(g, np.array([GF_EXP[i % 255], 1], np.uint8))
+    return tuple(int(v) for v in g)
+
+
+class ReedSolomon:
+    """RS(n, k = n − n_parity) over GF(2^8), FCR = 0. ``ReedSolomon.dvb()``
+    is RS(204, 188), t = 8: DVB-T's outer code."""
+
+    def __init__(self, n: int, n_parity: int):
+        if n == 0 or n > 255 or n_parity >= n:
+            raise RsError(f"bad RS({n}, parity {n_parity})")
+        self.n, self.n_parity = n, n_parity
+        self.k = n - n_parity
+        self.gen = np.array(_rs_generator(n_parity), np.uint8)  # low-first
+
+    @staticmethod
+    def dvb() -> "ReedSolomon":
+        return ReedSolomon(204, 16)
+
+    @property
+    def t(self) -> int:
+        return self.n_parity // 2
+
+    def encode(self, message) -> np.ndarray:
+        """Systematic encode: (..., k) bytes → (..., n)."""
+        msg = np.asarray(message, np.uint8)
+        out = native.rs_encode_batch(self.n, self.n_parity,
+                                     msg.reshape(-1, self.k))
+        return out.reshape(msg.shape[:-1] + (self.n,))
+
+    def decode(self, received) -> np.ndarray:
+        """Correct ≤ t byte errors in one (n,) word; raises RsError if
+        uncorrectable."""
+        r = np.asarray(received, np.uint8)
+        if r.shape != (self.n,):
+            raise ValueError(f"expected ({self.n},) bytes, got {r.shape}")
+        msg, ok = self.decode_batch(r[None])
+        if not ok[0]:
+            raise RsError("uncorrectable")
+        return msg[0]
+
+    def decode_batch(self, received):
+        """(B, n) → ((B, k), ok flags); failed rows hold the systematic
+        prefix."""
+        return native.rs_decode_batch(self.n, self.n_parity,
+                                      np.asarray(received, np.uint8))

@@ -12,7 +12,8 @@ from .chain import (
     check_and_strip_crc, scramble_bytes, scramble_bits, apply_pn_to_llrs,
     interleave_bits, deinterleave_bits, deinterleave_llrs,
     outer_encode, outer_decode, inner_encode, inner_decode,
-    shortened_bch_for,
+    inner_decode_batch, outer_decode_batch, shortened_bch_for, rs_for,
+    CONV_TERMINATED_MAX_INFO,
 )
 from .modulator import (
     HEADER_FIELD_BYTES, HEADER_CONSTELLATION, HEADER_LDPC,

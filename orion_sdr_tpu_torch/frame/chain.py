@@ -1,10 +1,12 @@
 """Shared TX/RX coding chain + BlockPlan (counterpart of
 ``orion_sdr_tpu/frame/chain.py``).
 
-The byte-domain stages (CRC, byte scrambler, BCH outer code) run on the host
-in numpy; the LDPC inner code, the bit-domain scrambler and the LLR
-normalisation run on the device of the tensors they are given. FEC blocks are
-stacked on a leading axis, so each LDPC stage is one batched call.
+The byte-domain stages (CRC, byte scramblers, BCH and RS outer codes, the
+outer interleavers) run on the host in numpy; the inner code (LDPC or
+convolutional), the inner block interleaver, the bit-domain scrambler and
+the LLR normalisation run on the device of the tensors they are given. FEC
+blocks and frames are stacked on a leading axis, so each LDPC or Viterbi
+stage is one batched call.
 """
 
 from __future__ import annotations
@@ -14,20 +16,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..fec.conv import (conv_encode_punctured, punctured_coded_len,
+                        viterbi_decode_soft, viterbi_decode_soft_chunked)
 from ..fec.crc import crc16, crc32
-from ..fec.galois import Bch
+from ..fec.galois import Bch, ReedSolomon
+from ..fec.interleave import (block_deinterleave, block_interleave,
+                              conv_roundtrip_delay, forney_deinterleave,
+                              forney_flush, forney_interleave)
 from ..fec.ldpc import ldpc_decode, ldpc_encode, ldpc_graph
 from ..fec.scrambler import pn_sequence
-from ..unported import (CONV_VITERBI, DVB_T_CHAIN, INTERLEAVERS,
-                        OUTER_DEVICE_RS, not_ported)
+from ..waveform.dvb_t import energy_disperse
 from .types import (InnerFec, InterleaverKind, OuterFec, RxError,
                     ScramblerKind, SCRAMBLER_AFTER_INNER,
                     SCRAMBLER_BEFORE_OUTER, crc_len_bytes)
 
 # Fixed info-bit block for the outer BCH (one shortened codeword per block).
 BCH_INFO_BITS = 120
+# a terminated conv trellis up to this many info bits decodes whole; a longer
+# one goes to the overlap-chunked decode
+CONV_TERMINATED_MAX_INFO = 4096
 
 _BCH_CACHE: dict = {}
+_RS_CACHE: dict = {}
 
 
 def shortened_bch_for(t: int, msg_bits: int = BCH_INFO_BITS) -> Bch:
@@ -38,24 +48,15 @@ def shortened_bch_for(t: int, msg_bits: int = BCH_INFO_BITS) -> Bch:
     return _BCH_CACHE[key]
 
 
-def _check_outer(outer: OuterFec) -> None:
-    if outer.kind not in ("none", "bch"):
-        raise not_ported(f"outer FEC {outer.kind!r}", OUTER_DEVICE_RS)
+def rs_for(n: int, n_parity: int) -> ReedSolomon:
+    key = (n, n_parity)
+    if key not in _RS_CACHE:
+        _RS_CACHE[key] = ReedSolomon(n, n_parity)
+    return _RS_CACHE[key]
 
 
-def _check_inner(inner: InnerFec) -> None:
-    if inner.kind not in ("none", "ldpc"):
-        raise not_ported(f"inner FEC {inner.kind!r}", CONV_VITERBI)
-
-
-def _check_interleaver(il: InterleaverKind) -> None:
-    if il.kind != "none":
-        raise not_ported(f"interleaver {il.kind!r}", INTERLEAVERS)
-
-
-def _check_scrambler(kind: ScramblerKind) -> None:
-    if kind.kind not in ("none", "additive"):
-        raise not_ported(f"scrambler {kind.kind!r}", DVB_T_CHAIN)
+def _round_up(n: int, block: int) -> int:
+    return n if block == 0 else -(-n // block) * block
 
 
 # ── bit/byte helpers ─────────────────────────────────────────────────────────
@@ -97,15 +98,16 @@ def check_and_strip_crc(crc: str, framed):
     return body.copy(), crc32(body) == int.from_bytes(bytes(tail), "big")
 
 
-# ── scramblers (additive kind) ───────────────────────────────────────────────
+# ── scramblers ───────────────────────────────────────────────────────────────
 
 
 def scramble_bytes(kind: ScramblerKind, per_frame_seed: int, data) -> np.ndarray:
     """Byte-domain whitener (self-inverse)."""
-    _check_scrambler(kind)
     data = np.asarray(data, np.uint8)
     if kind.kind == "none":
         return data.copy()
+    if kind.kind == "dvb":
+        return energy_disperse(data)
     raw = per_frame_seed if kind.seed_mode == "per_frame" else kind.seed
     # reduce into the register width; avoid the all-zero fixed point
     seed = raw & ((1 << kind.width) - 1) or 1
@@ -134,16 +136,91 @@ def apply_pn_to_llrs(kind: ScramblerKind, per_frame_seeds,
     return torch.where(flip, -llrs, llrs)
 
 
-# ── interleavers (kind "none" only) ──────────────────────────────────────────
+# ── interleavers ─────────────────────────────────────────────────────────────
+
+
+def _conv_il_bits(n_bits: int, branches: int, depth: int) -> int:
+    byts = _round_up(-(-n_bits // 8), branches) + \
+        conv_roundtrip_delay(branches, depth)
+    return byts * 8
+
+
+def _block_apply(x, rows: int, cols: int, inverse: bool):
+    """Block (de)interleave whole blocks along the last axis of a numpy
+    array or a tensor (on its device)."""
+    if isinstance(x, np.ndarray):
+        blocks = x.reshape(x.shape[:-1] + (-1, rows * cols))
+        f = block_deinterleave if inverse else block_interleave
+        return f(blocks, rows, cols).reshape(x.shape)
+    m = x.reshape(x.shape[:-1] + (-1,) + ((cols, rows) if inverse
+                                          else (rows, cols)))
+    return m.transpose(-1, -2).reshape(x.shape)
 
 
 def interleave_bits(il: InterleaverKind, bits):
-    _check_interleaver(il)
-    return bits.clone() if isinstance(bits, torch.Tensor) else np.array(bits)
+    """1-D bits (numpy, or a tensor kept on its device) → interleaved bits
+    of the same kind: a block interleaver zero-pads to whole blocks; a
+    Forney one byte-packs, aligns to its branches and feeds and flushes one
+    stream (on the host)."""
+    is_tensor = isinstance(bits, torch.Tensor)
+    if il.kind == "none":
+        return bits.clone() if is_tensor else np.array(bits, np.uint8)
+    if il.kind == "block":
+        n = _round_up(bits.shape[-1], il.rows * il.cols)
+        if is_tensor:
+            padded = torch.nn.functional.pad(bits.to(torch.uint8),
+                                             (0, n - bits.shape[-1]))
+        else:
+            padded = np.concatenate([np.asarray(bits, np.uint8), np.zeros(
+                n - len(bits), np.uint8)])
+        return _block_apply(padded, il.rows, il.cols, inverse=False)
+    host = bits.cpu().numpy() if is_tensor else np.asarray(bits, np.uint8)
+    byts = np.packbits(host.astype(np.uint8))
+    n = _round_up(len(byts), il.branches)
+    padded = np.concatenate([byts, np.zeros(n - len(byts), np.uint8)])
+    body, state = forney_interleave(padded, il.branches, il.depth)
+    tail, _ = forney_flush(il.branches, il.depth, state)
+    out = np.unpackbits(np.concatenate([body, tail]))
+    return torch.as_tensor(out, device=bits.device) if is_tensor else out
 
 
-deinterleave_bits = interleave_bits
-deinterleave_llrs = interleave_bits
+def _deinterleave(il: InterleaverKind, x, is_llr: bool):
+    """Inverse along the last axis; each row of a 2-D input is its own
+    frame (a Forney deinterleaver starts every row from an empty state)."""
+    if il.kind == "none":
+        return x.clone() if isinstance(x, torch.Tensor) else np.array(x)
+    if il.kind == "block":
+        block = il.rows * il.cols
+        n_full = (x.shape[-1] // block) * block
+        out = _block_apply(x[..., :n_full], il.rows, il.cols, inverse=True)
+        if isinstance(x, torch.Tensor):
+            return torch.cat([out, x[..., n_full:]], dim=-1)
+        return np.concatenate([out, x[..., n_full:]], axis=-1)
+    if is_llr:
+        # a Forney interleaver is never configured as the inner (LLR)
+        # interleaver; degrade gracefully, as the reference does
+        return x.clone() if isinstance(x, torch.Tensor) else np.array(x)
+    x = np.asarray(x, np.uint8)
+    d = conv_roundtrip_delay(il.branches, il.depth)
+    total = x.shape[-1] // 8
+    if total <= d:
+        return np.zeros(x.shape[:-1] + (0,), np.uint8)
+    n_padded = total - d
+    byts = np.packbits(x[..., : total * 8], axis=-1)
+    out, _ = forney_deinterleave(byts, il.branches, il.depth)
+    return np.unpackbits(out[..., d:d + n_padded], axis=-1)
+
+
+def deinterleave_bits(il: InterleaverKind, bits) -> np.ndarray:
+    """(..., L) numpy bits → deinterleaved bits, one frame per row."""
+    return _deinterleave(il, np.asarray(bits, np.uint8), is_llr=False)
+
+
+def deinterleave_llrs(il: InterleaverKind, llrs):
+    """(..., L) LLRs (a tensor stays on its device) → deinterleaved."""
+    if not isinstance(llrs, torch.Tensor):
+        llrs = np.asarray(llrs, np.float32)
+    return _deinterleave(il, llrs, is_llr=True)
 
 
 # ── BlockPlan ────────────────────────────────────────────────────────────────
@@ -163,54 +240,75 @@ class BlockPlan:
 def block_plan(info_bytes: int, crc: str, outer: OuterFec, inner: InnerFec,
                outer_il: InterleaverKind, inner_il: InterleaverKind
                ) -> BlockPlan:
-    for check, arg in ((_check_outer, outer), (_check_inner, inner),
-                       (_check_interleaver, outer_il),
-                       (_check_interleaver, inner_il)):
-        check(arg)
     framed_bytes = info_bytes + crc_len_bytes(crc)
     framed_bits = framed_bytes * 8
     if outer.kind == "none":
         outer_coded_bits = framed_bits
-    else:
+    elif outer.kind == "bch":
         outer_coded_bits = -(-framed_bits // BCH_INFO_BITS) * \
             shortened_bch_for(outer.t).n
-    if inner.kind == "none":
-        inner_coded_bits = outer_coded_bits
     else:
+        rs = rs_for(outer.n, outer.n_parity)
+        outer_coded_bits = -(-framed_bytes // rs.k) * rs.n * 8
+
+    def il_bits(il: InterleaverKind, n: int) -> int:
+        if il.kind == "none":
+            return n
+        if il.kind == "block":
+            return _round_up(n, il.rows * il.cols)
+        return _conv_il_bits(n, il.branches, il.depth)
+
+    outer_il_bits = il_bits(outer_il, outer_coded_bits)
+    if inner.kind == "none":
+        inner_coded_bits = outer_il_bits
+    elif inner.kind == "ldpc":
         g = ldpc_graph(inner.code)
-        inner_coded_bits = -(-outer_coded_bits // g.k) * g.n
+        inner_coded_bits = -(-outer_il_bits // g.k) * g.n
+    else:
+        inner_coded_bits = punctured_coded_len(outer_il_bits, inner.rate,
+                                               inner.code)
     return BlockPlan(info_bytes, framed_bytes, outer_coded_bits,
-                     outer_coded_bits, inner_coded_bits, inner_coded_bits)
+                     outer_il_bits, inner_coded_bits,
+                     il_bits(inner_il, inner_coded_bits))
 
 
 # ── encode side ──────────────────────────────────────────────────────────────
 
 
 def outer_encode(outer: OuterFec, message_bytes) -> np.ndarray:
-    """Bytes → outer-coded bits on the host (BCH in 120-bit blocks)."""
-    _check_outer(outer)
-    bits = bytes_to_bits(message_bytes)
+    """Bytes → outer-coded bits on the host: BCH in 120-bit blocks, RS in
+    k-byte blocks, each zero-padded to whole blocks."""
+    message_bytes = np.asarray(message_bytes, np.uint8)
     if outer.kind == "none":
-        return bits
-    code = shortened_bch_for(outer.t)
-    n_blk = -(-len(bits) // BCH_INFO_BITS)
-    padded = np.concatenate([bits, np.zeros(
-        n_blk * BCH_INFO_BITS - len(bits), np.uint8)])
-    return code.encode(padded.reshape(n_blk, BCH_INFO_BITS)).reshape(-1)
+        return bytes_to_bits(message_bytes)
+    if outer.kind == "bch":
+        code = shortened_bch_for(outer.t)
+        bits = bytes_to_bits(message_bytes)
+        n_blk = -(-len(bits) // BCH_INFO_BITS)
+        padded = np.concatenate([bits, np.zeros(
+            n_blk * BCH_INFO_BITS - len(bits), np.uint8)])
+        return code.encode(padded.reshape(n_blk, BCH_INFO_BITS)).reshape(-1)
+    rs = rs_for(outer.n, outer.n_parity)
+    n_blk = -(-len(message_bytes) // rs.k)
+    padded = np.concatenate([message_bytes, np.zeros(
+        n_blk * rs.k - len(message_bytes), np.uint8)])
+    return bytes_to_bits(rs.encode(padded.reshape(n_blk, rs.k)).reshape(-1))
 
 
 def inner_encode(inner: InnerFec, info_bits: torch.Tensor) -> torch.Tensor:
-    """1-D bit tensor → inner-coded bits on the same device (LDPC blocks
-    zero-padded to whole codewords and encoded in one batch)."""
-    _check_inner(inner)
+    """1-D bit tensor → inner-coded bits on the same device: LDPC blocks
+    zero-padded to whole codewords and encoded in one batch, or the
+    zero-tailed punctured convolutional code."""
     info_bits = info_bits.to(torch.uint8)
     if inner.kind == "none":
         return info_bits.clone()
-    g = ldpc_graph(inner.code)
-    n_blk = -(-info_bits.shape[-1] // g.k)
-    padded = torch.nn.functional.pad(info_bits, (0, n_blk * g.k
-                                                 - info_bits.shape[-1]))
-    return ldpc_encode(inner.code, padded.reshape(n_blk, g.k)).reshape(-1)
+    if inner.kind == "ldpc":
+        g = ldpc_graph(inner.code)
+        n_blk = -(-info_bits.shape[-1] // g.k)
+        padded = torch.nn.functional.pad(info_bits, (0, n_blk * g.k
+                                                     - info_bits.shape[-1]))
+        return ldpc_encode(inner.code, padded.reshape(n_blk, g.k)).reshape(-1)
+    return conv_encode_punctured(info_bits, inner.rate, inner.code)
 
 
 def encode_chain(data_bytes, crc: str, outer: OuterFec, inner: InnerFec,
@@ -236,14 +334,24 @@ def encode_chain(data_bytes, crc: str, outer: OuterFec, inner: InnerFec,
 def inner_decode_batch(inner: InnerFec, coded_llrs: torch.Tensor,
                        info_len: int, ldpc_rule: str = "sum_product"):
     """(B, L) LLR tensor → ((B, info) bit tensor, (B,) numpy ok): all
-    frames' LDPC blocks decode in one BP launch. Each block's LLRs are
+    frames' FEC blocks decode in one launch. LDPC: each block's LLRs are
     scaled to RMS 4 first (the max-log demapper's outputs are not scaled by
     1/σ², and sum-product stalls on magnitudes ≪ 1; hard decisions are
-    unaffected)."""
-    _check_inner(inner)
+    unaffected). Convolutional: a trellis of at most
+    ``CONV_TERMINATED_MAX_INFO`` info bits decodes whole and terminated, a
+    longer one overlap-chunked."""
     nb = coded_llrs.shape[0]
     if inner.kind == "none":
         return (coded_llrs <= 0.0).to(torch.uint8), np.ones(nb, bool)
+    if inner.kind == "conv":
+        llrs = coded_llrs.to(torch.float32).contiguous()
+        if info_len > CONV_TERMINATED_MAX_INFO:
+            bits = viterbi_decode_soft_chunked(llrs, info_len, inner.rate,
+                                               inner.code)
+        else:
+            bits = viterbi_decode_soft(llrs, info_len, inner.rate,
+                                       inner.code)
+        return bits, np.ones(nb, bool)
     g = ldpc_graph(inner.code)
     n_full = coded_llrs.shape[1] // g.n
     blocks = coded_llrs[:, : n_full * g.n].reshape(nb * n_full, g.n)
@@ -256,21 +364,31 @@ def inner_decode_batch(inner: InnerFec, coded_llrs: torch.Tensor,
 
 
 def outer_decode_batch(outer: OuterFec, coded_bits):
-    """(B, L) numpy bits → ((B, msg) bits, (B,) ok): every frame's BCH
-    codewords go through one host batch decode."""
-    _check_outer(outer)
+    """(B, L) numpy bits → ((B, msg) bits, (B,) ok): every frame's BCH or
+    RS codewords go through one host batch decode; a failed codeword keeps
+    its systematic prefix, so the CRC still adjudicates."""
     bits = np.asarray(coded_bits, np.uint8)
     nb, nbits = bits.shape
     if outer.kind == "none":
         return bits.copy(), np.ones(nb, bool)
-    code = shortened_bch_for(outer.t)
-    n_full = nbits // code.n
+    if outer.kind == "bch":
+        code = shortened_bch_for(outer.t)
+        n_full = nbits // code.n
+        if n_full == 0:
+            return np.zeros((nb, 0), np.uint8), np.zeros(nb, bool)
+        msg, ok = code.decode_batch(bits[:, : n_full * code.n]
+                                    .reshape(nb * n_full, code.n))
+        ok = ok.reshape(nb, n_full).all(axis=1) & (nbits % code.n == 0)
+        return msg.reshape(nb, -1), ok
+    rs = rs_for(outer.n, outer.n_parity)
+    byts = np.packbits(bits, axis=1)
+    n_full = byts.shape[1] // rs.n
     if n_full == 0:
         return np.zeros((nb, 0), np.uint8), np.zeros(nb, bool)
-    msg, ok = code.decode_batch(bits[:, : n_full * code.n]
-                                .reshape(nb * n_full, code.n))
-    ok = ok.reshape(nb, n_full).all(axis=1) & (nbits % code.n == 0)
-    return msg.reshape(nb, -1), ok
+    msg, ok = rs.decode_batch(byts[:, : n_full * rs.n]
+                              .reshape(nb * n_full, rs.n))
+    ok = ok.reshape(nb, n_full).all(axis=1) & (byts.shape[1] % rs.n == 0)
+    return np.unpackbits(msg.reshape(nb, -1), axis=1), ok
 
 
 def inner_decode(inner: InnerFec, coded_llrs: torch.Tensor, info_len: int,
@@ -293,7 +411,8 @@ def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
                        per_frame_seeds, ldpc_rule: str = "sum_product"):
     """decode_chain over B same-plan frames: (B, L) LLR tensor → (list of
     byte arrays or None, (B,) ok). The inner code runs batched on the
-    device, the outer code batched on the host, CRCs per frame."""
+    device, the outer deinterleaver per frame (each row its own stream) and
+    the outer code batched on the host, CRCs per frame."""
     seeds = [int(s) for s in per_frame_seeds]
     llrs = coded_llrs[:, : plan.coded_bits]
     nb = llrs.shape[0]
@@ -305,7 +424,8 @@ def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
     inner_bits, inner_ok = inner_decode_batch(inner, inner_de,
                                               plan.outer_il_bits, ldpc_rule)
     inner_bits = inner_bits[:, : plan.outer_il_bits].cpu().numpy()
-    outer_de = deinterleave_bits(outer_il, inner_bits)[:, : plan.outer_coded_bits]
+    outer_de = deinterleave_bits(outer_il, inner_bits)[
+        :, : plan.outer_coded_bits]
     framed_bits, outer_ok = outer_decode_batch(outer, outer_de)
     datas, oks = [], np.zeros(nb, bool)
     for b in range(nb):

@@ -1,0 +1,134 @@
+"""Conformant DVB-T frame modulator (counterpart of
+``orion_sdr_tpu/modulate/dvb_t_frame.py``; ETSI EN 300 744). Preamble-less:
+TS packets + energy dispersal → RS(204,188) + Forney I=12 + K=7 conv →
+Figure-9a mapping through the four-phase scattered-pilot grid → TPS DBPSK
+on the 17 reserved carriers → IFFT + CP.
+
+The byte stages run on the host; the inner code, mapping, grid scatter and
+one (n_sym, 2048) IFFT run on the modulator's device. The hierarchical
+modulator and the TX lowpass are not in the port yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constellation import BITS_PER_SYMBOL
+from ..frame.chain import block_plan, encode_chain
+from ..frame.types import InterleaverKind, ScramblerKind, SCRAMBLER_BEFORE_OUTER
+from ..multicarrier import ofdm_assemble, symbol_taper
+from ..unported import (DVB_T_HIER, DVB_T_SUPER_FRAME, TX_LOWPASS,
+                        not_ported)
+from ..waveform.dvb_t import (
+    DVB_T_N_FFT, DVB_T_DATA_CARRIERS, DvbTFrameParams, guard_cp_len_2k,
+    dvb_t_map_symbols, scattered_map_frame, tps_carrier_bins,
+    dvb_t_frame_outer, dvb_t_frame_outer_il,
+)
+from ..waveform.dvb_t_tps import tps_encode_frame, TPS_SYMBOLS_PER_FRAME
+from ..waveform.dvb_t_ts import (
+    TS_PACKET_LEN, ts_packetize, ts_stuff_null_packets, ts_energy_disperse,
+)
+
+
+class DvbTFrame(NamedTuple):
+    """Modulated frame (numpy complex64 IQ) + the numerology a receiver
+    needs."""
+    iq: np.ndarray
+    n_symbols: int
+    samples_per_symbol: int
+
+
+def tx_lowpass_for_2k(num_taps: int, stopband_db: float):
+    raise not_ported("the TX lowpass", TX_LOWPASS)
+
+
+def _coded_bits_for_packets(n_pkt: int, params: DvbTFrameParams) -> int:
+    return block_plan(n_pkt * TS_PACKET_LEN, "none", dvb_t_frame_outer(),
+                      params.inner(), dvb_t_frame_outer_il(),
+                      InterleaverKind.none()).coded_bits
+
+
+def _as_bytes(payload) -> np.ndarray:
+    if isinstance(payload, (bytes, bytearray)):
+        return np.frombuffer(bytes(payload), np.uint8)
+    return np.asarray(payload, np.uint8)
+
+
+class DvbTFrameMod:
+    """One-frame-per-call DVB-T modulator on ``device``; ``window_roll_off``
+    tapers each symbol's edges (raised cosine, 0 = off)."""
+
+    def __init__(self, params: DvbTFrameParams, window_roll_off: int = 0, *,
+                 device) -> None:
+        self.params = params
+        self.window_roll_off = window_roll_off
+        self.device = torch.device(device)
+
+    def with_symbol_window(self, roll_off: int) -> "DvbTFrameMod":
+        return DvbTFrameMod(self.params, roll_off, device=self.device)
+
+    def with_tx_lowpass(self, lowpass) -> "DvbTFrameMod":
+        raise not_ported("the TX lowpass", TX_LOWPASS)
+
+    def modulate(self, payload) -> DvbTFrame:
+        params = self.params
+        cp_len = guard_cp_len_2k(params.link.guard)
+        vbits = BITS_PER_SYMBOL[params.link.constellation]
+        bits_per_sym = DVB_T_DATA_CARRIERS * vbits
+
+        # TS-packetize; the frame spans max(payload symbols, 68) so a whole
+        # TPS block is present
+        ts = ts_packetize(_as_bytes(payload))
+        n_real = len(ts) // TS_PACKET_LEN
+        payload_syms = -(-_coded_bits_for_packets(n_real, params)
+                         // bits_per_sym)
+        n_symbols = max(payload_syms, TPS_SYMBOLS_PER_FRAME)
+
+        # null-packet stuffing until the coded stream fills every data
+        # carrier, then energy dispersal over the whole TS stream
+        capacity_bits = n_symbols * bits_per_sym
+        target = max(n_real, 1)
+        while _coded_bits_for_packets(target, params) < capacity_bits:
+            target += 1
+        ts = ts_energy_disperse(ts_stuff_null_packets(ts, target))
+
+        # payload FEC: no CRC, no extra scrambler (dispersal was TS-keyed)
+        coded = encode_chain(ts, "none", dvb_t_frame_outer(), params.inner(),
+                             dvb_t_frame_outer_il(), InterleaverKind.none(),
+                             ScramblerKind.none(), SCRAMBLER_BEFORE_OUTER, 0,
+                             device=self.device)
+        cells = tps_encode_frame(params.tps_word().pack())      # (68, 17)
+        reps = -(-n_symbols // TPS_SYMBOLS_PER_FRAME)
+        cells_all = np.tile(cells, (reps, 1))[:n_symbols]
+        iq = assemble_frame(coded[:capacity_bits], cells_all, vbits,
+                            n_symbols, cp_len, self.window_roll_off)
+        return DvbTFrame(iq=iq.cpu().numpy(), n_symbols=n_symbols,
+                         samples_per_symbol=DVB_T_N_FFT + cp_len)
+
+
+def assemble_frame(coded_bits: torch.Tensor, tps_cells: np.ndarray,
+                   vbits: int, n_symbols: int, cp_len: int,
+                   window_roll_off: int, alpha: int = 1) -> torch.Tensor:
+    """Map → scatter (rotating grid) → TPS overwrite → IFFT + CP (+ taper),
+    on the coded bits' device → (n_symbols·(2048 + cp_len),) complex64."""
+    data = dvb_t_map_symbols(coded_bits, vbits, alpha)
+    freq = scattered_map_frame(data.reshape(n_symbols, DVB_T_DATA_CARRIERS))
+    dev = freq.device
+    freq[:, torch.as_tensor(tps_carrier_bins(), device=dev)] = \
+        torch.as_tensor(tps_cells, device=dev)
+    taper = symbol_taper(DVB_T_N_FFT + cp_len, window_roll_off) \
+        if window_roll_off else None
+    return ofdm_assemble(freq, cp_len, taper=taper)
+
+
+class DvbTHierFrameMod:
+    def __init__(self, *args, **kwargs) -> None:
+        raise not_ported("DvbTHierFrameMod", DVB_T_HIER)
+
+
+class DvbTSuperFrameMod:
+    def __init__(self, *args, **kwargs) -> None:
+        raise not_ported("DvbTSuperFrameMod", DVB_T_SUPER_FRAME)

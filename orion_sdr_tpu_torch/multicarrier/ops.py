@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..constellation import map_bits, bits_per_symbol
-from ..unported import DVB_T_CHAIN, not_ported
+from ..unported import DVB_T_PRESETS, not_ported
 from .plan import CarrierGrid
 
 
@@ -29,7 +29,7 @@ def grid_map(grid: CarrierGrid, data_symbols: torch.Tensor,
     pb = grid.pilot_bins if pilot_bins is None else np.asarray(pilot_bins)
     pv = grid.pilot_values if pilot_values is None else np.asarray(pilot_values)
     if pb.ndim > 1:
-        raise not_ported("per-symbol pilot layouts", DVB_T_CHAIN)
+        raise not_ported("per-symbol pilot layouts", DVB_T_PRESETS)
     n_data, n_pil = d.shape[-1], pb.size
     pvt = torch.as_tensor(np.asarray(pv, np.complex64).reshape(-1),
                           device=d.device).expand(d.shape[:-1] + (n_pil,))

@@ -1,7 +1,7 @@
-"""Host BCH encoder/decoder from the repository's native C++ source
-(``orion_sdr_tpu/native/orion_native.cpp``: batch LFSR encode,
-Berlekamp–Massey + Chien decode), built with g++ at first use into the
-port's build directory and bound with ctypes.
+"""Host BCH and Reed–Solomon encoders/decoders from the repository's native
+C++ source (``orion_sdr_tpu/native/orion_native.cpp``: batch LFSR encode,
+Berlekamp–Massey + Chien (+ Forney for RS) decode), built with g++ at first
+use into the port's build directory and bound with ctypes.
 
 The source file is shared with the JAX package and compiled from its path;
 nothing of that package is imported.
@@ -37,6 +37,12 @@ def load() -> ctypes.CDLL:
         lib.bch_encode_batch.argtypes = [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, u8p, ctypes.c_int, u8p]
         lib.bch_encode_batch.restype = None
+        lib.rs_decode_batch.argtypes = [ctypes.c_int, ctypes.c_int, u8p,
+                                        ctypes.c_int, u8p, u8p]
+        lib.rs_decode_batch.restype = None
+        lib.rs_encode_batch.argtypes = [ctypes.c_int, ctypes.c_int, u8p,
+                                        ctypes.c_int, u8p]
+        lib.rs_encode_batch.restype = None
         _lib = lib
     return _lib
 
@@ -66,4 +72,30 @@ def bch_encode_batch(n: int, k: int, t: int, message_bits: np.ndarray):
         raise ValueError(f"expected (B, {k}) bits, got {m.shape}")
     out = np.empty((m.shape[0], n), np.uint8)
     load().bch_encode_batch(n, k, t, _ptr(m), m.shape[0], _ptr(out))
+    return out
+
+
+def rs_decode_batch(n: int, n_parity: int, received: np.ndarray):
+    """(B, n) byte codewords → ((B, n − n_parity) messages, (B,) ok flags);
+    failed rows hold the systematic prefix."""
+    if n_parity > 64:
+        raise ValueError("the native RS decoder supports n_parity <= 64")
+    r = np.ascontiguousarray(received, np.uint8)
+    if r.ndim != 2 or r.shape[1] != n:
+        raise ValueError(f"expected (B, {n}) bytes, got {r.shape}")
+    out = np.empty((r.shape[0], n - n_parity), np.uint8)
+    ok = np.empty(r.shape[0], np.uint8)
+    load().rs_decode_batch(n, n_parity, _ptr(r), r.shape[0], _ptr(out),
+                           _ptr(ok))
+    return out, ok.astype(bool)
+
+
+def rs_encode_batch(n: int, n_parity: int, messages: np.ndarray):
+    """(B, n − n_parity) byte messages → (B, n) systematic codewords (FCR=0
+    generator)."""
+    m = np.ascontiguousarray(messages, np.uint8)
+    if m.ndim != 2 or m.shape[1] != n - n_parity:
+        raise ValueError(f"expected (B, {n - n_parity}) bytes, got {m.shape}")
+    out = np.empty((m.shape[0], n), np.uint8)
+    load().rs_encode_batch(n, n_parity, _ptr(m), m.shape[0], _ptr(out))
     return out

@@ -1,11 +1,13 @@
 """OFDM waveform: config, whole-frame modulation, ZF equalization, channel
-estimate denoising (counterpart of the parts of ``orion_sdr_tpu/ofdm.py``
-that the coded frame link uses).
+estimate denoising and pilot interpolation (counterpart of the parts of
+``orion_sdr_tpu/ofdm.py`` that the coded frame link and the DVB-T frame
+link use).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -182,6 +184,57 @@ def channel_estimate_denoise(estimate: torch.Tensor, cp_len: int,
     keep = (idx < keep_hi) | (idx >= n_fft - int(timing_slop))
     h = torch.where(keep, h, torch.zeros_like(h))
     return torch.fft.fft(h, dim=-1).to(torch.complex64)
+
+
+@lru_cache(maxsize=64)
+def _pilot_interp_matrix(pb_key: tuple, n_fft: int,
+                         device: str) -> torch.Tensor:
+    """(n_pilots, n_fft) linear-interpolation weights for sorted constant
+    pilot bins, holding the edge values outside them, on ``device``."""
+    pb = np.asarray(pb_key, np.float64)
+    W = np.zeros((len(pb), n_fft), np.float32)
+    for b in range(n_fft):
+        r = int(np.searchsorted(pb, b, side="left"))
+        if r == 0:
+            W[0, b] = 1.0
+        elif r >= len(pb):
+            W[-1, b] = 1.0
+        elif pb[r] == b:
+            W[r, b] = 1.0
+        else:
+            t = (b - pb[r - 1]) / (pb[r] - pb[r - 1])
+            W[r - 1, b] = 1.0 - t
+            W[r, b] = t
+    return torch.as_tensor(W, device=device)
+
+
+def channel_estimate_pilots(freq_syms: torch.Tensor, pilot_bins, pilot_values,
+                            n_fft: int) -> torch.Tensor:
+    """Per-symbol pilot interpolation: linear complex interpolation between
+    the bin-sorted known-vs-received pilot ratios, edge hold. ``freq_syms``:
+    (..., n_sym, n_fft); ``pilot_bins``/``pilot_values``: constant 1-D numpy
+    arrays. Returns the (..., n_sym, n_fft) complex64 channel estimate as
+    two float32 products with an interpolation matrix, TF32 off (full
+    float32, as the JAX package's ``Precision.HIGHEST``)."""
+    if not (isinstance(pilot_bins, np.ndarray) and pilot_bins.ndim == 1):
+        raise not_ported("per-symbol pilot layouts in channel_estimate_pilots",
+                         RX_EXTRAS)
+    dev = freq_syms.device
+    order = np.argsort(pilot_bins, kind="stable")
+    pb_s = pilot_bins[order]
+    W = _pilot_interp_matrix(tuple(int(b) for b in pb_s), int(n_fft),
+                             str(dev))
+    pv_s = torch.as_tensor(np.asarray(pilot_values)[order].astype(np.complex64),
+                           device=dev)
+    ratio = freq_syms[..., torch.as_tensor(pb_s, device=dev)] / pv_s
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        est = torch.complex(torch.matmul(ratio.real.contiguous(), W),
+                            torch.matmul(ratio.imag.contiguous(), W))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return est.to(torch.complex64)
 
 
 class OfdmRxFrame(NamedTuple):

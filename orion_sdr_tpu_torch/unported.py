@@ -4,13 +4,15 @@ configuration outside the port never silently changes behaviour."""
 
 from __future__ import annotations
 
-OUTER_DEVICE_RS = "ROADMAP queue 1, slice 1: fec/bch_device.py and the RS outer code"
-INTERLEAVERS = "ROADMAP queue 1, slice 1: block/Forney interleavers"
 TX_LOWPASS = "ROADMAP queue 1, slice 1: txlp (TX lowpass)"
 RX_EXTRAS = "ROADMAP queue 1, slice 1: pilot_interp / cpe / DFT precoding"
-CONV_VITERBI = "ROADMAP queue 1, slice 2: conv inner code and the Viterbi kernel"
-DVB_T_CHAIN = ("ROADMAP queue 1, slice 2: the DVB-T chain (energy dispersal, "
-                 "scattered pilots)")
+DVB_T_HIER = "ROADMAP queue 1, slice 2: hierarchical DVB-T (DvbTHierFrameMod/Demod)"
+DVB_T_BLIND = "ROADMAP queue 1, slice 2: dvb_t_blind_decode"
+DVB_T_SUPER_FRAME = "ROADMAP queue 1, slice 2: the DVB-T super-frame"
+DVB_T_STREAM = "ROADMAP queue 1, slice 2: the DVB-T stream demod"
+DVB_T_BAND = "ROADMAP queue 1, slice 2: the DVB-T band receive"
+DVB_T_PRESETS = ("ROADMAP queue 1, slice 2: the dvb_t_config / "
+                 "dvb_t_scattered_config COFDM presets")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

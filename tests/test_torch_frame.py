@@ -1,7 +1,11 @@
 """Torch port: the coded COFDM frame link against the JAX package — coded
 bits bit-exact, frame IQ within float tolerance, and frames decoding across
 packages in both directions (single, batch with mixed MCS and a trashed
-header, and the streaming receiver at an unknown offset with CFO)."""
+header, and the streaming receiver at an unknown offset with CFO); the
+RS, conv, interleaver and DVB scrambler branches of the chain, and a conv +
+RS link in both trellis modes."""
+
+import dataclasses
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -15,6 +19,7 @@ from orion_sdr_tpu.ofdm import OfdmConfig as JaxOfdmConfig
 from orion_sdr_tpu.sync.ofdm_sync import OfdmPreamble as JaxPreamble
 
 import orion_sdr_tpu_torch as P
+from orion_sdr_tpu_torch.multicarrier import grid_map
 
 FS = 1e6
 SCRAMBLERS = {
@@ -83,25 +88,132 @@ def test_modulate_frame_matches():
 def test_unported_configurations_raise():
     _, pc, _, pp = _links()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.block_plan(10, "crc32", P.OuterFec.reed_solomon(204, 16),
-                     P.InnerFec.none(), P.InterleaverKind.none(),
-                     P.InterleaverKind.none())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.block_plan(10, "crc32", P.OuterFec.none(),
-                     P.InnerFec.convolutional("1/2", "k5"),
-                     P.InterleaverKind.none(), P.InterleaverKind.none())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.block_plan(10, "crc32", P.OuterFec.none(), P.InnerFec.none(),
-                     P.InterleaverKind.block(8, 8), P.InterleaverKind.none())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.scramble_bytes(P.ScramblerKind.dvb_t_energy_dispersal(), 0,
-                         np.zeros(8, np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.soft_demap(pc.with_phase_tracking("cpe"), "qpsk",
                      torch.zeros(4000, dtype=torch.complex64), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.soft_demap(pc.with_transform_precoding(True), "qpsk",
+                     torch.zeros(4000, dtype=torch.complex64), 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pc.with_tx_lowpass_null_band(89, 60.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.OfdmFrameMod(pc.with_tx_lowpass(object()),
                        P.McsTable.default_ladder(), pp, device="cpu")
+    grid = P.CarrierGrid(pc.carrier_plan)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        grid_map(grid, torch.zeros((2, grid.num_data_carriers),
+                                   dtype=torch.complex64),
+                 np.array([[1, 2], [3, 4]]), np.ones((2, 2), np.complex64))
+
+
+# ── RS / conv / interleaver / DVB scrambler branches of the chain ───────────
+
+CHAINS = {
+    "rs_forney_conv_dvb": lambda M: (
+        M.OuterFec.reed_solomon(204, 16), M.InnerFec.convolutional(
+            "1/2", "dvb_k7"), M.InterleaverKind.convolutional(12, 17),
+        M.InterleaverKind.none(), M.ScramblerKind.dvb_t_energy_dispersal(),
+        M.SCRAMBLER_BEFORE_OUTER, 500),
+    "rs_block_k5_dvb_after": lambda M: (
+        M.OuterFec.reed_solomon(60, 8), M.InnerFec.convolutional("3/4", "k5"),
+        M.InterleaverKind.none(), M.InterleaverKind.block(16, 24),
+        M.ScramblerKind.dvb_t_energy_dispersal(), M.SCRAMBLER_AFTER_INNER,
+        300),
+    "bch_block_ldpc": lambda M: (
+        M.OuterFec.bch(8), M.InnerFec.ldpc("N512R12"),
+        M.InterleaverKind.block(8, 8), M.InterleaverKind.none(),
+        M.ScramblerKind.none(), M.SCRAMBLER_BEFORE_OUTER, 100),
+    "rs_forney_chunked_block": lambda M: (
+        M.OuterFec.reed_solomon(204, 16), M.InnerFec.convolutional(
+            "2/3", "dvb_k7"), M.InterleaverKind.convolutional(12, 17),
+        M.InterleaverKind.block(12, 20),
+        M.ScramblerKind.additive(0b1001, 15, 0x5A5A),
+        M.SCRAMBLER_AFTER_INNER, 900),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAINS))
+def test_chain_branches_match(name):
+    *jargs, n = CHAINS[name](J)
+    *pargs, _ = CHAINS[name](P)
+    data = _payload(n, n)
+    jplan = J.block_plan(n, "crc32", *jargs[:4])
+    pplan = P.block_plan(n, "crc32", *pargs[:4])
+    assert dataclasses.asdict(pplan) == dataclasses.asdict(jplan)
+    ref = J.encode_chain(data, "crc32", *jargs, 1234)
+    ours = P.encode_chain(data, "crc32", *pargs, 1234, device="cpu")
+    assert len(ref) == jplan.coded_bits
+    assert np.array_equal(ours.numpy(), ref)
+    rng = np.random.default_rng(5)
+    llr = np.where(ref == 0, 3.0, -3.0).astype(np.float32)
+    llr = np.where(rng.random(len(llr)) < 0.005, -llr, llr)
+    jd, jok = J.decode_chain(llr, jplan, "crc32", *jargs, 1234)
+    pd, pok = P.decode_chain(torch.as_tensor(llr), pplan, "crc32", *pargs,
+                             1234)
+    assert jok and pok
+    assert np.array_equal(pd, jd) and np.array_equal(pd, data)
+
+
+def test_decode_chain_batch_runs_forney_per_frame():
+    # two different frames through one batch: the Forney deinterleaver is a
+    # stream with state, so each row must be its own stream
+    *pargs, _ = CHAINS["rs_forney_conv_dvb"](P)
+    plan = P.block_plan(500, "crc32", *pargs[:4])
+    datas = [_payload(500, 60 + i) for i in range(2)]
+    rows = [P.encode_chain(d, "crc32", *pargs, 0, device="cpu")
+            for d in datas]
+    llrs = torch.stack([torch.where(r == 0, 3.0, -3.0) for r in rows])
+    got, oks = P.decode_chain_batch(llrs, plan, "crc32", *pargs, [0, 0])
+    assert oks.all()
+    for g, d in zip(got, datas):
+        assert np.array_equal(g, d)
+    outer_il = pargs[2]
+    coded = np.stack([P.interleave_bits(outer_il, P.outer_encode(
+        pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d))))
+        for d in datas])
+    assert np.array_equal(P.deinterleave_bits(outer_il, coded)[
+        :, : plan.outer_coded_bits], np.stack([P.outer_encode(
+            pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d)))
+            for d in datas]))
+
+
+def _conv_links():
+    """A COFDM link with the conv inner code, RS outer code and a block
+    inner interleaver, in both packages."""
+    jc, pc, jp, pp = _links()
+    jc = jc.with_inner_interleaver(J.InterleaverKind.block(32, 48))
+    pc = pc.with_inner_interleaver(P.InterleaverKind.block(32, 48))
+    jt = J.McsTable([J.Mcs("qpsk", J.InnerFec.convolutional("1/2", "dvb_k7"),
+                           J.OuterFec.reed_solomon(204, 16))])
+    pt = P.McsTable([P.Mcs("qpsk", P.InnerFec.convolutional("1/2", "dvb_k7"),
+                           P.OuterFec.reed_solomon(204, 16))])
+    return jc, pc, jp, pp, jt, pt
+
+
+@pytest.mark.parametrize("n_bytes", [300, 2000])
+def test_conv_link_round_trip_and_cross_decode(n_bytes):
+    # 300 B: a terminated trellis (≤ 4096 info bits); 2000 B: chunked
+    jc, pc, jp, pp, jt, pt = _conv_links()
+    data = _payload(n_bytes, n_bytes + 1)
+    jiq = J.OfdmFrameMod(jc, jt, jp).modulate_frame(
+        J.FramePacket(J.FrameMetadata(3, 0), data), 0x77)
+    piq = P.OfdmFrameMod(pc, pt, pp, device="cpu").modulate_frame(
+        P.FramePacket(P.FrameMetadata(3, 0), data), 0x77)
+    np.testing.assert_allclose(piq, jiq, rtol=0, atol=1e-5)
+    pdemod = P.OfdmFrameDemod(pc, pt, device="cpu")
+    jdemod = J.OfdmFrameDemod(jc, jt)
+    for iq in (jiq, piq):
+        for got in (pdemod.decode(iq[pp.total_len():]),
+                    jdemod.decode(iq[jp.total_len():])):
+            assert np.array_equal(got.payload, data)
+    rng = np.random.default_rng(n_bytes)
+    body = jiq[jp.total_len():]
+    noisy = np.stack([body + 0.02 * (rng.standard_normal(len(body))
+                                     + 1j * rng.standard_normal(len(body))
+                                     ).astype(np.complex64)
+                      for _ in range(2)])
+    for got in pdemod.decode_batch(noisy):
+        assert isinstance(got, P.FramePacket)
+        assert np.array_equal(got.payload, data)
 
 
 def test_cross_decode_single():

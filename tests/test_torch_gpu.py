@@ -1,6 +1,7 @@
-"""Card-only tests of the torch port's CUDA kernel: the LDPC BP kernel against
-its plain torch version, for each code and rule, and one batch frame decode
-through the kernel. They skip without a CUDA card.
+"""Card-only tests of the torch port's CUDA kernels: the LDPC BP kernel against
+its plain torch version for each code and rule, the Viterbi kernel against
+its plain version in both modes, and batch frame decodes (COFDM, DVB-T)
+through the kernels. They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -14,7 +15,8 @@ import torch
 import orion_sdr_tpu_torch as P
 from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, LdpcGraph, \
     _build_msg_col_rows, ldpc_encode, ldpc_graph
-from orion_sdr_tpu_torch.ops import ldpc_bp
+from orion_sdr_tpu_torch.fec import conv
+from orion_sdr_tpu_torch.ops import ldpc_bp, viterbi
 
 pytestmark = pytest.mark.gpu
 
@@ -115,3 +117,82 @@ def test_decode_batch_runs_through_the_kernel(cuda):
         assert isinstance(got, P.FramePacket), got
         assert np.array_equal(got.payload, p)
         assert got.metadata.mcs_index == i
+
+
+# ── Viterbi ──────────────────────────────────────────────────────────────────
+
+LANES = (1, 33, 3168)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("rate", ["1/2", "3/4", "7/8"])
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_viterbi_terminated_matches_plain_version(cuda, code, rate, lanes):
+    # 1001 info bits: an odd trellis length for both codes
+    n = 1001
+    rng = np.random.default_rng(lanes)
+    llr = torch.as_tensor(rng.standard_normal(
+        (lanes, conv.punctured_coded_len(n, rate, code))) * 2.0,
+        dtype=torch.float32, device=cuda)
+    before = viterbi.viterbi_decode_soft_kernel.launches
+    got = viterbi.viterbi_decode_soft_kernel(llr, n, rate, code)
+    want = viterbi.viterbi_terminated_reference(llr, n, rate, code)
+    torch.cuda.synchronize()
+    assert viterbi.viterbi_decode_soft_kernel.launches == before + 1
+    assert got.shape == (lanes, n) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("span", [1216, 1217])
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_viterbi_chunks_match_plain_version(cuda, code, lanes, span):
+    S = 64 if code == "dvb_k7" else 16
+    rng = np.random.default_rng(span + lanes)
+    for llr in (rng.integers(-8, 9, (2, lanes, span)),
+                rng.standard_normal((2, lanes, span))):
+        c0, c1 = (torch.as_tensor(x, dtype=torch.float32, device=cuda)
+                  for x in llr)
+        pm0 = torch.as_tensor(rng.integers(-30, 1, (lanes, S)),
+                              dtype=torch.float32, device=cuda)
+        pm0[::99] = -1e30
+        pm0[::99, 0] = 0.0
+        before = viterbi.viterbi_chunks_kernel.launches
+        got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, code)
+        want = viterbi.viterbi_chunks_reference(c0, c1, pm0, code)
+        torch.cuda.synchronize()
+        assert viterbi.viterbi_chunks_kernel.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate", ["1/2", "3/4", "7/8"])
+def test_viterbi_chunked_stream_decode_matches_cpu(cuda, rate):
+    # the whole chunked decode (depuncture, chunking, kernel, margins) on the
+    # card equals the same decode on the CPU's plain version
+    n = 20001
+    rng = np.random.default_rng(5)
+    llr = rng.standard_normal((3, conv.punctured_coded_len(n, rate,
+                                                           "dvb_k7")))
+    llr = torch.as_tensor(llr, dtype=torch.float32)
+    got = conv.viterbi_decode_soft_chunked(llr.to(cuda), n, rate, "dvb_k7")
+    want = conv.viterbi_decode_soft_chunked(llr, n, rate, "dvb_k7")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_dvb_t_decode_batch_runs_through_the_kernel(cuda):
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"), 1, 9)
+    rng = np.random.default_rng(6)
+    payloads = [rng.integers(0, 256, 2000).astype(np.uint8) for _ in range(3)]
+    frames = [P.DvbTFrameMod(params, device=cuda).modulate(p)
+              for p in payloads]
+    batch = np.stack([f.iq for f in frames])
+    sig = float(np.mean(np.abs(batch) ** 2))
+    batch = batch + ((rng.standard_normal(batch.shape)
+                      + 1j * rng.standard_normal(batch.shape))
+                     * np.sqrt(sig / 10 ** 0.8 / 2)).astype(np.complex64)
+    before = viterbi.viterbi_chunks_kernel.launches
+    out = P.DvbTFrameDemod(params, device=cuda).decode_batch(
+        batch, frames[0].n_symbols, 2000)
+    assert viterbi.viterbi_chunks_kernel.launches == before + 1
+    for o, p in zip(out, payloads):
+        assert np.array_equal(o.payload, p)
+        assert o.tps == params.tps_word()

@@ -152,7 +152,9 @@ def test_convert_link_config():
 
 def test_import_loads_no_jax():
     code = ("import sys, orion_sdr_tpu_torch, orion_sdr_tpu_torch.convert, "
-            "orion_sdr_tpu_torch.ops.ldpc_bp; "
+            "orion_sdr_tpu_torch.ops.ldpc_bp, orion_sdr_tpu_torch.ops.viterbi, "
+            "orion_sdr_tpu_torch.modulate, orion_sdr_tpu_torch.demodulate, "
+            "orion_sdr_tpu_torch.sync.dvb_t_gi_sync; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'orion_sdr_tpu.')) or m == 'orion_sdr_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -161,3 +163,117 @@ def test_import_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
+
+
+def test_port_sources_import_no_jax():
+    pkg = os.path.join(REPO, "orion_sdr_tpu_torch")
+    bad = []
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            for i, line in enumerate(open(path), 1):
+                s = line.strip()
+                if s.startswith(("import ", "from ")) and (
+                        "jax" in s.split() or "jax." in s
+                        or "orion_sdr_tpu " in s + " "
+                        or "orion_sdr_tpu." in s):
+                    bad.append(f"{path}:{i}: {s}")
+    assert not bad, bad
+
+
+# ── DVB-T and conv tables ────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_conv_tables_and_puncture_masks_match(code):
+    from orion_sdr_tpu.fec import conv as jconv
+    from orion_sdr_tpu_torch.fec import conv
+    for a, b in zip(conv._tables(code), jconv._tables(code)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert conv.tail_bits(code) == jconv.tail_bits(code)
+    for rate in conv.PUNCTURE:
+        for n in (1, 7, 100):
+            assert np.array_equal(conv._puncture_mask(rate, n),
+                                  jconv._puncture_mask(rate, n))
+
+
+def test_dvb_t_grid_tables_match():
+    from orion_sdr_tpu.waveform import dvb_t as jd
+    from orion_sdr_tpu_torch.waveform import dvb_t as pd
+    jg, pg = jd.scattered_grid(), pd.scattered_grid()
+    assert np.array_equal(pg.data_bins, jg.data_bins)
+    for name in ("pilot_bins", "pilot_vals", "ref_bins", "ref_vals"):
+        for a, b in zip(getattr(pg, name), getattr(jg, name)):
+            assert np.array_equal(a, b)
+    assert np.array_equal(pd.wk_prbs(), jd.wk_prbs())
+    assert np.array_equal(pd.tps_carrier_bins(), jd.tps_carrier_bins())
+    assert np.array_equal(pd.continual_pilot_bins(), jd.continual_pilot_bins())
+    assert np.array_equal(pd.dvb_t_prbs_bits(3000), jd.dvb_t_prbs_bits(3000))
+    assert pd.dvb_t_prbs_bytes(1)[0] == 0x03
+    for guard in ("1/32", "1/8"):
+        assert [dataclasses.asdict(p) for p in pd.dvb_t_2k_plans(guard)] == \
+            [dataclasses.asdict(p) for p in jd.dvb_t_2k_plans(guard)]
+        assert dataclasses.asdict(pd.dvb_t_2k_plan(guard)) == \
+            dataclasses.asdict(jd.dvb_t_2k_plan(guard))
+
+
+@pytest.mark.parametrize("v", [2, 4, 6])
+def test_figure_9a_point_tables_match(v):
+    from orion_sdr_tpu.waveform import dvb_t as jd
+    from orion_sdr_tpu_torch.waveform import dvb_t as pd
+    for alpha in (1, 2, 4):
+        if v == 2 and alpha != 1:
+            for mod in (pd, jd):
+                with pytest.raises(ValueError):
+                    mod.dvb_t_axis(v, alpha)
+            continue
+        assert np.array_equal(pd.dvb_t_axis(v, alpha), jd.dvb_t_axis(v, alpha))
+        assert pd.axis_scale(v, alpha) == jd.axis_scale(v, alpha)
+        assert np.array_equal(pd._point_table(v, alpha),
+                              jd._point_table(v, alpha))
+
+
+def test_dvb_t_block_plans_match():
+    from orion_sdr_tpu.frame import block_plan as jax_block_plan
+    from orion_sdr_tpu.waveform import dvb_t as jd
+    from orion_sdr_tpu_torch.frame import block_plan
+    from orion_sdr_tpu_torch.waveform import dvb_t as pd
+    jn, pn = (jd.DvbTFrameParams(jd.DvbTLinkParams("1/8", "qpsk", "1/2")),
+              pd.DvbTFrameParams(pd.DvbTLinkParams("1/8", "qpsk", "1/2")))
+    for n_pkt in range(1, 53):
+        a = block_plan(n_pkt * 188, "none", pd.dvb_t_frame_outer(), pn.inner(),
+                       pd.dvb_t_frame_outer_il(),
+                       pd.dvb_t_frame_outer_il().none())
+        b = jax_block_plan(n_pkt * 188, "none", jd.dvb_t_frame_outer(),
+                           jn.inner(), jd.dvb_t_frame_outer_il(),
+                           jd.dvb_t_frame_outer_il().none())
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+@pytest.mark.parametrize("n,n_parity", [(204, 16), (60, 8)])
+def test_rs_encode_and_decode_match(n, n_parity):
+    from orion_sdr_tpu.fec.galois import ReedSolomon as JaxRs
+    from orion_sdr_tpu_torch.fec import ReedSolomon, RsError
+    p, j = ReedSolomon(n, n_parity), JaxRs(n, n_parity)
+    assert (p.n, p.k, p.t) == (j.n, j.k, j.t)
+    assert np.array_equal(p.gen, j.gen)
+    rng = np.random.default_rng(n)
+    msg = rng.integers(0, 256, (12, p.k)).astype(np.uint8)
+    cw = p.encode(msg)
+    assert np.array_equal(cw, j.encode(msg))
+    assert np.array_equal(p.encode(msg[0]), j.encode(msg[0]))
+    bad = cw.copy()
+    for r in range(12):
+        pos = rng.choice(n, r, replace=False)
+        bad[r, pos] ^= rng.integers(1, 256, r).astype(np.uint8)
+    out, ok = p.decode_batch(bad)
+    jout, jok = j.decode_batch(bad)
+    assert np.array_equal(out, jout) and np.array_equal(ok, jok)
+    assert ok[: p.t + 1].all() and np.array_equal(out[: p.t + 1],
+                                                  msg[: p.t + 1])
+    assert np.array_equal(p.decode(bad[1]), msg[1])
+    if not ok[-1]:
+        with pytest.raises(RsError):
+            p.decode(bad[-1])
