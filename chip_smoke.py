@@ -46,9 +46,54 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    RS(204,188) MCS with a block inner interleaver, through
    OfdmFrameDemod.decode_batch: the terminated mode of the Viterbi kernel
    on the COFDM path; all 64 payloads and a rising launch count.
-11. Prints the kernels' JSON line, the card's name and power limit, then the
-   result line {"ok": true, "device": {...}} last. Any failure exits
-   non-zero before it.
+11. Radix-4 Viterbi kernel vs its plain version, exact on every lane:
+   chunked dvb_k7 at the phase-7 operating point on integer and normal
+   float LLRs, terminated k5 128 x 4096 info bits (4100 steps) at r1/2 and
+   r3/4; on integer LLRs also equal to the radix-2 kernel. Times radix 4
+   beside radix 2 with CUDA events.
+12. BP rule sum_product_edge vs its plain version on N512R12, N576R23 and
+   N512R34 at B = 3072 + 256 garbage rows (bits and unsat equal on every
+   row); on rows where both converge, the same message as the sum_product
+   kernel. Times it on N512R12, then drives it once through the entry
+   point that reaches it, ops.bp_decode_pallas(rule="sum_product_edge"),
+   on the 3072 decodable rows, counting the launches.
+13. Hierarchical link (the JAX bench's dvb_t_hier_receive_throughput link:
+   16-QAM alpha=2, GI 1/8, HP r1/2, LP r3/4): 8 full frames modulated on
+   the card by DvbTHierFrameMod, each behind 913 zero samples (the setup of
+   tests/test_dvb_t_hier.py:119), decoded one by one by
+   DvbTHierFrameDemod(device="cuda").decode with FORCE_RADIX4 off, then
+   on. Every HP and LP payload and TPS word must come back in both, and
+   each radix's launch count must rise; frames/s of the median of three
+   timed runs of each. Then one frame's HP and LP chunk batches, recorded
+   as the path hands them to the chunked decode, go through the radix-4
+   kernel and its plain version: exact on every lane.
+14. Super-frame: four full QPSK r1/2 GI 1/8 frames (cell id 0xBEEF) at
+   12 dB through DvbTSuperFrameDemod.decode and .decode_batch: every
+   payload byte and the 16-bit cell id.
+15. Stream: 6 full QPSK r1/2 frames at random gaps of 0-2000 samples,
+   10 dB, fed to DvbTFrameStreamDemod in 50 000-sample chunks, then 2
+   hierarchical frames through DvbTHierFrameStreamDemod; all payloads, in
+   order. (The receiver searches the GI metric over the buffer's first
+   symbol period, as the JAX one does: a gap longer than a symbol can be
+   trimmed into the next frame and cost it, in both packages alike.)
+16. Blind decode: one QPSK r2/3 GI 1/8 frame at an offset and one
+   hierarchical 16-QAM GI 1/16 frame through dvb_t_blind_decode: guard,
+   TPS and payloads.
+17. Prints the kernels' JSON line (each kernel's main-path launches, error
+   against its plain version, kernel and plain times, its bound on this
+   card from this run's inputs, no library call), the card's name and power
+   limit, then the result line {"ok": true, "device": {...}} last. Any
+   failure exits non-zero before it.
+
+Bounds: the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its float32 operations
+(outside the tensor cores) over 67 TFLOP/s, the H100 SXM's published peaks.
+BP work is counted per edge and per row-iteration actually run on these
+inputs (a row runs iteration i+1 only while it has unsatisfied checks after
+i: counted by running the kernel with max_iter = 0, 1, 2, ...); the
+operation counts are the least each algorithm needs, a transcendental
+counting as one. Viterbi branch sums that every state of a lane shares are
+counted once a lane (viterbi_ops).
 """
 
 import json
@@ -73,6 +118,13 @@ BP_FLIPS = {"N512R12": 6, "N576R23": 4, "N512R34": 3}
 VIT_LANES, VIT_SPAN = 32 * 99, 1216
 DVB_FRAMES, DVB_QAM_FRAMES = 32, 8
 COFDM_CONV_FRAMES = 64
+HIER_FRAMES = 8
+STREAM_FRAMES, STREAM_CHUNK = 6, 50_000
+# float32 operations per edge and row-iteration of BP, the least each rule
+# needs (check update, bit sum, new message, syndrome); Viterbi's count is
+# viterbi_ops
+BP_OPS = {"sum_product": 33, "sum_product_edge": 42}
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def fail(msg: str):
@@ -99,27 +151,109 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least time in ms, what sets it) on the H100's published peaks."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bp_bound(ldpc_bp, g, llr, rule):
+    """Bound of one BP decode of ``llr`` under ``rule`` (max_iter 50)."""
+    rows = 0
+    for i in range(50):
+        _, unsat = ldpc_bp.bp_decode_kernel(g, llr, i, rule)
+        left = int((unsat > 0).sum())
+        if left == 0:
+            break
+        rows += left
+    edges = int(np.asarray(g.check_mask).sum())
+    B = llr.shape[0]
+    n_bytes = (B * g.n * 4 + B * g.k + B * 4 + g.m * g.max_deg * 5
+               + (g.n + 1) * 4 + edges * 4)
+    return bound_ms(n_bytes, rows * edges * BP_OPS[rule]) + (rows / B,)
+
+
+def r4_shared_sums(code: str) -> int:
+    """Per lane and phase, the radix-4 branch sums that all states share:
+    s = l0 + l1 and d = l0 − l1 of four steps, then the distinct pair sums
+    v0 + v1 and v2 + v3 and four-step sums the code's candidates use, each
+    up to sign (a sum and its negation cost one operation)."""
+    from orion_sdr_tpu_torch.ops.viterbi import _radix4_tables
+    _, diff, neg = _radix4_tables(code)
+    d, n = diff.reshape(4, -1).astype(int), neg.reshape(4, -1).astype(int)
+    p01 = d[0] * 4 + d[1] * 2 + (n[0] ^ n[1])
+    p23 = d[2] * 4 + d[3] * 2 + (n[2] ^ n[3])
+    quad = (p01 * 8 + p23) * 2 + (n[0] ^ n[2])
+    return 8 + len(set(p01)) + len(set(p23)) + len(set(quad))
+
+
+def viterbi_ops(L: int, T: int, code: str, radix: int) -> int:
+    """The least float32 operations of a chunked decode, L lanes of T steps.
+    Radix 2, per state and step: two candidates of two adds (the plain
+    version's (pm + v0) + v1 order), compare, select, then the maximum and
+    the subtraction. Radix 4, per state and phase: 16 candidates of one add
+    over the shared four-step sums, a 15-node tree of compare + select, the
+    maximum and the subtraction; per lane and phase the shared sums."""
+    from orion_sdr_tpu_torch.fec.conv import CONV_CODES
+    S = 1 << (CONV_CODES[code]["K"] - 1)
+    if radix == 2:
+        return L * T * (8 * S - 1)
+    return L * (T // 4) * (48 * S - 1 + r4_shared_sums(code))
+
+
+def viterbi_bound(L: int, T: int, code: str, radix: int):
+    """Bound of a chunked decode: L lanes of T steps."""
+    from orion_sdr_tpu_torch.fec.conv import CONV_CODES
+    S = 1 << (CONV_CODES[code]["K"] - 1)
+    return bound_ms(2 * L * T * 4 + L * S * 4 + L * T,
+                    viterbi_ops(L, T, code, radix))
+
+
+def bp_inputs(name, g, dev, rng):
+    """BP_BATCH decodable codewords of code ``name`` (±4 LLRs with
+    BP_FLIPS flips) → (messages, their LLRs, the LLRs with BP_GARBAGE
+    random-normal rows appended)."""
+    from orion_sdr_tpu_torch.fec.ldpc import ldpc_encode
+    msg = torch.as_tensor(rng.integers(0, 2, (BP_BATCH, g.k)),
+                          dtype=torch.uint8, device=dev)
+    llr = (1.0 - 2.0 * ldpc_encode(name, msg).to(torch.float32)) * 4.0
+    flips = torch.as_tensor(np.stack([rng.choice(g.n, BP_FLIPS[name],
+                                                 replace=False)
+                                      for _ in range(BP_BATCH)]), device=dev)
+    llr.scatter_(1, flips, -llr.gather(1, flips))
+    junk = torch.as_tensor(rng.standard_normal((BP_GARBAGE, g.n)),
+                           dtype=torch.float32, device=dev)
+    return msg, llr, torch.cat([llr, junk]).contiguous()
+
+
+def vit_inputs(dev, rng):
+    """The chunked operating point: (initial metrics with every 99th row
+    pinned at state 0 as a stream's chunk 0, integer LLR pair, normal float
+    LLR pair)."""
+    L, T = VIT_LANES, VIT_SPAN
+    pm0 = torch.as_tensor(rng.integers(-30, 1, (L, 64)), dtype=torch.float32,
+                          device=dev)
+    pm0[::99] = -1e30
+    pm0[::99, 0] = 0.0
+    ints = [torch.as_tensor(rng.integers(-8, 9, (L, T)), dtype=torch.float32,
+                            device=dev) for _ in range(2)]
+    floats = [torch.as_tensor(rng.standard_normal((L, T)), dtype=torch.float32,
+                              device=dev) for _ in range(2)]
+    return pm0, ints, floats
+
+
 def kernel_vs_plain(ldpc_bp, dev, rng):
     """Phase 3: returns (max |kernel − plain| over all rows, {rule: (kernel
-    ms, plain ms)} on N512R12)."""
-    from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, ldpc_encode, ldpc_graph
+    ms, plain ms)} on N512R12, the sum_product bound there)."""
+    from orion_sdr_tpu_torch.fec.ldpc import (DECODE_RULES, LDPC_CODES,
+                                              ldpc_graph)
     max_err = 0.0
     times = {}
     for name in sorted(LDPC_CODES):
         g = ldpc_graph(name)
-        msg = torch.as_tensor(rng.integers(0, 2, (BP_BATCH, g.k)),
-                              dtype=torch.uint8, device=dev)
-        cw = ldpc_encode(name, msg)
-        llr = (1.0 - 2.0 * cw.to(torch.float32)) * 4.0
-        flips = torch.as_tensor(np.stack([rng.choice(g.n, BP_FLIPS[name],
-                                                     replace=False)
-                                          for _ in range(BP_BATCH)]),
-                                device=dev)
-        llr.scatter_(1, flips, -llr.gather(1, flips))
-        junk = torch.as_tensor(rng.standard_normal((BP_GARBAGE, g.n)),
-                               dtype=torch.float32, device=dev)
-        both = torch.cat([llr, junk]).contiguous()
-        for rule in ldpc_bp.RULES:
+        msg, llr, both = bp_inputs(name, g, dev, rng)
+        for rule in DECODE_RULES:
             kb, ku = ldpc_bp.bp_decode_kernel(g, both, 50, rule)
             rb, ru = ldpc_bp.bp_decode_reference(g, both, 50, rule)
             torch.cuda.synchronize()
@@ -150,7 +284,11 @@ def kernel_vs_plain(ldpc_bp, dev, rng):
                 print(f"  N512R12 {rule} B={BP_BATCH}: kernel {k_ms:.4f} ms "
                       f"({BP_BATCH / k_ms * 1e3:.4g} cw/s), plain "
                       f"{p_ms:.4f} ms ({BP_BATCH / p_ms * 1e3:.4g} cw/s)")
-    return max_err, times
+                if rule == "sum_product":
+                    bound = bp_bound(ldpc_bp, g, x, rule)
+                    print(f"  N512R12 sum_product bound {bound[0]:.5f} ms "
+                          f"({bound[1]}), {bound[2]:.3f} iterations a row")
+    return max_err, times, bound
 
 
 def link(P):
@@ -283,14 +421,7 @@ def viterbi_vs_plain(viterbi, dev, rng):
             fail(f"Viterbi {name}: kernel and plain version differ")
 
     L, T = VIT_LANES, VIT_SPAN
-    pm0 = torch.as_tensor(rng.integers(-30, 1, (L, 64)), dtype=torch.float32,
-                          device=dev)
-    pm0[::99] = -1e30                       # chunk-0 rows pinned at state 0
-    pm0[::99, 0] = 0.0
-    ints = [torch.as_tensor(rng.integers(-8, 9, (L, T)), dtype=torch.float32,
-                            device=dev) for _ in range(2)]
-    floats = [torch.as_tensor(rng.standard_normal((L, T)), dtype=torch.float32,
-                              device=dev) for _ in range(2)]
+    pm0, ints, floats = vit_inputs(dev, rng)
     for kind, (c0, c1) in (("integer", ints), ("float", floats)):
         check(f"chunked dvb_k7 {kind} LLRs",
               viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7"),
@@ -302,7 +433,8 @@ def viterbi_vs_plain(viterbi, dev, rng):
                                                             "dvb_k7"),
                    reps=2, warmup=1)
     print(f"  chunked dvb_k7 L={L} T={T}: kernel {k_ms:.4f} ms "
-          f"({L * 1024 / k_ms * 1e3:.4g} info bits/s), plain {p_ms:.4f} ms")
+          f"({L * 1024 / k_ms * 1e3:.4g} info bits/s), plain {p_ms:.4f} ms; "
+          f"bound {viterbi_bound(L, T, 'dvb_k7', 2)}")
     for code in ("k5", "dvb_k7"):
         for rate in ("1/2", "3/4"):
             n = 4096
@@ -451,6 +583,351 @@ def cofdm_conv_batch(P, viterbi, dev, rng):
         fail("the COFDM conv link launched no Viterbi kernel")
 
 
+def radix4_vs_plain(viterbi, dev, rng):
+    """Phase 11: returns (max |kernel − plain| over every bit, radix-4 ms,
+    plain ms) at the chunked operating point on float LLRs."""
+    from orion_sdr_tpu_torch.fec.conv import punctured_coded_len
+    max_err = 0.0
+
+    def check(name, got, want, radix2=None):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        r2 = ("" if radix2 is None else
+              f", differs from radix 2 on {int((got != radix2).sum())} bits")
+        print(f"  {name}: {got.shape[0]} lanes x {got.shape[1]} bits, "
+              f"max|kernel-plain|={err:g}{r2}")
+        if err != 0.0:
+            fail(f"radix-4 Viterbi {name}: kernel and plain version differ")
+        if radix2 is not None and not torch.equal(got, radix2):
+            fail(f"radix-4 Viterbi {name}: differs from radix 2 on integer "
+                 f"LLRs")
+
+    L, T = VIT_LANES, VIT_SPAN
+    pm0, ints, floats = vit_inputs(dev, rng)
+    for kind, (c0, c1) in (("integer", ints), ("float", floats)):
+        r4 = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=4)
+        r2 = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=2)
+        check(f"chunked dvb_k7 {kind} LLRs", r4,
+              viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7", radix=4),
+              r2 if kind == "integer" else None)
+        if kind == "float":
+            print(f"  float LLRs: radix 4 differs from radix 2 on "
+                  f"{int((r4 != r2).sum())} of {r4.numel()} bits (near-ties)")
+    c0, c1 = floats
+    k4 = cuda_ms(lambda: viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
+                                                       radix=4))
+    k2 = cuda_ms(lambda: viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
+                                                       radix=2))
+    p4 = cuda_ms(lambda: viterbi.viterbi_chunks_reference(c0, c1, pm0,
+                                                          "dvb_k7", radix=4),
+                 reps=2, warmup=1)
+    print(f"  chunked dvb_k7 L={L} T={T}: radix 4 {k4:.4f} ms, radix 2 "
+          f"{k2:.4f} ms, radix-4 plain {p4:.4f} ms; radix-4 bound "
+          f"{viterbi_bound(L, T, 'dvb_k7', 4)}")
+    n = 4096
+    for rate in ("1/2", "3/4"):
+        llr = torch.as_tensor(
+            rng.standard_normal((128, punctured_coded_len(n, rate, "k5")))
+            * 2.0, dtype=torch.float32, device=dev)
+        ints = torch.as_tensor(
+            rng.integers(-8, 9, (128, punctured_coded_len(n, rate, "k5"))),
+            dtype=torch.float32, device=dev)
+        check(f"terminated k5 {rate} float",
+              viterbi.viterbi_decode_soft_kernel(llr, n, rate, "k5", radix=4),
+              viterbi.viterbi_terminated_reference(llr, n, rate, "k5", 4))
+        check(f"terminated k5 {rate} integer",
+              viterbi.viterbi_decode_soft_kernel(ints, n, rate, "k5", radix=4),
+              viterbi.viterbi_terminated_reference(ints, n, rate, "k5", 4),
+              viterbi.viterbi_decode_soft_kernel(ints, n, rate, "k5", radix=2))
+        t4 = cuda_ms(lambda: viterbi.viterbi_decode_soft_kernel(
+            llr, n, rate, "k5", radix=4))
+        t2 = cuda_ms(lambda: viterbi.viterbi_decode_soft_kernel(
+            llr, n, rate, "k5", radix=2))
+        print(f"  terminated k5 {rate} 128 x {n}: radix 4 {t4:.4f} ms, "
+              f"radix 2 {t2:.4f} ms")
+    return max_err, k4, p4
+
+
+def edge_vs_plain(ldpc_bp, dev, rng):
+    """Phase 12: returns (max |kernel − plain|, kernel ms, plain ms, bound,
+    main-path launches) of the sum_product_edge rule."""
+    from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, ldpc_graph
+    from orion_sdr_tpu_torch.ops import bp_decode_pallas
+    rule = "sum_product_edge"
+    max_err = 0.0
+    for name in sorted(LDPC_CODES):
+        g = ldpc_graph(name)
+        msg, llr, both = bp_inputs(name, g, dev, rng)
+        kb, ku = ldpc_bp.bp_decode_kernel(g, both, 50, rule)
+        rb, ru = ldpc_bp.bp_decode_reference(g, both, 50, rule)
+        sb, su = ldpc_bp.bp_decode_kernel(g, both, 50, "sum_product")
+        torch.cuda.synchronize()
+        err = max(float((kb.int() - rb.int()).abs().max()),
+                  float((ku - ru).abs().max()))
+        max_err = max(max_err, err)
+        both_conv = (ku[:BP_BATCH] == 0) & (su[:BP_BATCH] == 0)
+        other = int((kb[:BP_BATCH][both_conv]
+                     != sb[:BP_BATCH][both_conv]).any(dim=1).sum())
+        right = (ku[:BP_BATCH] == 0) & (kb[:BP_BATCH] == msg).all(dim=1)
+        print(f"  {name:8s} max|kernel-plain|={err:g}; converged "
+              f"{int((ku[:BP_BATCH] == 0).sum())}/{BP_BATCH}, sent message "
+              f"{int(right.sum())}; rows where both rules converge "
+              f"{int(both_conv.sum())}, message differs from sum_product on "
+              f"{other}; garbage min unsat {int(ku[BP_BATCH:].min())}")
+        if err != 0.0:
+            fail(f"{name}/{rule}: kernel and plain version differ")
+        if other:
+            fail(f"{name}/{rule}: a converged row differs from sum_product")
+        if float(right.float().mean()) < 0.95:
+            fail(f"{name}/{rule}: decodable rows did not decode")
+        if name == "N512R12":
+            x = llr.contiguous()
+            k_ms = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, x, 50, rule))
+            p_ms = cuda_ms(lambda: ldpc_bp.bp_decode_reference(g, x, 50, rule),
+                           reps=3, warmup=1)
+            s_ms = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, x, 50,
+                                                            "sum_product"))
+            bound = bp_bound(ldpc_bp, g, x, rule)
+            print(f"  N512R12 {rule} B={BP_BATCH}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, sum_product kernel {s_ms:.4f} ms; "
+                  f"bound {bound[0]:.5f} ms ({bound[1]}), {bound[2]:.3f} "
+                  f"iterations a row")
+            main = (g, x, msg)
+    g, x, msg = main
+    ldpc_bp.bp_decode_kernel.launches_edge = 0
+    bits, unsat = bp_decode_pallas(g, x, 50, rule=rule)
+    torch.cuda.synchronize()
+    launches = ldpc_bp.bp_decode_kernel.launches_edge
+    good = int(((unsat == 0) & (bits == msg).all(dim=1)).sum())
+    print(f"  ops.bp_decode_pallas(rule={rule!r}), N512R12 B={BP_BATCH}: "
+          f"{good} messages back, {launches} launch(es)")
+    if launches <= 0 or good < 0.95 * BP_BATCH:
+        fail("bp_decode_pallas did not run the sum_product_edge kernel")
+    return max_err, k_ms, p_ms, bound, launches
+
+
+def full_hier_payloads(P):
+    """Largest whole-packet HP and LP payloads of one 68-symbol frame of the
+    phase-13 link."""
+    from orion_sdr_tpu_torch.modulate.dvb_t_frame import _coded_bits_for_stream
+    params = P.DvbTHierFrameParams(P.DvbTHierLinkParams("1/8", "qam16", 2,
+                                                        "1/2", "3/4"))
+    out = []
+    for inner in (params.inner_hp(), params.inner_lp()):
+        n_pkt = 1
+        while _coded_bits_for_stream(n_pkt + 1, inner) <= 68 * 1512 * 2:
+            n_pkt += 1
+        out.append(n_pkt * 187)
+    return params.link, out
+
+
+def hier_link(P, viterbi, dev, rng):
+    """Phase 13: returns (the radix-4 launch count of the forced run, the
+    radix-4 kernel's largest |kernel − plain| bit on the path's chunks)."""
+    link, (n_hp, n_lp) = full_hier_payloads(P)
+    frames = []
+    for i in range(HIER_FRAMES):
+        params = P.DvbTHierFrameParams(link, i % 4, (29 * i) & 0xFF)
+        frames.append((params,
+                       rng.integers(0, 256, n_hp).astype(np.uint8),
+                       rng.integers(0, 256, n_lp).astype(np.uint8)))
+    t0 = time.perf_counter()
+    mods = [P.DvbTHierFrameMod(p, device=dev).modulate(hp, lp)
+            for p, hp, lp in frames]
+    torch.cuda.synchronize()
+    t_mod = time.perf_counter() - t0
+    n_sym = mods[0].n_symbols
+    caps = [torch.as_tensor(np.concatenate([np.zeros(913, np.complex64),
+                                            m.iq]), device=dev)
+            for m in mods]
+    n_samp = sum(int(c.shape[0]) for c in caps)
+    print(f"  {HIER_FRAMES} frames, HP {n_hp} B + LP {n_lp} B, {n_sym} "
+          f"symbols; modulate {HIER_FRAMES / t_mod:.4g} frames/s")
+    demod = P.DvbTHierFrameDemod(frames[0][0], device=dev)
+    launches4 = 0
+    for forced in (False, True):
+        viterbi.FORCE_RADIX4 = forced
+        try:
+            demod.decode(caps[0], n_sym, n_hp, n_lp)      # warm-up
+            torch.cuda.synchronize()
+            viterbi.viterbi_chunks_kernel.launches = 0
+            viterbi.viterbi_chunks_kernel.launches_radix4 = 0
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = [demod.decode(c, n_sym, n_hp, n_lp) for c in caps]
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                good = sum(np.array_equal(o.hp_payload, hp)
+                           and o.lp_payload is not None
+                           and np.array_equal(o.lp_payload, lp)
+                           and o.tps == p.tps_word()
+                           for o, (p, hp, lp) in zip(out, frames))
+                if good != HIER_FRAMES:
+                    fail(f"hierarchical decode (radix 4 forced: {forced}): "
+                         f"{HIER_FRAMES - good} frames lost")
+        finally:
+            viterbi.FORCE_RADIX4 = False
+        n2 = viterbi.viterbi_chunks_kernel.launches
+        n4 = viterbi.viterbi_chunks_kernel.launches_radix4
+        if (n4 if forced else n2) <= 0 or (n2 if forced else n4) != 0:
+            fail(f"hierarchical decode (radix 4 forced: {forced}) ran "
+                 f"{n2} radix-2 and {n4} radix-4 launches")
+        if forced:
+            launches4 = n4
+        dt = sorted(secs)[1]
+        print(f"  FORCE_RADIX4={forced}: {HIER_FRAMES}/{HIER_FRAMES} HP+LP "
+              f"payloads and TPS words in each of 3 runs, {n2} radix-2 and "
+              f"{n4} radix-4 launches; runs "
+              f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
+              f"{HIER_FRAMES / dt:.4g} frames/s, {n_samp / dt / 1e6:.4g} Msps")
+    # the radix-4 kernel against its plain version on the chunk tensors this
+    # path gives it: one frame's HP and LP decodes, recorded as chunked
+    return launches4, radix4_on_path(P, viterbi, demod, caps[0], n_sym,
+                                     n_hp, n_lp)
+
+
+def radix4_on_path(P, viterbi, demod, cap, n_sym, n_hp, n_lp) -> float:
+    """Decodes ``cap`` once with conv.chunk_llrs recorded, then holds the
+    radix-4 kernel against its plain version (exact) on each recorded chunk
+    batch; returns the largest |kernel − plain| bit."""
+    from orion_sdr_tpu_torch.fec import conv
+    seen = []
+    real = conv.chunk_llrs
+    conv.chunk_llrs = lambda *a: seen.append(real(*a)) or seen[-1]
+    try:
+        demod.decode(cap, n_sym, n_hp, n_lp)
+    finally:
+        conv.chunk_llrs = real
+    if len(seen) != 2:
+        fail(f"hierarchical decode made {len(seen)} chunked decodes, not 2")
+    max_err = 0.0
+    for plane, (c0, c1, pm0, _) in zip(("HP", "LP"), seen):
+        got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=4)
+        want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7",
+                                                radix=4)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        print(f"  {plane} chunks of one frame: {c0.shape[0]} lanes x "
+              f"{c0.shape[1]} steps, radix 4 max|kernel-plain|={err:g}")
+        if err != 0.0:
+            fail(f"radix-4 Viterbi on the {plane} chunks: kernel and plain "
+                 f"version differ")
+    return max_err
+
+
+def add_noise(iq, snr_db, rng):
+    sig = float(np.mean(np.abs(iq) ** 2))
+    return iq + ((rng.standard_normal(iq.shape)
+                  + 1j * rng.standard_normal(iq.shape))
+                 * np.sqrt(sig / 10 ** (snr_db / 10) / 2)).astype(np.complex64)
+
+
+def super_frame(P, dev, rng):
+    """Phase 14."""
+    sp = P.DvbTSuperFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"),
+                                cell_id=0xBEEF)
+    n_bytes = 4 * dvb_t_full_payload(P, sp.frame(0))
+    payload = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    sf = P.DvbTSuperFrameMod(sp, device=dev).modulate(payload)
+    cap = torch.as_tensor(add_noise(sf.iq, 12.0, rng), device=dev)
+    demod = P.DvbTSuperFrameDemod(sp, device=dev)
+    for how in ("decode", "decode_batch"):
+        t0 = time.perf_counter()
+        rx = getattr(demod, how)(cap, sf.symbols_per_frame,
+                                 sf.frame_payload_lens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ok = np.array_equal(rx.payload, payload) and rx.cell_id == 0xBEEF
+        print(f"  {how}: {len(payload)} payload bytes and cell id "
+              f"{rx.cell_id:#06x} back: {ok} ({dt:.4f} s, first run)")
+        if not ok:
+            fail(f"super-frame {how} lost its payload or cell id")
+
+
+def streams(P, dev, rng):
+    """Phase 15."""
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"), 0, 5)
+    n_bytes = dvb_t_full_payload(P, params)
+    mod = P.DvbTFrameMod(params, device=dev)
+    payloads, parts = [], []
+    for _ in range(STREAM_FRAMES):
+        payloads.append(rng.integers(0, 256, n_bytes).astype(np.uint8))
+        # gaps shorter than one symbol period (2304 samples): see phase 15
+        parts.append(np.zeros(int(rng.integers(0, 2000)), np.complex64))
+        parts.append(mod.modulate(payloads[-1]).iq)
+    parts.append(np.zeros(5000, np.complex64))
+    buf = add_noise(np.concatenate(parts), 10.0, rng)
+    rx = P.DvbTFrameStreamDemod(params, 68, n_bytes, device=dev)
+    t0 = time.perf_counter()
+    res = []
+    for i in range(0, len(buf), STREAM_CHUNK):
+        res += rx.feed(buf[i:i + STREAM_CHUNK])
+    res += rx.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = [r.payload for r in res if isinstance(r, P.DvbTRxFrame)]
+    ok = len(got) == STREAM_FRAMES and all(
+        np.array_equal(a, b) for a, b in zip(got, payloads))
+    print(f"  DvbTFrameStreamDemod: {len(got)}/{STREAM_FRAMES} frames in "
+          f"order={ok}, {len(res) - len(got)} errors on the way; {len(buf)} "
+          f"samples in {dt:.4f} s")
+    if not ok:
+        fail("the DVB-T stream demod lost or reordered frames")
+    link, (n_hp, n_lp) = full_hier_payloads(P)
+    hparams = P.DvbTHierFrameParams(link)
+    hmod = P.DvbTHierFrameMod(hparams, device=dev)
+    sent = [(rng.integers(0, 256, n_hp).astype(np.uint8),
+             rng.integers(0, 256, n_lp).astype(np.uint8)) for _ in range(2)]
+    hbuf = np.concatenate([np.zeros(500, np.complex64)]
+                          + [hmod.modulate(hp, lp).iq for hp, lp in sent]
+                          + [np.zeros(300, np.complex64)])
+    hrx = P.DvbTHierFrameStreamDemod(hparams, 68, n_hp, n_lp, device=dev)
+    res = []
+    for i in range(0, len(hbuf), STREAM_CHUNK):
+        res += hrx.feed(hbuf[i:i + STREAM_CHUNK])
+    res += hrx.flush()
+    got = [r for r in res if isinstance(r, P.DvbTHierRxFrame)]
+    ok = len(got) == 2 and all(
+        np.array_equal(r.hp_payload, hp) and r.lp_payload is not None
+        and np.array_equal(r.lp_payload, lp) for r, (hp, lp) in zip(got, sent))
+    print(f"  DvbTHierFrameStreamDemod: {len(got)}/2 frames in order={ok}")
+    if not ok:
+        fail("the hierarchical stream demod lost or reordered frames")
+
+
+def blind(P, dev, rng):
+    """Phase 16."""
+    payload = rng.integers(0, 256, 500).astype(np.uint8)
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "2/3"), 1, 7)
+    frame = P.DvbTFrameMod(params, device=dev).modulate(payload)
+    out = P.dvb_t_blind_decode(np.concatenate([np.zeros(1234, np.complex64),
+                                               frame.iq]), device=dev)
+    ok = (out.guard == "1/8" and out.tps == params.tps_word()
+          and np.array_equal(out.payload[:500], payload)
+          and out.lp_payload is None)
+    print(f"  plain frame: guard {out.guard}, {out.tps}, payload back: {ok}")
+    if not ok:
+        fail("blind decode of a plain frame")
+    hparams = P.DvbTHierFrameParams(P.DvbTHierLinkParams("1/16", "qam16", 2,
+                                                         "1/2", "3/4"))
+    hp = rng.integers(0, 256, 300).astype(np.uint8)
+    lp = rng.integers(0, 256, 900).astype(np.uint8)
+    frame = P.DvbTHierFrameMod(hparams, device=dev).modulate(hp, lp)
+    out = P.dvb_t_blind_decode(frame.iq, device=dev)
+    ok = (out.guard == "1/16" and out.tps == hparams.tps_word()
+          and np.array_equal(out.payload[:300], hp)
+          and out.lp_payload is not None
+          and np.array_equal(out.lp_payload[:900], lp))
+    print(f"  hierarchical frame: guard {out.guard}, {out.tps}, HP and LP "
+          f"back: {ok}")
+    if not ok:
+        fail("blind decode of a hierarchical frame")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -479,7 +956,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     print(f"[3] BP kernel vs plain version (exact), B={BP_BATCH}+{BP_GARBAGE}")
-    max_err, times = kernel_vs_plain(ldpc_bp, dev, rng)
+    max_err, times, bp_bnd = kernel_vs_plain(ldpc_bp, dev, rng)
 
     print(f"[4] batch path: {N_FRAMES} frames x {PAYLOAD_BYTES} B")
     launches = batch_path(P, ldpc_bp, dev, rng)
@@ -504,18 +981,54 @@ def main() -> int:
     print(f"[10] COFDM conv+RS link: {COFDM_CONV_FRAMES} frames x 300 B")
     cofdm_conv_batch(P, viterbi, dev, rng)
 
+    print(f"[11] radix-4 Viterbi kernel vs plain version (exact): chunked "
+          f"dvb_k7 L={VIT_LANES} x {VIT_SPAN}, terminated k5 128 x 4096")
+    r4_err, r4_ms, r4_plain_ms = radix4_vs_plain(viterbi, dev, rng)
+
+    print(f"[12] BP sum_product_edge vs plain version (exact), "
+          f"B={BP_BATCH}+{BP_GARBAGE}")
+    edge_err, edge_ms, edge_plain_ms, edge_bnd, edge_launches = \
+        edge_vs_plain(ldpc_bp, dev, rng)
+
+    print(f"[13] hierarchical link: {HIER_FRAMES} full 16-QAM a=2 GI 1/8 "
+          f"frames, HP r1/2 + LP r3/4, radix 2 then radix 4")
+    r4_launches, hier_err = hier_link(P, viterbi, dev, rng)
+    r4_err = max(r4_err, hier_err)
+
+    print("[14] super-frame: 4 full QPSK r1/2 frames, 12 dB")
+    super_frame(P, dev, rng)
+
+    print(f"[15] streams: {STREAM_FRAMES} QPSK frames at random gaps < 2000 "
+          f"samples, 10 dB, "
+          f"{STREAM_CHUNK}-sample chunks; 2 hierarchical frames")
+    streams(P, dev, rng)
+
+    print("[16] blind decode: a plain and a hierarchical frame")
+    blind(P, dev, rng)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"orion_sdr_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     k_ms, p_ms = times["sum_product"]
-    print(json.dumps({"kernels": [{
-        "name": "ldpc_bp_decode", "route": "cuda",
-        "source": "orion_sdr_tpu_torch/csrc/ldpc_bp.cu",
-        "replaces": "orion_sdr_tpu/ops/ldpc_bp.py:256",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}, {
-        "name": "viterbi_acs_traceback", "route": "cuda",
-        "source": "orion_sdr_tpu_torch/csrc/viterbi.cu",
-        "replaces": "orion_sdr_tpu/ops/viterbi.py:200",
-        "launches": vit_launches, "max_abs_err": vit_err,
-        "ms": vit_ms, "plain_ms": vit_plain_ms}]}))
+    vit_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 2)
+    r4_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 4)
+    print(json.dumps({"kernels": [
+        entry("ldpc_bp_decode", "ldpc_bp.cu",
+              "orion_sdr_tpu/ops/ldpc_bp.py:256", launches, max_err, k_ms,
+              p_ms, bp_bnd),
+        entry("ldpc_bp_decode_sum_product_edge", "ldpc_bp.cu",
+              "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
+              edge_ms, edge_plain_ms, edge_bnd),
+        entry("viterbi_acs_traceback", "viterbi.cu",
+              "orion_sdr_tpu/ops/viterbi.py:200", vit_launches, vit_err,
+              vit_ms, vit_plain_ms, vit_bnd),
+        entry("viterbi_acs_traceback_radix4", "viterbi.cu",
+              "orion_sdr_tpu/ops/viterbi.py:347", r4_launches, r4_err, r4_ms,
+              r4_plain_ms, r4_bnd)]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,11 +3,13 @@
 Two slices so far. The coded COFDM frame link (LDPC or convolutional inner
 code, BCH or RS outer code, block/Forney interleavers, additive or DVB
 scramblers): frame modulation, batch and streaming demodulation. And the
-conformant DVB-T 2K frame link: ``DvbTFrameMod`` and ``DvbTFrameDemod``
-(GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)).
-Two hand-written Hopper kernels carry them: LDPC belief propagation
-(``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``) and the Viterbi ACS + traceback
-(``ops/viterbi.py``, ``csrc/viterbi.cu``). Every constructor and entry point
+conformant DVB-T 2K receive chain: ``DvbTFrameMod`` and ``DvbTFrameDemod``
+(GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)),
+the hierarchical link (``DvbTHierFrameMod``/``DvbTHierFrameDemod``), blind
+decode, the super-frame and the stream receivers. Two hand-written Hopper
+kernels carry them: LDPC belief propagation (``ops/ldpc_bp.py``,
+``csrc/ldpc_bp.cu``, four check rules) and the Viterbi ACS + traceback
+(``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4). Every constructor and entry point
 that takes host data takes an explicit ``device``; at the frame layer bytes
 go in and numpy complex64 IQ comes out, as in the JAX package.
 """
@@ -35,7 +37,14 @@ from .frame import (
 from .multicarrier import CarrierPlan, CarrierGrid
 from .ofdm import OfdmConfig
 from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
-from .waveform import (DvbTLinkParams, DvbTFrameParams, TpsWord,
+from .waveform import (DvbTLinkParams, DvbTFrameParams, DvbTSuperFrameParams,
+                       DvbTHierLinkParams, DvbTHierFrameParams, TpsWord,
                        dvb_t_mcs_table, energy_disperse)
-from .modulate import DvbTFrame, DvbTFrameMod
-from .demodulate import DvbTFrameDemod, DvbTRxError, DvbTRxFrame
+from .modulate import (DvbTFrame, DvbTFrameMod, DvbTHierFrameMod,
+                       DvbTSuperFrame, DvbTSuperFrameMod)
+from .demodulate import (DvbTFrameDemod, DvbTRxError, DvbTRxFrame,
+                         DvbTHierFrameDemod, DvbTHierRxFrame,
+                         dvb_t_blind_decode, DvbTBlindFrame,
+                         DvbTSuperFrameDemod, DvbTRxSuperFrame,
+                         DvbTRxSuperFrameError, DvbTFrameStreamDemod,
+                         DvbTHierFrameStreamDemod, DvbTBandStreamDemod)

@@ -1,12 +1,20 @@
 // Batched LDPC belief-propagation decoder for Hopper (sm_90a).
 //
-// Replaces orion_sdr_tpu/ops/ldpc_bp.py::_ms_kernel_factory (the Pallas TPU
-// kernel behind bp_decode_pallas), with the per-row semantics of the f32
-// reference orion_sdr_tpu/fec/ldpc.py::bp_decode: the same check-node rules
+// Replaces orion_sdr_tpu/ops/ldpc_bp.py:256 _ms_kernel_factory (the Pallas
+// TPU kernel behind bp_decode_pallas, rules sum_product / min_sum /
+// scaled_min_sum) and orion_sdr_tpu/ops/ldpc_bp.py:200 _bp_kernel_factory
+// (rule sum_product_edge), with the per-row semantics of the f32 reference
+// orion_sdr_tpu/fec/ldpc.py::bp_decode: the same check-node rules
 // (sum-product with the fast_tanh/fast_atanh rationals and clip(loo, -1, 1),
 // min-sum and scaled min-sum with the argmin/min2 tie rule), a syndrome every
 // iteration, the best snapshot replaced only on a strict improvement, and a
-// stop at zero unsatisfied checks or at max_iter.
+// stop at zero unsatisfied checks or at max_iter. The edge rule is the
+// log-domain sum-product of _bp_kernel_factory: t clipped to +-0.9999999,
+// log(max(|t|, 1e-12)) summed over the check in slot order, the own term
+// subtracted, the sign from the other edges' negative-t parity, then
+// expf and the clipped fast_atanh. It uses the accurate logf/expf (no fast
+// math, no __logf/__expf intrinsics), as torch's log/exp on the card do; the
+// TPU kernel's bf16 one-hot contractions become f32 sums.
 //
 // What bounds it on this card: latency and barriers, not bytes or FLOPs.
 // Device memory sees one read of the LLRs and one write of the message bits
@@ -40,10 +48,17 @@ namespace {
 
 constexpr int kSumProduct = 0;
 constexpr int kMinSum = 1;  // min_sum (scale 1) and scaled_min_sum (scale alpha)
+constexpr int kSumProductEdge = 2;
+constexpr float kClipEdge = 0.9999999f;
 
 // jnp.clip(v, -1, 1) semantics, NaN included.
 __device__ __forceinline__ float clip1(float v) {
     return v < -1.0f ? -1.0f : (v > 1.0f ? 1.0f : v);
+}
+
+// jnp.clip(v, -kClipEdge, kClipEdge) semantics, NaN included.
+__device__ __forceinline__ float clip_edge(float v) {
+    return v < -kClipEdge ? -kClipEdge : (v > kClipEdge ? kClipEdge : v);
 }
 
 __device__ __forceinline__ float fast_tanh(float x) {
@@ -88,6 +103,28 @@ __device__ __forceinline__ void check_update(float* edge, const uint8_t* mask,
             const float loo = left[j] * acc;
             acc = acc * t[j];
             if (valid[j]) edge[j] = 2.0f * fast_atanh(clip1(loo));
+        }
+    } else if (RULE == kSumProductEdge) {
+        // log-domain leave-one-out: masked slots hold t = 1, a = log 1 = 0
+        float t[MAXD], a[MAXD];
+        int n_neg = 0;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+            t[j] = valid[j] ? clip_edge(fast_tanh(v[j] * 0.5f)) : 1.0f;
+            const float m = fabsf(t[j]);
+            a[j] = logf(m < 1e-12f ? 1e-12f : m);
+            n_neg += t[j] < 0.0f;
+        }
+        float total = a[0];
+#pragma unroll
+        for (int j = 1; j < MAXD; ++j) total = total + a[j];
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+            if (valid[j]) {
+                const int others = n_neg - (t[j] < 0.0f ? 1 : 0);
+                const float sign = (others & 1) ? -1.0f : 1.0f;
+                edge[j] = 2.0f * fast_atanh(clip_edge(sign * expf(total - a[j])));
+            }
         }
     } else {
         float a[MAXD], s[MAXD];
@@ -231,8 +268,8 @@ KernelFn pick_width(int D) {
 // Decodes `batch` codewords of llr (batch, n) float32. Writes the first k
 // bits of each row's best snapshot to bits_out (batch, k) uint8 and its
 // unsatisfied-check count to unsat_out (batch,) int32. rule: 0 sum-product,
-// 1 min-sum with extrinsics scaled by `scale`. Returns a cudaError_t code
-// (0 on a successful launch).
+// 1 min-sum with extrinsics scaled by `scale`, 2 edge-layout (log-domain)
+// sum-product. Returns a cudaError_t code (0 on a successful launch).
 extern "C" int ldpc_bp_decode(const float* llr, int batch, int n, int k, int m,
                               int D, const int* check_bits,
                               const uint8_t* check_mask, const int* bit_ptr,
@@ -240,12 +277,14 @@ extern "C" int ldpc_bp_decode(const float* llr, int batch, int n, int k, int m,
                               float scale, uint8_t* bits_out, int* unsat_out,
                               void* stream) {
     if (batch <= 0) return 0;
-    if (D < 1 || D > 32 || k > n || (rule != kSumProduct && rule != kMinSum))
+    if (D < 1 || D > 32 || k > n ||
+        (rule != kSumProduct && rule != kMinSum && rule != kSumProductEdge))
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = (2 * static_cast<size_t>(n) + static_cast<size_t>(m) * D)
                             * sizeof(float) + 2 * sizeof(int) + n;
     KernelFn fn = rule == kSumProduct ? pick_width<kSumProduct>(D)
-                                      : pick_width<kMinSum>(D);
+                  : rule == kMinSum   ? pick_width<kMinSum>(D)
+                                      : pick_width<kSumProductEdge>(D);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

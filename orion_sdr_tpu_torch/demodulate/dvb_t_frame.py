@@ -8,7 +8,10 @@ The receive runs on the demodulator's device over whole frames, and
 ``decode_batch`` over the whole batch of frames in one call; all frames'
 payloads then go through one ``decode_chain_batch``, so one Viterbi launch
 covers every frame's chunks. TPS, Forney, RS and the TS layer run on the
-host. The hierarchical and blind receivers are not in the port yet.
+host. ``DvbTHierFrameDemod`` splits each cell's LLRs into the HP and LP
+streams on the device and decodes each through its own chain;
+``dvb_t_blind_decode`` finds guard, TPS (hierarchy included) and payload
+extent from the signal alone.
 """
 
 from __future__ import annotations
@@ -21,14 +24,14 @@ import torch
 from ..constellation import BITS_PER_SYMBOL
 from ..dsp.osc import rotate_host
 from ..frame.chain import block_plan, decode_chain_batch
-from ..frame.types import InterleaverKind, ScramblerKind, SCRAMBLER_BEFORE_OUTER
+from ..frame.types import (InnerFec, InterleaverKind, ScramblerKind,
+                           SCRAMBLER_BEFORE_OUTER)
 from ..multicarrier import symbol_fft
 from ..ofdm import channel_estimate_pilots, zf_equalize
 from ..sync.dvb_t_gi_sync import dvb_t_gi_sync, dvb_t_integer_cfo
-from ..unported import (DVB_T_BAND, DVB_T_BLIND, DVB_T_HIER, DVB_T_STREAM,
-                        DVB_T_SUPER_FRAME, not_ported)
 from ..waveform.dvb_t import (
-    DVB_T_N_FFT, DVB_T_SCATTERED_PHASES, DvbTFrameParams, _phase_symbols,
+    DVB_T_N_FFT, DVB_T_DATA_CARRIERS, DVB_T_SCATTERED_PHASES, DvbTFrameParams,
+    DvbTHierFrameParams, DvbTHierLinkParams, GUARD_INTERVALS, _phase_symbols,
     guard_cp_len_2k, scattered_grid, scattered_extract_frame, dvb_t_soft_llrs,
     tps_carrier_bins, dvb_t_frame_outer, dvb_t_frame_outer_il,
     dvb_t_fs_for_bandwidth,
@@ -224,50 +227,248 @@ class DvbTFrameDemod:
 
     def _decode_payloads(self, llrs: torch.Tensor, payload_len: int,
                          words) -> List[DvbTRxFrame]:
-        inner = self.params.inner()
-        n_ts = max(-(-payload_len // TS_PAYLOAD_LEN), 1)
-        ts_len = n_ts * TS_PACKET_LEN
-        plan = block_plan(ts_len, "none", dvb_t_frame_outer(), inner,
-                          dvb_t_frame_outer_il(), InterleaverKind.none())
-        if llrs.shape[1] < plan.coded_bits:
-            raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
-        datas, oks = decode_chain_batch(
-            llrs, plan, "none", dvb_t_frame_outer(), inner,
-            dvb_t_frame_outer_il(), InterleaverKind.none(),
-            ScramblerKind.none(), SCRAMBLER_BEFORE_OUTER, [0] * len(words))
         out = []
-        for ts, ok, tps in zip(datas, oks, words):
-            if ts is None or not ok or len(ts) < ts_len:
-                raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
-            payload = ts_depacketize(ts_energy_disperse(ts[:ts_len]))
+        for payload, tps in zip(_decode_ts(llrs, self.params.inner(),
+                                           payload_len), words):
             if payload is None:
                 raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
-            out.append(DvbTRxFrame(payload=payload[:payload_len], tps=tps))
+            out.append(DvbTRxFrame(payload=payload, tps=tps))
         return out
 
 
-# ── receivers outside the port so far ────────────────────────────────────────
+def _ts_plan(n_ts: int, inner):
+    return block_plan(n_ts * TS_PACKET_LEN, "none", dvb_t_frame_outer(),
+                      inner, dvb_t_frame_outer_il(), InterleaverKind.none())
 
 
-def dvb_t_blind_decode(iq, max_symbols: int = 272):
-    raise not_ported("dvb_t_blind_decode", DVB_T_BLIND)
+def _decode_ts_chain(llrs: torch.Tensor, inner, n_ts: int):
+    """(B, ≥ coded) LLRs of a stream of ``n_ts`` transport packets → B
+    energy-undispersed TS byte streams, None where the FEC failed. One
+    ``decode_chain_batch``, so one Viterbi launch for all rows."""
+    plan = _ts_plan(n_ts, inner)
+    ts_len = n_ts * TS_PACKET_LEN
+    if llrs.shape[1] < plan.coded_bits:
+        return [None] * llrs.shape[0]
+    datas, oks = decode_chain_batch(
+        llrs, plan, "none", dvb_t_frame_outer(), inner,
+        dvb_t_frame_outer_il(), InterleaverKind.none(),
+        ScramblerKind.none(), SCRAMBLER_BEFORE_OUTER, [0] * llrs.shape[0])
+    return [ts_energy_disperse(ts[:ts_len])
+            if ts is not None and ok and len(ts) >= ts_len else None
+            for ts, ok in zip(datas, oks)]
+
+
+def _decode_ts(llrs: torch.Tensor, inner, payload_len: int
+               ) -> List[Optional[np.ndarray]]:
+    """(B, L) LLRs → B payloads of ``payload_len`` bytes, None where the
+    FEC or the TS layer failed."""
+    n_ts = max(-(-payload_len // TS_PAYLOAD_LEN), 1)
+    out = []
+    for ts in _decode_ts_chain(llrs, inner, n_ts):
+        payload = None if ts is None else ts_depacketize(ts)
+        out.append(None if payload is None else payload[:payload_len])
+    return out
+
+
+def _tps_cells_only(seg: torch.Tensor, n_symbols: int,
+                    cp_len: int) -> torch.Tensor:
+    """Symbol FFT → raw TPS-carrier cells, for the blind TPS alignment
+    before the constellation is known."""
+    freq = symbol_fft(seg, DVB_T_N_FFT, cp_len, n_symbols=n_symbols)
+    return freq[..., torch.as_tensor(tps_carrier_bins(), device=freq.device)]
+
+
+class DvbTBlindFrame(NamedTuple):
+    """Blind receive result: the transport payload (null stuffing stripped;
+    the zero padding of the last real packet kept, since the TS layer
+    carries no finer length), the signalled parameters, and the LP payload
+    when the TPS announced hierarchy."""
+    payload: np.ndarray
+    tps: TpsWord
+    guard: str
+    n_symbols: int
+    lp_payload: Optional[np.ndarray] = None
+
+
+def _strip_null_packets(ts: np.ndarray) -> np.ndarray:
+    rows = ts.reshape(-1, TS_PACKET_LEN)
+    real = ~((rows[:, 1] == 0x1F) & (rows[:, 2] == 0xFF))
+    return rows[real][:, 1:].reshape(-1).copy()
+
+
+def _blind_coded_bits(n_ts: int, inner) -> int:
+    return _ts_plan(n_ts, inner).coded_bits
+
+
+def _blind_stream(llrs: torch.Tensor, inner, capacity: int):
+    """Decode the largest whole-packet TS prefix that fits ``capacity``
+    coded bits of a 1-D LLR tensor, un-disperse, check every sync byte and
+    strip the null packets; None on failure."""
+    n_ts = 1
+    while _blind_coded_bits(n_ts + 1, inner) <= capacity:
+        n_ts += 1
+    if _blind_coded_bits(n_ts, inner) > capacity:
+        return None
+    ts = _decode_ts_chain(llrs[None], inner, n_ts)[0]
+    if ts is None:
+        return None
+    ts = np.asarray(ts, np.uint8)
+    if not np.all(ts.reshape(-1, TS_PACKET_LEN)[:, 0] == 0x47):
+        return None
+    return _strip_null_packets(ts)
+
+
+def dvb_t_blind_decode(iq, max_symbols: int = 272, *,
+                       device) -> DvbTBlindFrame:
+    """Fully blind DVB-T 2K receive on ``device``: try all four guard
+    intervals on the GI metric, align the TPS block by its sync word,
+    configure the FEC chain from the decoded TPS (hierarchy included), and
+    recover the transport payload, whose extent comes from the TS layer
+    itself (null packets stripped). The capture stays on the device."""
+    iq = _as_iq(iq, device)
+    fs = dvb_t_fs_for_bandwidth(1_000_000.0)
+    n = iq.shape[-1]
+    best = None
+    for guard, cp_len in GUARD_INTERVALS.items():
+        sps = DVB_T_N_FFT + cp_len
+        if n < sps * 5:
+            continue
+        acq = dvb_t_gi_sync(iq, DVB_T_N_FFT, cp_len, fs, sps)
+        if acq is not None and (best is None or acq.score > best[2].score):
+            best = (guard, cp_len, acq)
+    if best is None:
+        raise DvbTRxError(DvbTRxError.ACQUISITION)
+    guard, cp_len, acq = best
+    sps = DVB_T_N_FFT + cp_len
+    start = acq.start_sample
+    avail = (n - start) // sps
+    if avail < TPS_SYMBOLS_PER_FRAME:
+        raise DvbTRxError(DvbTRxError.INCOMPLETE)
+
+    # TPS alignment: slide a 68-symbol window until the word decodes
+    probe = min(avail, 2 * TPS_SYMBOLS_PER_FRAME + 4)
+    cells = _tps_cells_only(iq[start: start + probe * sps], probe,
+                            cp_len).cpu().numpy()
+    tps, frame_off = None, None
+    for off in range(0, probe - TPS_SYMBOLS_PER_FRAME + 1):
+        tps = TpsWord.unpack(tps_decode_frame(
+            cells[off: off + TPS_SYMBOLS_PER_FRAME]))
+        if tps is not None:
+            frame_off = off
+            break
+    if tps is None:
+        raise DvbTRxError(DvbTRxError.TPS_DECODE)
+
+    fstart = start + frame_off * sps
+    n_symbols = (n - fstart) // sps
+    n_symbols = max((n_symbols // 4) * 4, TPS_SYMBOLS_PER_FRAME)
+    n_symbols = min(n_symbols, max_symbols)
+    if (n - fstart) // sps < n_symbols:
+        raise DvbTRxError(DvbTRxError.INCOMPLETE)
+    vbits = BITS_PER_SYMBOL[tps.constellation]
+    seg = iq[fstart: fstart + n_symbols * sps]
+    # capacity candidates: the whole capture (one long frame), else the
+    # largest 68-multiple, else one 68-symbol frame: a capture may hold
+    # several frames whose coded streams each restart, so a failure retries
+    # over a shorter symbol prefix of the same LLR stream
+    cands = []
+    for c in (n_symbols, (n_symbols // TPS_SYMBOLS_PER_FRAME)
+              * TPS_SYMBOLS_PER_FRAME, TPS_SYMBOLS_PER_FRAME):
+        if c >= TPS_SYMBOLS_PER_FRAME and c not in cands:
+            cands.append(c)
+
+    if tps.hierarchy:
+        link = DvbTHierLinkParams(
+            guard=guard, constellation=tps.constellation, alpha=tps.hierarchy,
+            code_rate_hp=tps.code_rate_hp,
+            code_rate_lp=tps.code_rate_lp or tps.code_rate_hp)
+        params = DvbTHierFrameParams(link=link)
+        llrs, _ = receive_frame_body(seg, n_symbols, cp_len, 0, vbits,
+                                     link.alpha)
+        per_cell = llrs.reshape(n_symbols, -1, vbits)
+        for c in cands:
+            hp = _blind_stream(per_cell[:c, :, :2].reshape(-1),
+                               params.inner_hp(), c * DVB_T_DATA_CARRIERS * 2)
+            if hp is None:
+                continue
+            lp = _blind_stream(per_cell[:c, :, 2:].reshape(-1),
+                               params.inner_lp(),
+                               c * DVB_T_DATA_CARRIERS * (vbits - 2))
+            return DvbTBlindFrame(payload=hp, tps=tps, guard=guard,
+                                  n_symbols=c, lp_payload=lp)
+        raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
+
+    inner = InnerFec.convolutional(tps.code_rate_hp, "dvb_k7")
+    llrs = receive_frame_body(seg, n_symbols, cp_len, 0, vbits)[0]
+    for c in cands:
+        payload = _blind_stream(llrs[:c].reshape(-1), inner,
+                                c * DVB_T_DATA_CARRIERS * vbits)
+        if payload is not None:
+            return DvbTBlindFrame(payload=payload, tps=tps, guard=guard,
+                                  n_symbols=c)
+    raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
+
+
+# ── hierarchical receive (§4.3.5/§5.1) ───────────────────────────────────────
+
+
+class DvbTHierRxFrame(NamedTuple):
+    """Hierarchical receive result: HP always present (decode raises when
+    the HP stream fails: the frame is then useless); LP is None when its
+    FEC failed but HP survived, the graceful degradation hierarchy exists
+    to provide."""
+    hp_payload: np.ndarray
+    lp_payload: Optional[np.ndarray]
+    tps: TpsWord
 
 
 class DvbTHierFrameDemod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTHierFrameDemod", DVB_T_HIER)
+    """Hierarchical frame demodulator on ``device``: one receive computes
+    the non-uniform-grid LLRs of every cell; the HP (quadrant MSBs) and LP
+    (remaining bits) LLR planes are split on the device and decode through
+    their own RS + Forney + K=7 chains."""
 
+    def __init__(self, params: DvbTHierFrameParams,
+                 rx_window_backoff: int = 0, *, device) -> None:
+        self.params = params
+        self.rx_window_backoff = rx_window_backoff
+        self.device = torch.device(device)
 
-class DvbTSuperFrameDemod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTSuperFrameDemod", DVB_T_SUPER_FRAME)
+    def with_rx_window_backoff(self, backoff: int) -> "DvbTHierFrameDemod":
+        return DvbTHierFrameDemod(self.params, backoff, device=self.device)
 
+    @property
+    def fs(self) -> float:
+        return dvb_t_fs_for_bandwidth(1_000_000.0)
 
-class DvbTFrameStreamDemod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTFrameStreamDemod", DVB_T_STREAM)
-
-
-class DvbTBandStreamDemod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTBandStreamDemod", DVB_T_BAND)
+    def decode(self, iq, n_symbols: int, hp_payload_len: int,
+               lp_payload_len: int) -> DvbTHierRxFrame:
+        """One hierarchical frame at an unknown offset in a 1-D capture."""
+        params = self.params
+        params.link.validate()
+        cp_len = guard_cp_len_2k(params.link.guard)
+        sps = DVB_T_N_FFT + cp_len
+        vbits = BITS_PER_SYMBOL[params.link.constellation]
+        iq = _as_iq(iq, self.device)
+        acq = dvb_t_gi_sync(iq, DVB_T_N_FFT, cp_len, self.fs, sps)
+        if acq is None:
+            raise DvbTRxError(DvbTRxError.ACQUISITION)
+        start = acq.start_sample
+        if iq.shape[-1] < start + n_symbols * sps:
+            raise DvbTRxError(DvbTRxError.INCOMPLETE)
+        llrs, cells = receive_frame_body(iq[start: start + n_symbols * sps],
+                                         n_symbols, cp_len,
+                                         self.rx_window_backoff, vbits,
+                                         params.link.alpha)
+        tps = _tps_word(cells.cpu().numpy(), n_symbols)
+        if tps is None:
+            raise DvbTRxError(DvbTRxError.TPS_DECODE)
+        # demultiplex each cell's vbits LLRs into the two priority planes
+        per_cell = llrs.reshape(-1, vbits)
+        hp = _decode_ts(per_cell[:, :2].reshape(1, -1), params.inner_hp(),
+                        hp_payload_len)[0]
+        if hp is None:
+            raise DvbTRxError(DvbTRxError.PAYLOAD_DECODE)
+        lp = _decode_ts(per_cell[:, 2:].reshape(1, -1), params.inner_lp(),
+                        lp_payload_len)[0]
+        return DvbTHierRxFrame(hp_payload=hp, lp_payload=lp, tps=tps)

@@ -141,13 +141,24 @@ def ldpc_encode(name: str, message: torch.Tensor) -> torch.Tensor:
     return torch.cat([msg, p], dim=-1).to(torch.uint8)
 
 
+# the rules of the JAX bp_decode; its XLA path would decode any other string
+# (sum_product_edge included) as min-sum, so here they raise instead. The
+# edge-layout rule is reached through ops.bp_decode_pallas.
+DECODE_RULES = ("sum_product", "min_sum", "scaled_min_sum")
+
+
 def bp_decode(g: LdpcGraph, llr: torch.Tensor, max_iter: int = 50,
               rule: str = "sum_product", alpha: float = 0.75):
     """BP over a padded Tanner graph. ``llr``: (..., N) float32 tensor,
     positive ⇒ bit 0. Returns (message (..., K) uint8, unsat (...,) int32):
     0 unsatisfied checks means a valid codeword was reached. ``rule``:
-    sum_product | min_sum | scaled_min_sum (extrinsics scaled by ``alpha``)."""
+    sum_product | min_sum | scaled_min_sum (extrinsics scaled by ``alpha``);
+    any other raises ValueError."""
     from ..ops.ldpc_bp import bp_decode_kernel
+    if rule not in DECODE_RULES:
+        raise ValueError(f"unknown BP rule {rule!r} (expected one of "
+                         f"{DECODE_RULES}; the edge-layout rule is "
+                         f"ops.bp_decode_pallas's)")
     lead = llr.shape[:-1]
     flat = llr.to(torch.float32).reshape(-1, g.n).contiguous()
     bits, unsat = bp_decode_kernel(g, flat, max_iter, rule, alpha)

@@ -5,8 +5,9 @@ Figure-9a mapping through the four-phase scattered-pilot grid → TPS DBPSK
 on the 17 reserved carriers → IFFT + CP.
 
 The byte stages run on the host; the inner code, mapping, grid scatter and
-one (n_sym, 2048) IFFT run on the modulator's device. The hierarchical
-modulator and the TX lowpass are not in the port yet.
+one (n_sym, 2048) IFFT run on the modulator's device. ``DvbTHierFrameMod``
+carries two transport streams per frame (§4.3.5/§5.1). The TX lowpass is
+not in the port yet.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from ..constellation import BITS_PER_SYMBOL
 from ..frame.chain import block_plan, encode_chain
 from ..frame.types import InterleaverKind, ScramblerKind, SCRAMBLER_BEFORE_OUTER
 from ..multicarrier import ofdm_assemble, symbol_taper
-from ..unported import (DVB_T_HIER, DVB_T_SUPER_FRAME, TX_LOWPASS,
-                        not_ported)
+from ..unported import TX_LOWPASS, not_ported
 from ..waveform.dvb_t import (
-    DVB_T_N_FFT, DVB_T_DATA_CARRIERS, DvbTFrameParams, guard_cp_len_2k,
+    DVB_T_N_FFT, DVB_T_DATA_CARRIERS, DvbTFrameParams, DvbTHierFrameParams,
+    guard_cp_len_2k,
     dvb_t_map_symbols, scattered_map_frame, tps_carrier_bins,
     dvb_t_frame_outer, dvb_t_frame_outer_il,
 )
@@ -45,10 +46,16 @@ def tx_lowpass_for_2k(num_taps: int, stopband_db: float):
     raise not_ported("the TX lowpass", TX_LOWPASS)
 
 
-def _coded_bits_for_packets(n_pkt: int, params: DvbTFrameParams) -> int:
+def _coded_bits_for_stream(n_pkt: int, inner) -> int:
+    """Coded bits of ``n_pkt`` transport packets through RS(204,188),
+    Forney and the inner code ``inner``."""
     return block_plan(n_pkt * TS_PACKET_LEN, "none", dvb_t_frame_outer(),
-                      params.inner(), dvb_t_frame_outer_il(),
+                      inner, dvb_t_frame_outer_il(),
                       InterleaverKind.none()).coded_bits
+
+
+def _coded_bits_for_packets(n_pkt: int, params: DvbTFrameParams) -> int:
+    return _coded_bits_for_stream(n_pkt, params.inner())
 
 
 def _as_bytes(payload) -> np.ndarray:
@@ -124,11 +131,71 @@ def assemble_frame(coded_bits: torch.Tensor, tps_cells: np.ndarray,
     return ofdm_assemble(freq, cp_len, taper=taper)
 
 
+# ── hierarchical transmission (§4.3.5/§5.1) ──────────────────────────────────
+
+
+def _prepare_stream(payload, inner, capacity_bits: int,
+                    device) -> torch.Tensor:
+    """TS-packetize → null-stuff to the capacity → energy dispersal → RS +
+    Forney + conv encode; exactly ``capacity_bits`` coded bits on
+    ``device``."""
+    ts = ts_packetize(_as_bytes(payload))
+    target = max(len(ts) // TS_PACKET_LEN, 1)
+    while _coded_bits_for_stream(target, inner) < capacity_bits:
+        target += 1
+    ts = ts_energy_disperse(ts_stuff_null_packets(ts, target))
+    coded = encode_chain(ts, "none", dvb_t_frame_outer(), inner,
+                         dvb_t_frame_outer_il(), InterleaverKind.none(),
+                         ScramblerKind.none(), SCRAMBLER_BEFORE_OUTER, 0,
+                         device=device)
+    return coded[:capacity_bits]
+
+
 class DvbTHierFrameMod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTHierFrameMod", DVB_T_HIER)
+    """Hierarchical DVB-T modulator on ``device``: the HP stream rides the 2
+    quadrant MSBs of a (non-uniform, α) 16-/64-QAM cell, the LP stream the
+    other v−2 bits, each with its own RS(204,188) + Forney + K=7 inner
+    code."""
 
+    def __init__(self, params: DvbTHierFrameParams, window_roll_off: int = 0,
+                 *, device) -> None:
+        self.params = params
+        self.window_roll_off = window_roll_off
+        self.device = torch.device(device)
 
-class DvbTSuperFrameMod:
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTSuperFrameMod", DVB_T_SUPER_FRAME)
+    def with_symbol_window(self, roll_off: int) -> "DvbTHierFrameMod":
+        return DvbTHierFrameMod(self.params, roll_off, device=self.device)
+
+    def with_tx_lowpass(self, lowpass) -> "DvbTHierFrameMod":
+        raise not_ported("the TX lowpass", TX_LOWPASS)
+
+    def modulate(self, hp_payload, lp_payload) -> DvbTFrame:
+        params = self.params
+        params.link.validate()
+        cp_len = guard_cp_len_2k(params.link.guard)
+        vbits = BITS_PER_SYMBOL[params.link.constellation]
+        hp_per_sym = DVB_T_DATA_CARRIERS * 2
+        lp_per_sym = DVB_T_DATA_CARRIERS * (vbits - 2)
+
+        def syms_for(payload, inner, per_sym):
+            n_pkt = len(ts_packetize(_as_bytes(payload))) // TS_PACKET_LEN
+            return -(-_coded_bits_for_stream(n_pkt, inner) // per_sym)
+
+        n_symbols = max(syms_for(hp_payload, params.inner_hp(), hp_per_sym),
+                        syms_for(lp_payload, params.inner_lp(), lp_per_sym),
+                        TPS_SYMBOLS_PER_FRAME)
+        hp = _prepare_stream(hp_payload, params.inner_hp(),
+                             n_symbols * hp_per_sym, self.device)
+        lp = _prepare_stream(lp_payload, params.inner_lp(),
+                             n_symbols * lp_per_sym, self.device)
+        # multiplex: per cell [hp0, hp1, lp0..lp(v−3)] = y0..y(v−1)
+        n_cells = n_symbols * DVB_T_DATA_CARRIERS
+        bits = torch.cat([hp.reshape(n_cells, 2),
+                          lp.reshape(n_cells, vbits - 2)], dim=-1).reshape(-1)
+        cells = tps_encode_frame(params.tps_word().pack())
+        reps = -(-n_symbols // TPS_SYMBOLS_PER_FRAME)
+        cells_all = np.tile(cells, (reps, 1))[:n_symbols]
+        iq = assemble_frame(bits, cells_all, vbits, n_symbols, cp_len,
+                            self.window_roll_off, params.link.alpha)
+        return DvbTFrame(iq=iq.cpu().numpy(), n_symbols=n_symbols,
+                         samples_per_symbol=DVB_T_N_FFT + cp_len)

@@ -1,16 +1,31 @@
 """Batched LDPC belief-propagation decoding: the Hopper kernel
 ``csrc/ldpc_bp.cu`` and its plain torch version.
 
-Counterpart of ``orion_sdr_tpu/ops/ldpc_bp.py`` (the Pallas TPU kernels);
+Counterpart of ``orion_sdr_tpu/ops/ldpc_bp.py`` (the Pallas TPU kernels
+``_ms_kernel_factory``, rules sum_product / min_sum / scaled_min_sum, and
+``_bp_kernel_factory``, the edge-layout rule ``sum_product_edge``);
 semantics of ``orion_sdr_tpu/fec/ldpc.py::bp_decode`` per row: every row
 iterates until its syndrome is zero or ``max_iter`` is reached and returns
 the snapshot with the fewest unsatisfied checks.
 
+``sum_product_edge`` is the sum-product check update in the log domain, as
+``_bp_kernel_factory`` computes it: t = clip(fast_tanh(msg/2), ±0.9999999),
+a = log(max(|t|, 1e-12)), the check's log-sum taken in slot order and the
+own term subtracted, the sign from the parity of the other edges' negative
+t, then 2·fast_atanh(clip(sign·exp(loo), ±0.9999999)). The TPU kernel rounds
+its one-hot contractions (the log-sum, the sign count, the bit totals) to
+bf16; the port computes all of it in f32, so it decodes the same codewords
+on decodable rows but not the TPU's trajectory.
+
 :func:`bp_decode_kernel` launches the CUDA kernel for a CUDA tensor (built
 with nvcc at first use; any failure raises) and runs
 :func:`bp_decode_reference` for a CPU tensor. Both sum each bit's extrinsics
-in the same fixed order and round every float operation alike, so on the
-card they agree bit for bit.
+in the same fixed order and round every float operation alike (the edge
+rule's ``log``/``exp`` are the card's ``logf``/``expf`` in the kernel and
+torch's on the plain side), so on the card they agree bit for bit.
+:func:`bp_decode_pallas` is the entry point named after the JAX one, and
+the way to reach the edge rule: ``fec/ldpc.py::bp_decode`` takes only the
+three rules the JAX ``bp_decode`` implements.
 """
 
 from __future__ import annotations
@@ -25,7 +40,11 @@ import torch
 
 from ..buildlib import Built, build_shared
 
-RULES = ("sum_product", "min_sum", "scaled_min_sum")
+RULES = ("sum_product", "min_sum", "scaled_min_sum", "sum_product_edge")
+# the kernel's rule codes: 1 is min-sum with the extrinsics scaled
+_RULE_CODE = {"sum_product": 0, "min_sum": 1, "scaled_min_sum": 1,
+              "sum_product_edge": 2}
+_CLIP_EDGE = 0.9999999
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "ldpc_bp.cu")
@@ -120,6 +139,18 @@ def _check_update(msg, mask, rule: str, alpha: float):
             loo[j] = left[j] * acc
             acc = acc * t[..., j]
         ext = 2.0 * _fast_atanh(torch.clamp(torch.stack(loo, -1), -1.0, 1.0))
+    elif rule == "sum_product_edge":
+        t = torch.where(mask, torch.clamp(_fast_tanh(msg * 0.5), -_CLIP_EDGE,
+                                          _CLIP_EDGE), 1.0)
+        a = torch.log(torch.clamp(t.abs(), min=1e-12))
+        total = a[..., 0]
+        for j in range(1, D):
+            total = total + a[..., j]
+        neg = (t < 0.0).to(torch.int32)
+        others = neg.sum(-1, keepdim=True) - neg
+        sign = torch.where((others & 1) == 1, -1.0, 1.0)
+        prod = sign * torch.exp(total[..., None] - a)
+        ext = 2.0 * _fast_atanh(torch.clamp(prod, -_CLIP_EDGE, _CLIP_EDGE))
     else:
         a = torch.where(mask, msg.abs(), torch.inf)
         sign = torch.where(mask & (msg < 0), -1.0, 1.0)
@@ -208,7 +239,9 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     """Batched BP decode: ``llr`` (B, n) contiguous float32 → (bits (B, k)
     uint8, unsat (B,) int32) on the same device. A CUDA tensor launches the
     kernel (``bp_decode_kernel.launches`` counts the launches); a CPU tensor
-    runs :func:`bp_decode_reference`."""
+    runs :func:`bp_decode_reference`. ``bp_decode_kernel.launches`` counts
+    the launches of the three slab rules, ``.launches_edge`` those of
+    ``sum_product_edge``."""
     _check_rule(rule)
     if llr.dtype != torch.float32:
         raise TypeError(f"llr must be float32, got {llr.dtype}")
@@ -233,13 +266,25 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
         err = _lib.ldpc_bp_decode(
             llr.data_ptr(), B, t.n, t.k, t.m, t.D, t.check_bits.data_ptr(),
             t.check_mask.data_ptr(), t.bit_ptr.data_ptr(),
-            t.bit_edges.data_ptr(), int(max_iter),
-            0 if rule == "sum_product" else 1, scale, bits.data_ptr(),
-            unsat.data_ptr(), stream)
+            t.bit_edges.data_ptr(), int(max_iter), _RULE_CODE[rule], scale,
+            bits.data_ptr(), unsat.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ldpc_bp_decode launch failed: CUDA error {err}")
-    bp_decode_kernel.launches += 1
+    if rule == "sum_product_edge":
+        bp_decode_kernel.launches_edge += 1
+    else:
+        bp_decode_kernel.launches += 1
     return bits, unsat
 
 
 bp_decode_kernel.launches = 0
+bp_decode_kernel.launches_edge = 0
+
+
+def bp_decode_pallas(g, llr: torch.Tensor, max_iter: int = 50, *,
+                     rule: str = "sum_product", alpha: float = 0.75):
+    """Counterpart of ``orion_sdr_tpu.ops.bp_decode_pallas``: the batched BP
+    kernel under any of the four rules, ``sum_product_edge`` included.
+    Takes the graph itself and returns what :func:`bp_decode_kernel`
+    returns, (message bits (B, k) uint8, unsatisfied checks (B,) int32)."""
+    return bp_decode_kernel(g, llr, max_iter, rule, alpha)

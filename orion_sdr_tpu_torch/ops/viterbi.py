@@ -1,16 +1,28 @@
 """Batched soft Viterbi ACS + traceback: the Hopper kernel
-``csrc/viterbi.cu`` and its plain torch version.
+``csrc/viterbi.cu`` and its plain torch version, in two radices.
 
-Counterpart of ``orion_sdr_tpu/ops/viterbi.py`` (the Pallas TPU kernel
-``_make_kernel``), with the semantics of the jnp references in
-``orion_sdr_tpu/fec/conv.py``. Two modes:
+Counterpart of ``orion_sdr_tpu/ops/viterbi.py`` (the Pallas TPU kernels
+``_make_kernel``, radix 2, and ``_make_kernel4``, radix 4), with the
+semantics of the jnp references in ``orion_sdr_tpu/fec/conv.py``. Two modes:
 
 * terminated (:func:`viterbi_decode_soft_kernel`): a zero-tail-terminated
-  punctured stream per row; metrics pinned at state 0, never renormalised,
-  traceback from state 0;
-* chunked (:func:`viterbi_chunks_kernel`): per-lane initial metrics, the
-  per-step maximum subtracted after every step, traceback from the argmax of
-  the final metrics (lowest state index on ties).
+  punctured stream per row; metrics pinned at state 0, traceback from state
+  0;
+* chunked (:func:`viterbi_chunks_kernel`): per-lane initial metrics,
+  traceback from the argmax of the final metrics (lowest state index on
+  ties).
+
+Radix 2 takes one trellis step at a time: z = 1 only where cand_1 > cand_0,
+and in the chunked mode the maximum is subtracted after every step (the
+terminated mode never renormalises). Radix 4 takes four steps a phase: the
+16 candidates of a state, pm[((ns << 4) | idx) & (S−1)] plus a four-step
+branch metric, go through a four-level select tree (z1 first, the lower z on
+ties at each level) to one 4-bit decision, and the maximum is subtracted
+once a phase in both modes. The two radices agree exactly on integer-valued
+LLRs; on float LLRs they may part at near-ties. Radix 4 runs where it is
+asked for (``radix=4``), or, with ``radix=None``, where ``FORCE_RADIX4`` is
+set and the trellis allows it (:func:`pick_radix`), as the JAX package's
+``_FORCE_RADIX4`` does.
 
 A CUDA tensor launches the kernel (built with nvcc at first use; any failure
 raises); a CPU tensor runs the plain version. Both add, compare and select
@@ -22,7 +34,9 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..buildlib import Built, build_shared
@@ -38,6 +52,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (8 bytes a step a lane) instead of shared memory
 MAX_SMEM_STEPS = 200 * 1024 // 8
 _NEG = -1e30
+# counterpart of orion_sdr_tpu/ops/viterbi.py::_FORCE_RADIX4: with radix=None
+# the wrappers take radix 4 wherever the trellis allows it
+FORCE_RADIX4 = False
+
+
+def pick_radix(n_steps: int, code: str) -> int:
+    """The radix a ``radix=None`` call takes: 4 when ``FORCE_RADIX4`` is set,
+    the trellis length divides by 4 and the code has at least 16 states (the
+    JAX package's dispatch condition), else 2."""
+    _, S, *_ = _tables(code)
+    return 4 if FORCE_RADIX4 and n_steps % 4 == 0 and S >= 16 else 2
 
 
 # ── plain torch version ──────────────────────────────────────────────────────
@@ -78,25 +103,109 @@ def _acs_traceback(l0: torch.Tensor, l1: torch.Tensor, pm: torch.Tensor,
     return bits
 
 
+@lru_cache(maxsize=None)
+def _radix4_tables(code: str):
+    """Per state ns and candidate idx = z1 + 2·z2 + 4·z3 + 8·z4: the
+    predecessor four steps back, ((ns << 4) | idx) & (S−1), and for each of
+    the four steps i whether its branch metric is ±(l0 − l1) rather than
+    ±(l0 + l1) (``diff``) and whether it is negated (``neg``). Step i's
+    encoder window is bits i..i+K−1 of X = (ns << 4) | idx."""
+    K, S, *_ = _tables(code)
+    g0, g1 = CONV_CODES[code]["g0"], CONV_CODES[code]["g1"]
+    x = (np.arange(S)[:, None] << 4) | np.arange(16)[None, :]
+    pred = x & (S - 1)
+    diff = np.zeros((4, S, 16), bool)
+    neg = np.zeros((4, S, 16), bool)
+    for i in range(4):
+        w = (x >> i) & ((1 << K) - 1)
+        ca = np.vectorize(lambda v: bin(v & g0).count("1") & 1)(w)
+        cb = np.vectorize(lambda v: bin(v & g1).count("1") & 1)(w)
+        diff[i] = ca != cb
+        neg[i] = ca == 1
+    return pred, diff, neg
+
+
+def _acs_traceback4(l0: torch.Tensor, l1: torch.Tensor, pm: torch.Tensor,
+                    code: str, chunked: bool) -> torch.Tensor:
+    """Radix-4 loop: (L, T) LLR pairs with T % 4 == 0 and (L, S) initial
+    metrics → (L, T) uint8 bits. A step's branch value is s = l0 + l1 or
+    d = l0 − l1, negated where the coded bit pattern says so; a candidate
+    is pm[pred] + ((v0 + v1) + (v2 + v3))."""
+    _, S, top, *_ = _tables(code)
+    pred, diff, neg = _radix4_tables(code)
+    dev = l0.device
+    pred_t = torch.as_tensor(pred, dtype=torch.int64, device=dev)
+    diff_t = torch.as_tensor(diff, device=dev)
+    flip = torch.as_tensor(np.where(neg, -1.0, 1.0), dtype=torch.float32,
+                           device=dev)
+    L, T = l0.shape
+    T4 = T // 4
+    s_all = (l0 + l1).t().contiguous()
+    d_all = (l0 - l1).t().contiguous()
+    idx0 = torch.arange(16, device=dev).expand(L, S, 16)
+    decs = torch.empty((T4, L, S), dtype=torch.int64, device=dev)
+    for g in range(T4):
+        v = [torch.where(diff_t[i], d_all[4 * g + i, :, None, None],
+                         s_all[4 * g + i, :, None, None]) * flip[i]
+             for i in range(4)]
+        val = pm[:, pred_t] + ((v[0] + v[1]) + (v[2] + v[3]))
+        idx = idx0
+        for _ in range(4):            # z1, z2, z3, z4: pairs adjacent in idx
+            d = val[..., 1::2] > val[..., 0::2]
+            val = torch.where(d, val[..., 1::2], val[..., 0::2])
+            idx = torch.where(d, idx[..., 1::2], idx[..., 0::2])
+        decs[g] = idx[..., 0]
+        pm = val[..., 0]
+        pm = pm - pm.max(dim=-1, keepdim=True).values
+    if chunked:
+        state = torch.argmax(pm, dim=-1)          # first maximum
+    else:
+        state = torch.zeros(L, dtype=torch.int64, device=dev)
+    bits = torch.empty((L, T), dtype=torch.uint8, device=dev)
+    rows = torch.arange(L, device=dev)
+    for g in range(T4 - 1, -1, -1):
+        for i in range(4):
+            bits[:, 4 * g + 3 - i] = ((state >> (top - i)) & 1).to(torch.uint8)
+        state = ((state << 4) | decs[g][rows, state]) & (S - 1)
+    return bits
+
+
+def _check_radix(radix: int, n_steps: int, code: str) -> None:
+    _, S, *_ = _tables(code)
+    if radix == 2:
+        return
+    if radix != 4:
+        raise ValueError(f"radix must be 2 or 4, got {radix}")
+    if n_steps % 4 or S < 16:
+        raise ValueError(f"radix 4 needs a trellis length divisible by 4 and "
+                         f"at least 16 states (got {n_steps} steps, {S} "
+                         f"states)")
+
+
 def viterbi_chunks_reference(c0: torch.Tensor, c1: torch.Tensor,
-                             pm0: torch.Tensor, code: str) -> torch.Tensor:
+                             pm0: torch.Tensor, code: str,
+                             radix: int = 2) -> torch.Tensor:
     """Plain chunked decode: (L, span) LLR pairs, (L, S) initial metrics →
     (L, span) uint8 bits, margins included."""
     _check_chunks(c0, c1, pm0, code)
-    return _acs_traceback(c0, c1, pm0, code, chunked=True)
+    _check_radix(radix, c0.shape[1], code)
+    loop = _acs_traceback4 if radix == 4 else _acs_traceback
+    return loop(c0, c1, pm0, code, chunked=True)
 
 
 def viterbi_terminated_reference(llrs: torch.Tensor, info_bits: int,
-                                 rate: str, code: str) -> torch.Tensor:
+                                 rate: str, code: str,
+                                 radix: int = 2) -> torch.Tensor:
     """Plain terminated decode: (B, n_coded) punctured LLRs → (B,
     info_bits) uint8."""
     _check_llrs(llrs, code)
+    _check_radix(radix, info_bits + tail_bits(code), code)
     full = depuncture_llrs(llrs, info_bits, rate, code)
     _, S, *_ = _tables(code)
     pm = full.new_full((full.shape[0], S), _NEG)
     pm[:, 0] = 0.0
-    bits = _acs_traceback(full[:, 0::2], full[:, 1::2], pm, code,
-                          chunked=False)
+    loop = _acs_traceback4 if radix == 4 else _acs_traceback
+    bits = loop(full[:, 0::2], full[:, 1::2], pm, code, chunked=False)
     return bits[:, :info_bits]
 
 
@@ -116,7 +225,7 @@ def build() -> Built:
         lib = ctypes.CDLL(_built.path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.viterbi_acs_traceback.argtypes = [p, p, ll, i, p, i, i, i, i, i,
-                                              p, p, p]
+                                              i, p, p, p]
         lib.viterbi_acs_traceback.restype = ctypes.c_int
         _lib = lib
     return _built
@@ -161,7 +270,7 @@ def _check_llrs(llrs, code: str) -> None:
 
 
 def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
-            code: str, device) -> torch.Tensor:
+            code: str, radix: int, device) -> torch.Tensor:
     build()
     c = CONV_CODES[code]
     bits = torch.empty((L, T), dtype=torch.uint8, device=device)
@@ -171,7 +280,7 @@ def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib.viterbi_acs_traceback(
             l0_ptr, l1_ptr, ld, es, None if pm0 is None else pm0.data_ptr(),
-            L, T, c["K"], c["g0"], c["g1"], bits.data_ptr(),
+            L, T, c["K"], c["g0"], c["g1"], radix, bits.data_ptr(),
             None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi_acs_traceback launch failed: CUDA error "
@@ -179,46 +288,66 @@ def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
     return bits
 
 
+def _count(wrapper, radix: int) -> None:
+    if radix == 4:
+        wrapper.launches_radix4 += 1
+    else:
+        wrapper.launches += 1
+
+
 def viterbi_chunks_kernel(c0: torch.Tensor, c1: torch.Tensor,
-                          pm0: torch.Tensor, code: str) -> torch.Tensor:
+                          pm0: torch.Tensor, code: str,
+                          radix: int | None = None) -> torch.Tensor:
     """Chunked decode of L lanes: ``c0``/``c1`` (L, span) contiguous float32
     LLR pairs, ``pm0`` (L, S) initial metrics → (L, span) uint8 bits on the
-    same device, margins included. A CUDA tensor launches the kernel
-    (``viterbi_chunks_kernel.launches`` counts the launches); a CPU tensor
-    runs :func:`viterbi_chunks_reference`."""
+    same device, margins included. ``radix`` 2 or 4, or None for
+    :func:`pick_radix`. A CUDA tensor launches the kernel
+    (``viterbi_chunks_kernel.launches`` counts radix-2 launches,
+    ``.launches_radix4`` radix-4 ones); a CPU tensor runs
+    :func:`viterbi_chunks_reference`."""
     _check_chunks(c0, c1, pm0, code)
-    if c0.device.type == "cpu":
-        return viterbi_chunks_reference(c0, c1, pm0, code)
     L, T = c0.shape
+    radix = pick_radix(T, code) if radix is None else radix
+    _check_radix(radix, T, code)
+    if c0.device.type == "cpu":
+        return viterbi_chunks_reference(c0, c1, pm0, code, radix)
     if L == 0 or T == 0:
         return torch.empty((L, T), dtype=torch.uint8, device=c0.device)
     bits = _launch(c0.data_ptr(), c1.data_ptr(), T, 1, pm0, L, T, code,
-                   c0.device)
-    viterbi_chunks_kernel.launches += 1
+                   radix, c0.device)
+    _count(viterbi_chunks_kernel, radix)
     return bits
 
 
 def viterbi_decode_soft_kernel(llrs: torch.Tensor, info_bits: int,
-                               rate: str, code: str) -> torch.Tensor:
+                               rate: str, code: str,
+                               radix: int | None = None) -> torch.Tensor:
     """Terminated decode: ``llrs`` (B, n_coded) contiguous float32
-    punctured LLRs → (B, info_bits) uint8 on the same device. A CUDA tensor
-    depunctures on the card and launches the kernel
-    (``viterbi_decode_soft_kernel.launches`` counts the launches); a CPU
-    tensor runs :func:`viterbi_terminated_reference`."""
+    punctured LLRs → (B, info_bits) uint8 on the same device. ``radix`` 2 or
+    4, or None for :func:`pick_radix` of the info_bits + tail steps. A CUDA
+    tensor depunctures on the card and launches the kernel
+    (``viterbi_decode_soft_kernel.launches`` counts radix-2 launches,
+    ``.launches_radix4`` radix-4 ones); a CPU tensor runs
+    :func:`viterbi_terminated_reference`."""
     _check_llrs(llrs, code)
-    if llrs.device.type == "cpu":
-        return viterbi_terminated_reference(llrs, info_bits, rate, code)
-    B = llrs.shape[0]
     T = info_bits + tail_bits(code)
+    radix = pick_radix(T, code) if radix is None else radix
+    _check_radix(radix, T, code)
+    if llrs.device.type == "cpu":
+        return viterbi_terminated_reference(llrs, info_bits, rate, code,
+                                            radix)
+    B = llrs.shape[0]
     if B == 0:
         return torch.empty((0, info_bits), dtype=torch.uint8,
                            device=llrs.device)
     full = depuncture_llrs(llrs, info_bits, rate, code).contiguous()
     bits = _launch(full.data_ptr(), full.data_ptr() + 4, 2 * T, 2, None, B,
-                   T, code, llrs.device)
-    viterbi_decode_soft_kernel.launches += 1
+                   T, code, radix, llrs.device)
+    _count(viterbi_decode_soft_kernel, radix)
     return bits[:, :info_bits]
 
 
 viterbi_chunks_kernel.launches = 0
+viterbi_chunks_kernel.launches_radix4 = 0
 viterbi_decode_soft_kernel.launches = 0
+viterbi_decode_soft_kernel.launches_radix4 = 0

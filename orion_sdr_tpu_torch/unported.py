@@ -6,13 +6,11 @@ from __future__ import annotations
 
 TX_LOWPASS = "ROADMAP queue 1, slice 1: txlp (TX lowpass)"
 RX_EXTRAS = "ROADMAP queue 1, slice 1: pilot_interp / cpe / DFT precoding"
-DVB_T_HIER = "ROADMAP queue 1, slice 2: hierarchical DVB-T (DvbTHierFrameMod/Demod)"
-DVB_T_BLIND = "ROADMAP queue 1, slice 2: dvb_t_blind_decode"
-DVB_T_SUPER_FRAME = "ROADMAP queue 1, slice 2: the DVB-T super-frame"
-DVB_T_STREAM = "ROADMAP queue 1, slice 2: the DVB-T stream demod"
-DVB_T_BAND = "ROADMAP queue 1, slice 2: the DVB-T band receive"
-DVB_T_PRESETS = ("ROADMAP queue 1, slice 2: the dvb_t_config / "
-                 "dvb_t_scattered_config COFDM presets")
+DVB_T_BAND = ("ROADMAP queue 1, slice 5: the DVB-T band receive "
+              "(DvbTBandStreamDemod, with dsp/channelizer.py)")
+DVB_T_PRESETS = ("ROADMAP queue 1, slice 1 item 4: the dvb_t_config / "
+                 "dvb_t_scattered_config COFDM presets (per-symbol pilot "
+                 "layouts)")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

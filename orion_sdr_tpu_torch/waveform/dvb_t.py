@@ -4,9 +4,8 @@
 Tables (energy-dispersal PRBS, Figure-9a axes, pilot and TPS carriers, the
 four scattered-pilot phases) are host numpy built once; mapping, soft
 demapping and the rotating-grid scatter/gather run on the device of the
-tensors they are given, whole frames at a time. The hierarchical link
-parameters, the super-frame parameters and the COFDM presets are not in
-the port yet.
+tensors they are given, whole frames at a time. The COFDM presets
+(``dvb_t_config``, ``dvb_t_scattered_config``) are not in the port yet.
 """
 
 from __future__ import annotations
@@ -442,3 +441,65 @@ class DvbTFrameParams:
         return OfdmConfig(plan0, fs=dvb_t_fs_for_bandwidth(1_000_000.0),
                           constellation=self.link.constellation) \
             .with_dvb_t_scattered(True)
+
+
+@dataclass(frozen=True)
+class DvbTHierLinkParams:
+    """Hierarchical link constants (EN 300 744 §4.3.5/§5.1): non-uniform
+    16-/64-QAM carrying two independently coded transport streams, HP on the
+    2 quadrant MSBs (an embedded QPSK) and LP on the remaining v−2 bits.
+    ``alpha`` ∈ {1, 2, 4} sets the quadrant separation (1 = uniform grid,
+    hierarchy by multiplexing only)."""
+    guard: str = "1/32"
+    constellation: str = "qam16"     # qam16 | qam64
+    alpha: int = 2
+    code_rate_hp: str = "1/2"
+    code_rate_lp: str = "3/4"
+
+    def validate(self) -> None:
+        if self.constellation not in ("qam16", "qam64"):
+            raise ValueError("hierarchical DVB-T requires 16- or 64-QAM")
+        if self.alpha not in DVB_T_ALPHAS:
+            raise ValueError(f"alpha must be one of {DVB_T_ALPHAS}")
+
+
+@dataclass(frozen=True)
+class DvbTHierFrameParams:
+    """One hierarchical frame's transmission parameters."""
+    link: DvbTHierLinkParams
+    frame_number: int = 0
+    cell_id: int = 0
+
+    def inner_hp(self):
+        from ..frame.types import InnerFec
+        return InnerFec.convolutional(self.link.code_rate_hp, "dvb_k7")
+
+    def inner_lp(self):
+        from ..frame.types import InnerFec
+        return InnerFec.convolutional(self.link.code_rate_lp, "dvb_k7")
+
+    def tps_word(self):
+        from .dvb_t_tps import TpsWord
+        return TpsWord(frame_number=self.frame_number,
+                       constellation=self.link.constellation,
+                       code_rate_hp=self.link.code_rate_hp,
+                       guard=self.link.guard, cell_id=self.cell_id,
+                       hierarchy=self.link.alpha,
+                       code_rate_lp=self.link.code_rate_lp)
+
+
+DVB_T_FRAMES_PER_SUPER_FRAME = 4
+
+
+@dataclass(frozen=True)
+class DvbTSuperFrameParams:
+    """Link parameters and the full 16-bit cell id: b15..b8 ride frames 1
+    and 3 (frame numbers 0 and 2), b7..b0 frames 2 and 4."""
+    link: DvbTLinkParams
+    cell_id: int = 0
+
+    def frame(self, frame_number: int) -> DvbTFrameParams:
+        cell_byte = (self.cell_id >> 8) & 0xFF if frame_number % 2 == 0 \
+            else self.cell_id & 0xFF
+        return DvbTFrameParams(link=self.link, frame_number=frame_number,
+                               cell_id=cell_byte)

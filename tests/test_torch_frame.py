@@ -21,6 +21,11 @@ from orion_sdr_tpu.sync.ofdm_sync import OfdmPreamble as JaxPreamble
 import orion_sdr_tpu_torch as P
 from orion_sdr_tpu_torch.multicarrier import grid_map
 
+# The plain torch versions run thousands of tiny ops; with one test worker
+# per core, a torch thread pool as wide as the machine in every worker
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 FS = 1e6
 SCRAMBLERS = {
     "none": (J.ScramblerKind.none(), P.ScramblerKind.none(),

@@ -1,7 +1,8 @@
 """Card-only tests of the torch port's CUDA kernels: the LDPC BP kernel against
-its plain torch version for each code and rule, the Viterbi kernel against
-its plain version in both modes, and batch frame decodes (COFDM, DVB-T)
-through the kernels. They skip without a CUDA card.
+its plain torch version for each code and rule (the edge-layout rule
+included), the Viterbi kernel against its plain version in both modes and
+both radices, and frame decodes (COFDM, DVB-T, hierarchical DVB-T with radix
+4 forced) through the kernels. They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -56,9 +57,10 @@ def test_kernel_matches_plain_version(cuda, name, rule):
     B = 256
     flips = {"N512R12": 6, "N576R23": 4, "N512R34": 3}[name]
     msg, llr = _llrs(g, lambda m: ldpc_encode(name, m), B, flips, 32, 1, cuda)
-    before = ldpc_bp.bp_decode_kernel.launches
+    counter = "launches_edge" if rule == "sum_product_edge" else "launches"
+    before = getattr(ldpc_bp.bp_decode_kernel, counter)
     bits, unsat = _check(g, llr, rule, B)
-    assert ldpc_bp.bp_decode_kernel.launches == before + 1
+    assert getattr(ldpc_bp.bp_decode_kernel, counter) == before + 1
     # the high-rate codes' small distances let a rare row converge to
     # another codeword, so count rows that recovered the sent message
     right = (unsat[:B] == 0) & (bits[:B] == msg).all(axis=1)
@@ -196,3 +198,58 @@ def test_dvb_t_decode_batch_runs_through_the_kernel(cuda):
     for o, p in zip(out, payloads):
         assert np.array_equal(o.payload, p)
         assert o.tps == params.tps_word()
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_viterbi_radix4_chunks_match_plain_version(cuda, code, lanes):
+    S = 64 if code == "dvb_k7" else 16
+    rng = np.random.default_rng(40 + lanes)
+    for llr in (rng.integers(-8, 9, (2, lanes, 1216)),
+                rng.standard_normal((2, lanes, 1216))):
+        c0, c1 = (torch.as_tensor(x, dtype=torch.float32, device=cuda)
+                  for x in llr)
+        pm0 = torch.as_tensor(rng.integers(-30, 1, (lanes, S)),
+                              dtype=torch.float32, device=cuda)
+        pm0[::99] = -1e30
+        pm0[::99, 0] = 0.0
+        before = viterbi.viterbi_chunks_kernel.launches_radix4
+        got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, code, radix=4)
+        want = viterbi.viterbi_chunks_reference(c0, c1, pm0, code, radix=4)
+        torch.cuda.synchronize()
+        assert viterbi.viterbi_chunks_kernel.launches_radix4 == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate", ["1/2", "3/4"])
+@pytest.mark.parametrize("code,n", [("k5", 4096), ("dvb_k7", 4098),
+                                    ("k5", 30000)])
+def test_viterbi_radix4_terminated_matches_plain_version(cuda, code, n, rate):
+    # 30 000 info bits: past the shared-memory limit, global scratch
+    rng = np.random.default_rng(n)
+    llr = torch.as_tensor(rng.standard_normal(
+        (33, conv.punctured_coded_len(n, rate, code))) * 2.0,
+        dtype=torch.float32, device=cuda)
+    got = viterbi.viterbi_decode_soft_kernel(llr, n, rate, code, radix=4)
+    want = viterbi.viterbi_terminated_reference(llr, n, rate, code, radix=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_hier_decode_runs_through_radix4_when_forced(cuda, monkeypatch):
+    link = P.DvbTHierLinkParams("1/8", "qam16", 2, "1/2", "3/4")
+    params = P.DvbTHierFrameParams(link, 1, 0x42)
+    rng = np.random.default_rng(8)
+    hp = rng.integers(0, 256, 400).astype(np.uint8)
+    lp = rng.integers(0, 256, 1200).astype(np.uint8)
+    frame = P.DvbTHierFrameMod(params, device=cuda).modulate(hp, lp)
+    iq = np.concatenate([np.zeros(913, np.complex64), frame.iq])
+    demod = P.DvbTHierFrameDemod(params, device=cuda)
+    for forced, counter in ((False, "launches"), (True, "launches_radix4")):
+        monkeypatch.setattr(viterbi, "FORCE_RADIX4", forced)
+        before = getattr(viterbi.viterbi_chunks_kernel, counter)
+        rx = demod.decode(iq, frame.n_symbols, len(hp), len(lp))
+        assert getattr(viterbi.viterbi_chunks_kernel, counter) == before + 2
+        assert np.array_equal(rx.hp_payload, hp)
+        assert np.array_equal(rx.lp_payload, lp)
+        assert rx.tps == params.tps_word()

@@ -3,8 +3,10 @@
 On the CPU the port's BP wrapper runs its plain torch version, which is held
 to the JAX f32 ``bp_decode`` row by row: equal message bits and unsatisfied
 checks on decodable batches (±4 LLRs with 6–8 flips), and no convergence in
-either on random-normal garbage rows. The Pallas kernel (interpret mode)
-rounds its messages through bf16, so it is compared on converged rows only.
+either on random-normal garbage rows. The Pallas kernels (interpret mode)
+round their messages through bf16, so they are compared on converged rows
+only: bits equal and unsat 0, for the slab kernel and for the edge-layout
+``sum_product_edge`` kernel, which only ``bp_decode_pallas`` reaches.
 """
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -16,9 +18,15 @@ from orion_sdr_tpu.fec.ldpc import bp_decode as jax_bp_decode, \
     ldpc_encode as jax_ldpc_encode, ldpc_graph as jax_ldpc_graph, _graph_key
 from orion_sdr_tpu.ops.ldpc_bp import bp_decode_pallas
 
-from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, bp_decode, \
-    ldpc_decode, ldpc_encode, ldpc_graph
+from orion_sdr_tpu_torch.fec.ldpc import DECODE_RULES, LDPC_CODES, \
+    bp_decode, ldpc_decode, ldpc_encode, ldpc_graph
+from orion_sdr_tpu_torch.ops import bp_decode_pallas as port_bp_decode_pallas
 from orion_sdr_tpu_torch.ops import ldpc_bp
+
+# The plain torch versions run thousands of tiny ops; with one test worker
+# per core, a torch thread pool as wide as the machine in every worker
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
 
 FLIPS = {"N512R12": 8, "N576R23": 6, "N512R34": 6}
 
@@ -45,7 +53,7 @@ def test_ldpc_encode_bit_exact(name):
     assert np.array_equal(ours[:, :g.k], msg)
 
 
-@pytest.mark.parametrize("rule", ldpc_bp.RULES)
+@pytest.mark.parametrize("rule", DECODE_RULES)
 @pytest.mark.parametrize("name", sorted(LDPC_CODES))
 def test_bp_plain_matches_jax(name, rule):
     B = 6
@@ -110,4 +118,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         ldpc_bp.bp_decode_kernel(g, torch.zeros((g.n, 8)).t())
     with pytest.raises(ValueError):
-        ldpc_bp.bp_decode_kernel(g, x, rule="sum_product_edge")
+        ldpc_bp.bp_decode_kernel(g, x, rule="bogus")
+
+
+@pytest.mark.parametrize("name", ["N512R12", "N512R34"])
+def test_edge_rule_plain_matches_pallas_interpret(name):
+    # kernel 2 (ops/ldpc_bp.py:200, edge-on-lane log-domain sum-product)
+    # through the JAX ops entry point in interpret mode; it rounds its
+    # one-hot contractions to bf16 (so a row near threshold may stall
+    # there), the port sums in f32: rows the TPU kernel converged on must
+    # give the same message, and every row converges in the port
+    msg, llr = _case(name, 6, FLIPS[name] - 2, 22)
+    g = jax_ldpc_graph(name)
+    best, mu = bp_decode_pallas(_graph_key(g), llr, 30, interpret=True,
+                                rule="sum_product_edge")
+    bits, unsat = port_bp_decode_pallas(ldpc_graph(name),
+                                        torch.as_tensor(llr), 30,
+                                        rule="sum_product_edge")
+    done = np.asarray(mu) == 0
+    assert done.sum() >= 5 and (unsat.numpy() == 0).all()
+    assert np.array_equal(bits.numpy()[done],
+                          np.asarray(best)[done, :g.k].astype(np.uint8))
+    assert np.array_equal(bits.numpy(), msg)
+
+
+@pytest.mark.parametrize("name", sorted(LDPC_CODES))
+def test_edge_rule_plain_version(name):
+    # the log-domain rule converges to the same codewords as sum-product on
+    # decodable rows, and leaves garbage rows unconverged
+    msg, llr = _case(name, 6, FLIPS[name], 7, garbage=2)
+    g = ldpc_graph(name)
+    x = torch.as_tensor(llr)
+    bits, unsat = port_bp_decode_pallas(g, x, 50, rule="sum_product_edge")
+    sbits, sunsat = bp_decode(g, x, 50, "sum_product")
+    assert bits.dtype == torch.uint8 and unsat.dtype == torch.int32
+    assert (unsat.numpy()[:6] == 0).all()
+    assert np.array_equal(bits.numpy()[:6], msg)
+    assert np.array_equal(bits.numpy()[:6], sbits.numpy()[:6])
+    assert (unsat.numpy()[6:] > 0).all()
+    # the alias takes every rule and gives what the wrapper gives
+    for rule in ldpc_bp.RULES:
+        a = port_bp_decode_pallas(g, x, 20, rule=rule, alpha=0.6)
+        b = ldpc_bp.bp_decode_kernel(g, x, 20, rule, 0.6)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_jax_bp_decode_takes_the_edge_rule_as_min_sum_and_the_port_refuses():
+    # the reference fault (orion_sdr_tpu/fec/ldpc.py:335-347): the XLA
+    # bp_decode's else-branch decodes any unknown rule string as min-sum
+    _, llr = _case("N576R23", 4, 7, 9, garbage=2)
+    jg = jax_ldpc_graph("N576R23")
+    eb, eu = jax_bp_decode(jg, llr, 30, "sum_product_edge")
+    mb, mu = jax_bp_decode(jg, llr, 30, "min_sum")
+    assert np.array_equal(np.asarray(eb), np.asarray(mb))
+    assert np.array_equal(np.asarray(eu), np.asarray(mu))
+    g = ldpc_graph("N576R23")
+    for call in (lambda: bp_decode(g, torch.as_tensor(llr), 30,
+                                   "sum_product_edge"),
+                 lambda: ldpc_decode("N576R23", torch.as_tensor(llr), 30,
+                                     "sum_product_edge")):
+        with pytest.raises(ValueError, match="bp_decode_pallas"):
+            call()

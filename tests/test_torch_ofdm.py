@@ -34,6 +34,11 @@ from orion_sdr_tpu_torch.ofdm import OfdmConfig, ofdm_mod, \
     channel_estimate_denoise
 from orion_sdr_tpu_torch.sync.ofdm_sync import OfdmPreamble, ofdm_sync
 
+# The plain torch versions run thousands of tiny ops; with one test worker
+# per core, a torch thread pool as wide as the machine in every worker
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 ORDERS = sorted(BITS_PER_SYMBOL)
 FS = 1e6
 

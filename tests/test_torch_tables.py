@@ -36,6 +36,11 @@ from orion_sdr_tpu_torch.ofdm import OfdmConfig
 from orion_sdr_tpu_torch.sync.ofdm_sync import (
     OfdmPreamble, _xorshift64_signs, generate_ofdm_preamble)
 
+# The plain torch versions run thousands of tiny ops; with one test worker
+# per core, a torch thread pool as wide as the machine in every worker
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -1,8 +1,9 @@
 """Torch port: the convolutional codes and the Viterbi decoder against the JAX
 package. Integer-valued LLRs (−8…8, exact in bf16 too) must give the same
-bits as the JAX jnp decoders and the Pallas kernel run in interpret mode;
-float LLRs the same bits up to a stated handful of near-ties. Also the
-wrappers' checks and CPU dispatch."""
+bits as the JAX jnp decoders and the Pallas kernels run in interpret mode,
+in radix 2 and radix 4; float LLRs the same bits up to a stated handful of
+near-ties (≤ 1e-4 of bits, also between the radices). Also the radix
+dispatch, the wrappers' checks and CPU dispatch."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -10,11 +11,17 @@ import pytest
 import torch
 
 from orion_sdr_tpu.fec import conv as jconv
+from orion_sdr_tpu.ops import viterbi as jviterbi
 from orion_sdr_tpu.ops.viterbi import (_chunks_jnp, viterbi_chunks_pallas,
                                        viterbi_decode_soft_pallas)
 
 from orion_sdr_tpu_torch.fec import conv
 from orion_sdr_tpu_torch.ops import viterbi
+
+# The plain torch versions run thousands of tiny ops; with one test worker
+# per core, a torch thread pool as wide as the machine in every worker
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
 
 CODES = ("k5", "dvb_k7")
 RATES = tuple(conv.PUNCTURE)
@@ -171,4 +178,126 @@ def test_wrappers_check_inputs_and_run_the_plain_version_on_cpu():
 def test_kernel_source_replaces_the_tpu_kernel():
     src = open(viterbi._SRC).read()
     assert "orion_sdr_tpu/ops/viterbi.py:200 _make_kernel" in src
+    assert "orion_sdr_tpu/ops/viterbi.py:347 _make_kernel4" in src
     assert "-fmad=false" in " ".join(viterbi.NVCC_FLAGS)
+
+
+def _lanes(rng, code, L, T):
+    S = 64 if code == "dvb_k7" else 16
+    c0, c1 = _int_llrs(rng, (L, T)), _int_llrs(rng, (L, T))
+    pm0 = rng.integers(-20, 1, (L, S)).astype(np.float32)
+    pm0[0] = -1e30                    # a chunk-0 row, pinned at state 0
+    pm0[0, 0] = 0.0
+    return c0, c1, pm0
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_radix4_exact_on_integer_llrs(code):
+    # kernel 4 (ops/viterbi.py:347) in interpret mode, the port's radix-4
+    # plain version and its radix-2 plain version: equal bits, chunked lanes
+    # (argmax start) and a terminated trellis (state-0 start)
+    rng = np.random.default_rng(41 + len(code))
+    L, T = 6, 128
+    c0, c1, pm0 = _lanes(rng, code, L, T)
+    t = [torch.as_tensor(x) for x in (c0, c1, pm0)]
+    jax4 = np.asarray(jviterbi._run_kernel(c0, c1, pm0, code, True,
+                                           radix=4)).astype(np.uint8)
+    r4 = viterbi.viterbi_chunks_reference(*t, code, radix=4)
+    r2 = viterbi.viterbi_chunks_reference(*t, code, radix=2)
+    assert r4.dtype == torch.uint8 and r4.shape == (L, T)
+    assert np.array_equal(r4.numpy(), jax4)
+    assert np.array_equal(r4.numpy(), r2.numpy())
+    info = T - conv.tail_bits(code)
+    full = np.stack([c0, c1], axis=-1).reshape(L, 2 * T)
+    jax4t = np.asarray(jviterbi._run_kernel(c0, c1, None, code, True,
+                                            radix=4))[:, :info]
+    r4t = viterbi.viterbi_terminated_reference(torch.as_tensor(full), info,
+                                               "1/2", code, radix=4)
+    ref = np.asarray(jconv.viterbi_decode_soft(full, info, "1/2", code))
+    assert np.array_equal(r4t.numpy(), jax4t.astype(np.uint8))
+    assert np.array_equal(r4t.numpy(), ref)
+
+
+def test_radix4_dispatch_follows_the_jax_condition(monkeypatch):
+    assert viterbi.pick_radix(1216, "dvb_k7") == 2          # not forced
+    monkeypatch.setattr(viterbi, "FORCE_RADIX4", True)
+    monkeypatch.setattr(jviterbi, "_FORCE_RADIX4", True)
+    assert viterbi.pick_radix(1216, "dvb_k7") == 4          # DVB-T span
+    assert viterbi.pick_radix(4096 + 6, "dvb_k7") == 2      # T % 4 != 0
+    assert viterbi.pick_radix(4096 + 4, "k5") == 4          # S = 16
+    assert viterbi.pick_radix(1217, "k5") == 2
+    rng = np.random.default_rng(5)
+    # forced, the JAX Pallas decoders run radix 4 (interpret mode) and the
+    # port's radix=None wrappers too: equal bits on integer LLRs
+    for code, info in (("k5", 124), ("dvb_k7", 122)):
+        for rate in ("1/2", "3/4"):
+            bits = rng.integers(0, 2, (3, info)).astype(np.uint8)
+            llr = _int_llrs(rng, _coded(code, rate, bits).shape)
+            want = np.asarray(viterbi_decode_soft_pallas(llr, info, rate, code,
+                                                         interpret=True))
+            got = conv.viterbi_decode_soft(torch.as_tensor(llr), info, rate,
+                                           code)
+            assert np.array_equal(got.numpy(), want)
+        c0, c1, pm0 = _lanes(rng, code, 5, 96)
+        want = np.asarray(viterbi_chunks_pallas(c0, c1, pm0, code,
+                                                interpret=True))
+        got = viterbi.viterbi_chunks_kernel(
+            *(torch.as_tensor(x) for x in (c0, c1, pm0)), code)
+        assert np.array_equal(got.numpy(), want.astype(np.uint8))
+    # the chunked stream decode (span 1216) with radix 4 forced equals the
+    # jnp chunked decode on integer LLRs
+    n = 2500
+    llr = _int_llrs(rng, (2, conv.punctured_coded_len(n, "2/3", "dvb_k7")))
+    assert np.array_equal(
+        conv.viterbi_decode_soft_chunked(torch.as_tensor(llr), n, "2/3",
+                                         "dvb_k7").numpy(),
+        np.asarray(jconv.viterbi_decode_soft_chunked(llr, n, "2/3",
+                                                     "dvb_k7")))
+
+
+def test_radix4_float_llrs_agree_with_radix2_but_for_near_ties():
+    # the radices renormalise at other steps and sum branch metrics in
+    # another order, so a float near-tie may pick another ML path: ≤ 1e-4
+    rng = np.random.default_rng(13)
+    total, diff = 0, 0
+    for code in CODES:
+        S = 64 if code == "dvb_k7" else 16
+        c0, c1 = (torch.as_tensor(rng.standard_normal((4, 1216)),
+                                  dtype=torch.float32) for _ in range(2))
+        pm0 = torch.as_tensor(rng.integers(-30, 1, (4, S)),
+                              dtype=torch.float32)
+        a = viterbi.viterbi_chunks_reference(c0, c1, pm0, code, radix=4)
+        b = viterbi.viterbi_chunks_reference(c0, c1, pm0, code, radix=2)
+        diff += int((a != b).sum())
+        total += a.numel()
+        info = 1020 if code == "k5" else 1018         # 1024 steps
+        llr = torch.as_tensor(rng.standard_normal(
+            (2, conv.punctured_coded_len(info, "1/2", code))) * 2.0,
+            dtype=torch.float32)
+        a = viterbi.viterbi_terminated_reference(llr, info, "1/2", code, 4)
+        b = viterbi.viterbi_terminated_reference(llr, info, "1/2", code, 2)
+        diff += int((a != b).sum())
+        total += a.numel()
+    assert diff <= 1e-4 * total, (diff, total)
+
+
+def test_radix4_wrappers_count_apart_and_check_the_radix():
+    c = torch.zeros((3, 40))
+    pm = torch.zeros((3, 64))
+    before = (viterbi.viterbi_chunks_kernel.launches,
+              viterbi.viterbi_chunks_kernel.launches_radix4)
+    assert viterbi.viterbi_chunks_kernel(c, c, pm, "dvb_k7",
+                                         radix=4).shape == (3, 40)
+    assert (viterbi.viterbi_chunks_kernel.launches,
+            viterbi.viterbi_chunks_kernel.launches_radix4) == before  # CPU
+    with pytest.raises(ValueError):
+        viterbi.viterbi_chunks_kernel(c[:, :38], c[:, :38], pm, "dvb_k7",
+                                      radix=4)
+    with pytest.raises(ValueError):
+        viterbi.viterbi_chunks_kernel(c, c, pm, "dvb_k7", radix=3)
+    llr = torch.zeros((2, conv.punctured_coded_len(30, "1/2", "k5")))
+    with pytest.raises(ValueError):               # 34 steps: not radix 4
+        viterbi.viterbi_decode_soft_kernel(llr, 30, "1/2", "k5", radix=4)
+    assert viterbi.viterbi_decode_soft_kernel(llr[:, :-4].contiguous(), 28,
+                                              "1/2", "k5",
+                                              radix=4).shape == (2, 28)
