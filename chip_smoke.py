@@ -25,7 +25,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    the single-symbol channel estimate does not carry QAM-16/64) at random
    gaps, 37 Hz CFO, fed to OfdmFrameStreamDemod in 20 000-sample chunks;
    all 4 payloads in order.
-6. Viterbi build: the Viterbi kernel's build time and ptxas report.
+6. Viterbi build: the Viterbi kernel's build time and ptxas report (each
+   kernel's registers, stack frame and spills), and for both radices at
+   3168 x 1216 the launch the wrapper makes (ops.viterbi.launch_plan: lanes
+   a block, resident blocks an SM by cudaOccupancyMaxActiveBlocksPer-
+   Multiprocessor, resident lanes an SM, waves).
 7. Viterbi kernel vs plain torch version, exact equality of bits on every
    lane: chunked dvb_k7 at the DVB-T decode operating point (3168 lanes =
    32 frames x 99 chunks, 1216 steps) on integer-valued and on normal float
@@ -39,7 +43,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    come back and the Viterbi launch count must rise. Three timed runs after
    a warm-up on the full batch; frames/s and Msps of the median (host clock
    around work that ends in torch.cuda.synchronize()), and modulate
-   frames/s.
+   frames/s. Phases 8-10 and 13-16 each count their Viterbi launches from 0
+   (warm-ups included, comparisons with the plain versions not).
 9. DVB-T single frame at an unknown offset: 777 leading zeros, 4 dB, payload
    seed 7, noise seed 8, through decode; payload and every TPS field.
 10. COFDM conv link batch: 64 frames of 300 bytes on a conv K=7 r1/2 +
@@ -64,9 +69,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    DvbTHierFrameDemod(device="cuda").decode with FORCE_RADIX4 off, then
    on. Every HP and LP payload and TPS word must come back in both, and
    each radix's launch count must rise; frames/s of the median of three
-   timed runs of each. Then one frame's HP and LP chunk batches, recorded
-   as the path hands them to the chunked decode, go through the radix-4
-   kernel and its plain version: exact on every lane.
+   timed runs of each. Then one frame's HP and LP chunk batches (99 and 150
+   lanes x 1216 steps), recorded as the path hands them to the chunked
+   decode, go through each radix's kernel and its plain version (exact on
+   every lane), and each radix is timed there with CUDA events.
 14. Super-frame: four full QPSK r1/2 GI 1/8 frames (cell id 0xBEEF) at
    12 dB through DvbTSuperFrameDemod.decode and .decode_batch: every
    payload byte and the 16-bit cell id.
@@ -81,9 +87,12 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    TPS and payloads.
 17. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
-   card from this run's inputs, no library call), the card's name and power
-   limit, then the result line {"ok": true, "device": {...}} last. Any
-   failure exits non-zero before it.
+   card from this run's inputs, no library call; for the Viterbi kernels
+   also the launches by phase, those on default paths, the resident lanes
+   an SM and waves at 3168 x 1216 and the times at phase 13's chunk
+   batches), the card's name and power limit, then the result line
+   {"ok": true, "device": {...}} last. Any failure exits non-zero before
+   it.
 
 Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its float32 operations
@@ -133,8 +142,39 @@ def fail(msg: str):
 
 def print_ptxas(built):
     for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            print("   ", line.split("'")[1] if "'" in line else line.strip())
+        elif "registers" in line or "smem" in line or "spill" in line:
             print("   ", line.strip())
+
+
+def zero_vit(viterbi):
+    """Sets both Viterbi wrappers' launch counts to 0."""
+    for fn in (viterbi.viterbi_chunks_kernel,
+               viterbi.viterbi_decode_soft_kernel):
+        fn.launches = 0
+        fn.launches_radix4 = 0
+
+
+def read_vit(viterbi):
+    """(radix-2, radix-4) launches of both wrappers since zero_vit."""
+    k, t = viterbi.viterbi_chunks_kernel, viterbi.viterbi_decode_soft_kernel
+    return k.launches + t.launches, k.launches_radix4 + t.launches_radix4
+
+
+def print_plans(viterbi):
+    """The launch each radix makes at the DVB-T batch: returns {radix:
+    plan}."""
+    plans = {}
+    for radix in (2, 4):
+        p = viterbi.launch_plan(VIT_LANES, VIT_SPAN, "dvb_k7", radix)
+        plans[radix] = p
+        print(f"  radix {radix} at {VIT_LANES} x {VIT_SPAN}: {p['warps']} "
+              f"lanes a block, {p['blocks_per_sm']} blocks an SM (occupancy "
+              f"query), {p['lanes_per_sm']} resident lanes an SM, "
+              f"{p['smem']} B shared memory a block, {p['sms']} SMs: "
+              f"{p['waves']} wave(s)")
+    return plans
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -494,9 +534,9 @@ def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
                      ).astype(np.complex64)
     iq_dev = torch.as_tensor(batch, device=dev)
     demod = P.DvbTFrameDemod(base, device=dev)
+    zero_vit(viterbi)
     demod.decode_batch(iq_dev, n_sym, n_bytes)       # warm-up
     torch.cuda.synchronize()
-    viterbi.viterbi_chunks_kernel.launches = 0
     secs = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -508,24 +548,23 @@ def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
                    for o, (params, data) in zip(out, frames))
         if good != n_frames:
             fail(f"DVB-T decode_batch {link}: {n_frames - good} frames lost")
-    n = viterbi.viterbi_chunks_kernel.launches
+    n = read_vit(viterbi)[0]
     if n <= 0:
         fail("the DVB-T path launched no Viterbi kernel")
     dt = sorted(secs)[1]
     print(f"  decode_batch: {n_frames}/{n_frames} payloads and TPS words in "
-          f"each of 3 runs, {n} Viterbi launches; runs "
+          f"each of 3 runs, {n} Viterbi launches (warm-up included); runs "
           f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
           f"{n_frames / dt:.4g} frames/s, {batch.size / dt / 1e6:.4g} Msps")
     return n
 
 
 def dvb_t_batch(P, viterbi, dev, rng):
-    """Phase 8: returns the Viterbi launch count of the QPSK main-path run."""
-    launches = dvb_t_run(P, viterbi, dev, rng, ("1/8", "qpsk", "1/2"),
-                         DVB_FRAMES, 6.0)
-    dvb_t_run(P, viterbi, dev, rng, ("1/8", "qam16", "3/4"), DVB_QAM_FRAMES,
-              15.0)
-    return launches
+    """Phase 8: returns the radix-2 Viterbi launches of both runs."""
+    return (dvb_t_run(P, viterbi, dev, rng, ("1/8", "qpsk", "1/2"),
+                      DVB_FRAMES, 6.0)
+            + dvb_t_run(P, viterbi, dev, rng, ("1/8", "qam16", "3/4"),
+                        DVB_QAM_FRAMES, 15.0))
 
 
 def dvb_t_unknown_offset(P, dev):
@@ -565,7 +604,7 @@ def cofdm_conv_batch(P, viterbi, dev, rng):
     batch = batch + ((rng.standard_normal(batch.shape)
                       + 1j * rng.standard_normal(batch.shape))
                      * np.sqrt(sig * 0.02 / 2)).astype(np.complex64)
-    viterbi.viterbi_decode_soft_kernel.launches = 0
+    zero_vit(viterbi)
     t0 = time.perf_counter()
     out = P.OfdmFrameDemod(cfg, table, device=dev).decode_batch(
         torch.as_tensor(batch, device=dev))
@@ -581,6 +620,7 @@ def cofdm_conv_batch(P, viterbi, dev, rng):
         fail(f"COFDM conv link: {COFDM_CONV_FRAMES - good} frames lost")
     if n <= 0:
         fail("the COFDM conv link launched no Viterbi kernel")
+    return n
 
 
 def radix4_vs_plain(viterbi, dev, rng):
@@ -724,8 +764,8 @@ def full_hier_payloads(P):
 
 
 def hier_link(P, viterbi, dev, rng):
-    """Phase 13: returns (the radix-4 launch count of the forced run, the
-    radix-4 kernel's largest |kernel − plain| bit on the path's chunks)."""
+    """Phase 13: returns (radix-2 launches of the default run, radix-4
+    launches of the forced run, then path_chunks' result)."""
     link, (n_hp, n_lp) = full_hier_payloads(P)
     frames = []
     for i in range(HIER_FRAMES):
@@ -746,14 +786,13 @@ def hier_link(P, viterbi, dev, rng):
     print(f"  {HIER_FRAMES} frames, HP {n_hp} B + LP {n_lp} B, {n_sym} "
           f"symbols; modulate {HIER_FRAMES / t_mod:.4g} frames/s")
     demod = P.DvbTHierFrameDemod(frames[0][0], device=dev)
-    launches4 = 0
+    counts = {}
     for forced in (False, True):
         viterbi.FORCE_RADIX4 = forced
         try:
+            zero_vit(viterbi)
             demod.decode(caps[0], n_sym, n_hp, n_lp)      # warm-up
             torch.cuda.synchronize()
-            viterbi.viterbi_chunks_kernel.launches = 0
-            viterbi.viterbi_chunks_kernel.launches_radix4 = 0
             secs = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -768,31 +807,30 @@ def hier_link(P, viterbi, dev, rng):
                 if good != HIER_FRAMES:
                     fail(f"hierarchical decode (radix 4 forced: {forced}): "
                          f"{HIER_FRAMES - good} frames lost")
+            n2, n4 = read_vit(viterbi)
         finally:
             viterbi.FORCE_RADIX4 = False
-        n2 = viterbi.viterbi_chunks_kernel.launches
-        n4 = viterbi.viterbi_chunks_kernel.launches_radix4
         if (n4 if forced else n2) <= 0 or (n2 if forced else n4) != 0:
             fail(f"hierarchical decode (radix 4 forced: {forced}) ran "
                  f"{n2} radix-2 and {n4} radix-4 launches")
-        if forced:
-            launches4 = n4
+        counts[forced] = n4 if forced else n2
         dt = sorted(secs)[1]
         print(f"  FORCE_RADIX4={forced}: {HIER_FRAMES}/{HIER_FRAMES} HP+LP "
               f"payloads and TPS words in each of 3 runs, {n2} radix-2 and "
-              f"{n4} radix-4 launches; runs "
+              f"{n4} radix-4 launches (warm-up included); runs "
               f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
               f"{HIER_FRAMES / dt:.4g} frames/s, {n_samp / dt / 1e6:.4g} Msps")
-    # the radix-4 kernel against its plain version on the chunk tensors this
-    # path gives it: one frame's HP and LP decodes, recorded as chunked
-    return launches4, radix4_on_path(P, viterbi, demod, caps[0], n_sym,
-                                     n_hp, n_lp)
+    # both kernels against their plain versions on the chunk tensors this
+    # path gives them: one frame's HP and LP decodes, recorded as chunked
+    return (counts[False], counts[True],
+            path_chunks(viterbi, demod, caps[0], n_sym, n_hp, n_lp))
 
 
-def radix4_on_path(P, viterbi, demod, cap, n_sym, n_hp, n_lp) -> float:
-    """Decodes ``cap`` once with conv.chunk_llrs recorded, then holds the
-    radix-4 kernel against its plain version (exact) on each recorded chunk
-    batch; returns the largest |kernel − plain| bit."""
+def path_chunks(viterbi, demod, cap, n_sym, n_hp, n_lp):
+    """Decodes ``cap`` once with conv.chunk_llrs recorded, then holds both
+    radices against their plain versions (exact) on each recorded chunk
+    batch and times each radix there with CUDA events. Returns ({radix:
+    largest |kernel − plain| bit}, {(plane, radix): ms}, {plane: lanes})."""
     from orion_sdr_tpu_torch.fec import conv
     seen = []
     real = conv.chunk_llrs
@@ -803,20 +841,27 @@ def radix4_on_path(P, viterbi, demod, cap, n_sym, n_hp, n_lp) -> float:
         conv.chunk_llrs = real
     if len(seen) != 2:
         fail(f"hierarchical decode made {len(seen)} chunked decodes, not 2")
-    max_err = 0.0
+    errs, times, lanes = {2: 0.0, 4: 0.0}, {}, {}
     for plane, (c0, c1, pm0, _) in zip(("HP", "LP"), seen):
-        got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=4)
-        want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7",
-                                                radix=4)
-        torch.cuda.synchronize()
-        err = float((got.int() - want.int()).abs().max())
-        max_err = max(max_err, err)
-        print(f"  {plane} chunks of one frame: {c0.shape[0]} lanes x "
-              f"{c0.shape[1]} steps, radix 4 max|kernel-plain|={err:g}")
-        if err != 0.0:
-            fail(f"radix-4 Viterbi on the {plane} chunks: kernel and plain "
-                 f"version differ")
-    return max_err
+        lanes[plane] = c0.shape[0]
+        for radix in (2, 4):
+            got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
+                                                radix=radix)
+            want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7",
+                                                    radix=radix)
+            torch.cuda.synchronize()
+            err = float((got.int() - want.int()).abs().max())
+            errs[radix] = max(errs[radix], err)
+            times[plane, radix] = cuda_ms(
+                lambda: viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
+                                                      radix=radix), reps=20)
+            print(f"  {plane} chunks of one frame: {c0.shape[0]} lanes x "
+                  f"{c0.shape[1]} steps, radix {radix} max|kernel-plain|="
+                  f"{err:g}, kernel {times[plane, radix]:.4f} ms")
+            if err != 0.0:
+                fail(f"radix-{radix} Viterbi on the {plane} chunks: kernel "
+                     f"and plain version differ")
+    return errs, times, lanes
 
 
 def add_noise(iq, snr_db, rng):
@@ -966,6 +1011,7 @@ def main() -> int:
 
     print(f"[6] built {vit_built.path} in {vit_built.seconds:.2f} s")
     print_ptxas(vit_built)
+    plans = print_plans(viterbi)
 
     print(f"[7] Viterbi kernel vs plain version (exact): chunked dvb_k7 "
           f"L={VIT_LANES} x {VIT_SPAN}, terminated 128 x 4096")
@@ -973,13 +1019,17 @@ def main() -> int:
 
     print(f"[8] DVB-T batch: {DVB_FRAMES} QPSK r1/2 GI 1/8 frames at 6 dB, "
           f"{DVB_QAM_FRAMES} 16-QAM r3/4 frames at 15 dB")
-    vit_launches = dvb_t_batch(P, viterbi, dev, rng)
+    # radix-2 launches of each phase that drives a decode path, counted from
+    # 0 just before it (comparisons with the plain versions are not counted)
+    r2_by_phase = {"8": dvb_t_batch(P, viterbi, dev, rng)}
 
     print("[9] DVB-T single frame at an unknown offset, 4 dB")
+    zero_vit(viterbi)
     dvb_t_unknown_offset(P, dev)
+    r2_by_phase["9"] = read_vit(viterbi)[0]
 
     print(f"[10] COFDM conv+RS link: {COFDM_CONV_FRAMES} frames x 300 B")
-    cofdm_conv_batch(P, viterbi, dev, rng)
+    r2_by_phase["10"] = cofdm_conv_batch(P, viterbi, dev, rng)
 
     print(f"[11] radix-4 Viterbi kernel vs plain version (exact): chunked "
           f"dvb_k7 L={VIT_LANES} x {VIT_SPAN}, terminated k5 128 x 4096")
@@ -992,26 +1042,46 @@ def main() -> int:
 
     print(f"[13] hierarchical link: {HIER_FRAMES} full 16-QAM a=2 GI 1/8 "
           f"frames, HP r1/2 + LP r3/4, radix 2 then radix 4")
-    r4_launches, hier_err = hier_link(P, viterbi, dev, rng)
-    r4_err = max(r4_err, hier_err)
+    r2_by_phase["13"], r4_launches, (path_err, path_ms, path_lanes) = \
+        hier_link(P, viterbi, dev, rng)
+    vit_err = max(vit_err, path_err[2])
+    r4_err = max(r4_err, path_err[4])
 
     print("[14] super-frame: 4 full QPSK r1/2 frames, 12 dB")
+    zero_vit(viterbi)
     super_frame(P, dev, rng)
+    r2_by_phase["14"] = read_vit(viterbi)[0]
 
     print(f"[15] streams: {STREAM_FRAMES} QPSK frames at random gaps < 2000 "
           f"samples, 10 dB, "
           f"{STREAM_CHUNK}-sample chunks; 2 hierarchical frames")
+    zero_vit(viterbi)
     streams(P, dev, rng)
+    r2_by_phase["15"] = read_vit(viterbi)[0]
 
     print("[16] blind decode: a plain and a hierarchical frame")
+    zero_vit(viterbi)
     blind(P, dev, rng)
+    r2_by_phase["16"] = read_vit(viterbi)[0]
+    print(f"  radix-2 Viterbi launches by phase: {r2_by_phase} (all on "
+          f"default paths); radix 4: {r4_launches} ([13], FORCE_RADIX4 on)")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              **extra):
         return {"name": name, "route": "cuda",
                 "source": f"orion_sdr_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                **extra}
+
+    def vit_extra(radix, by_phase, default):
+        plan = plans[radix]
+        return {"launches_by_phase": by_phase,
+                "default_path_launches": default,
+                "lanes_per_sm": plan["lanes_per_sm"], "waves": plan["waves"],
+                "ms_at_13": {f"{plane} {path_lanes[plane]}x{VIT_SPAN}":
+                             path_ms[plane, radix] for plane in ("HP", "LP")}}
 
     k_ms, p_ms = times["sum_product"]
     vit_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 2)
@@ -1024,11 +1094,13 @@ def main() -> int:
               "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
               edge_ms, edge_plain_ms, edge_bnd),
         entry("viterbi_acs_traceback", "viterbi.cu",
-              "orion_sdr_tpu/ops/viterbi.py:200", vit_launches, vit_err,
-              vit_ms, vit_plain_ms, vit_bnd),
+              "orion_sdr_tpu/ops/viterbi.py:200", sum(r2_by_phase.values()),
+              vit_err, vit_ms, vit_plain_ms, vit_bnd,
+              **vit_extra(2, r2_by_phase, sum(r2_by_phase.values()))),
         entry("viterbi_acs_traceback_radix4", "viterbi.cu",
               "orion_sdr_tpu/ops/viterbi.py:347", r4_launches, r4_err, r4_ms,
-              r4_plain_ms, r4_bnd)]}))
+              r4_plain_ms, r4_bnd,
+              **vit_extra(4, {"13": r4_launches}, 0))]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

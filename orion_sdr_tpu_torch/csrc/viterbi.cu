@@ -19,46 +19,68 @@
 //  as the plain torch version's separate tensor operations do, so the two
 //  agree bit for bit on any float input.
 //
-// What bounds it on this card: latency. Each lane (a codeword, or one chunk
-// of a stream) is a chain of T dependent steps (gather predecessors, add,
-// compare, select, and in chunked mode a 64-way max), so a lane's time is T
-// times one step's latency, and the card is filled only by the number of
-// lanes in flight. Device memory sees the LLRs once and the bits once.
-//
-// Design: one warp per lane. Thread j owns butterfly j: predecessor states
-// 2j and 2j+1 feed next states j and j + S/2, so for S = 64 every thread
-// updates two states per step, keeping their metrics in registers and
-// fetching the predecessors' with __shfl_sync. The warp loads 32 steps of
-// LLRs at a time, coalesced, and broadcasts one step's pair per step by
-// shuffle. Each step's survivor bits are two __ballot_sync words (8 bytes a
-// step), kept in shared memory (9.7 KB a lane at T = 1216), or in a global
-// scratch buffer when a trellis is too long for shared memory. One thread
-// walks the traceback and leaves each step's bit in the decision slot it
-// has just read; the warp then writes the bits out coalesced. Lanes are
-// independent, so short blocks of a few warps keep many lanes resident per
-// SM to hide the step latency. For k5 (S = 16) only 8 threads of the warp
-// are busy.
-//
-// The TPU kernel's one-hot MXU products, interleaved (8, B) LLR plane, bf16
-// LLRs, VMEM budget and lane padding have no counterpart here.
-//
 // Radix 4 replaces orion_sdr_tpu/ops/viterbi.py:347 _make_kernel4: four
-// trellis steps a phase. In the shift-register convention the 16
-// predecessors of state ns four steps back are the contiguous block
-// base + idx, base = (ns << 4) & (S-1), idx = z1 + 2 z2 + 4 z3 + 8 z4 (z1
-// the first step's decision). Both states j and j + S/2 of thread j share
-// that block, so each phase the warp stages its metrics in shared memory
-// (S floats) and every thread reads its 16 predecessors once. Step i's
-// branch value is s = l0 + l1 or d = l0 - l1, negated by the coded bits of
-// the window X >> i, X = (ns << 4) | idx (patterns precomputed per thread,
-// one byte a candidate); candidate = pm[pred] + ((v0 + v1) + (v2 + v3)).
-// A four-level select tree (pairs adjacent in idx first: z1, then z2, z3,
-// z4; the upper one only where strictly greater) gives the survivor and its
-// 4-bit decision, kept as four ballot words per state half; the maximum is
-// subtracted once a phase in both modes. The traceback reads one 4-bit
-// decision a phase and emits four bits (the state's top four bits). The
-// plain torch version (ops/viterbi.py::_acs_traceback4) does the same
-// float operations in the same order.
+// trellis steps a phase, T % 4 == 0, S >= 16. The 16 predecessors of state
+// ns four steps back are the contiguous block base + idx, base = (ns << 4) &
+// (S-1), idx = z1 + 2 z2 + 4 z3 + 8 z4 (z1 the first step's decision); a
+// candidate is pm[base + idx] + ((v0 + v1) + (v2 + v3)), step i's value v_i
+// being s = l0 + l1 or d = l0 - l1, negated as the coded bits say; a
+// four-level select tree (pairs adjacent in idx first: z1, then z2, z3, z4;
+// the upper one only where strictly greater) gives the survivor and its
+// 4-bit decision; the maximum is subtracted once a phase in both modes. The
+// plain version is ops/viterbi.py::_acs_traceback4.
+//
+// What bounds them on this card: latency and instruction slots, not bytes. A
+// lane (a codeword, or one chunk of a stream) is a chain of T dependent steps;
+// device memory sees the LLRs once and the bits once. So a lane's time is
+// its step chain, and the card's time is the lanes in flight times the
+// instructions each step runs (PERF.md: both kernels at a few % of the
+// operation bound). The first design (one warp per lane, a 5-level shuffle
+// maximum a step, every decision word a ballot; radix 4 with 16-wide value
+// and index arrays a thread, 254 registers) spent its time in the shuffle
+// chains, in the per-candidate branch sums of radix 4 and in too few
+// resident lanes. This design:
+//  * keeps one warp per lane; thread j owns states j and j + S/2; the idle
+//    threads of K < 7 repeat an active thread's work exactly, so nothing
+//    has to be masked out of a maximum;
+//  * takes each renormalising maximum with one __reduce_max_sync (redux.sync)
+//    on an order-preserving integer image of the float (the bits where the
+//    sign is clear, else the bits ^ 0x7fffffff). It equals the shuffle
+//    chain's maximum for every non-NaN value but for +0.0 against -0.0, which
+//    '>' compares as equal: no decision and no traceback start changes;
+//  * radix 2 passes the metrics through a shared copy (two buffers, one
+//    __syncwarp a step; each thread reads its two predecessors as one 8-byte
+//    load) and the LLR pairs of each 32-step block through another, and
+//    forms the four candidates from two products instead of eight
+//    (generators that tap both end stages);
+//  * keeps each thread's own decision bits in registers over a block of 32
+//    steps (radix 2: one word a state; radix 4: a nibble a state and phase,
+//    four phases a word) and stores them once a block, coalesced, instead
+//    of ballots every step. Radix 2 keeps its first four blocks' words in
+//    registers for the whole lane, so a lane of 1216 steps takes 9472 B of
+//    shared memory and 24 lanes fit on an SM: the DVB-T batch (3168 lanes)
+//    runs in one wave;
+//  * radix 4 builds the lane's table of the 256 four-step sums once a phase
+//    (8 entries a thread, each one add of two pair sums v0 + v1 and
+//    v2 + v3 taken from the warp by shuffle), so a candidate is one shared
+//    load and one add; the table's addresses (ops/viterbi.py::
+//    radix4_sum_table, built on the host) are a GF(2) image of the pattern
+//    chosen so that no load of the warp meets a bank conflict; the select
+//    tree runs as a stream, merging each finished pair at once (a stack of
+//    depth 4), over the 16 predecessor metrics read as four 16-byte loads
+//    from a padded staging copy: no stack frame, registers for 16 resident
+//    lanes a SM;
+//  * the traceback is walked by all 32 threads of the warp together on the
+//    same state (broadcast loads), thread j keeping the bit of step j of the
+//    current 32-step block and writing it out when the block is done;
+//  * the launch picks its block size from cudaOccupancyMaxActiveBlocksPer-
+//    Multiprocessor (viterbi_launch_plan), and spreads a small batch one
+//    lane a block over the SMs, where only one lane's latency counts.
+// Decisions go to a global scratch buffer instead of shared memory when a
+// trellis is too long for it (ops/viterbi.py::MAX_SMEM_STEPS).
+//
+// The TPU kernels' one-hot MXU products, interleaved (8, B) LLR plane, bf16
+// LLRs, VMEM budget and lane padding have no counterpart here.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,45 +90,84 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1.0e30f;
-// target shared memory per block: a few warps' decision planes
-constexpr size_t kSmemTarget = 24 * 1024;
+constexpr int kMaxWarps = 8;
+// radix 4, per warp: two 256-float sum tables, two padded 64-state staging
+// copies (72 floats: 4 floats of padding after each 32 states) and the LLR
+// pairs of a 32-step block
+constexpr int kR4WarpFloats = 2 * 256 + 2 * 72 + 64;
 
-struct Signs {
-    float a[2][2];  // sign of coded bit 0, [half][z]
-    float b[2][2];  // sign of coded bit 1
-};
+// order-preserving integer image of a float (non-NaN), and back
+__device__ __forceinline__ int ord_key(float x) {
+    const int i = __float_as_int(x);
+    return i >= 0 ? i : i ^ 0x7fffffff;
+}
 
+__device__ __forceinline__ float key_float(int k) {
+    return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+    return key_float(__reduce_max_sync(kFull, ord_key(x)));
+}
+
+// argmax over the warp's states, lowest state index on ties (chunked start)
+__device__ __forceinline__ int warp_argmax(float lo, float hi, int j, int H,
+                                           bool active) {
+    float v = active ? lo : -INFINITY;
+    int idx = active ? j : 2 * H;
+    if (active && hi > v) {
+        v = hi;
+        idx = j + H;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, v, off);
+        const int oi = __shfl_xor_sync(kFull, idx, off);
+        if (ov > v || (ov == v && oi < idx)) {
+            v = ov;
+            idx = oi;
+        }
+    }
+    return idx;
+}
+
+// Radix 2: decision blocks kept in registers for the whole lane, and the
+// per-warp staging floats (the LLR pairs of a 32-step block, two copies of
+// the 64 metrics)
+constexpr int kKeepBlocks = 4;
+constexpr int kR2StageFloats = 64 + 2 * 64;
+
+// one radix-2 step on the metrics staged in buf: new metrics of states jj
+// (lo) and jj + H (hi), decisions d_lo and d_hi. sa, sb: the signs of coded
+// bits 0 and 1 on branch (half 0, z 0). Both generators tap the first and
+// the last stage (end_taps), so branch (1, 1) has the same signs and
+// branches (0, 1) and (1, 0) the opposite ones: two products serve the four
+// candidates, and p + (-x) rounds as p - x.
 template <bool CHUNKED>
-__device__ __forceinline__ void acs_step(float la, float lb, const Signs& sg,
-                                         int src0, int src1, bool slot,
-                                         unsigned hmask, bool active,
-                                         float& pm_lo, float& pm_hi,
-                                         uint2* dec_t, bool writer) {
-    // predecessor metrics pm[2j] and pm[2j+1]
-    const float x_lo = __shfl_sync(kFull, pm_lo, src0);
-    const float x_hi = __shfl_sync(kFull, pm_hi, src0);
-    const float y_lo = __shfl_sync(kFull, pm_lo, src1);
-    const float y_hi = __shfl_sync(kFull, pm_hi, src1);
-    const float p0 = slot ? x_hi : x_lo;
-    const float p1 = slot ? y_hi : y_lo;
-    const float c0 = (p0 + sg.a[0][0] * la) + sg.b[0][0] * lb;
-    const float c1 = (p1 + sg.a[0][1] * la) + sg.b[0][1] * lb;
-    const float e0 = (p0 + sg.a[1][0] * la) + sg.b[1][0] * lb;
-    const float e1 = (p1 + sg.a[1][1] * la) + sg.b[1][1] * lb;
-    const bool d_lo = c1 > c0;
-    const bool d_hi = e1 > e0;
+__device__ __forceinline__ void r2_step(float2 l, float* buf, int j, int H,
+                                        bool active, float sa, float sb,
+                                        float& pm_lo, float& pm_hi,
+                                        bool& d_lo, bool& d_hi) {
+    if (active) {
+        buf[j] = pm_lo;
+        buf[j + H] = pm_hi;
+    }
+    __syncwarp();
+    // predecessors pm[2jj] and pm[2jj + 1]
+    const float2 p = reinterpret_cast<const float2*>(buf)[j & (H - 1)];
+    const float u = sa * l.x;
+    const float v = sb * l.y;
+    const float c0 = (p.x + u) + v;
+    const float c1 = (p.y - u) - v;
+    const float e0 = (p.x - u) - v;
+    const float e1 = (p.y + u) + v;
+    d_lo = c1 > c0;
+    d_hi = e1 > e0;
     float n_lo = d_lo ? c1 : c0;
     float n_hi = d_hi ? e1 : e0;
-    const unsigned w_lo = __ballot_sync(kFull, d_lo) & hmask;
-    const unsigned w_hi = __ballot_sync(kFull, d_hi) & hmask;
-    if (writer) *dec_t = make_uint2(w_lo, w_hi);
     if (CHUNKED) {
-        float m = active ? (n_hi > n_lo ? n_hi : n_lo) : -INFINITY;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float o = __shfl_xor_sync(kFull, m, off);
-            m = o > m ? o : m;
-        }
+        // idle threads (K < 7) hold copies of active ones: no masking
+        const float m = warp_max(fmaxf(n_lo, n_hi));
         n_lo = n_lo - m;
         n_hi = n_hi - m;
     }
@@ -114,124 +175,135 @@ __device__ __forceinline__ void acs_step(float la, float lb, const Signs& sg,
     pm_hi = n_hi;
 }
 
+// Radix 2. Thread j runs butterfly jj = j & (H-1): predecessors 2jj, 2jj + 1,
+// next states jj (lo) and jj + H (hi); threads j >= H (K < 7) repeat thread
+// jj exactly and write nothing. Each step the metrics go through a shared
+// copy (two buffers, one __syncwarp a step) and each thread reads its two
+// predecessors as one 8-byte load. Decisions: per 32-step block, thread j's
+// words (bit i = step 32 b + i) for states j (x) and j + H (y); blocks 0-3
+// stay in registers, block b >= 4 sits at dec[(b - 4) * 32 + j].
 template <bool CHUNKED>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 3)
 viterbi_kernel(const float* __restrict__ l0, const float* __restrict__ l1,
                long long ld, int es, const float* __restrict__ pm0, int L,
                int T, int K, int g0, int g1, uint8_t* __restrict__ bits,
                uint2* __restrict__ dec_global) {
-    extern __shared__ uint2 s_dec[];
+    extern __shared__ float4 s_mem2[];
+    const int warps = blockDim.x >> 5;
     const int warp = threadIdx.x >> 5;
     const int j = threadIdx.x & 31;
-    const int lane = blockIdx.x * (blockDim.x >> 5) + warp;
+    const int lane = blockIdx.x * warps + warp;
     if (lane >= L) return;  // whole warps leave; no block-wide barrier below
 
     const int top = K - 2;
     const int H = 1 << top;  // butterflies = S/2
     const int S = 2 * H;
+    const int jj = j & (H - 1);
     const bool active = j < H;
-    const unsigned hmask = H >= 32 ? kFull : ((1u << H) - 1u);
-    uint2* dec = dec_global ? dec_global + static_cast<size_t>(lane) * T
-                            : s_dec + static_cast<size_t>(warp) * T;
+    const int nblk = (T + 31) >> 5;
+    const int nsh = nblk > kKeepBlocks ? nblk - kKeepBlocks : 0;
+    float* s_llr = reinterpret_cast<float*>(s_mem2) + warp * kR2StageFloats;
+    float* s_pm = s_llr + 64;
+    uint2* dec = dec_global
+        ? dec_global + static_cast<size_t>(lane) * nblk * 32
+        : reinterpret_cast<uint2*>(reinterpret_cast<float*>(s_mem2)
+                                   + warps * kR2StageFloats)
+              + static_cast<size_t>(warp) * nsh * 32;
 
-    // butterfly j: predecessors p = 2j + z; next states j (half 0) and j + H
-    // (half 1); state s lives in thread s & (H-1), slot s >= H
-    Signs sg;
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int z = 0; z < 2; ++z) {
-            const int p = (2 * j + z) & (S - 1);
-            const int window = (half << (K - 1)) | p;
-            sg.a[half][z] = 1.0f - 2.0f * static_cast<float>(__popc(window & g0) & 1);
-            sg.b[half][z] = 1.0f - 2.0f * static_cast<float>(__popc(window & g1) & 1);
-        }
-    const int src0 = (2 * j) & (H - 1);
-    const int src1 = (2 * j + 1) & (H - 1);
-    const bool slot = ((2 * j) & (S - 1)) >= H;
+    const float sa = 1.0f - 2.0f * static_cast<float>(__popc((2 * jj) & g0) & 1);
+    const float sb = 1.0f - 2.0f * static_cast<float>(__popc((2 * jj) & g1) & 1);
 
     float pm_lo, pm_hi;
     if (CHUNKED) {
         const float* row = pm0 + static_cast<size_t>(lane) * S;
-        pm_lo = active ? row[j] : 0.0f;
-        pm_hi = active ? row[j + H] : 0.0f;
+        pm_lo = row[jj];
+        pm_hi = row[jj + H];
     } else {
-        pm_lo = j == 0 ? 0.0f : kNeg;
+        pm_lo = jj == 0 ? 0.0f : kNeg;
         pm_hi = kNeg;
     }
 
     const float* r0 = l0 + static_cast<size_t>(lane) * ld;
     const float* r1 = l1 + static_cast<size_t>(lane) * ld;
-    for (int t0 = 0; t0 < T; t0 += 32) {
+    float2* sl = reinterpret_cast<float2*>(s_llr);
+    uint2 k0 = make_uint2(0u, 0u), k1 = k0, k2 = k0, k3 = k0;
+    for (int b = 0; b < nblk; ++b) {
+        const int t0 = b << 5;
         const int t = t0 + j;
         const float a = t < T ? r0[static_cast<size_t>(t) * es] : 0.0f;
-        const float b = t < T ? r1[static_cast<size_t>(t) * es] : 0.0f;
-        if (t0 + 32 <= T) {
+        const float c = t < T ? r1[static_cast<size_t>(t) * es] : 0.0f;
+        __syncwarp();  // every thread has read the previous block's pairs
+        sl[j] = make_float2(a, c);
+        __syncwarp();
+        const int n = T - t0 < 32 ? T - t0 : 32;
+        unsigned w_lo = 0u, w_hi = 0u;
 #pragma unroll 8
-            for (int i = 0; i < 32; ++i)
-                acs_step<CHUNKED>(__shfl_sync(kFull, a, i),
-                                  __shfl_sync(kFull, b, i), sg, src0, src1,
-                                  slot, hmask, active, pm_lo, pm_hi,
-                                  dec + t0 + i, j == 0);
-        } else {
-            for (int i = 0; i < T - t0; ++i)
-                acs_step<CHUNKED>(__shfl_sync(kFull, a, i),
-                                  __shfl_sync(kFull, b, i), sg, src0, src1,
-                                  slot, hmask, active, pm_lo, pm_hi,
-                                  dec + t0 + i, j == 0);
+        for (int i = 0; i < n; ++i) {
+            bool d_lo, d_hi;
+            r2_step<CHUNKED>(sl[i], s_pm + (i & 1) * 64, j, H, active, sa, sb,
+                             pm_lo, pm_hi, d_lo, d_hi);
+            w_lo |= static_cast<unsigned>(d_lo) << i;
+            w_hi |= static_cast<unsigned>(d_hi) << i;
+        }
+        const uint2 w = make_uint2(w_lo, w_hi);
+        switch (b) {
+            case 0: k0 = w; break;
+            case 1: k1 = w; break;
+            case 2: k2 = w; break;
+            case 3: k3 = w; break;
+            default: dec[(b - kKeepBlocks) * 32 + j] = w;
         }
     }
 
-    int state = 0;
-    if (CHUNKED) {
-        // argmax of the final metrics, lowest state index on ties
-        float v = active ? pm_lo : -INFINITY;
-        int idx = active ? j : S;
-        if (active && pm_hi > v) {
-            v = pm_hi;
-            idx = j + H;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(kFull, v, off);
-            const int oi = __shfl_xor_sync(kFull, idx, off);
-            if (ov > v || (ov == v && oi < idx)) {
-                v = ov;
-                idx = oi;
+    int state = CHUNKED ? warp_argmax(pm_lo, pm_hi, j, H, active) : 0;
+    __syncwarp();  // the block words above, before every thread reads them
+
+    // traceback by the whole warp on one state; thread j keeps the bit of
+    // step 32 b + j and writes it when block b is done
+    uint8_t* out = bits + static_cast<size_t>(lane) * T;
+    const unsigned* dw = reinterpret_cast<const unsigned*>(dec);
+    for (int b = nblk - 1; b >= 0; --b) {
+        const int n = T - (b << 5) < 32 ? T - (b << 5) : 32;
+        uint8_t mine = 0;
+        if (b >= kKeepBlocks) {
+            const unsigned* blk = dw + (b - kKeepBlocks) * 64;
+            for (int i = n - 1; i >= 0; --i) {
+                const int low = state & (H - 1);
+                const unsigned word = blk[2 * low + (state >= H)];
+                if (i == j) mine = static_cast<uint8_t>(state >> top);
+                state = (low << 1) | static_cast<int>((word >> i) & 1u);
+            }
+        } else {
+            const uint2 kb = b == 0 ? k0 : b == 1 ? k1 : b == 2 ? k2 : k3;
+            for (int i = n - 1; i >= 0; --i) {
+                const int low = state & (H - 1);
+                // state is the same in every thread: all pick one register
+                const unsigned word = __shfl_sync(kFull, state >= H ? kb.y : kb.x,
+                                                  low);
+                if (i == j) mine = static_cast<uint8_t>(state >> top);
+                state = (low << 1) | static_cast<int>((word >> i) & 1u);
             }
         }
-        state = idx;
+        if (j < n) out[(b << 5) + j] = mine;
     }
-
-    // traceback by thread 0, which also wrote every decision word; the bit
-    // of step t goes to the first byte of the slot it has just consumed
-    if (j == 0) {
-        for (int t = T - 1; t >= 0; --t) {
-            const uint2 w = dec[t];
-            const int low = state & (H - 1);
-            const unsigned word = state >= H ? w.y : w.x;
-            const int z = static_cast<int>((word >> low) & 1u);
-            reinterpret_cast<uint8_t*>(dec + t)[0] =
-                static_cast<uint8_t>(state >> top);
-            state = (low << 1) | z;
-        }
-    }
-    __syncwarp();
-    uint8_t* out = bits + static_cast<size_t>(lane) * T;
-    for (int t = j; t < T; t += 32)
-        out[t] = reinterpret_cast<const uint8_t*>(dec + t)[0];
 }
 
-// Radix 4. Decisions: per phase two uint4 (state half 0, half 1), word k
-// holding bit k of every state's 4-bit decision; the traceback leaves the
-// phase's four output bits in the first four bytes of its first uint4.
+// padded staging address of state s: 4 floats after each 32 states, so the
+// 16-byte loads of the four predecessor bases (0, 16, 32, 48) of a quarter
+// warp fall in distinct banks
+__device__ __forceinline__ int r4_pad(int s) { return s + ((s >> 5) << 2); }
+
+// Radix 4. Decisions: per group of four phases, thread j's word holds one
+// byte a phase (byte g & 3): the 4-bit decision of state j in the low
+// nibble, of state j + H in the high one; group q sits at dec[q * 32 + j].
 template <bool CHUNKED>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 2)
 viterbi4_kernel(const float* __restrict__ l0, const float* __restrict__ l1,
                 long long ld, int es, const float* __restrict__ pm0, int L,
-                int T, int K, int g0, int g1, uint8_t* __restrict__ bits,
-                uint4* __restrict__ dec_global) {
-    extern __shared__ uint4 s_mem[];
+                int T, int K, const uint8_t* __restrict__ index,
+                const uint8_t* __restrict__ spec, uint8_t* __restrict__ bits,
+                unsigned* __restrict__ dec_global) {
+    extern __shared__ float4 s_mem[];
     const int warps = blockDim.x >> 5;
     const int warp = threadIdx.x >> 5;
     const int j = threadIdx.x & 31;
@@ -242,222 +314,320 @@ viterbi4_kernel(const float* __restrict__ l0, const float* __restrict__ l1,
     const int H = 1 << top;
     const int S = 2 * H;
     const int T4 = T >> 2;
+    const int ngrp = (T4 + 3) >> 2;
     const bool active = j < H;
-    const unsigned hmask = H >= 32 ? kFull : ((1u << H) - 1u);
-    // shared memory: [warps][64] metric staging, then (shared mode) the
-    // decision planes [warps][2 * T4]
-    float* s_pm = reinterpret_cast<float*>(s_mem) + warp * 64;
-    uint4* dec = dec_global
-        ? dec_global + static_cast<size_t>(lane) * 2 * T4
-        : s_mem + warps * 16 + static_cast<size_t>(warp) * 2 * T4;
+    float* s_tab = reinterpret_cast<float*>(s_mem) + warp * kR4WarpFloats;
+    float* s_pm = s_tab + 2 * 256;
+    float2* sl = reinterpret_cast<float2*>(s_pm + 2 * 72);
+    unsigned* dec = dec_global
+        ? dec_global + static_cast<size_t>(lane) * (((T + 31) >> 5) * 64)
+        : reinterpret_cast<unsigned*>(s_mem) + warps * kR4WarpFloats
+              + static_cast<size_t>(warp) * ngrp * 32;
 
-    // per candidate of each state half, the branch pattern of its four
-    // steps: bit 2i = step i uses d (else s), bit 2i+1 = negated
-    uint32_t pat[2][4];
-    const int base = (j << 4) & (S - 1);
-    const int wmask = (1 << K) - 1;
+    // this thread's table entries j + 32 k: their pattern bytes; its states'
+    // candidate addresses (16 bytes a state; idle threads of K = 5 repeat an
+    // active thread's)
+    unsigned sp[2];
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+    for (int h = 0; h < 2; ++h) {
+        sp[h] = 0u;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            uint32_t w = 0;
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int idx = 4 * q + r;
-                const int x = ((j + half * H) << 4) | idx;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int win = (x >> i) & wmask;
-                    const uint32_t ca = __popc(win & g0) & 1;
-                    const uint32_t cb = __popc(win & g1) & 1;
-                    w |= ((ca ^ cb) | (ca << 1)) << (8 * r + 2 * i);
-                }
-            }
-            pat[half][q] = w;
-        }
+        for (int k = 0; k < 4; ++k)
+            sp[h] |= static_cast<unsigned>(spec[j + 32 * (4 * h + k)]) << (8 * k);
+    }
+    const int row = j & (H - 1);
+    const uint4 ix_lo = reinterpret_cast<const uint4*>(index)[row];
+    const uint4 ix_hi = reinterpret_cast<const uint4*>(index)[row + H];
+    const int base = r4_pad((j << 4) & (S - 1));
+    // the pair sum this thread builds: steps 0-1 (j < 16) or 2-3, pattern
+    // nibble j & 15 (bit 0 = first step's d, 1 = its sign, 2-3 the second's)
+    const int nib = j & 15;
+    const int pair = (j >> 4) << 1;
 
+    // idle threads (K < 7) repeat thread row exactly and write nothing
     float pm_lo, pm_hi;
     if (CHUNKED) {
-        const float* row = pm0 + static_cast<size_t>(lane) * S;
-        pm_lo = active ? row[j] : 0.0f;
-        pm_hi = active ? row[j + H] : 0.0f;
+        const float* r = pm0 + static_cast<size_t>(lane) * S;
+        pm_lo = r[row];
+        pm_hi = r[row + H];
     } else {
-        pm_lo = j == 0 ? 0.0f : kNeg;
+        pm_lo = row == 0 ? 0.0f : kNeg;
         pm_hi = kNeg;
     }
 
     const float* r0 = l0 + static_cast<size_t>(lane) * ld;
     const float* r1 = l1 + static_cast<size_t>(lane) * ld;
+    unsigned word = 0u;
     for (int t0 = 0; t0 < T; t0 += 32) {
         const int t = t0 + j;
         const float a = t < T ? r0[static_cast<size_t>(t) * es] : 0.0f;
-        const float b = t < T ? r1[static_cast<size_t>(t) * es] : 0.0f;
+        const float c = t < T ? r1[static_cast<size_t>(t) * es] : 0.0f;
         const int phases = (T - t0 >= 32 ? 32 : T - t0) >> 2;
+        __syncwarp();  // every thread has read the previous block's pairs
+        sl[j] = make_float2(a, c);
+        __syncwarp();
         for (int ph = 0; ph < phases; ++ph) {
-            float sv[4], dv[4];
+            const int g = (t0 >> 2) + ph;
+            // pair sum v_first + v_second of this thread's nibble
+            const float4 ll = *reinterpret_cast<const float4*>(sl + 4 * ph + pair);
+            const float la0 = ll.x, lb0 = ll.y, la1 = ll.z, lb1 = ll.w;
+            float v0 = (nib & 1) ? la0 - lb0 : la0 + lb0;
+            float v1 = (nib & 4) ? la1 - lb1 : la1 + lb1;
+            v0 = (nib & 2) ? -v0 : v0;
+            v1 = (nib & 8) ? -v1 : v1;
+            const float q = v0 + v1;
+            // table entries j + 32 k: (v0 + v1) + (v2 + v3) of their pattern
+            float* tab = s_tab + (g & 1) * 256;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float la = __shfl_sync(kFull, a, 4 * ph + i);
-                const float lb = __shfl_sync(kFull, b, 4 * ph + i);
-                sv[i] = la + lb;
-                dv[i] = la - lb;
+            for (int k = 0; k < 8; ++k) {
+                const unsigned p = (sp[k >> 2] >> (8 * (k & 3))) & 0xffu;
+                const float lo = __shfl_sync(kFull, q, p & 15u);
+                const float hi = __shfl_sync(kFull, q, 16u + (p >> 4));
+                tab[j + 32 * k] = lo + hi;
             }
-            __syncwarp();
+            float* stg = s_pm + (g & 1) * 72;
             if (active) {
-                s_pm[j] = pm_lo;
-                s_pm[j + H] = pm_hi;
+                stg[r4_pad(j)] = pm_lo;
+                stg[r4_pad(j + H)] = pm_hi;
             }
             __syncwarp();
             float p[16];
 #pragma unroll
-            for (int k = 0; k < 16; ++k) p[k] = s_pm[base + k];
-
+            for (int k = 0; k < 4; ++k) {
+                const float4 v = *reinterpret_cast<const float4*>(stg + base + 4 * k);
+                p[4 * k] = v.x;
+                p[4 * k + 1] = v.y;
+                p[4 * k + 2] = v.z;
+                p[4 * k + 3] = v.w;
+            }
+            // select trees of both states, streamed in idx order: a pending
+            // winner per level; the upper one wins only where strictly greater
             float nv[2];
             int nd[2];
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                float val[16];
-                int idx[16];
+            for (int h = 0; h < 2; ++h) {
+                const uint4 ix = h ? ix_hi : ix_lo;
+                const unsigned iw[4] = {ix.x, ix.y, ix.z, ix.w};
+                float sv[4];
+                int si[4];
 #pragma unroll
                 for (int k = 0; k < 16; ++k) {
-                    const uint32_t w = pat[half][k >> 2] >> (8 * (k & 3));
-                    float v[4];
+                    const unsigned e = (iw[k >> 2] >> (8 * (k & 3))) & 0xffu;
+                    float v = p[k] + tab[e];
+                    int id = k;
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float m = (w >> (2 * i)) & 1u ? dv[i] : sv[i];
-                        v[i] = (w >> (2 * i + 1)) & 1u ? -m : m;
+                    for (int lv = 0; lv < 4; ++lv) {
+                        if (((k >> lv) & 1) == 0) {
+                            sv[lv] = v;
+                            si[lv] = id;
+                            break;
+                        }
+                        const bool up = v > sv[lv];
+                        v = up ? v : sv[lv];
+                        id = up ? id : si[lv];
                     }
-                    val[k] = p[k] + ((v[0] + v[1]) + (v[2] + v[3]));
-                    idx[k] = k;
+                    if (k == 15) {
+                        nv[h] = v;
+                        nd[h] = id;
+                    }
                 }
-#pragma unroll
-                for (int n = 8; n >= 1; n >>= 1)
-#pragma unroll
-                    for (int k = 0; k < n; ++k) {
-                        const bool up = val[2 * k + 1] > val[2 * k];
-                        val[k] = up ? val[2 * k + 1] : val[2 * k];
-                        idx[k] = up ? idx[2 * k + 1] : idx[2 * k];
-                    }
-                nv[half] = val[0];
-                nd[half] = idx[0];
             }
-            const int g = (t0 >> 2) + ph;
-            unsigned wl[4], wh[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                wl[k] = __ballot_sync(kFull, (nd[0] >> k) & 1) & hmask;
-                wh[k] = __ballot_sync(kFull, (nd[1] >> k) & 1) & hmask;
+            word |= static_cast<unsigned>(nd[0] | (nd[1] << 4)) << (8 * (g & 3));
+            if ((g & 3) == 3 || g == T4 - 1) {
+                dec[(g >> 2) * 32 + j] = word;
+                word = 0u;
             }
-            if (j == 0) {
-                dec[2 * g] = make_uint4(wl[0], wl[1], wl[2], wl[3]);
-                dec[2 * g + 1] = make_uint4(wh[0], wh[1], wh[2], wh[3]);
-            }
-            float m = active ? (nv[1] > nv[0] ? nv[1] : nv[0]) : -INFINITY;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                const float o = __shfl_xor_sync(kFull, m, off);
-                m = o > m ? o : m;
-            }
+            const float m = warp_max(fmaxf(nv[0], nv[1]));
             pm_lo = nv[0] - m;
             pm_hi = nv[1] - m;
         }
     }
 
-    int state = 0;
-    if (CHUNKED) {
-        float v = active ? pm_lo : -INFINITY;
-        int idx = active ? j : S;
-        if (active && pm_hi > v) {
-            v = pm_hi;
-            idx = j + H;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(kFull, v, off);
-            const int oi = __shfl_xor_sync(kFull, idx, off);
-            if (ov > v || (ov == v && oi < idx)) {
-                v = ov;
-                idx = oi;
-            }
-        }
-        state = idx;
-    }
-
-    if (j == 0) {
-        for (int g = T4 - 1; g >= 0; --g) {
-            const uint4 w = dec[2 * g + (state >= H ? 1 : 0)];
-            const int low = state & (H - 1);
-            const int d = static_cast<int>(((w.x >> low) & 1u)
-                                           | (((w.y >> low) & 1u) << 1)
-                                           | (((w.z >> low) & 1u) << 2)
-                                           | (((w.w >> low) & 1u) << 3));
-            uint8_t* o = reinterpret_cast<uint8_t*>(dec + 2 * g);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                o[3 - i] = static_cast<uint8_t>((state >> (top - i)) & 1);
-            state = ((state << 4) | d) & (S - 1);
-        }
-    }
+    int state = CHUNKED ? warp_argmax(pm_lo, pm_hi, j, H, active) : 0;
     __syncwarp();
+
+    // traceback by the whole warp on one state: each phase reads one nibble
+    // and emits four bits (the state's top four); thread j keeps the bit of
+    // step 32 b + j and writes it when block b is done
     uint8_t* out = bits + static_cast<size_t>(lane) * T;
-    for (int t = j; t < T; t += 32)
-        out[t] = reinterpret_cast<const uint8_t*>(dec + 2 * (t >> 2))[t & 3];
+    uint8_t mine = 0;
+    for (int g = T4 - 1; g >= 0; --g) {
+        const int low = state & (H - 1);
+        const unsigned w = dec[(g >> 2) * 32 + low];
+        const int d = static_cast<int>(
+            (w >> (8 * (g & 3) + (state >= H ? 4 : 0))) & 15u);
+        const int r = j - ((4 * g) & 31);  // this thread's step is 4 g + r
+        if (r >= 0 && r < 4)
+            mine = static_cast<uint8_t>((state >> (top - 3 + r)) & 1);
+        state = ((state << 4) | d) & (S - 1);
+        if ((g & 7) == 0) {
+            const int tb = 4 * g;
+            if (tb + j < T) out[tb + j] = mine;
+        }
+    }
+}
+
+struct Plan {
+    int warps;          // lanes (warps) a block
+    int blocks_per_sm;  // resident blocks an SM, from the occupancy query
+    size_t smem;        // dynamic shared memory a block
+};
+
+// dynamic shared memory a lane: radix 2 its staging and every 32-step block
+// of decisions but the first four; radix 4 its tables, staging and decision
+// groups
+size_t smem_per_lane(int radix, int T, bool global) {
+    if (radix == 4) {
+        const size_t groups = static_cast<size_t>(((T >> 2) + 3) >> 2);
+        return kR4WarpFloats * sizeof(float) + (global ? 0 : groups * 32 * 4);
+    }
+    const int nblk = (T + 31) / 32;
+    return kR2StageFloats * sizeof(float)
+        + (global || nblk <= kKeepBlocks
+               ? 0 : static_cast<size_t>(nblk - kKeepBlocks) * 32 * 8);
+}
+
+// both generators tap the first and the last stage (see r2_step)
+bool end_taps(int K, int g0, int g1) {
+    const int ends = 1 | (1 << (K - 1));
+    return (g0 & ends) == ends && (g1 & ends) == ends;
+}
+
+using R2Kernel = decltype(&viterbi_kernel<true>);
+using R4Kernel = decltype(&viterbi4_kernel<true>);
+
+R2Kernel r2_kernel(bool chunked) {
+    return chunked ? viterbi_kernel<true> : viterbi_kernel<false>;
+}
+
+R4Kernel r4_kernel(bool chunked) {
+    return chunked ? viterbi4_kernel<true> : viterbi4_kernel<false>;
+}
+
+const void* kernel_for(int radix, bool chunked) {
+    if (radix == 4) return reinterpret_cast<const void*>(r4_kernel(chunked));
+    return reinterpret_cast<const void*>(r2_kernel(chunked));
+}
+
+// the block size that keeps the most lanes resident on an SM (fewest warps
+// on ties); a batch smaller than the SMs can hold one lane a block is spread
+// over them, where one lane's latency sets the time
+cudaError_t plan_launch(int radix, bool chunked, int L, int T, bool global,
+                        Plan* plan) {
+    const void* fn = kernel_for(radix, chunked);
+    int dev = 0, sms = 0, max_smem = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&max_smem,
+                                     cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   max_smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    const size_t per_lane = smem_per_lane(radix, T, global);
+    int best_w = 0, best_blocks = 0;
+    for (int w = 1; w <= kMaxWarps; ++w) {
+        const size_t smem = per_lane * w;
+        if (smem > static_cast<size_t>(max_smem)) break;
+        int blocks = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 32 * w,
+                                                            smem);
+        if (err != cudaSuccess) return err;
+        if (blocks * w > best_blocks * best_w) {
+            best_w = w;
+            best_blocks = blocks;
+        }
+    }
+    if (best_w == 0) return cudaErrorInvalidConfiguration;
+    int w = (L + sms - 1) / sms;  // warps a block that fill the SMs once
+    if (w > best_w) w = best_w;
+    if (w < best_w) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&best_blocks, fn,
+                                                            32 * w, per_lane * w);
+        if (err != cudaSuccess) return err;
+    }
+    plan->warps = w;
+    plan->blocks_per_sm = best_blocks;
+    plan->smem = per_lane * w;
+    return cudaSuccess;
+}
+
+int check_args(int T, int K, int g0, int g1, int radix, const uint8_t* index,
+               const uint8_t* spec) {
+    if (K < 3 || K > 7) return static_cast<int>(cudaErrorInvalidValue);
+    if (radix != 2 && radix != 4) return static_cast<int>(cudaErrorInvalidValue);
+    if (radix == 2 && !end_taps(K, g0, g1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (radix == 4 && (T % 4 != 0 || K < 5 || index == nullptr || spec == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return 0;
 }
 
 }  // namespace
 
 // Decodes L lanes of a T-step trellis of the rate-1/2 mother code with
-// constraint length K (3..7) and generators g0, g1, in radix 2 or 4 (radix
-// 4 needs T % 4 == 0 and K >= 5). Step t of lane i reads l0[i*ld + t*es]
-// and l1[i*ld + t*es]. pm0: (L, 2^(K-1)) initial metrics for the chunked
-// mode, or nullptr for the terminated mode. bits: (L, T) uint8 decoded bits.
-// dec_scratch: nullptr to keep the decisions in shared memory, or an 8*T
-// byte scratch per lane for trellises too long for it. Returns a
-// cudaError_t code (0 on a successful launch).
+// constraint length K (3..7) and generators g0, g1, in radix 2 (generators
+// that tap the first and the last stage, as every code of fec/conv.py
+// does) or 4 (T % 4 == 0 and K >= 5, any generators, and the sum table of
+// ops/viterbi.py::radix4_sum_table on the device: index (S, 16) and spec
+// (256,) bytes). Step t of lane i reads l0[i*ld + t*es] and l1[i*ld + t*es].
+// pm0: (L, 2^(K-1)) initial metrics for the chunked mode, or nullptr for the
+// terminated mode. bits: (L, T) uint8 decoded bits. dec_scratch: nullptr to
+// keep the decisions in shared memory, or a scratch of ceil(T/32) * 256
+// bytes a lane for trellises too long for it. Returns a cudaError_t code (0
+// on a successful launch).
 extern "C" int viterbi_acs_traceback(const float* l0, const float* l1,
                                      long long ld, int es, const float* pm0,
                                      int L, int T, int K, int g0, int g1,
-                                     int radix, uint8_t* bits,
+                                     int radix, const uint8_t* r4_index,
+                                     const uint8_t* r4_spec, uint8_t* bits,
                                      void* dec_scratch, void* stream) {
     if (L <= 0 || T <= 0) return 0;
-    if (K < 3 || K > 7) return static_cast<int>(cudaErrorInvalidValue);
-    if (radix != 2 && radix != 4) return static_cast<int>(cudaErrorInvalidValue);
-    if (radix == 4 && (T % 4 != 0 || K < 5))
-        return static_cast<int>(cudaErrorInvalidValue);
-    // both radices keep 8 bytes of decisions a step a lane; radix 4 also
-    // stages 64 metrics a warp
-    const size_t per_lane = static_cast<size_t>(T) * sizeof(uint2);
-    const size_t staging = radix == 4 ? 64 * sizeof(float) : 0;
-    int warps = 4;
-    size_t smem = 4 * staging;
-    if (dec_scratch == nullptr) {
-        warps = static_cast<int>(kSmemTarget / per_lane);
-        warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
-        smem = static_cast<size_t>(warps) * (per_lane + staging);
-    }
-    const int grid = (L + warps - 1) / warps;
+    const int bad = check_args(T, K, g0, g1, radix, r4_index, r4_spec);
+    if (bad) return bad;
+    const bool chunked = pm0 != nullptr;
+    Plan plan;
+    const cudaError_t err = plan_launch(radix, chunked, L, T,
+                                        dec_scratch != nullptr, &plan);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int grid = (L + plan.warps - 1) / plan.warps;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (radix == 4) {
-        auto fn = pm0 != nullptr ? viterbi4_kernel<true> : viterbi4_kernel<false>;
-        if (smem > 48 * 1024) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        fn<<<grid, warps * 32, smem, st>>>(l0, l1, ld, es, pm0, L, T, K, g0,
-                                           g1, bits,
-                                           static_cast<uint4*>(dec_scratch));
-        return static_cast<int>(cudaGetLastError());
+        r4_kernel(chunked)<<<grid, plan.warps * 32, plan.smem, st>>>(
+            l0, l1, ld, es, pm0, L, T, K, r4_index, r4_spec, bits,
+            static_cast<unsigned*>(dec_scratch));
+    } else {
+        r2_kernel(chunked)<<<grid, plan.warps * 32, plan.smem, st>>>(
+            l0, l1, ld, es, pm0, L, T, K, g0, g1, bits,
+            static_cast<uint2*>(dec_scratch));
     }
-    auto fn = pm0 != nullptr ? viterbi_kernel<true> : viterbi_kernel<false>;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    fn<<<grid, warps * 32, smem, st>>>(l0, l1, ld, es, pm0, L, T, K, g0, g1,
-                                       bits, static_cast<uint2*>(dec_scratch));
     return static_cast<int>(cudaGetLastError());
+}
+
+// The launch viterbi_acs_traceback would make for these arguments: lanes
+// (warps) a block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor with that block size and shared memory) and the block's
+// dynamic shared memory in bytes. Returns a cudaError_t code.
+extern "C" int viterbi_launch_plan(int L, int T, int K, int g0, int g1,
+                                   int radix, int chunked, int global_scratch,
+                                   int* warps, int* blocks_per_sm,
+                                   long long* smem) {
+    uint8_t dummy = 0;
+    const int bad = check_args(T, K, g0, g1, radix, &dummy, &dummy);
+    if (bad) return bad;
+    Plan plan;
+    const cudaError_t err = plan_launch(radix, chunked != 0, L, T,
+                                        global_scratch != 0, &plan);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *warps = plan.warps;
+    *blocks_per_sm = plan.blocks_per_sm;
+    *smem = static_cast<long long>(plan.smem);
+    return 0;
 }

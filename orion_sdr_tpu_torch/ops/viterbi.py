@@ -26,7 +26,10 @@ set and the trellis allows it (:func:`pick_radix`), as the JAX package's
 
 A CUDA tensor launches the kernel (built with nvcc at first use; any failure
 raises); a CPU tensor runs the plain version. Both add, compare and select
-in the same order, so on the card they agree bit for bit on any input.
+in the same order, so on the card they agree bit for bit on any input. The
+radix-4 kernel reads its four-step branch sums from a table whose layout
+:func:`radix4_sum_table` builds here; :func:`launch_plan` reports the block
+size and occupancy a launch takes.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 # trellises longer than this keep their decisions in a global scratch buffer
-# (8 bytes a step a lane) instead of shared memory
+# (256 bytes a 32-step block a lane) instead of shared memory
 MAX_SMEM_STEPS = 200 * 1024 // 8
 _NEG = -1e30
 # counterpart of orion_sdr_tpu/ops/viterbi.py::_FORCE_RADIX4: with radix=None
@@ -123,6 +126,72 @@ def _radix4_tables(code: str):
         diff[i] = ca != cb
         neg[i] = ca == 1
     return pred, diff, neg
+
+
+def _r4_patterns(code: str) -> np.ndarray:
+    """(S, 16) pattern byte of each radix-4 candidate: bit 2i says step i's
+    branch value is ±d (else ±s), bit 2i + 1 that it is negated. A linear
+    function of X = (ns << 4) | idx over GF(2)."""
+    _, diff, neg = _radix4_tables(code)
+    return sum((diff[i].astype(np.int64) << (2 * i))
+               | (neg[i].astype(np.int64) << (2 * i + 1)) for i in range(4))
+
+
+def _r4_bank_conflicts(addr: np.ndarray) -> int:
+    """Largest number of distinct table addresses that one shared-memory load
+    of the radix-4 kernel (one idx, one state half, the warp's threads) puts
+    in one of the 32 banks; 1 means conflict-free."""
+    H = addr.shape[0] // 2
+    worst = 1
+    for half in (0, 1):
+        for idx in range(16):
+            a = np.unique(addr[half * H:(half + 1) * H, idx])
+            worst = max(worst, int(np.bincount(a % 32).max()))
+    return worst
+
+
+@lru_cache(maxsize=None)
+def radix4_sum_table(code: str):
+    """The radix-4 kernel's table of four-step branch sums, built on the host
+    from :func:`_radix4_tables`. Returns ``(index, spec)``:
+
+    * ``index`` (S, 16) uint8: the table address of candidate idx of state
+      ns, so that the candidate is ``pm[pred[ns, idx]] + table[index[ns,
+      idx]]``;
+    * ``spec`` (256,) uint8: the pattern byte (:func:`_r4_patterns`) of the
+      sum kept at each address. Every pattern occurs (both codes use all
+      256), so the table holds 256 floats a lane and phase.
+
+    Addresses are the patterns put through an invertible GF(2) map chosen so
+    that the 32 threads of a warp, each reading one candidate of one state
+    half, never meet two addresses in one bank (:func:`_r4_bank_conflicts`).
+    """
+    pat = _r4_patterns(code)
+    bits = (np.arange(256)[:, None] >> np.arange(8)) & 1        # (256, 8)
+    rng = np.random.default_rng(0)
+    rows = np.eye(8, dtype=np.int64)
+    while True:
+        perm = ((bits @ rows.T) & 1) @ (1 << np.arange(8))      # P → address
+        if (len(np.unique(perm)) == 256
+                and _r4_bank_conflicts(perm[pat]) == 1):
+            break
+        rows = rng.integers(0, 2, (8, 8))
+    spec = np.empty(256, np.uint8)
+    spec[perm] = np.arange(256)
+    return perm[pat].astype(np.uint8), spec
+
+
+def radix4_sums(s: torch.Tensor, d: torch.Tensor,
+                spec: np.ndarray) -> torch.Tensor:
+    """Plain version of the kernel's table build: per lane the four steps'
+    s = l0 + l1 and d = l0 − l1, (L, 4) each → (L, 256) table, address e
+    holding ((v0 + v1) + (v2 + v3)) for the pattern spec[e]. The kernel adds
+    the same pair sums in the same order."""
+    p = torch.as_tensor(spec.astype(np.int64), device=s.device)
+    v = [torch.where(((p >> (2 * i)) & 1).bool(), d[:, i, None], s[:, i, None])
+         * torch.where(((p >> (2 * i + 1)) & 1).bool(), -1.0, 1.0)
+         for i in range(4)]
+    return (v[0] + v[1]) + (v[2] + v[3])
 
 
 def _acs_traceback4(l0: torch.Tensor, l1: torch.Tensor, pm: torch.Tensor,
@@ -225,8 +294,12 @@ def build() -> Built:
         lib = ctypes.CDLL(_built.path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.viterbi_acs_traceback.argtypes = [p, p, ll, i, p, i, i, i, i, i,
-                                              i, p, p, p]
+                                              i, p, p, p, p, p]
         lib.viterbi_acs_traceback.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.viterbi_launch_plan.argtypes = [i, i, i, i, i, i, i, i, ip, ip,
+                                            ctypes.POINTER(ll)]
+        lib.viterbi_launch_plan.restype = ctypes.c_int
         _lib = lib
     return _built
 
@@ -269,18 +342,60 @@ def _check_llrs(llrs, code: str) -> None:
     _check_f32("llrs", llrs, 2)
 
 
+@lru_cache(maxsize=None)
+def _r4_device_tables(code: str, device: torch.device):
+    """:func:`radix4_sum_table` on the card: (index, spec) uint8 tensors."""
+    index, spec = radix4_sum_table(code)
+    return (torch.as_tensor(index, device=device).contiguous(),
+            torch.as_tensor(spec, device=device).contiguous())
+
+
+def launch_plan(L: int, T: int, code: str, radix: int,
+                chunked: bool = True, device=None) -> dict:
+    """The launch the kernel makes for L lanes of T steps: ``warps`` (lanes a
+    block), ``blocks_per_sm`` (resident blocks an SM by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor with that block size and
+    shared memory), ``smem`` (bytes a block), ``lanes_per_sm``, ``sms`` and
+    ``waves`` (blocks over what the card holds at once, rounded up)."""
+    build()
+    _check_code(code)
+    _check_radix(radix, T, code)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    w, b, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    c = CONV_CODES[code]
+    with torch.cuda.device(device):
+        err = _lib.viterbi_launch_plan(L, T, c["K"], c["g0"], c["g1"], radix,
+                                       int(chunked), int(T > MAX_SMEM_STEPS),
+                                       ctypes.byref(w), ctypes.byref(b),
+                                       ctypes.byref(smem))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if err != 0:
+        raise RuntimeError(f"viterbi_launch_plan failed: CUDA error {err}")
+    grid = -(-L // w.value)
+    return {"warps": w.value, "blocks_per_sm": b.value, "smem": smem.value,
+            "lanes_per_sm": w.value * b.value, "sms": sms,
+            "waves": -(-grid // (b.value * sms))}
+
+
 def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
             code: str, radix: int, device) -> torch.Tensor:
     build()
     c = CONV_CODES[code]
     bits = torch.empty((L, T), dtype=torch.uint8, device=device)
-    scratch = (torch.empty((L, T, 2), dtype=torch.int32, device=device)
+    # global decision scratch, both radices: 256 bytes a 32-step block
+    scratch = (torch.empty((L, -(-T // 32) * 256), dtype=torch.uint8,
+                           device=device)
                if T > MAX_SMEM_STEPS else None)
+    index = spec = None
+    if radix == 4:
+        index, spec = _r4_device_tables(code, torch.device(device))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib.viterbi_acs_traceback(
             l0_ptr, l1_ptr, ld, es, None if pm0 is None else pm0.data_ptr(),
-            L, T, c["K"], c["g0"], c["g1"], radix, bits.data_ptr(),
+            L, T, c["K"], c["g0"], c["g1"], radix,
+            None if index is None else index.data_ptr(),
+            None if spec is None else spec.data_ptr(), bits.data_ptr(),
             None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi_acs_traceback launch failed: CUDA error "

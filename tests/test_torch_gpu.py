@@ -253,3 +253,112 @@ def test_hier_decode_runs_through_radix4_when_forced(cuda, monkeypatch):
         assert np.array_equal(rx.hp_payload, hp)
         assert np.array_equal(rx.lp_payload, lp)
         assert rx.tps == params.tps_word()
+
+
+def _chunk_inputs(rng, lanes, span, S, device, ints=False):
+    if ints:
+        llr = rng.integers(-8, 9, (2, lanes, span))
+    else:
+        llr = rng.standard_normal((2, lanes, span))
+    c0, c1 = (torch.as_tensor(x, dtype=torch.float32, device=device)
+              for x in llr)
+    pm0 = torch.as_tensor(rng.integers(-30, 1, (lanes, S)),
+                          dtype=torch.float32, device=device)
+    pm0[::99] = -1e30
+    pm0[::99, 0] = 0.0
+    return c0, c1, pm0
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_viterbi_at_one_wave_of_lanes(cuda, radix, offset):
+    # the lane counts around what one wave holds, as the occupancy query
+    # reports it for this launch
+    plan = viterbi.launch_plan(3168, 1216, "dvb_k7", radix)
+    lanes = plan["lanes_per_sm"] * plan["sms"] + offset
+    assert viterbi.launch_plan(lanes, 1216, "dvb_k7", radix)["waves"] == \
+        (2 if offset > 0 else 1)
+    rng = np.random.default_rng(70 + offset)
+    c0, c1, pm0 = _chunk_inputs(rng, lanes, 1216, 64, cuda)
+    got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=radix)
+    want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7",
+                                            radix=radix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_viterbi_exact_ties_and_signed_zeros(cuda, code, radix):
+    # integer LLRs with many zeros (both signs), metric rows of equal values
+    # and of ±0.0: every comparison meets exact ties, and the maximum of a
+    # row of zeros is +0.0 against -0.0
+    S = 64 if code == "dvb_k7" else 16
+    rng = np.random.default_rng(80 + S + radix)
+    lanes, span = 40, 1216
+    llr = rng.integers(-2, 3, (2, lanes, span)).astype(np.float32)
+    llr[rng.random(llr.shape) < 0.2] = -0.0
+    c0, c1 = (torch.as_tensor(x, device=cuda) for x in llr)
+    pm0 = np.zeros((lanes, S), np.float32)
+    pm0[::4] = -0.0
+    pm0[1::4] = -3.0
+    pm0[2::4] = np.where(rng.random((len(pm0[2::4]), S)) < 0.5, 0.0, -0.0)
+    pm0 = torch.as_tensor(pm0, device=cuda)
+    got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, code, radix=radix)
+    want = viterbi.viterbi_chunks_reference(c0, c1, pm0, code, radix=radix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # on integer LLRs the radices agree
+    other = viterbi.viterbi_chunks_kernel(c0, c1, pm0, code, radix=6 - radix)
+    assert torch.equal(got, other)
+    full = torch.stack([c0, c1], dim=-1).reshape(lanes, 2 * span)
+    info = span - conv.tail_bits(code)
+    got = viterbi.viterbi_decode_soft_kernel(full, info, "1/2", code,
+                                             radix=radix)
+    want = viterbi.viterbi_terminated_reference(full, info, "1/2", code,
+                                                radix=radix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radix,span", [(2, 25633), (4, 25604)])
+def test_viterbi_chunks_through_global_scratch(cuda, radix, span):
+    # past MAX_SMEM_STEPS the decisions go to a global scratch buffer
+    assert span > viterbi.MAX_SMEM_STEPS
+    rng = np.random.default_rng(span)
+    c0, c1, pm0 = _chunk_inputs(rng, 3, span, 64, cuda)
+    got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=radix)
+    want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7",
+                                            radix=radix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("span", [36, 1220])
+def test_viterbi_radix4_k5_chunks_at_33_lanes(cuda, span):
+    # K = 5: 8 of a warp's 32 threads own states, the rest repeat them
+    rng = np.random.default_rng(90 + span)
+    for ints in (True, False):
+        c0, c1, pm0 = _chunk_inputs(rng, 33, span, 16, cuda, ints)
+        got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "k5", radix=4)
+        want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "k5", radix=4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_viterbi_code_without_end_taps(cuda, monkeypatch):
+    # a generator that skips the last stage: radix 4 reads any code's sums
+    # from its table; radix 2 forms its candidates from the end-tap symmetry
+    # that every code of fec/conv.py has, and refuses such a code
+    codes = dict(conv.CONV_CODES, test_k6={"K": 6, "g0": 0b110110,
+                                           "g1": 0b101011})
+    monkeypatch.setattr(conv, "CONV_CODES", codes)
+    monkeypatch.setattr(viterbi, "CONV_CODES", codes)
+    rng = np.random.default_rng(95)
+    c0, c1, pm0 = _chunk_inputs(rng, 33, 1216, 32, cuda)
+    got = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "test_k6", radix=4)
+    want = viterbi.viterbi_chunks_reference(c0, c1, pm0, "test_k6", radix=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError):
+        viterbi.viterbi_chunks_kernel(c0, c1, pm0, "test_k6", radix=2)

@@ -180,6 +180,10 @@ def test_kernel_source_replaces_the_tpu_kernel():
     assert "orion_sdr_tpu/ops/viterbi.py:200 _make_kernel" in src
     assert "orion_sdr_tpu/ops/viterbi.py:347 _make_kernel4" in src
     assert "-fmad=false" in " ".join(viterbi.NVCC_FLAGS)
+    # the note says what bounds the kernels and what the design does
+    assert "What bounds them on this card" in src
+    assert "This design:" in src
+    assert "__reduce_max_sync" in src and "radix4_sum_table" in src
 
 
 def _lanes(rng, code, L, T):
