@@ -43,8 +43,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    come back and the Viterbi launch count must rise. Three timed runs after
    a warm-up on the full batch; frames/s and Msps of the median (host clock
    around work that ends in torch.cuda.synchronize()), and modulate
-   frames/s. Phases 8-10 and 13-16 each count their Viterbi launches from 0
-   (warm-ups included, comparisons with the plain versions not).
+   frames/s. Each run of phases 8-10 and 13-16 counts both radices'
+   Viterbi launches from 0 (warm-ups included, comparisons with the plain
+   versions not); a default path that launches radix 4 fails the run.
 9. DVB-T single frame at an unknown offset: 777 leading zeros, 4 dB, payload
    seed 7, noise seed 8, through decode; payload and every TPS field.
 10. COFDM conv link batch: 64 frames of 300 bytes on a conv K=7 r1/2 +
@@ -72,7 +73,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    timed runs of each. Then one frame's HP and LP chunk batches (99 and 150
    lanes x 1216 steps), recorded as the path hands them to the chunked
    decode, go through each radix's kernel and its plain version (exact on
-   every lane), and each radix is timed there with CUDA events.
+   every lane), and each radix is timed there with CUDA events and by the
+   host's time a call.
 14. Super-frame: four full QPSK r1/2 GI 1/8 frames (cell id 0xBEEF) at
    12 dB through DvbTSuperFrameDemod.decode and .decode_batch: every
    payload byte and the 16-bit cell id.
@@ -88,9 +90,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 17. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
-   also the launches by phase, those on default paths, the resident lanes
-   an SM and waves at 3168 x 1216 and the times at phase 13's chunk
-   batches), the card's name and power limit, then the result line
+   also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
+   their sum over the default paths, the resident lanes an SM and waves at
+   3168 x 1216 and the times at phase 13's chunk batches), the card's name and power limit, then the result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
 
@@ -129,6 +131,9 @@ DVB_FRAMES, DVB_QAM_FRAMES = 32, 8
 COFDM_CONV_FRAMES = 64
 HIER_FRAMES = 8
 STREAM_FRAMES, STREAM_CHUNK = 6, 50_000
+# the one run of a decode path that is not a default path: [13] with
+# ops.viterbi.FORCE_RADIX4 on
+FORCED = "13 FORCE_RADIX4"
 # float32 operations per edge and row-iteration of BP, the least each rule
 # needs (check update, bit sum, new message, syndrome); Viterbi's count is
 # viterbi_ops
@@ -507,8 +512,8 @@ def dvb_t_full_payload(P, params):
 
 def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
     """Modulate n_frames full frames on the card, add AWGN, decode them with
-    decode_batch three times after a warm-up; returns the Viterbi launch
-    count of the timed runs."""
+    decode_batch three times after a warm-up; returns the (radix-2,
+    radix-4) Viterbi launches of the warm-up and the timed runs."""
     base = P.DvbTFrameParams(P.DvbTLinkParams(*link))
     n_bytes = dvb_t_full_payload(P, base)
     frames = [(P.DvbTFrameParams(base.link, i % 4, (17 * i) & 0xFF),
@@ -548,23 +553,26 @@ def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
                    for o, (params, data) in zip(out, frames))
         if good != n_frames:
             fail(f"DVB-T decode_batch {link}: {n_frames - good} frames lost")
-    n = read_vit(viterbi)[0]
-    if n <= 0:
+    n = read_vit(viterbi)
+    if n[0] <= 0:
         fail("the DVB-T path launched no Viterbi kernel")
     dt = sorted(secs)[1]
     print(f"  decode_batch: {n_frames}/{n_frames} payloads and TPS words in "
-          f"each of 3 runs, {n} Viterbi launches (warm-up included); runs "
+          f"each of 3 runs, {n[0]} radix-2 and {n[1]} radix-4 Viterbi "
+          f"launches (warm-up included); runs "
           f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
           f"{n_frames / dt:.4g} frames/s, {batch.size / dt / 1e6:.4g} Msps")
     return n
 
 
 def dvb_t_batch(P, viterbi, dev, rng):
-    """Phase 8: returns the radix-2 Viterbi launches of both runs."""
-    return (dvb_t_run(P, viterbi, dev, rng, ("1/8", "qpsk", "1/2"),
-                      DVB_FRAMES, 6.0)
-            + dvb_t_run(P, viterbi, dev, rng, ("1/8", "qam16", "3/4"),
-                        DVB_QAM_FRAMES, 15.0))
+    """Phase 8: returns the (radix-2, radix-4) Viterbi launches of both
+    runs."""
+    a = dvb_t_run(P, viterbi, dev, rng, ("1/8", "qpsk", "1/2"), DVB_FRAMES,
+                  6.0)
+    b = dvb_t_run(P, viterbi, dev, rng, ("1/8", "qam16", "3/4"),
+                  DVB_QAM_FRAMES, 15.0)
+    return a[0] + b[0], a[1] + b[1]
 
 
 def dvb_t_unknown_offset(P, dev):
@@ -588,7 +596,8 @@ def dvb_t_unknown_offset(P, dev):
 
 
 def cofdm_conv_batch(P, viterbi, dev, rng):
-    """Phase 10: the conv+RS COFDM link through decode_batch."""
+    """Phase 10: the conv+RS COFDM link through decode_batch; returns its
+    (radix-2, radix-4) Viterbi launches."""
     cfg, pre, _ = link(P)
     cfg = cfg.with_inner_interleaver(P.InterleaverKind.block(32, 48))
     table = P.McsTable([P.Mcs("qpsk", P.InnerFec.convolutional("1/2", "dvb_k7"),
@@ -610,16 +619,17 @@ def cofdm_conv_batch(P, viterbi, dev, rng):
         torch.as_tensor(batch, device=dev))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    n = viterbi.viterbi_decode_soft_kernel.launches
+    n = read_vit(viterbi)
     good = sum(isinstance(got, P.FramePacket)
                and np.array_equal(got.payload, data) and got.metadata == meta
                for got, (meta, data, _) in zip(out, frames))
     print(f"  {good}/{COFDM_CONV_FRAMES} frames recovered in {dt:.4f} s "
-          f"(first run), {n} terminated Viterbi launches")
+          f"(first run), {n[0]} radix-2 and {n[1]} radix-4 Viterbi "
+          f"launches")
     if good != COFDM_CONV_FRAMES:
         fail(f"COFDM conv link: {COFDM_CONV_FRAMES - good} frames lost")
-    if n <= 0:
-        fail("the COFDM conv link launched no Viterbi kernel")
+    if viterbi.viterbi_decode_soft_kernel.launches <= 0:
+        fail("the COFDM conv link launched no terminated Viterbi kernel")
     return n
 
 
@@ -764,8 +774,8 @@ def full_hier_payloads(P):
 
 
 def hier_link(P, viterbi, dev, rng):
-    """Phase 13: returns (radix-2 launches of the default run, radix-4
-    launches of the forced run, then path_chunks' result)."""
+    """Phase 13: returns ((radix-2, radix-4) launches of the default run,
+    the same of the run with FORCE_RADIX4 on, path_chunks' result)."""
     link, (n_hp, n_lp) = full_hier_payloads(P)
     frames = []
     for i in range(HIER_FRAMES):
@@ -813,7 +823,7 @@ def hier_link(P, viterbi, dev, rng):
         if (n4 if forced else n2) <= 0 or (n2 if forced else n4) != 0:
             fail(f"hierarchical decode (radix 4 forced: {forced}) ran "
                  f"{n2} radix-2 and {n4} radix-4 launches")
-        counts[forced] = n4 if forced else n2
+        counts[forced] = n2, n4
         dt = sorted(secs)[1]
         print(f"  FORCE_RADIX4={forced}: {HIER_FRAMES}/{HIER_FRAMES} HP+LP "
               f"payloads and TPS words in each of 3 runs, {n2} radix-2 and "
@@ -829,8 +839,10 @@ def hier_link(P, viterbi, dev, rng):
 def path_chunks(viterbi, demod, cap, n_sym, n_hp, n_lp):
     """Decodes ``cap`` once with conv.chunk_llrs recorded, then holds both
     radices against their plain versions (exact) on each recorded chunk
-    batch and times each radix there with CUDA events. Returns ({radix:
-    largest |kernel − plain| bit}, {(plane, radix): ms}, {plane: lanes})."""
+    batch and times each radix there with CUDA events, and the host's time
+    a call (wrapper and launch, host clock over 20 calls that do not wait
+    for the card). Returns ({radix: largest |kernel − plain| bit}, {(plane,
+    radix): ms}, {plane: lanes})."""
     from orion_sdr_tpu_torch.fec import conv
     seen = []
     real = conv.chunk_llrs
@@ -852,12 +864,19 @@ def path_chunks(viterbi, demod, cap, n_sym, n_hp, n_lp):
             torch.cuda.synchronize()
             err = float((got.int() - want.int()).abs().max())
             errs[radix] = max(errs[radix], err)
-            times[plane, radix] = cuda_ms(
-                lambda: viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
-                                                      radix=radix), reps=20)
+            def run():
+                return viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7",
+                                                     radix=radix)
+            times[plane, radix] = cuda_ms(run, reps=20)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                run()
+            host_ms = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
             print(f"  {plane} chunks of one frame: {c0.shape[0]} lanes x "
                   f"{c0.shape[1]} steps, radix {radix} max|kernel-plain|="
-                  f"{err:g}, kernel {times[plane, radix]:.4f} ms")
+                  f"{err:g}, kernel {times[plane, radix]:.4f} ms, host "
+                  f"{host_ms:.4f} ms a call")
             if err != 0.0:
                 fail(f"radix-{radix} Viterbi on the {plane} chunks: kernel "
                      f"and plain version differ")
@@ -1019,17 +1038,18 @@ def main() -> int:
 
     print(f"[8] DVB-T batch: {DVB_FRAMES} QPSK r1/2 GI 1/8 frames at 6 dB, "
           f"{DVB_QAM_FRAMES} 16-QAM r3/4 frames at 15 dB")
-    # radix-2 launches of each phase that drives a decode path, counted from
-    # 0 just before it (comparisons with the plain versions are not counted)
-    r2_by_phase = {"8": dvb_t_batch(P, viterbi, dev, rng)}
+    # (radix-2, radix-4) launches of each run that drives a decode path,
+    # counted from 0 just before it (comparisons with the plain versions are
+    # not counted); every run but [13]'s forced one is a default path
+    vit_runs = {"8": dvb_t_batch(P, viterbi, dev, rng)}
 
     print("[9] DVB-T single frame at an unknown offset, 4 dB")
     zero_vit(viterbi)
     dvb_t_unknown_offset(P, dev)
-    r2_by_phase["9"] = read_vit(viterbi)[0]
+    vit_runs["9"] = read_vit(viterbi)
 
     print(f"[10] COFDM conv+RS link: {COFDM_CONV_FRAMES} frames x 300 B")
-    r2_by_phase["10"] = cofdm_conv_batch(P, viterbi, dev, rng)
+    vit_runs["10"] = cofdm_conv_batch(P, viterbi, dev, rng)
 
     print(f"[11] radix-4 Viterbi kernel vs plain version (exact): chunked "
           f"dvb_k7 L={VIT_LANES} x {VIT_SPAN}, terminated k5 128 x 4096")
@@ -1042,7 +1062,7 @@ def main() -> int:
 
     print(f"[13] hierarchical link: {HIER_FRAMES} full 16-QAM a=2 GI 1/8 "
           f"frames, HP r1/2 + LP r3/4, radix 2 then radix 4")
-    r2_by_phase["13"], r4_launches, (path_err, path_ms, path_lanes) = \
+    vit_runs["13"], vit_runs[FORCED], (path_err, path_ms, path_lanes) = \
         hier_link(P, viterbi, dev, rng)
     vit_err = max(vit_err, path_err[2])
     r4_err = max(r4_err, path_err[4])
@@ -1050,21 +1070,26 @@ def main() -> int:
     print("[14] super-frame: 4 full QPSK r1/2 frames, 12 dB")
     zero_vit(viterbi)
     super_frame(P, dev, rng)
-    r2_by_phase["14"] = read_vit(viterbi)[0]
+    vit_runs["14"] = read_vit(viterbi)
 
     print(f"[15] streams: {STREAM_FRAMES} QPSK frames at random gaps < 2000 "
           f"samples, 10 dB, "
           f"{STREAM_CHUNK}-sample chunks; 2 hierarchical frames")
     zero_vit(viterbi)
     streams(P, dev, rng)
-    r2_by_phase["15"] = read_vit(viterbi)[0]
+    vit_runs["15"] = read_vit(viterbi)
 
     print("[16] blind decode: a plain and a hierarchical frame")
     zero_vit(viterbi)
     blind(P, dev, rng)
-    r2_by_phase["16"] = read_vit(viterbi)[0]
-    print(f"  radix-2 Viterbi launches by phase: {r2_by_phase} (all on "
-          f"default paths); radix 4: {r4_launches} ([13], FORCE_RADIX4 on)")
+    vit_runs["16"] = read_vit(viterbi)
+    default = [p for p in vit_runs if p != FORCED]
+    by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
+                for k, radix in enumerate((2, 4))}
+    print(f"  Viterbi launches by phase, radix 2: {by_phase[2]}; radix 4: "
+          f"{by_phase[4]} (default paths: all but {FORCED!r})")
+    if any(by_phase[4][p] for p in default):
+        fail("a default path launched the radix-4 Viterbi kernel")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -1075,10 +1100,11 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                 **extra}
 
-    def vit_extra(radix, by_phase, default):
+    def vit_extra(radix):
         plan = plans[radix]
-        return {"launches_by_phase": by_phase,
-                "default_path_launches": default,
+        return {"launches_by_phase": by_phase[radix],
+                "default_path_launches": sum(by_phase[radix][p]
+                                             for p in default),
                 "lanes_per_sm": plan["lanes_per_sm"], "waves": plan["waves"],
                 "ms_at_13": {f"{plane} {path_lanes[plane]}x{VIT_SPAN}":
                              path_ms[plane, radix] for plane in ("HP", "LP")}}
@@ -1094,13 +1120,11 @@ def main() -> int:
               "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
               edge_ms, edge_plain_ms, edge_bnd),
         entry("viterbi_acs_traceback", "viterbi.cu",
-              "orion_sdr_tpu/ops/viterbi.py:200", sum(r2_by_phase.values()),
-              vit_err, vit_ms, vit_plain_ms, vit_bnd,
-              **vit_extra(2, r2_by_phase, sum(r2_by_phase.values()))),
+              "orion_sdr_tpu/ops/viterbi.py:200", sum(by_phase[2].values()),
+              vit_err, vit_ms, vit_plain_ms, vit_bnd, **vit_extra(2)),
         entry("viterbi_acs_traceback_radix4", "viterbi.cu",
-              "orion_sdr_tpu/ops/viterbi.py:347", r4_launches, r4_err, r4_ms,
-              r4_plain_ms, r4_bnd,
-              **vit_extra(4, {"13": r4_launches}, 0))]}))
+              "orion_sdr_tpu/ops/viterbi.py:347", sum(by_phase[4].values()),
+              r4_err, r4_ms, r4_plain_ms, r4_bnd, **vit_extra(4))]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

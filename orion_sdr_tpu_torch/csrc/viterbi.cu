@@ -74,8 +74,9 @@
 //    same state (broadcast loads), thread j keeping the bit of step j of the
 //    current 32-step block and writing it out when the block is done;
 //  * the launch picks its block size from cudaOccupancyMaxActiveBlocksPer-
-//    Multiprocessor (viterbi_launch_plan), and spreads a small batch one
-//    lane a block over the SMs, where only one lane's latency counts.
+//    Multiprocessor (viterbi_launch_plan), queried at the first launch of a
+//    device, radix, mode and T and kept, and spreads a small batch one lane
+//    a block over the SMs, where only one lane's latency counts.
 // Decisions go to a global scratch buffer instead of shared memory when a
 // trellis is too long for it (ops/viterbi.py::MAX_SMEM_STEPS).
 //
@@ -85,6 +86,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -509,53 +514,93 @@ const void* kernel_for(int radix, bool chunked) {
     return reinterpret_cast<const void*>(r2_kernel(chunked));
 }
 
+// what the occupancy queries gave for one (device, radix, mode, T, scratch):
+// resident blocks an SM at w lanes a block, and the best w
+struct Occupancy {
+    int sms;
+    size_t per_lane;
+    int best_w;
+    int blocks[kMaxWarps + 1];
+};
+
+std::mutex g_mu;
+std::map<int, int> g_max_smem;  // device -> opt-in shared memory a block
+std::map<std::tuple<int, int, bool, int, bool>, Occupancy> g_occupancy;
+
+// once a device: its opt-in shared memory, set on all four kernels with the
+// shared-memory carveout (caller holds g_mu)
+cudaError_t device_setup(int dev, int* max_smem) {
+    const auto it = g_max_smem.find(dev);
+    if (it != g_max_smem.end()) {
+        *max_smem = it->second;
+        return cudaSuccess;
+    }
+    cudaError_t err = cudaDeviceGetAttribute(
+        max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    for (int radix = 2; radix <= 4 && err == cudaSuccess; radix += 2) {
+        for (int c = 0; c < 2 && err == cudaSuccess; ++c) {
+            const void* fn = kernel_for(radix, c != 0);
+            err = cudaFuncSetAttribute(
+                fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *max_smem);
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(
+                    fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                    cudaSharedmemCarveoutMaxShared);
+        }
+    }
+    if (err == cudaSuccess) g_max_smem[dev] = *max_smem;
+    return err;
+}
+
+// the occupancy queries of a launch, made at its first use and kept
+cudaError_t occupancy(int radix, bool chunked, int T, bool global,
+                      const Occupancy** out) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(g_mu);
+    const auto key = std::make_tuple(dev, radix, chunked, T, global);
+    const auto it = g_occupancy.find(key);
+    if (it != g_occupancy.end()) {
+        *out = &it->second;
+        return cudaSuccess;
+    }
+    Occupancy occ{};
+    int max_smem = 0;
+    err = device_setup(dev, &max_smem);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    const void* fn = kernel_for(radix, chunked);
+    occ.per_lane = smem_per_lane(radix, T, global);
+    for (int w = 1; w <= kMaxWarps; ++w) {
+        const size_t smem = occ.per_lane * w;
+        if (smem > static_cast<size_t>(max_smem)) break;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ.blocks[w], fn,
+                                                            32 * w, smem);
+        if (err != cudaSuccess) return err;
+        if (occ.blocks[w] * w > occ.blocks[occ.best_w] * occ.best_w)
+            occ.best_w = w;
+    }
+    if (occ.best_w == 0) return cudaErrorInvalidConfiguration;
+    *out = &(g_occupancy[key] = occ);
+    return cudaSuccess;
+}
+
 // the block size that keeps the most lanes resident on an SM (fewest warps
 // on ties); a batch smaller than the SMs can hold one lane a block is spread
 // over them, where one lane's latency sets the time
 cudaError_t plan_launch(int radix, bool chunked, int L, int T, bool global,
                         Plan* plan) {
-    const void* fn = kernel_for(radix, chunked);
-    int dev = 0, sms = 0, max_smem = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&max_smem,
-                                     cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   max_smem);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(fn,
-                                   cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   cudaSharedmemCarveoutMaxShared);
+    const Occupancy* occ = nullptr;
+    const cudaError_t err = occupancy(radix, chunked, T, global, &occ);
     if (err != cudaSuccess) return err;
-    const size_t per_lane = smem_per_lane(radix, T, global);
-    int best_w = 0, best_blocks = 0;
-    for (int w = 1; w <= kMaxWarps; ++w) {
-        const size_t smem = per_lane * w;
-        if (smem > static_cast<size_t>(max_smem)) break;
-        int blocks = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 32 * w,
-                                                            smem);
-        if (err != cudaSuccess) return err;
-        if (blocks * w > best_blocks * best_w) {
-            best_w = w;
-            best_blocks = blocks;
-        }
-    }
-    if (best_w == 0) return cudaErrorInvalidConfiguration;
-    int w = (L + sms - 1) / sms;  // warps a block that fill the SMs once
-    if (w > best_w) w = best_w;
-    if (w < best_w) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&best_blocks, fn,
-                                                            32 * w, per_lane * w);
-        if (err != cudaSuccess) return err;
-    }
+    int w = (L + occ->sms - 1) / occ->sms;  // warps a block that fill the SMs once
+    if (w > occ->best_w) w = occ->best_w;
     plan->warps = w;
-    plan->blocks_per_sm = best_blocks;
-    plan->smem = per_lane * w;
+    plan->blocks_per_sm = occ->blocks[w];
+    plan->smem = occ->per_lane * w;
     return cudaSuccess;
 }
 

@@ -58,6 +58,8 @@ _NEG = -1e30
 # counterpart of orion_sdr_tpu/ops/viterbi.py::_FORCE_RADIX4: with radix=None
 # the wrappers take radix 4 wherever the trellis allows it
 FORCE_RADIX4 = False
+# random GF(2) maps radix4_sum_table tries before it gives up on a code
+_R4_MAP_TRIES = 10_000
 
 
 def pick_radix(n_steps: int, code: str) -> int:
@@ -165,33 +167,23 @@ def radix4_sum_table(code: str):
     Addresses are the patterns put through an invertible GF(2) map chosen so
     that the 32 threads of a warp, each reading one candidate of one state
     half, never meet two addresses in one bank (:func:`_r4_bank_conflicts`).
+    The search tries the identity, then up to ``_R4_MAP_TRIES`` seeded random
+    maps, and raises ValueError for a code that none of them serves.
     """
     pat = _r4_patterns(code)
     bits = (np.arange(256)[:, None] >> np.arange(8)) & 1        # (256, 8)
     rng = np.random.default_rng(0)
     rows = np.eye(8, dtype=np.int64)
-    while True:
+    for _ in range(_R4_MAP_TRIES + 1):
         perm = ((bits @ rows.T) & 1) @ (1 << np.arange(8))      # P → address
         if (len(np.unique(perm)) == 256
                 and _r4_bank_conflicts(perm[pat]) == 1):
-            break
+            spec = np.empty(256, np.uint8)
+            spec[perm] = np.arange(256)
+            return perm[pat].astype(np.uint8), spec
         rows = rng.integers(0, 2, (8, 8))
-    spec = np.empty(256, np.uint8)
-    spec[perm] = np.arange(256)
-    return perm[pat].astype(np.uint8), spec
-
-
-def radix4_sums(s: torch.Tensor, d: torch.Tensor,
-                spec: np.ndarray) -> torch.Tensor:
-    """Plain version of the kernel's table build: per lane the four steps'
-    s = l0 + l1 and d = l0 − l1, (L, 4) each → (L, 256) table, address e
-    holding ((v0 + v1) + (v2 + v3)) for the pattern spec[e]. The kernel adds
-    the same pair sums in the same order."""
-    p = torch.as_tensor(spec.astype(np.int64), device=s.device)
-    v = [torch.where(((p >> (2 * i)) & 1).bool(), d[:, i, None], s[:, i, None])
-         * torch.where(((p >> (2 * i + 1)) & 1).bool(), -1.0, 1.0)
-         for i in range(4)]
-    return (v[0] + v[1]) + (v[2] + v[3])
+    raise ValueError(f"radix 4: no conflict-free table map for code {code!r} "
+                     f"in {_R4_MAP_TRIES} tries")
 
 
 def _acs_traceback4(l0: torch.Tensor, l1: torch.Tensor, pm: torch.Tensor,

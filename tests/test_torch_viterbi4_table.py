@@ -18,6 +18,18 @@ torch.set_num_threads(1)
 CODES = ("k5", "dvb_k7")
 
 
+def _table_sums(s, d, spec):
+    """Plain model of the kernel's table build: per lane the four steps'
+    s = l0 + l1 and d = l0 − l1, (L, 4) each → (L, 256) table, address e
+    holding ((v0 + v1) + (v2 + v3)) for the pattern spec[e]. The kernel adds
+    the same pair sums in the same order."""
+    p = torch.as_tensor(spec.astype(np.int64), device=s.device)
+    v = [torch.where(((p >> (2 * i)) & 1).bool(), d[:, i, None], s[:, i, None])
+         * torch.where(((p >> (2 * i + 1)) & 1).bool(), -1.0, 1.0)
+         for i in range(4)]
+    return (v[0] + v[1]) + (v[2] + v[3])
+
+
 def _plain_candidates(l0, l1, pm, code, g):
     """Phase g's (L, S, 16) candidates, written as _acs_traceback4 writes
     them."""
@@ -50,7 +62,7 @@ def test_table_candidates_equal_the_plain_candidates(code, scale):
     for g in range(T // 4):
         s = l0[:, 4 * g:4 * g + 4] + l1[:, 4 * g:4 * g + 4]
         d = l0[:, 4 * g:4 * g + 4] - l1[:, 4 * g:4 * g + 4]
-        table = viterbi.radix4_sums(s, d, spec)
+        table = _table_sums(s, d, spec)
         assert table.shape == (L, 256)
         got = pm[:, torch.as_tensor(pred)] + table[:, idx_t]
         want = _plain_candidates(l0, l1, pm, code, g)
@@ -84,9 +96,17 @@ def test_table_sums_keep_the_negation_identity_on_signed_zeros():
     _, spec = viterbi.radix4_sum_table("dvb_k7")
     for z in (0.0, -0.0):
         s = torch.full((1, 4), z)
-        table = viterbi.radix4_sums(s, s.clone(), spec)
+        table = _table_sums(s, s.clone(), spec)
         p = torch.as_tensor(spec.astype(np.int64))
         v = [s[0, i] * torch.where(((p >> (2 * i + 1)) & 1).bool(), -1.0, 1.0)
              for i in range(4)]
         want = (v[0] + v[1]) + (v[2] + v[3])
         assert torch.equal(table[0].view(torch.int32), want.view(torch.int32))
+
+
+def test_table_search_gives_up_with_an_error(monkeypatch):
+    # the identity map conflicts (above): with no random map left to try,
+    # the search raises instead of looping on
+    monkeypatch.setattr(viterbi, "_R4_MAP_TRIES", 0)
+    with pytest.raises(ValueError, match="no conflict-free table map"):
+        viterbi.radix4_sum_table.__wrapped__("dvb_k7")
