@@ -8,12 +8,24 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 2. Builds both kernels in parallel with nvcc, one process per source (the
    LDPC belief-propagation kernel csrc/ldpc_bp.cu and the Viterbi kernel
    csrc/viterbi.cu), and prints the BP kernel's build time and ptxas
-   register/shared-memory report.
+   register/shared-memory report, then the BP launch for each code and rule
+   at B=3072 (ops.ldpc_bp.launch_plan: threads a block, resident blocks an
+   SM by cudaOccupancyMaxActiveBlocksPerMultiprocessor, shared memory, the
+   persistent grid, codewords a block).
 3. Kernel vs plain torch version for N512R12, N576R23 and N512R34 under each
    decode rule: 3072 decodable codewords (±4 LLRs, BP_FLIPS flips) plus 256
    random-normal rows. Tolerance: exact — bits and unsatisfied-check counts
    equal on every row, and no garbage row converges in either. Times both on
-   N512R12 at B=3072 with CUDA events after warm-up.
+   N512R12 at B=3072 with CUDA events after warm-up, and the kernel there at
+   max_iter 0, 1 and 2 (the fixed cost of a launch and what an iteration
+   adds). After [4], holds the kernel to its plain version (exact, as
+   above) on the five BP batches [4]'s decode_batch hands the wrapper,
+   recorded as the path makes them: the 128-row header launch and the four
+   2 336-row payload launches, one an MCS (BPSK and QPSK rows arrive as
+   codewords, 16-QAM rows take up to one iteration, 64-QAM rows several);
+   prints each batch's rows still unsatisfied after 0, 1, 2, ...
+   iterations and times sum_product there, with its bound and the host's
+   time a call.
 4. Main path, batch: 128 frames of 1500 bytes, MCS cycling 0–3, modulated on
    the card, AWGN at 0.02 × signal power, decoded by
    OfdmFrameDemod(device="cuda").decode_batch under sum-product and then
@@ -60,9 +72,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 12. BP rule sum_product_edge vs its plain version on N512R12, N576R23 and
    N512R34 at B = 3072 + 256 garbage rows (bits and unsat equal on every
    row); on rows where both converge, the same message as the sum_product
-   kernel. Times it on N512R12, then drives it once through the entry
-   point that reaches it, ops.bp_decode_pallas(rule="sum_product_edge"),
-   on the 3072 decodable rows, counting the launches.
+   kernel. Times it on N512R12 (also at max_iter 0, 1 and 2), then drives it
+   once through the entry point that reaches it,
+   ops.bp_decode_pallas(rule="sum_product_edge"), on the 3072 decodable
+   rows, counting the launches; then holds it to its plain version (exact)
+   and times it at [4]'s five recorded batches.
 13. Hierarchical link (the JAX bench's dvb_t_hier_receive_throughput link:
    16-QAM alpha=2, GI 1/8, HP r1/2, LP r3/4): 8 full frames modulated on
    the card by DvbTHierFrameMod, each behind 913 zero samples (the setup of
@@ -92,7 +106,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
    their sum over the default paths, the resident lanes an SM and waves at
-   3168 x 1216 and the times at phase 13's chunk batches), the card's name and power limit, then the result line
+   3168 x 1216 and the times at phase 13's chunk batches; for the BP rules
+   the launches by phase ([4] by rule, [5], [12]), the registers, the
+   launch plan, the times at max_iter 0/1/2 and at [4]'s batches with
+   their bounds), the card's name and power limit, then the result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
 
@@ -121,6 +138,12 @@ N_FRAMES = 128
 PAYLOAD_BYTES = 1500
 BP_BATCH = 3072
 BP_GARBAGE = 256
+# one MCS group of [4]'s payload launches: 32 frames x 73 N512R12 blocks of
+# a 1500-byte payload (block_plan(1500, ...).coded_bits = 73 x 512)
+PAYLOAD_ROWS = 32 * 73
+# [4]'s frames cycle MCS 0-3 and decode_batch groups them in the order of
+# their first frames, so its payload launches come in this order
+PAYLOAD_MCS = ("bpsk", "qpsk", "qam16", "qam64")
 # flipped ±4 LLRs per decodable codeword: the JAX bench's 6 on the rate-1/2
 # code, fewer on the higher rates (their weight-3 columns leave small
 # distances, so more flips would often land on another codeword)
@@ -139,6 +162,9 @@ FORCED = "13 FORCE_RADIX4"
 # viterbi_ops
 BP_OPS = {"sum_product": 33, "sum_product_edge": 42}
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# ~10 ms of the card's clock: longer than the host takes to queue any timed
+# run of kernel launches below
+SLEEP_CYCLES = 20_000_000
 
 
 def fail(msg: str):
@@ -183,11 +209,17 @@ def print_plans(viterbi):
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``reps`` calls queued
+    behind a sleep kernel that holds the card while the host enqueues them,
+    so launches shorter than the host's time a call run back to back and
+    the host's gaps are not counted (a plain version whose host work
+    outlasts the sleep still counts them)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -203,20 +235,103 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bp_bound(ldpc_bp, g, llr, rule):
-    """Bound of one BP decode of ``llr`` under ``rule`` (max_iter 50)."""
+def bp_bound(ldpc_bp, g, llr, rule, max_iter=50):
+    """Bound of one BP decode of ``llr`` under ``rule``: (ms, what sets it,
+    iterations a row, rows still unsatisfied after i iterations for i = 0,
+    1, ...). Counts the row-iterations these inputs run, by running the
+    kernel at max_iter = 0, 1, 2, ..."""
     rows = 0
-    for i in range(50):
+    lefts = []
+    for i in range(max_iter):
         _, unsat = ldpc_bp.bp_decode_kernel(g, llr, i, rule)
         left = int((unsat > 0).sum())
+        lefts.append(left)
         if left == 0:
             break
         rows += left
+    t = ldpc_bp.graph_tables(g, llr.device)
     edges = int(np.asarray(g.check_mask).sum())
     B = llr.shape[0]
-    n_bytes = (B * g.n * 4 + B * g.k + B * 4 + g.m * g.max_deg * 5
-               + (g.n + 1) * 4 + edges * 4)
-    return bound_ms(n_bytes, rows * edges * BP_OPS[rule]) + (rows / B,)
+    n_bytes = (B * g.n * 4 + B * g.k + B * 4 + t.check_slots.numel() * 2
+               + t.bit_slots.numel() * 2)
+    return bound_ms(n_bytes, rows * edges * BP_OPS[rule]) + (rows / B, lefts)
+
+
+def bp_iter_times(ldpc_bp, g, x, rule):
+    """Kernel ms at max_iter 0, 1 and 2 on ``x``: the fixed cost of a
+    launch and what an iteration adds."""
+    times = {i: cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, x, i, rule),
+                        reps=20) for i in (0, 1, 2)}
+    print(f"  N512R12 {rule} B={x.shape[0]} at max_iter 0 / 1 / 2: "
+          + " / ".join(f"{ms:.4f}" for ms in times.values()) + " ms")
+    return times
+
+
+def bp_path_times(ldpc_bp, batches, rule):
+    """``rule`` at [4]'s recorded batches, each at the max_iter the path
+    gave it: the kernel against its plain version (exact: bits and unsat
+    equal on every row), then kernel ms, bound and the host's ms a call.
+    Returns (max |kernel − plain|, {label: (ms, bound)})."""
+    out, max_err = {}, 0.0
+    for label, (g, x, max_iter) in batches.items():
+        kb, ku = ldpc_bp.bp_decode_kernel(g, x, max_iter, rule)
+        rb, ru = ldpc_bp.bp_decode_reference(g, x, max_iter, rule)
+        torch.cuda.synchronize()
+        err = max(float((kb.int() - rb.int()).abs().max()),
+                  float((ku - ru).abs().max()))
+        max_err = max(max_err, err)
+        if err != 0.0:
+            fail(f"{rule} at [4]'s {label} batch: kernel and plain version "
+                 f"differ")
+        ms = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, x, max_iter, rule),
+                     reps=20)
+        bnd = bp_bound(ldpc_bp, g, x, rule, max_iter)
+        out[label] = (ms, bnd)
+        grid = ldpc_bp.launch_plan(g, rule, x.shape[0])["grid"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            ldpc_bp.bp_decode_kernel(g, x, max_iter, rule)
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        print(f"  {rule} at [4]'s {label} batch ({x.shape[0]} rows, grid "
+              f"{grid}, max_iter {max_iter}): max|kernel-plain|={err:g}, "
+              f"{int((ku > 0).sum())} rows left unsatisfied; rows "
+              f"unsatisfied after 0, 1, 2, ... iterations {bnd[3]}; kernel "
+              f"{ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}, {bnd[2]:.3f} "
+              f"iterations a row), {bnd[0] / ms:.1%} of it; host "
+              f"{host_ms:.4f} ms a call")
+    return max_err, out
+
+
+def print_bp_plans(ldpc_bp):
+    """[2]: the BP launch (ops.ldpc_bp.launch_plan) for each code and rule
+    code at B = BP_BATCH; returns N512R12's {rule: plan} there."""
+    from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, ldpc_graph
+    for name in sorted(LDPC_CODES):
+        g = ldpc_graph(name)
+        for rule in ("sum_product", "min_sum", "sum_product_edge"):
+            p = ldpc_bp.launch_plan(g, rule, BP_BATCH)
+            print(f"  {name} {rule} B={BP_BATCH}: {p['threads']} threads a "
+                  f"block, {p['blocks_per_sm']} blocks an SM (occupancy "
+                  f"query), {p['smem']} B shared memory a block, "
+                  f"{p['sms']} SMs: grid {p['grid']}, "
+                  f"{p['codewords_per_block']} codewords a block")
+    return {rule: ldpc_bp.launch_plan(ldpc_graph("N512R12"), rule, BP_BATCH)
+            for rule in ("sum_product", "sum_product_edge")}
+
+
+def ptxas_registers(built, rule_code, width):
+    """Registers of ldpc_bp_kernel<rule_code, width, exact> from the
+    build's -Xptxas -v report."""
+    tag = f"ldpc_bp_kernelILi{rule_code}ELi{width}ELb1E"
+    lines = built.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt:
+                    return int(nxt.split("Used ")[1].split(" registers")[0])
+    return None
 
 
 def r4_shared_sums(code: str) -> int:
@@ -290,7 +405,8 @@ def vit_inputs(dev, rng):
 
 def kernel_vs_plain(ldpc_bp, dev, rng):
     """Phase 3: returns (max |kernel − plain| over all rows, {rule: (kernel
-    ms, plain ms)} on N512R12, the sum_product bound there)."""
+    ms, plain ms)} on N512R12, the sum_product bound there, sum_product's
+    times at max_iter 0 / 1 / 2 there)."""
     from orion_sdr_tpu_torch.fec.ldpc import (DECODE_RULES, LDPC_CODES,
                                               ldpc_graph)
     max_err = 0.0
@@ -331,9 +447,15 @@ def kernel_vs_plain(ldpc_bp, dev, rng):
                       f"{p_ms:.4f} ms ({BP_BATCH / p_ms * 1e3:.4g} cw/s)")
                 if rule == "sum_product":
                     bound = bp_bound(ldpc_bp, g, x, rule)
+                    after = (0, 1, 2, 3, 5, 10, 20, 49)
+                    left = [bound[3][i] if i < len(bound[3]) else 0
+                            for i in after]
                     print(f"  N512R12 sum_product bound {bound[0]:.5f} ms "
-                          f"({bound[1]}), {bound[2]:.3f} iterations a row")
-    return max_err, times, bound
+                          f"({bound[1]}), {bound[2]:.3f} iterations a row; "
+                          f"rows unsatisfied after {after} iterations: "
+                          f"{left}")
+                    iters = bp_iter_times(ldpc_bp, g, x, rule)
+    return max_err, times, bound, iters
 
 
 def link(P):
@@ -344,8 +466,10 @@ def link(P):
     return cfg, pre, P.McsTable.default_ladder()
 
 
-def batch_path(P, ldpc_bp, dev, rng):
-    """Phase 4: returns the BP launch count of the main-path run."""
+def cofdm_frames(P, dev, rng):
+    """[4]'s capture: N_FRAMES frames of PAYLOAD_BYTES, MCS cycling 0-3,
+    modulated on the card, AWGN at 0.02 x signal power → (cfg, table,
+    frames, iq batch on the card, post-preamble samples)."""
     cfg, pre, table = link(P)
     mod = P.OfdmFrameMod(cfg, table, pre, device=dev)
     frames = [(P.FrameMetadata(sequence_num=1000 + i, mcs_index=i % 4,
@@ -372,13 +496,43 @@ def batch_path(P, ldpc_bp, dev, rng):
             * np.sqrt(sig * 0.02 / 2)
         batch[i, :len(b)] = b
         batch[i] += noise.astype(np.complex64)
-    n_rx = sum(len(b) for b in bodies)
-    iq_dev = torch.as_tensor(batch, device=dev)
-    launches = 0
+    return (cfg, table, frames, torch.as_tensor(batch, device=dev),
+            sum(len(b) for b in bodies))
+
+
+def record_bp(run):
+    """Calls ``run()`` with every LDPC decode of the frame chain recorded as
+    the path hands it to the BP wrapper: returns [(graph, LLRs, max_iter,
+    rule)]."""
+    from orion_sdr_tpu_torch.fec.ldpc import ldpc_graph
+    from orion_sdr_tpu_torch.frame import chain
+    seen = []
+    real = chain.ldpc_decode
+
+    def rec(name, llr, max_iter=50, rule="sum_product", alpha=0.75):
+        seen.append((ldpc_graph(name), llr.clone(), max_iter, rule))
+        return real(name, llr, max_iter, rule, alpha)
+    chain.ldpc_decode = rec
+    try:
+        run()
+    finally:
+        chain.ldpc_decode = real
+    return seen
+
+
+def batch_path(P, ldpc_bp, dev, rng):
+    """Phase 4: returns ({rule: BP launches of its three timed runs}, the
+    BP batches of the sum-product warm-up run as the path handed them)."""
+    cfg, table, frames, iq_dev, n_rx = cofdm_frames(P, dev, rng)
+    launches, recorded = {}, []
     for rule in ("sum_product", "scaled_min_sum"):
         demod = P.OfdmFrameDemod(cfg.with_ldpc_decode_rule(rule), table,
                                  device=dev)
-        demod.decode_batch(iq_dev)       # warm-up: cuFFT plans, tables, build
+        # warm-up (cuFFT plans, tables, build), BP batches recorded once
+        if rule == "sum_product":
+            recorded = record_bp(lambda: demod.decode_batch(iq_dev))
+        else:
+            demod.decode_batch(iq_dev)
         torch.cuda.synchronize()
         ldpc_bp.bp_decode_kernel.launches = 0
         secs = []
@@ -393,18 +547,33 @@ def batch_path(P, ldpc_bp, dev, rng):
                        for got, (meta, data, _) in zip(out, frames))
             if good != N_FRAMES:
                 fail(f"decode_batch {rule}: {N_FRAMES - good} frames lost")
-        n = ldpc_bp.bp_decode_kernel.launches
+        n = launches[rule] = ldpc_bp.bp_decode_kernel.launches
         if n <= 0:
             fail("the main path launched no BP kernel")
-        if rule == "sum_product":
-            launches = n
         dt = sorted(secs)[1]
         print(f"  decode_batch {rule}: {N_FRAMES}/{N_FRAMES} frames recovered "
               f"in each of 3 runs, {n} BP launches; runs "
               f"{', '.join(f'{x:.4f}' for x in secs)} s; median "
               f"{N_FRAMES / dt:.4g} frames/s, {n_rx / dt / 1e6:.4g} Msps "
               f"({n_rx} post-preamble samples per run)")
-    return launches
+    print(f"  recorded BP batches (sum_product warm-up): "
+          f"{[(g.name, tuple(x.shape), mi, r) for g, x, mi, r in recorded]}")
+    return launches, recorded
+
+
+def path_batches(recorded):
+    """[4]'s header launch and its payload launches, one an MCS:
+    {"header 128x512": (graph, LLRs, max_iter), "payload bpsk 2336x512":
+    ..., ...}."""
+    header, payloads = recorded[0], recorded[1:]
+    rows = [r[1].shape[0] for r in payloads]
+    if rows != [PAYLOAD_ROWS] * len(PAYLOAD_MCS):
+        fail(f"[4]'s payload launches have {rows} rows, not "
+             f"{len(PAYLOAD_MCS)} x {PAYLOAD_ROWS}")
+    out = {f"header {header[1].shape[0]}x{header[0].n}": header[:3]}
+    for mcs, r in zip(PAYLOAD_MCS, payloads):
+        out[f"payload {mcs} {PAYLOAD_ROWS}x{r[0].n}"] = r[:3]
+    return out
 
 
 def stream_capture(P, dev, rng):
@@ -427,11 +596,11 @@ def stream_capture(P, dev, rng):
 
 
 def stream_path(P, ldpc_bp, dev, rng):
-    """Phase 5."""
+    """Phase 5: returns its BP launches."""
     cfg, pre, table = link(P)
     buf, payloads = stream_capture(P, dev, rng)
     rx = P.OfdmFrameStreamDemod(cfg, table, pre, device=dev)
-    before = ldpc_bp.bp_decode_kernel.launches
+    ldpc_bp.bp_decode_kernel.launches = 0
     res = []
     t0 = time.perf_counter()
     for i in range(0, len(buf), 20000):
@@ -439,14 +608,17 @@ def stream_path(P, ldpc_bp, dev, rng):
     res += rx.flush()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = ldpc_bp.bp_decode_kernel.launches
     got = [r.packet.payload for r in res if isinstance(r, P.RxFrame)]
     ok = len(got) == 4 and all(np.array_equal(a, b)
                                for a, b in zip(got, payloads))
-    print(f"  stream: {len(got)}/4 frames in order={ok}, "
-          f"{ldpc_bp.bp_decode_kernel.launches - before} BP launches, "
-          f"{len(buf)} samples in {dt:.4f} s")
+    print(f"  stream: {len(got)}/4 frames in order={ok}, {launches} BP "
+          f"launches, {len(buf)} samples in {dt:.4f} s")
     if not ok:
         fail("the stream demod lost or reordered frames")
+    if launches <= 0:
+        fail("the stream path launched no BP kernel")
+    return launches
 
 
 def viterbi_vs_plain(viterbi, dev, rng):
@@ -700,9 +872,11 @@ def radix4_vs_plain(viterbi, dev, rng):
     return max_err, k4, p4
 
 
-def edge_vs_plain(ldpc_bp, dev, rng):
-    """Phase 12: returns (max |kernel − plain|, kernel ms, plain ms, bound,
-    main-path launches) of the sum_product_edge rule."""
+def edge_vs_plain(ldpc_bp, dev, rng, batches):
+    """Phase 12: returns (max |kernel − plain| over these inputs and [4]'s
+    recorded batches, kernel ms, plain ms, bound, main-path launches, times
+    at max_iter 0 / 1 / 2, {label: (ms, bound)} at [4]'s recorded batches)
+    of the sum_product_edge rule."""
     from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, ldpc_graph
     from orion_sdr_tpu_torch.ops import bp_decode_pallas
     rule = "sum_product_edge"
@@ -744,6 +918,7 @@ def edge_vs_plain(ldpc_bp, dev, rng):
                   f"plain {p_ms:.4f} ms, sum_product kernel {s_ms:.4f} ms; "
                   f"bound {bound[0]:.5f} ms ({bound[1]}), {bound[2]:.3f} "
                   f"iterations a row")
+            iters = bp_iter_times(ldpc_bp, g, x, rule)
             main = (g, x, msg)
     g, x, msg = main
     ldpc_bp.bp_decode_kernel.launches_edge = 0
@@ -755,7 +930,8 @@ def edge_vs_plain(ldpc_bp, dev, rng):
           f"{good} messages back, {launches} launch(es)")
     if launches <= 0 or good < 0.95 * BP_BATCH:
         fail("bp_decode_pallas did not run the sum_product_edge kernel")
-    return max_err, k_ms, p_ms, bound, launches
+    path_err, path = bp_path_times(ldpc_bp, batches, rule)
+    return max(max_err, path_err), k_ms, p_ms, bound, launches, iters, path
 
 
 def full_hier_payloads(P):
@@ -1017,16 +1193,25 @@ def main() -> int:
         built, vit_built = [b.result() for b in builds]
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
     print_ptxas(built)
+    bp_plans = print_bp_plans(ldpc_bp)
 
     rng = np.random.default_rng(SEED)
     print(f"[3] BP kernel vs plain version (exact), B={BP_BATCH}+{BP_GARBAGE}")
-    max_err, times, bp_bnd = kernel_vs_plain(ldpc_bp, dev, rng)
+    max_err, times, bp_bnd, bp_iters = kernel_vs_plain(ldpc_bp, dev, rng)
 
     print(f"[4] batch path: {N_FRAMES} frames x {PAYLOAD_BYTES} B")
-    launches = batch_path(P, ldpc_bp, dev, rng)
+    # BP launches of each run that drives a decode path, counted from 0 just
+    # before it, as the Viterbi launches below
+    bp_runs, recorded = batch_path(P, ldpc_bp, dev, rng)
+    bp_runs = {f"4 {rule}": n for rule, n in bp_runs.items()}
+    batches = path_batches(recorded)
+    print("[3] (cont.) kernel vs plain version (exact) and sum_product times "
+          "at the batches [4] handed the BP kernel")
+    path_err, bp_path = bp_path_times(ldpc_bp, batches, "sum_product")
+    max_err = max(max_err, path_err)
 
     print("[5] stream path: 4 frames, 37 Hz CFO, 20000-sample chunks")
-    stream_path(P, ldpc_bp, dev, rng)
+    bp_runs["5"] = stream_path(P, ldpc_bp, dev, rng)
 
     print(f"[6] built {vit_built.path} in {vit_built.seconds:.2f} s")
     print_ptxas(vit_built)
@@ -1057,8 +1242,8 @@ def main() -> int:
 
     print(f"[12] BP sum_product_edge vs plain version (exact), "
           f"B={BP_BATCH}+{BP_GARBAGE}")
-    edge_err, edge_ms, edge_plain_ms, edge_bnd, edge_launches = \
-        edge_vs_plain(ldpc_bp, dev, rng)
+    (edge_err, edge_ms, edge_plain_ms, edge_bnd, edge_launches, edge_iters,
+     edge_path) = edge_vs_plain(ldpc_bp, dev, rng, batches)
 
     print(f"[13] hierarchical link: {HIER_FRAMES} full 16-QAM a=2 GI 1/8 "
           f"frames, HP r1/2 + LP r3/4, radix 2 then radix 4")
@@ -1090,6 +1275,8 @@ def main() -> int:
           f"{by_phase[4]} (default paths: all but {FORCED!r})")
     if any(by_phase[4][p] for p in default):
         fail("a default path launched the radix-4 Viterbi kernel")
+    print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
+          f"{{'12': {edge_launches}}}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -1109,16 +1296,29 @@ def main() -> int:
                 "ms_at_13": {f"{plane} {path_lanes[plane]}x{VIT_SPAN}":
                              path_ms[plane, radix] for plane in ("HP", "LP")}}
 
+    def bp_extra(rule, by_phase, iters, path):
+        # N512R12 runs the exact-width (D = 5) instantiation
+        code = ldpc_bp._RULE_CODE[rule]
+        return {"launches_by_phase": by_phase,
+                "registers": ptxas_registers(built, code, 5),
+                "launch_plan": bp_plans[rule],
+                "ms_by_max_iter": {str(i): ms for i, ms in iters.items()},
+                "ms_at_4": {k: v[0] for k, v in path.items()},
+                "bound_ms_at_4": {k: v[1][0] for k, v in path.items()}}
+
     k_ms, p_ms = times["sum_product"]
     vit_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 2)
     r4_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 4)
     print(json.dumps({"kernels": [
         entry("ldpc_bp_decode", "ldpc_bp.cu",
-              "orion_sdr_tpu/ops/ldpc_bp.py:256", launches, max_err, k_ms,
-              p_ms, bp_bnd),
+              "orion_sdr_tpu/ops/ldpc_bp.py:256", sum(bp_runs.values()),
+              max_err, k_ms, p_ms, bp_bnd,
+              **bp_extra("sum_product", bp_runs, bp_iters, bp_path)),
         entry("ldpc_bp_decode_sum_product_edge", "ldpc_bp.cu",
               "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
-              edge_ms, edge_plain_ms, edge_bnd),
+              edge_ms, edge_plain_ms, edge_bnd,
+              **bp_extra("sum_product_edge", {"12": edge_launches},
+                         edge_iters, edge_path)),
         entry("viterbi_acs_traceback", "viterbi.cu",
               "orion_sdr_tpu/ops/viterbi.py:200", sum(by_phase[2].values()),
               vit_err, vit_ms, vit_plain_ms, vit_bnd, **vit_extra(2)),

@@ -19,7 +19,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 class Built(NamedTuple):
     path: str
-    log: str          # compiler stdout + stderr ("" when reused)
+    log: str          # compiler stdout + stderr (kept beside the library)
     seconds: float    # compile time (0.0 when reused)
 
 
@@ -34,7 +34,11 @@ def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
-        return Built(path, "", 0.0)
+        log = ""
+        if os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                log = f.read()
+        return Built(path, log, 0.0)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -43,5 +47,9 @@ def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
     if proc.returncode != 0:
         raise RuntimeError(f"building {name} failed ({' '.join(cmd)}):\n"
                            f"{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{path}.log")
     os.replace(tmp, path)
-    return Built(path, proc.stdout + proc.stderr, time.perf_counter() - t0)
+    return Built(path, log, time.perf_counter() - t0)

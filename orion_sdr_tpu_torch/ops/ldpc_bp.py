@@ -31,8 +31,10 @@ three rules the JAX ``bp_decode`` implements.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,54 +56,102 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 
+# the kernel's tables hold bit indices and edge ids as uint16; this marks a
+# check's padded slot
+NO_BIT = 0xFFFF
+MAX_D = 32
+
+
 @dataclass(frozen=True)
 class BpTables:
-    """One graph's edge tables on one device."""
+    """One graph's edge tables on one device. The plain version reads the
+    check-major tables (edge c·D + j); the kernel stages the compact
+    slot-major ones (edge j·m + c) in shared memory."""
     n: int
     k: int
     m: int
     D: int
-    check_bits: torch.Tensor     # (m, D) int32, padded slots = n
-    check_mask: torch.Tensor     # (m, D) uint8
-    bit_ptr: torch.Tensor        # (n + 1,) int32 CSR row pointers
-    bit_edges: torch.Tensor      # (nnz,) int32 edge ids c·D + j, ascending
-    bit_edge_slots: torch.Tensor  # (n, max col degree) int64, pad = m·D
+    C: int                        # largest column degree
+    check_bits: torch.Tensor      # (m, D) int32, padded slots = n
+    check_mask: torch.Tensor      # (m, D) uint8
+    bit_edge_slots: torch.Tensor  # (n, C) int64 edge ids c·D + j, pad m·D
+    check_slots: torch.Tensor     # (D·m,) uint16 bits as int16, [j·m + c],
+    #                               padded slots = NO_BIT
+    bit_slots: torch.Tensor       # (C·n,) uint16 edge ids j·m + c as int16,
+    #                               [i·n + b], pad m·D (a slot that holds 0)
+    key: tuple                    # (graph_key(g), device)
 
 
 _TABLES: dict = {}
+# id of a live graph object → its graph_key, dropped with the object
+_KEYS: dict = {}
+
+
+def graph_key(g) -> tuple:
+    """The content of graph ``g`` that its tables depend on: name, sizes
+    and a digest of ``check_bits``/``check_mask``. Computed once per graph
+    object, so equal graphs built apart (as ``convert.ldpc_graph_from_fields``
+    builds them) share one set of tables and launch plans."""
+    key = _KEYS.get(id(g))
+    if key is None:
+        digest = hashlib.sha256(
+            np.ascontiguousarray(g.check_bits, np.int32).tobytes()
+            + np.ascontiguousarray(g.check_mask, bool).tobytes()).hexdigest()
+        key = _KEYS[id(g)] = (g.name, g.n, g.k, g.m, g.max_deg, digest)
+        weakref.finalize(g, _KEYS.pop, id(g), None)
+    return key
 
 
 def graph_tables(g, device) -> BpTables:
     """Edge tables for graph ``g`` on ``device``, built once per (graph
-    content, device)."""
+    content, device). Raises ValueError for a graph the kernel's 16-bit
+    tables cannot hold (more than 65 535 bits, or m·D edge slots that reach
+    65 535) or whose check degree D exceeds 32."""
     device = torch.device(device)
-    key = (g.name, g.n, g.k, g.m, g.max_deg, g.check_bits.tobytes(),
-           g.check_mask.tobytes(), str(device))
+    key = (graph_key(g), device)
     t = _TABLES.get(key)
     if t is None:
-        cb = np.asarray(g.check_bits, np.int32).reshape(g.m, g.max_deg)
-        mask = np.asarray(g.check_mask, bool).reshape(g.m, g.max_deg)
+        if g.n > NO_BIT or g.m * g.max_deg >= NO_BIT:
+            raise ValueError(f"graph {g.name!r}: {g.n} bits and "
+                             f"{g.m * g.max_deg} edge slots do not fit the "
+                             f"kernel's 16-bit tables")
+        if not 1 <= g.max_deg <= MAX_D:
+            raise ValueError(f"graph {g.name!r}: check degree {g.max_deg} "
+                             f"outside 1..{MAX_D}")
+        m, D = g.m, g.max_deg
+        cb = np.asarray(g.check_bits, np.int32).reshape(m, D)
+        mask = np.asarray(g.check_mask, bool).reshape(m, D)
         if cb[mask].size and (cb[mask].min() < 0 or cb[mask].max() >= g.n):
             raise ValueError("check_bits index outside the codeword")
         edges = np.flatnonzero(mask.reshape(-1))
         bits = cb.reshape(-1)[edges]
-        order = np.argsort(bits, kind="stable")
-        bit_edges = edges[order].astype(np.int32)
+        # each bit's edges in ascending check-major id: the order its
+        # extrinsics are summed in, by both versions
+        bit_edges = edges[np.argsort(bits, kind="stable")]
         deg = np.bincount(bits, minlength=g.n)
-        ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
-        E = g.m * g.max_deg
-        slots = np.full((g.n, max(int(deg.max(initial=0)), 1)), E, np.int64)
+        ptr = np.concatenate([[0], np.cumsum(deg)])
+        E = m * D
+        C = max(int(deg.max(initial=0)), 1)
+        slots = np.full((g.n, C), E, np.int64)
         for b in range(g.n):
             row = bit_edges[ptr[b]:ptr[b + 1]]
             slots[b, :len(row)] = row
+        # slot-major renumbering c·D + j → j·m + c, the pad kept at m·D
+        slot_major = np.where(slots < E, (slots % D) * m + slots // D, E)
+        check_slots = np.where(mask, cb, NO_BIT).T.reshape(-1)
 
         def dev(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=device)
-        t = BpTables(g.n, g.k, g.m, g.max_deg,
-                     dev(np.where(mask, cb, g.n), torch.int32),
-                     dev(mask, torch.uint8), dev(ptr, torch.int32),
-                     dev(bit_edges, torch.int32), dev(slots, torch.int64))
+
+        def dev16(a):
+            return dev(np.asarray(a, np.uint16).view(np.int16), torch.int16)
+
+        t = BpTables(g.n, g.k, m, D, C, dev(np.where(mask, cb, g.n),
+                                            torch.int32),
+                     dev(mask, torch.uint8), dev(slots, torch.int64),
+                     dev16(check_slots), dev16(slot_major.T.reshape(-1)),
+                     key)
         _TABLES[key] = t
     return t
 
@@ -222,9 +272,12 @@ def build() -> Built:
         _built = build_shared("ldpc_bp", [nvcc] + NVCC_FLAGS, [_SRC])
         lib = ctypes.CDLL(_built.path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ldpc_bp_decode.argtypes = [p, i, i, i, i, i, p, p, p, p, i, i,
-                                       ctypes.c_float, p, p, p]
-        lib.ldpc_bp_decode.restype = ctypes.c_int
+        lib.ldpc_bp_launch_plan.argtypes = [i, i, i, i, i, p, p, p]
+        lib.ldpc_bp_launch_plan.restype = i
+        lib.ldpc_bp_decode.argtypes = [p, i, i, i, i, i, i, p, p, i, i,
+                                       ctypes.c_float, i, i, ctypes.c_longlong,
+                                       p, p, p]
+        lib.ldpc_bp_decode.restype = i
         _lib = lib
     return _built
 
@@ -234,13 +287,60 @@ def _check_rule(rule: str) -> None:
         raise ValueError(f"unknown BP rule {rule!r} (expected one of {RULES})")
 
 
+_PLANS: dict = {}
+
+
+def _resident(t: BpTables, code: int, device: torch.device) -> dict:
+    """The occupancy query for tables ``t`` under rule code ``code`` on a
+    CUDA ``device`` (with its index), made once and kept."""
+    key = (t.key, code)
+    base = _PLANS.get(key)
+    if base is None:
+        build()
+        thr, bps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        with torch.cuda.device(device):
+            err = _lib.ldpc_bp_launch_plan(t.n, t.m, t.D, t.C, code,
+                                           ctypes.byref(thr),
+                                           ctypes.byref(bps),
+                                           ctypes.byref(smem))
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if err != 0:
+            raise RuntimeError(f"ldpc_bp_launch_plan failed: CUDA error {err}")
+        if bps.value < 1:
+            raise RuntimeError(f"no block of the BP kernel fits an SM "
+                               f"({smem.value} B shared memory)")
+        base = _PLANS[key] = {"threads": thr.value,
+                              "blocks_per_sm": bps.value,
+                              "smem": smem.value, "sms": sms}
+    return base
+
+
+def launch_plan(g, rule: str, B: int, device=None) -> dict:
+    """The launch :func:`bp_decode_kernel` makes for B codewords of graph
+    ``g`` under ``rule``: ``threads`` (a block: one check a thread),
+    ``blocks_per_sm`` (resident blocks an SM by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor with that block size and
+    shared memory), ``smem`` (bytes a block), ``sms``, ``grid`` (the
+    resident blocks, at most B: block i stays resident and decodes rows i,
+    i + grid, ... in turn) and ``codewords_per_block`` (B over the grid,
+    rounded up). The occupancy
+    query runs once per device, graph and rule and is kept."""
+    _check_rule(rule)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    base = _resident(graph_tables(g, device), _RULE_CODE[rule], device)
+    grid = max(min(B, base["blocks_per_sm"] * base["sms"]), 1)
+    return dict(base, grid=grid, codewords_per_block=-(-B // grid))
+
+
 def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
                      rule: str = "sum_product", alpha: float = 0.75):
     """Batched BP decode: ``llr`` (B, n) contiguous float32 → (bits (B, k)
     uint8, unsat (B,) int32) on the same device. A CUDA tensor launches the
-    kernel (``bp_decode_kernel.launches`` counts the launches); a CPU tensor
-    runs :func:`bp_decode_reference`. ``bp_decode_kernel.launches`` counts
-    the launches of the three slab rules, ``.launches_edge`` those of
+    kernel on :func:`launch_plan`'s grid; a CPU tensor runs
+    :func:`bp_decode_reference`. ``bp_decode_kernel.launches`` counts the
+    launches of the three slab rules, ``.launches_edge`` those of
     ``sum_product_edge``."""
     _check_rule(rule)
     if llr.dtype != torch.float32:
@@ -258,16 +358,18 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     unsat = torch.empty((B,), dtype=torch.int32, device=llr.device)
     if B == 0:
         return bits, unsat
-    build()
     t = graph_tables(g, llr.device)
+    code = _RULE_CODE[rule]
+    plan = _resident(t, code, llr.device)
+    grid = min(B, plan["blocks_per_sm"] * plan["sms"])
     scale = float(alpha) if rule == "scaled_min_sum" else 1.0
     with torch.cuda.device(llr.device):
         stream = torch.cuda.current_stream(llr.device).cuda_stream
         err = _lib.ldpc_bp_decode(
-            llr.data_ptr(), B, t.n, t.k, t.m, t.D, t.check_bits.data_ptr(),
-            t.check_mask.data_ptr(), t.bit_ptr.data_ptr(),
-            t.bit_edges.data_ptr(), int(max_iter), _RULE_CODE[rule], scale,
-            bits.data_ptr(), unsat.data_ptr(), stream)
+            llr.data_ptr(), B, t.n, t.k, t.m, t.D, t.C,
+            t.check_slots.data_ptr(), t.bit_slots.data_ptr(), int(max_iter),
+            code, scale, grid, plan["threads"], plan["smem"], bits.data_ptr(),
+            unsat.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ldpc_bp_decode launch failed: CUDA error {err}")
     if rule == "sum_product_edge":

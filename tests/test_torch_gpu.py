@@ -1,8 +1,11 @@
 """Card-only tests of the torch port's CUDA kernels: the LDPC BP kernel against
 its plain torch version for each code and rule (the edge-layout rule
-included), the Viterbi kernel against its plain version in both modes and
-both radices, and frame decodes (COFDM, DVB-T, hierarchical DVB-T with radix
-4 forced) through the kernels. They skip without a CUDA card.
+included; batch sizes around the persistent grid, max_iter 0/1/2, rows
+converged at the start, ±0.0 and ±1e30 LLRs, back-to-back launches,
+unaligned rows, the (174, 91) and (1200, 600) graphs), the Viterbi kernel
+against its plain version in both modes and both radices, and frame decodes
+(COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels.
+They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -67,9 +70,11 @@ def test_kernel_matches_plain_version(cuda, name, rule):
     assert right.mean() > 0.95
 
 
-def test_kernel_takes_other_graph_sizes(cuda):
-    # a (174, 91) staircase graph — FT8's size — through the same kernel
-    n, k = 174, 91
+def _staircase_graph(n, k):
+    # (174, 91), FT8's size: D = 6, 59 short checks, and rows of 696 bytes,
+    # which the kernel copies 4 bytes at a time; (1200, 600): 600 checks on
+    # 256 threads, up to three a thread, so each syndrome count takes two
+    # barriers
     m = n - k
     cols = _build_msg_col_rows(k, m, 0x1234_5678)
     rows = [[] for _ in range(m)]
@@ -86,16 +91,123 @@ def test_kernel_takes_other_graph_sizes(cuda):
         cb[i, :len(r)] = r
         mask[i, :len(r)] = True
         A[i, [c for c in r if c < k]] = 1
-    g = LdpcGraph("test_174_91", n, k, m, A, cb, mask, D)
+    g = LdpcGraph(f"test_{n}_{k}", n, k, m, A, cb, mask, D)
 
     def encode(msg):
         s = (msg.to(torch.float64) @ torch.as_tensor(A.T, dtype=torch.float64,
                                                      device=msg.device))
         p = torch.cumsum(s.to(torch.int64) & 1, -1) & 1
         return torch.cat([msg.to(torch.int64), p], -1).to(torch.uint8)
+    return g, encode
 
+
+def test_kernel_takes_other_graph_sizes(cuda):
+    for n, k in ((174, 91), (1200, 600)):
+        g, encode = _staircase_graph(n, k)
+        for rule in ldpc_bp.RULES:
+            _check(g, _llrs(g, encode, 64, 3, 8, 2, cuda)[1], rule, 64)
+
+
+def _equal_to_plain(g, llr, max_iter, rule):
+    kb, ku = ldpc_bp.bp_decode_kernel(g, llr, max_iter, rule)
+    rb, ru = ldpc_bp.bp_decode_reference(g, llr, max_iter, rule)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, rb) and torch.equal(ku, ru)
+    return kb, ku
+
+
+def _edge_rows(g, encode, B, seed, device):
+    """B rows: decodable, random-normal, clean codewords (zero syndrome at
+    the start) and rows with ±0.0 and ±1e30 entries, in turn."""
+    rng = np.random.default_rng(seed)
+    msg = rng.integers(0, 2, (B, g.k)).astype(np.uint8)
+    cw = encode(torch.as_tensor(msg, device=device)).cpu().numpy()
+    llr = np.where(cw == 0, 4.0, -4.0).astype(np.float32)
+    for b in range(B):
+        kind = b % 4
+        if kind == 0:
+            llr[b, rng.choice(g.n, 3, replace=False)] *= -1
+        elif kind == 1:
+            llr[b] = rng.standard_normal(g.n)
+        elif kind == 3:
+            pick = rng.choice(g.n, 8, replace=False)
+            llr[b, pick] = np.array([0.0, -0.0, 1e30, -1e30, 0.0, -0.0,
+                                     1e30, -1e30], np.float32)
+    return torch.as_tensor(llr, device=device)
+
+
+@pytest.mark.parametrize("rule", ldpc_bp.RULES)
+def test_kernel_at_the_edges_of_the_persistent_loop(cuda, rule):
+    # batch sizes around the resident grid (launch_plan's), each row at
+    # max_iter 0, 1 and 2; the rows come in turns of decodable, garbage,
+    # clean codewords and ±0.0/±1e30 entries
+    g = ldpc_graph("N512R12")
+    encode = lambda m: ldpc_encode("N512R12", m)
+    grid = ldpc_bp.launch_plan(g, rule, 10**6)["grid"]
+    for B in sorted({1, 131, grid - 1, grid, grid + 1, 3 * grid + 7}):
+        plan = ldpc_bp.launch_plan(g, rule, B)
+        assert plan["grid"] == min(B, grid)
+        assert plan["codewords_per_block"] == -(-B // plan["grid"])
+        llr = _edge_rows(g, encode, B, B, cuda)
+        for max_iter in (0, 1, 2):
+            _, unsat = _equal_to_plain(g, llr, max_iter, rule)
+            assert (unsat[2::4] == 0).all()
+
+
+@pytest.mark.parametrize("rule", ldpc_bp.RULES)
+def test_kernel_edge_cases_on_the_174_91_graph(cuda, rule):
+    g, encode = _staircase_graph(174, 91)
+    grid = ldpc_bp.launch_plan(g, rule, 10**6)["grid"]
+    for B in (1, 131, grid + 1):
+        llr = _edge_rows(g, encode, B, 50 + B, cuda)
+        for max_iter in (0, 1, 2):
+            _equal_to_plain(g, llr, max_iter, rule)
+        # 50 iterations without the ±1e30 rows, whose min-sum messages can
+        # grow to inf - inf = NaN there (NaN orders differently in argmin)
+        finite = llr[torch.arange(B, device=cuda) % 4 != 3].contiguous()
+        _equal_to_plain(g, finite, 50, rule)
+
+
+@pytest.mark.parametrize("rule", ldpc_bp.RULES)
+def test_kernel_all_rows_converged_at_the_start(cuda, rule):
+    g = ldpc_graph("N576R23")
+    rng = np.random.default_rng(12)
+    msg = torch.as_tensor(rng.integers(0, 2, (300, g.k)), dtype=torch.uint8,
+                          device=cuda)
+    llr = (1.0 - 2.0 * ldpc_encode("N576R23", msg).to(torch.float32)) * 4.0
+    for max_iter in (0, 1, 50):
+        bits, unsat = _equal_to_plain(g, llr, max_iter, rule)
+        assert (unsat == 0).all() and torch.equal(bits, msg)
+
+
+def test_kernel_launches_back_to_back(cuda):
+    # two launches on one stream with no synchronisation between them, each
+    # on the persistent grid: the second decodes every row again
+    g = ldpc_graph("N512R34")
+    grid = ldpc_bp.launch_plan(g, "min_sum", 10**6)["grid"]
+    _, llr = _llrs(g, lambda m: ldpc_encode("N512R34", m), 2 * grid + 5, 3,
+                   40, 4, cuda)
+    rb, ru = ldpc_bp.bp_decode_reference(g, llr, 50, "min_sum")
+    before = ldpc_bp.bp_decode_kernel.launches
+    a = ldpc_bp.bp_decode_kernel(g, llr, 50, "min_sum")
+    b = ldpc_bp.bp_decode_kernel(g, llr, 50, "min_sum")
+    torch.cuda.synchronize()
+    assert ldpc_bp.bp_decode_kernel.launches == before + 2
+    for bits, unsat in (a, b):
+        assert torch.equal(bits, rb) and torch.equal(unsat, ru)
+
+
+def test_kernel_takes_an_unaligned_row_start(cuda):
+    # a view that starts one float into its storage: the rows are not
+    # 16-byte aligned, so the kernel copies them 4 bytes at a time
+    g = ldpc_graph("N512R12")
+    _, llr = _llrs(g, lambda m: ldpc_encode("N512R12", m), 200, 6, 20, 5,
+                   cuda)
+    flat = torch.cat([llr.new_zeros(1), llr.reshape(-1)])
+    view = flat[1:].view(llr.shape)
+    assert view.data_ptr() % 16 != 0
     for rule in ldpc_bp.RULES:
-        _check(g, _llrs(g, encode, 64, 3, 8, 2, cuda)[1], rule, 64)
+        _equal_to_plain(g, view, 50, rule)
 
 
 def test_decode_batch_runs_through_the_kernel(cuda):
