@@ -23,10 +23,13 @@
 // lives in shared memory. A codeword's iterations are a dependent chain of
 // phases over its edges (1 279 for N512R12), each phase a few dependent
 // shared-memory gathers and a check update of two IEEE divisions an edge,
-// ended by a barrier. Most rows of a real batch stop after a few
-// iterations, so the per-row fixed cost weighs as much as an iteration. The
-// design therefore cuts barriers and per-row cost, and keeps codewords in
-// flight on every SM:
+// ended by a barrier. Rows of a real batch arrive as codewords on a clean
+// link and stop after a few iterations near the code's threshold, so the
+// per-row fixed cost weighs as much as an iteration. The design therefore
+// cuts barriers and per-row cost, and keeps codewords in flight on every
+// SM. What it gives up: a block decodes its rows in turn, so a batch whose
+// every row iterates has fewer rows in flight (5 blocks an SM for N512R12)
+// than a block a row would have, and runs its bulk iterations slower:
 //  * persistent blocks: the grid is the resident block count from
 //    cudaOccupancyMaxActiveBlocksPerMultiprocessor (ldpc_bp_launch_plan);
 //    each block stages the graph's tables into shared memory once, then
@@ -46,8 +49,7 @@
 //    codes (5, 8, 11) and of the (174, 91) graph (6), so only real slots are
 //    computed; any other D takes a padded width of 8, 16 or 32;
 //  * a row starts with the channel's syndrome alone, so a row that arrives
-//    as a codeword (most of a real batch) costs one barrier and no check
-//    update;
+//    as a codeword costs one barrier and no check update;
 //  * one fused check phase reads each check's D totals once: their hard
 //    decisions give the syndrome, total - old extrinsic is the message, and
 //    the check update writes the new extrinsic in place. Then a barrier; the
