@@ -5,9 +5,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Environment: requires a CUDA card (exits 1 otherwise; there is no CPU
    path) and prints its name and power limit.
-2. Builds both kernels in parallel with nvcc, one process per source (the
-   LDPC belief-propagation kernel csrc/ldpc_bp.cu and the Viterbi kernel
-   csrc/viterbi.cu), and prints the BP kernel's build time and ptxas
+2. Builds the three kernels in parallel with nvcc, one process per source
+   (the LDPC belief-propagation kernel csrc/ldpc_bp.cu, the Viterbi kernel
+   csrc/viterbi.cu and the BCH/RS outer-code kernel csrc/outer_fec.cu), and
+   prints the BP kernel's build time and ptxas
    register/shared-memory report, then the BP launch for each code and rule
    at B=3072 (ops.ldpc_bp.launch_plan: threads a block, resident blocks an
    SM by cudaOccupancyMaxActiveBlocksPerMultiprocessor, shared memory, the
@@ -101,7 +102,38 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 16. Blind decode: one QPSK r2/3 GI 1/8 frame at an offset and one
    hierarchical 16-QAM GI 1/16 frame through dvb_t_blind_decode: guard,
    TPS and payloads.
-17. Prints the kernels' JSON line (each kernel's main-path launches, error
+17. Outer-code kernel vs its plain version vs the native host decoder,
+   exact (messages and ok flags equal on every row): BCH t=8 (184,120) at
+   12 928 codewords ([4]'s count) and RS(204,188) at 1 632 ([8]'s), rows
+   with 0..t+3 errors (failed rows keep their systematic prefix); small
+   batches at BCH t=1 and t=4 and RS(255,239) and RS(60,56); then every
+   batch of blocks [4]'s and [8]'s warm-up runs handed the outer decoder,
+   recorded as the path formed them.
+18. Outer-code times at the two main batches: the kernel and its plain
+   version (CUDA events), its bound, the kernel at the recorded path
+   blocks, and the chain's own outer decode (frame.chain.outer_decode_batch,
+   host clock, the copies the chain makes included) on the native host path
+   and on the card path, swept over the block count on the error-laden
+   rows and on the path's rows: the crossover the chain's block threshold
+   (_DEVICE_OUTER_MIN_BLOCKS) is set from.
+19. COFDM batch with a TX lowpass (with_tx_lowpass_null_band(65, 60.0)),
+   32 frames, MCS 0-3, through decode_batch.
+20. DVB-T with tx_lowpass_for_2k(89, 60.0) (the setup of the JAX package's
+   tests/test_dvb_t.py spectral-shaping case: taper 40, RX back-off 64), 4
+   full QPSK frames at 15 dB through decode_batch; then the two filter
+   paths of dsp/fir.py timed on the card over tap counts (the crossover
+   _FFT_MIN_TAPS is set from).
+21. COFDM with pilot_interp + cpe (pilots every 8 carriers) through a
+   5-sample echo and a phase drift, MCS 0-2.
+22. COFDM with DFT precoding, MCS 0-3.
+23. COFDM with a QAM-256 MCS at 35 dB.
+24. COFDM link on the preset dvb_t_config("1/8", 1e6) with
+   dvb_t_mcs_table (conv + RS(204,188) + Forney), MCS 0-2.
+   Phases 19-24 recover every payload and header on the card. Every run
+   of a decode path counts the outer kernel's launches from 0 and notes
+   each outer decode's block count: a decode at or above the threshold on
+   the card must launch the kernel, one below must not.
+25. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -109,7 +141,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    3168 x 1216 and the times at phase 13's chunk batches; for the BP rules
    the launches by phase ([4] by rule, [5], [12]), the registers, the
    launch plan, the times at max_iter 0/1/2 and at [4]'s batches with
-   their bounds), the card's name and power limit, then the result line
+   their bounds; for the outer-code decoders, which no Pallas kernel
+   computes, the launches by phase, the chain's two paths at the main
+   batch, the sweeps and crossovers and the threshold), the card's name
+   and power limit, then the result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
 
@@ -121,7 +156,9 @@ inputs (a row runs iteration i+1 only while it has unsatisfied checks after
 i: counted by running the kernel with max_iter = 0, 1, 2, ...); the
 operation counts are the least each algorithm needs, a transcendental
 counting as one. Viterbi branch sums that every state of a lane shares are
-counted once a lane (viterbi_ops).
+counted once a lane (viterbi_ops). The outer decode's GF table steps are
+counted per row and per row that is not a codeword (outer_bound), at the
+same rate outside the tensor cores.
 """
 
 import json
@@ -154,6 +191,16 @@ DVB_FRAMES, DVB_QAM_FRAMES = 32, 8
 COFDM_CONV_FRAMES = 64
 HIER_FRAMES = 8
 STREAM_FRAMES, STREAM_CHUNK = 6, 50_000
+# the outer code's main batches: [4]'s BCH codewords (128 frames x 101
+# blocks) and [8]'s RS codewords (32 frames x 51), and the block counts of
+# the sweep that locates the crossover between the chain's host and card
+# outer paths
+BCH_ROWS, RS_ROWS = N_FRAMES * 101, DVB_FRAMES * 51
+SWEEP_BLOCKS = (1, 4, 16, 32, 64, 128, 256, 512, 1024, 1632, 3232, 12928)
+# the new link phases (19-24)
+LINK_FRAMES, DVB_LP_FRAMES = 32, 4
+PILOT_CARRIERS = [(k, 1.0 + 0j) for k in range(-104, 105, 8) if k]
+FIR_TAPS = (17, 33, 65, 89, 129, 193, 257, 513, 1025, 2049)
 # the one run of a decode path that is not a default path: [13] with
 # ops.viterbi.FORCE_RADIX4 on
 FORCED = "13 FORCE_RADIX4"
@@ -530,7 +577,11 @@ def batch_path(P, ldpc_bp, dev, rng):
                                  device=dev)
         # warm-up (cuFFT plans, tables, build), BP batches recorded once
         if rule == "sum_product":
-            recorded = record_bp(lambda: demod.decode_batch(iq_dev))
+            OUTER.record = True
+            try:
+                recorded = record_bp(lambda: demod.decode_batch(iq_dev))
+            finally:
+                OUTER.record = False
         else:
             demod.decode_batch(iq_dev)
         torch.cuda.synchronize()
@@ -712,7 +763,11 @@ def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
     iq_dev = torch.as_tensor(batch, device=dev)
     demod = P.DvbTFrameDemod(base, device=dev)
     zero_vit(viterbi)
-    demod.decode_batch(iq_dev, n_sym, n_bytes)       # warm-up
+    OUTER.record = True                              # warm-up, recorded
+    try:
+        demod.decode_batch(iq_dev, n_sym, n_bytes)
+    finally:
+        OUTER.record = False
     torch.cuda.synchronize()
     secs = []
     for _ in range(3):
@@ -1168,6 +1223,434 @@ def blind(P, dev, rng):
         fail("blind decode of a hierarchical frame")
 
 
+# ── the BCH/RS outer code ────────────────────────────────────────────────────
+
+OUTER = None          # OuterSpy, installed by main() before any decode path
+
+
+class OuterSpy:
+    """Wraps frame.chain.outer_decode_batch: per run of a decode path it
+    notes each outer decode's kind, block count and whether that count makes
+    it due on the card (chain._outer_device_ok, the function the chain asks),
+    and while ``record`` is set it keeps the blocks each decode gets, formed
+    as the device path forms them. Shape arithmetic only when not recording,
+    so timed runs pay no extra copy."""
+
+    def __init__(self, chain, outer_fec, bch_device):
+        self.chain, self.outer_fec, self.bd = chain, outer_fec, bch_device
+        self.calls, self.recorded, self.record = [], [], False
+        self.real = real = chain.outer_decode_batch
+
+        def spy(outer, coded_bits, device=None):
+            self._see(outer, coded_bits, device)
+            return real(outer, coded_bits, device)
+        chain.outer_decode_batch = spy
+
+    def _see(self, outer, bits, device):
+        if outer.kind == "none":
+            return
+        dev = device if device is not None else getattr(bits, "device", None)
+        nb, nbits = bits.shape
+        if outer.kind == "bch":
+            code = self.chain.shortened_bch_for(outer.t)
+            n_blk, t = nb * (nbits // code.n), outer.t
+            args = (code.n, code.k, code.t)
+        else:
+            n_blk = nb * ((-(-nbits // 8)) // outer.n)
+            t, args = outer.n_parity // 2, (outer.n, outer.n_parity)
+        self.calls.append((outer.kind, n_blk,
+                           self.chain._outer_device_ok(t, n_blk, dev)))
+        if self.record and n_blk:
+            self.recorded.append((outer.kind, args,
+                                  self._blocks(outer.kind, args, bits, dev)))
+
+    def _blocks(self, kind, args, bits, dev):
+        x = torch.as_tensor(bits, device=dev).to(torch.uint8)
+        n = args[0]
+        if kind == "bch":
+            return x[:, : (x.shape[1] // n) * n].reshape(-1, n).contiguous()
+        n_full = (-(-x.shape[1] // 8)) // n
+        need = n_full * n * 8
+        x = torch.nn.functional.pad(x[:, :need], (0, max(need - x.shape[1],
+                                                          0)))
+        return self.bd.bytes_from_bits(x).reshape(-1, n).contiguous()
+
+    def zero(self):
+        self.calls = []
+        self.outer_fec.bch_decode_kernel.launches = 0
+        self.outer_fec.rs_decode_kernel.launches = 0
+
+    def read(self, phase: str) -> dict:
+        """{bch, rs: kernel launches, due: decodes at or over the
+        threshold, decodes, max_blocks} since zero(); fails the run when the
+        launches differ from the decodes that were due."""
+        bch = self.outer_fec.bch_decode_kernel.launches
+        rs = self.outer_fec.rs_decode_kernel.launches
+        due = sum(c[2] for c in self.calls)
+        out = {"bch": bch, "rs": rs, "due": due, "decodes": len(self.calls),
+               "max_blocks": max((c[1] for c in self.calls), default=0)}
+        if bch + rs != due:
+            fail(f"[{phase}] {due} outer decodes reached the block threshold "
+                 f"({self.chain._DEVICE_OUTER_MIN_BLOCKS}) but the outer "
+                 f"kernel launched {bch + rs} times")
+        return out
+
+
+def outer_words(kind, code, B, errors, rng):
+    """B codewords of ``code`` with ``errors(i)`` bit (BCH) or byte (RS)
+    errors in row i → (numpy words, messages)."""
+    if kind == "bch":
+        msgs = rng.integers(0, 2, (B, code.k)).astype(np.uint8)
+    else:
+        msgs = rng.integers(0, 256, (B, code.k)).astype(np.uint8)
+    words = code.encode(msgs)
+    for i in range(B):
+        ne = errors(i)
+        if ne:
+            pos = rng.choice(code.n, ne, replace=False)
+            words[i, pos] ^= (1 if kind == "bch" else rng.integers(
+                1, 256, ne).astype(np.uint8))
+    return words, msgs
+
+
+def outer_args(kind, code):
+    return (code.n, code.k, code.t) if kind == "bch" else (code.n,
+                                                          code.n_parity)
+
+
+def outer_run(outer_fec, kind, args, x):
+    fn = outer_fec.bch_decode_kernel if kind == "bch" else \
+        outer_fec.rs_decode_kernel
+    return fn(*args, x)
+
+
+def outer_plain(bd, kind, args, x):
+    fn = bd.bch_decode_batch_reference if kind == "bch" else \
+        bd.rs_decode_batch_reference
+    return fn(*args, x)
+
+
+def outer_host_code(P, kind, args):
+    from orion_sdr_tpu_torch.fec.galois import Bch, ReedSolomon
+    return Bch(args[2], args[0]) if kind == "bch" else ReedSolomon(*args)
+
+
+def outer_exact(P, outer_fec, bd, label, kind, args, x):
+    """Kernel vs plain version vs native host decoder on the (B, n) uint8
+    CUDA tensor ``x``: messages and ok flags equal on every row. Returns
+    (max |kernel − plain| over messages and flags, rows ok)."""
+    kb, kok = outer_run(outer_fec, kind, args, x)
+    rb, rok = outer_plain(bd, kind, args, x)
+    torch.cuda.synchronize()
+    err = max(float((kb.int() - rb.int()).abs().max()) if kb.numel() else 0.0,
+              float((kok - rok).abs().max()) if kok.numel() else 0.0)
+    hb, hok = outer_host_code(P, kind, args).decode_batch(x.cpu().numpy())
+    host_same = (np.array_equal(kb.cpu().numpy(), hb) and np.array_equal(
+        kok.cpu().numpy().astype(bool), hok.astype(bool)))
+    n_ok = int(kok.sum())
+    print(f"  {label}: {x.shape[0]} x {x.shape[1]}, max|kernel-plain|={err:g}, "
+          f"equal to the host decoder: {host_same}; {n_ok} rows ok, "
+          f"{x.shape[0] - n_ok} failed (systematic prefix)")
+    if err != 0.0 or not host_same:
+        fail(f"outer code {label}: kernel, plain version and host decoder "
+             f"differ")
+    return err, n_ok
+
+
+def outer_bound(bd, kind, args, x):
+    """Bound of one outer decode of ``x``: (ms, what sets it, rows with a
+    nonzero syndrome). Bytes: each codeword byte read once, each message
+    byte and flag written once, the 768-byte GF tables. Operations (GF
+    table steps, counted at the H100's 67 TFLOP/s f32 rate outside the
+    tensor cores, its only published scalar peak): the syndromes of every row (BCH one
+    64-bit word a position, RS 2t terms a byte), and for the rows that are
+    not codewords 2t·cap·2 Berlekamp–Massey products, n·cap Chien terms and
+    for RS cap·(2t + cap) Forney terms. Codeword rows are found by
+    re-encoding each row's prefix."""
+    B, n = x.shape
+    if kind == "bch":
+        _, k, t = args
+        enc = bd.bch_encode_batch_device(n, k, t, x[:, :k])
+        syn = n
+    else:
+        k, t = n - args[1], args[1] // 2
+        enc = bd.rs_encode_batch_device(n, args[1], x[:, :k])
+        syn = n * 2 * t
+    bad = int((enc != x).any(dim=1).sum())
+    cap = t + 2
+    per_bad = 2 * t * cap * 2 + n * cap + (cap * (2 * t + cap)
+                                           if kind == "rs" else 0)
+    return bound_ms(B * n + B * k + 4 * B + 768, B * syn + bad * per_bad) + (
+        bad,)
+
+
+def outer_path_ms(chain, outer, coded, reps: int):
+    """Host-clock ms of the chain's own outer decode of ``coded`` (the form
+    the chain hands it: a CUDA bit tensor for BCH, numpy bits after the
+    Forney deinterleave for RS), the copies included, with the block
+    threshold forced to send it to the native host decoder and to the card,
+    the two runs alternating so that drift of the host's clock rate falls on
+    both: (host median, card median) of ``reps`` runs each after a
+    warm-up."""
+    saved = chain._DEVICE_OUTER_MIN_BLOCKS
+    times = {False: [], True: []}
+    try:
+        for rep in range(reps + 1):
+            for card in (False, True):
+                chain._DEVICE_OUTER_MIN_BLOCKS = 0 if card else 1 << 62
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                OUTER.real(outer, coded)
+                torch.cuda.synchronize()
+                if rep:
+                    times[card].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        chain._DEVICE_OUTER_MIN_BLOCKS = saved
+    return float(np.median(times[False])), float(np.median(times[True]))
+
+
+def outer_sweep(chain, bd, kind, outer, x):
+    """The chain's outer decode on each path at SWEEP_BLOCKS rows of ``x``
+    (as many as it has): ([(blocks, host ms, card ms)], the smallest swept
+    count from which the card path is faster at every larger count, or
+    None)."""
+    coded = x if kind == "bch" else bd.bits_from_bytes(x).cpu().numpy()
+    sweep = []
+    for nb in SWEEP_BLOCKS + (x.shape[0],):
+        if nb > x.shape[0] or (sweep and nb <= sweep[-1][0]):
+            continue
+        sweep.append((nb,) + outer_path_ms(chain, outer, coded[:nb], 15))
+    cross = None
+    for nb, h, d in reversed(sweep):
+        if d >= h:
+            break
+        cross = nb
+    return sweep, cross
+
+
+def outer_phase_exact(P, outer_fec, bd, dev, rng):
+    """Phase 17: returns (max error, {kind: (code, args, CUDA words)} of the
+    two main batches)."""
+    from orion_sdr_tpu_torch.frame import chain
+    err = 0.0
+    main = {}
+    cases = [("bch", chain.shortened_bch_for(8), BCH_ROWS, 12),
+             ("rs", chain.rs_for(204, 16), RS_ROWS, 12),
+             ("bch", chain.shortened_bch_for(1), 200, 5),
+             ("bch", chain.shortened_bch_for(4), 200, 8),
+             ("rs", chain.rs_for(255, 16), 200, 12),
+             ("rs", chain.rs_for(60, 4), 200, 6)]
+    for kind, code, B, spread in cases:
+        words, _ = outer_words(kind, code, B, lambda i: i % spread, rng)
+        x = torch.as_tensor(words, device=dev)
+        args = outer_args(kind, code)
+        label = (f"{kind.upper()}({code.n},{code.k}) t={args[2] if kind == 'bch' else args[1] // 2}, "
+                 f"0..{spread - 1} errors a row")
+        e, _ = outer_exact(P, outer_fec, bd, label, kind, args, x)
+        err = max(err, e)
+        if B in (BCH_ROWS, RS_ROWS) and kind not in main:
+            main[kind] = (code, args, x)
+    for i, (kind, args, x) in enumerate(OUTER.recorded):
+        e, _ = outer_exact(P, outer_fec, bd, f"recorded {kind} batch {i} of "
+                           f"[4]/[8]", kind, args, x)
+        err = max(err, e)
+    return err, main
+
+
+def outer_phase_times(P, outer_fec, bd, main, dev):
+    """Phase 18: kernel, plain and host times at the two main batches and
+    at the recorded path batches, the bounds, and the block-count sweep of
+    the chain's two outer paths. Returns {kind: dict of numbers}."""
+    from orion_sdr_tpu_torch.frame import chain
+    out = {}
+    for kind, (code, args, x) in main.items():
+        outer = (P.OuterFec.bch(args[2]) if kind == "bch"
+                 else P.OuterFec.reed_solomon(*args))
+        k_ms = cuda_ms(lambda: outer_run(outer_fec, kind, args, x), reps=20)
+        p_ms = cuda_ms(lambda: outer_plain(bd, kind, args, x), reps=3,
+                       warmup=1)
+        bnd = outer_bound(bd, kind, args, x)
+        rec = [r[2] for r in OUTER.recorded if r[0] == kind]
+        rec_ms = rec_bnd = None
+        if rec:
+            xr = torch.cat(rec)
+            rec_ms = cuda_ms(lambda: outer_run(outer_fec, kind, args, xr),
+                             reps=20)
+            rec_bnd = outer_bound(bd, kind, args, xr)
+        # the chain's inputs: a CUDA bit tensor for BCH (no outer
+        # interleaver), numpy bits after the Forney deinterleave for RS;
+        # swept on these error-laden rows and on the path's own blocks
+        sweeps = {"errors": outer_sweep(chain, bd, kind, outer, x)}
+        if rec:
+            sweeps["path"] = outer_sweep(chain, bd, kind, outer, xr)
+        host_ms, dev_ms = sweeps["errors"][0][-1][1:]
+        print(f"  {kind.upper()}({code.n},{code.k}) at {x.shape[0]} codewords "
+              f"({bnd[2]} not codewords): kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+              f"{bnd[0] / k_ms:.1%} of it; chain's outer decode, host clock: "
+              f"native host path {host_ms:.4f} ms, card path {dev_ms:.4f} ms")
+        if rec_ms is not None:
+            print(f"  {kind.upper()} at the path's recorded blocks "
+                  f"({xr.shape[0]} codewords, {rec_bnd[2]} not codewords): "
+                  f"kernel {rec_ms:.4f} ms, bound {rec_bnd[0]:.5f} ms")
+        for name, (sweep, cross) in sweeps.items():
+            print(f"  {kind.upper()} sweep on the {name} rows, the chain's "
+                  f"outer decode ms (blocks: host path / card path): "
+                  + "; ".join(f"{nb}: {h:.4f} / {d:.4f}"
+                              for nb, h, d in sweep))
+            print(f"  {kind.upper()} crossover on the {name} rows: the card "
+                  f"path is faster from {cross} blocks on (threshold in "
+                  f"frame/chain.py: {chain._DEVICE_OUTER_MIN_BLOCKS})")
+        out[kind] = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                     "host_ms": host_ms, "card_path_ms": dev_ms,
+                     "ms_at_path": rec_ms, "sweeps": sweeps,
+                     "rows": x.shape[0]}
+    return out
+
+
+def cofdm_link(P, dev, rng, label, cfg, pre, table, n_frames, mcs_of,
+               n_bytes, noise, channel=None):
+    """Modulates n_frames frames on the card, passes each body through
+    ``channel`` and AWGN at ``noise`` × its power, decodes the batch with
+    OfdmFrameDemod.decode_batch on the card; every payload and header must
+    come back. Returns the first run's seconds."""
+    mod = P.OfdmFrameMod(cfg, table, pre, device=dev)
+    frames = [(P.FrameMetadata(7000 + i, mcs_of(i), i % 256),
+               rng.integers(0, 256, n_bytes).astype(np.uint8))
+              for i in range(n_frames)]
+    bodies = [mod.modulate_frame(P.FramePacket(m, d), 900 + i)
+              [pre.total_len():] for i, (m, d) in enumerate(frames)]
+    batch = np.zeros((n_frames, max(len(b) for b in bodies)), np.complex64)
+    for i, b in enumerate(bodies):
+        if channel is not None:
+            b = channel(b, i)
+        sig = float(np.mean(np.abs(b) ** 2))
+        batch[i, :len(b)] = b
+        batch[i] += ((rng.standard_normal(batch.shape[1])
+                      + 1j * rng.standard_normal(batch.shape[1]))
+                     * np.sqrt(sig * noise / 2)).astype(np.complex64)
+    t0 = time.perf_counter()
+    out = P.OfdmFrameDemod(cfg, table, device=dev).decode_batch(
+        torch.as_tensor(batch, device=dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    good = sum(isinstance(o, P.FramePacket) and np.array_equal(o.payload, d)
+               and o.metadata == m for o, (m, d) in zip(out, frames))
+    print(f"  {label}: {good}/{n_frames} frames of {n_bytes} B back "
+          f"({dt:.4f} s, first run)")
+    if good != n_frames:
+        fail(f"{label}: {n_frames - good} frames lost")
+    return dt
+
+
+def fir_sweep(dev, rng):
+    """The TX lowpass's two filter paths (dsp/fir.py: conv1d, FFT
+    overlap-save) on the card at FIR_TAPS, over one DVB-T frame's stream
+    (68 symbols of 2304 samples, real and imaginary rows), CUDA events:
+    prints each path's ms and the tap count from which the FFT path is
+    faster at every larger count (the crossover _FFT_MIN_TAPS is set
+    from)."""
+    from orion_sdr_tpu_torch.dsp import fir
+    x = torch.as_tensor(rng.standard_normal((2, 68 * 2304)),
+                        dtype=torch.float32, device=dev)
+    rows = []
+    for T in FIR_TAPS:
+        taps = fir.kaiser_lowpass_taps(T, 0.43, 60.0)
+        xp = torch.nn.functional.pad(x, (T - 1, T // 2))
+        rows.append((T, cuda_ms(lambda: fir._conv_direct(xp, taps)),
+                     cuda_ms(lambda: fir._fft_overlap_save(xp, taps))))
+    cross = None
+    for T, c, f in reversed(rows):
+        if f >= c:
+            break
+        cross = T
+    print(f"  FIR paths on a DVB-T frame's stream (2 x {68 * 2304}), ms "
+          f"(taps: conv1d / FFT overlap-save): " + "; ".join(
+              f"{T}: {c:.4f} / {f:.4f}" for T, c, f in rows)
+          + f"; FFT faster from {cross} taps on (dsp/fir.py _FFT_MIN_TAPS = "
+          f"{fir._FFT_MIN_TAPS})")
+
+
+def new_links(P, dev, rng):
+    """Phases 19-24, each a default path counted from 0: returns {phase:
+    outer-kernel counts}."""
+    from orion_sdr_tpu_torch.modulate.dvb_t_frame import tx_lowpass_for_2k
+    from orion_sdr_tpu_torch.waveform import dvb_t as PD
+    runs = {}
+    cfg, pre, table = link(P)
+
+    def run(phase, title, fn):
+        print(f"[{phase}] {title}")
+        OUTER.zero()
+        fn()
+        runs[phase] = OUTER.read(phase)
+
+    run("19", f"COFDM batch with a TX lowpass (with_tx_lowpass_null_band(65, "
+        f"60.0)): {LINK_FRAMES} frames, MCS 0-3",
+        lambda: cofdm_link(P, dev, rng, "lowpass",
+                           cfg.with_tx_lowpass_null_band(65, 60.0), pre,
+                           table, LINK_FRAMES, lambda i: i % 4,
+                           PAYLOAD_BYTES, 0.02))
+
+    def dvb_t_lowpass():
+        params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"))
+        n_bytes = dvb_t_full_payload(P, params)
+        mask = tx_lowpass_for_2k(89, 60.0)
+        frames = [(P.DvbTFrameParams(params.link, i % 4, i),
+                   rng.integers(0, 256, n_bytes).astype(np.uint8))
+                  for i in range(DVB_LP_FRAMES)]
+        iq = np.stack([add_noise(P.DvbTFrameMod(p, device=dev)
+                                 .with_symbol_window(40).with_tx_lowpass(mask)
+                                 .modulate(d).iq, 15.0, rng)
+                       for p, d in frames])
+        demod = P.DvbTFrameDemod(params, device=dev).with_rx_window_backoff(64)
+        out = demod.decode_batch(torch.as_tensor(iq, device=dev), 68, n_bytes)
+        good = sum(np.array_equal(o.payload, d) and o.tps == p.tps_word()
+                   for o, (p, d) in zip(out, frames))
+        print(f"  {good}/{DVB_LP_FRAMES} full QPSK r1/2 frames (taper 40, "
+              f"89-tap mask, RX back-off 64, 15 dB): payload and TPS back")
+        if good != DVB_LP_FRAMES:
+            fail("DVB-T frames with the TX lowpass did not decode")
+
+    run("20", "DVB-T with tx_lowpass_for_2k(89, 60.0)", dvb_t_lowpass)
+    fir_sweep(dev, rng)
+
+    plan = P.CarrierPlan(256, 64).with_pilot_carriers(PILOT_CARRIERS)
+    pcfg = P.OfdmConfig(plan.with_contiguous_data(edge_guard=16), fs=1e6) \
+        .with_equalizer_method("pilot_interp").with_phase_tracking("cpe")
+
+    def echo_drift(x, i):
+        y = x + 0.4 * np.concatenate([np.zeros(5, np.complex64), x[:-5]])
+        return (y * np.exp(1j * 1e-4 * (i % 4 + 1) * np.arange(len(y)))
+                ).astype(np.complex64)
+
+    run("21", f"COFDM with pilot_interp + cpe through a 5-sample echo and a "
+        f"phase drift: {LINK_FRAMES} frames, MCS 0-2",
+        lambda: cofdm_link(P, dev, rng, "pilot_interp + cpe", pcfg, pre,
+                           table, LINK_FRAMES, lambda i: i % 3,
+                           PAYLOAD_BYTES, 0.005, echo_drift))
+    run("22", f"COFDM with DFT precoding: {LINK_FRAMES} frames, MCS 0-3",
+        lambda: cofdm_link(P, dev, rng, "DFT-s-OFDM",
+                           cfg.with_transform_precoding(True), pre, table,
+                           LINK_FRAMES, lambda i: i % 4, PAYLOAD_BYTES,
+                           0.02))
+    t256 = P.McsTable([P.Mcs("qam256", P.InnerFec.ldpc("N512R12"),
+                             P.OuterFec.bch(8))])
+    run("23", f"COFDM QAM-256 MCS (LDPC N512R12 + BCH t=8) at 35 dB: "
+        f"{LINK_FRAMES} frames",
+        lambda: cofdm_link(P, dev, rng, "qam256", cfg, pre, t256,
+                           LINK_FRAMES, lambda i: 0, PAYLOAD_BYTES, 3e-4))
+    dpre = P.OfdmPreamble(repeat_len=1024, num_repeats=2) \
+        .with_training_symbol(2048, 256)
+    run("24", f"COFDM link on dvb_t_config('1/8', 1e6) with dvb_t_mcs_table "
+        f"(conv + RS(204,188) + Forney): {LINK_FRAMES} frames",
+        lambda: cofdm_link(P, dev, rng, "dvb_t_config",
+                           PD.dvb_t_config("1/8", 1e6), dpre,
+                           PD.dvb_t_mcs_table(), LINK_FRAMES,
+                           lambda i: i % 3, PAYLOAD_BYTES, 0.02))
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1187,10 +1670,15 @@ def main() -> int:
                 else f"nvidia-smi gave nothing: {smi.stderr.strip()}")
     print(smi_line)
 
-    from orion_sdr_tpu_torch.ops import viterbi
-    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
-        builds = [pool.submit(ldpc_bp.build), pool.submit(viterbi.build)]
-        built, vit_built = [b.result() for b in builds]
+    from orion_sdr_tpu_torch.ops import outer_fec, viterbi
+    from orion_sdr_tpu_torch.fec import bch_device
+    from orion_sdr_tpu_torch.frame import chain
+    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, together
+        builds = [pool.submit(ldpc_bp.build), pool.submit(viterbi.build),
+                  pool.submit(outer_fec.build)]
+        built, vit_built, outer_built = [b.result() for b in builds]
+    global OUTER
+    OUTER = OuterSpy(chain, outer_fec, bch_device)
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
     print_ptxas(built)
     bp_plans = print_bp_plans(ldpc_bp)
@@ -1202,7 +1690,9 @@ def main() -> int:
     print(f"[4] batch path: {N_FRAMES} frames x {PAYLOAD_BYTES} B")
     # BP launches of each run that drives a decode path, counted from 0 just
     # before it, as the Viterbi launches below
+    OUTER.zero()
     bp_runs, recorded = batch_path(P, ldpc_bp, dev, rng)
+    outer_runs = {"4": OUTER.read("4")}
     bp_runs = {f"4 {rule}": n for rule, n in bp_runs.items()}
     batches = path_batches(recorded)
     print("[3] (cont.) kernel vs plain version (exact) and sum_product times "
@@ -1211,7 +1701,9 @@ def main() -> int:
     max_err = max(max_err, path_err)
 
     print("[5] stream path: 4 frames, 37 Hz CFO, 20000-sample chunks")
+    OUTER.zero()
     bp_runs["5"] = stream_path(P, ldpc_bp, dev, rng)
+    outer_runs["5"] = OUTER.read("5")
 
     print(f"[6] built {vit_built.path} in {vit_built.seconds:.2f} s")
     print_ptxas(vit_built)
@@ -1226,15 +1718,21 @@ def main() -> int:
     # (radix-2, radix-4) launches of each run that drives a decode path,
     # counted from 0 just before it (comparisons with the plain versions are
     # not counted); every run but [13]'s forced one is a default path
+    OUTER.zero()
     vit_runs = {"8": dvb_t_batch(P, viterbi, dev, rng)}
+    outer_runs["8"] = OUTER.read("8")
 
     print("[9] DVB-T single frame at an unknown offset, 4 dB")
     zero_vit(viterbi)
+    OUTER.zero()
     dvb_t_unknown_offset(P, dev)
     vit_runs["9"] = read_vit(viterbi)
+    outer_runs["9"] = OUTER.read("9")
 
     print(f"[10] COFDM conv+RS link: {COFDM_CONV_FRAMES} frames x 300 B")
+    OUTER.zero()
     vit_runs["10"] = cofdm_conv_batch(P, viterbi, dev, rng)
+    outer_runs["10"] = OUTER.read("10")
 
     print(f"[11] radix-4 Viterbi kernel vs plain version (exact): chunked "
           f"dvb_k7 L={VIT_LANES} x {VIT_SPAN}, terminated k5 128 x 4096")
@@ -1247,27 +1745,35 @@ def main() -> int:
 
     print(f"[13] hierarchical link: {HIER_FRAMES} full 16-QAM a=2 GI 1/8 "
           f"frames, HP r1/2 + LP r3/4, radix 2 then radix 4")
+    OUTER.zero()
     vit_runs["13"], vit_runs[FORCED], (path_err, path_ms, path_lanes) = \
         hier_link(P, viterbi, dev, rng)
+    outer_runs["13"] = OUTER.read("13")
     vit_err = max(vit_err, path_err[2])
     r4_err = max(r4_err, path_err[4])
 
     print("[14] super-frame: 4 full QPSK r1/2 frames, 12 dB")
     zero_vit(viterbi)
+    OUTER.zero()
     super_frame(P, dev, rng)
     vit_runs["14"] = read_vit(viterbi)
+    outer_runs["14"] = OUTER.read("14")
 
     print(f"[15] streams: {STREAM_FRAMES} QPSK frames at random gaps < 2000 "
           f"samples, 10 dB, "
           f"{STREAM_CHUNK}-sample chunks; 2 hierarchical frames")
     zero_vit(viterbi)
+    OUTER.zero()
     streams(P, dev, rng)
     vit_runs["15"] = read_vit(viterbi)
+    outer_runs["15"] = OUTER.read("15")
 
     print("[16] blind decode: a plain and a hierarchical frame")
     zero_vit(viterbi)
+    OUTER.zero()
     blind(P, dev, rng)
     vit_runs["16"] = read_vit(viterbi)
+    outer_runs["16"] = OUTER.read("16")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
@@ -1277,6 +1783,25 @@ def main() -> int:
         fail("a default path launched the radix-4 Viterbi kernel")
     print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
           f"{{'12': {edge_launches}}}")
+
+    print(f"[17] outer-code kernel vs plain version vs native host decoder "
+          f"(exact): BCH t=8 at {BCH_ROWS}, RS(204,188) at {RS_ROWS}, small "
+          f"batches, and the {len(OUTER.recorded)} batches [4] and [8] "
+          f"handed the outer decoder")
+    print(f"  built {outer_built.path} in {outer_built.seconds:.2f} s")
+    print_ptxas(outer_built)
+    outer_err, outer_main = outer_phase_exact(P, outer_fec, bch_device, dev,
+                                              rng)
+    print("[18] outer-code times: kernel and plain version (CUDA events), "
+          "the chain's outer decode on each path (host clock, copies "
+          "included), bounds, and the block-count sweep")
+    outer_t = outer_phase_times(P, outer_fec, bch_device, outer_main, dev)
+    outer_runs.update(new_links(P, dev, rng))
+    print(f"  outer-kernel launches by phase (BCH / RS; decodes due at the "
+          f"threshold {chain._DEVICE_OUTER_MIN_BLOCKS}): " + "; ".join(
+              f"[{ph}] {r['bch']} / {r['rs']} ({r['due']} due of "
+              f"{r['decodes']} decodes, up to {r['max_blocks']} blocks)"
+              for ph, r in outer_runs.items()))
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -1306,6 +1831,23 @@ def main() -> int:
                 "ms_at_4": {k: v[0] for k, v in path.items()},
                 "bound_ms_at_4": {k: v[1][0] for k, v in path.items()}}
 
+    def outer_entry(kind, name, replaces):
+        t = outer_t[kind]
+        return entry(
+            name, "outer_fec.cu", replaces,
+            sum(r[kind] for r in outer_runs.values()), outer_err, t["ms"],
+            t["plain_ms"], t["bound"],
+            pallas_counterpart=None,
+            note="no Pallas kernel in the JAX package computes this: it "
+                 "replaces a jnp program",
+            launches_by_phase={ph: r[kind] for ph, r in outer_runs.items()},
+            rows=t["rows"], host_path_ms=t["host_ms"],
+            card_path_ms=t["card_path_ms"], ms_at_path_blocks=t["ms_at_path"],
+            sweep_host_card_ms={name: {str(nb): [h, d] for nb, h, d in sw}
+                                for name, (sw, _) in t["sweeps"].items()},
+            crossover_blocks={name: c for name, (_, c) in t["sweeps"].items()},
+            threshold_blocks=chain._DEVICE_OUTER_MIN_BLOCKS)
+
     k_ms, p_ms = times["sum_product"]
     vit_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 2)
     r4_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 4)
@@ -1324,7 +1866,11 @@ def main() -> int:
               vit_err, vit_ms, vit_plain_ms, vit_bnd, **vit_extra(2)),
         entry("viterbi_acs_traceback_radix4", "viterbi.cu",
               "orion_sdr_tpu/ops/viterbi.py:347", sum(by_phase[4].values()),
-              r4_err, r4_ms, r4_plain_ms, r4_bnd, **vit_extra(4))]}))
+              r4_err, r4_ms, r4_plain_ms, r4_bnd, **vit_extra(4)),
+        outer_entry("bch", "outer_bch_decode",
+                    "orion_sdr_tpu/fec/bch_device.py:87"),
+        outer_entry("rs", "outer_rs_decode",
+                    "orion_sdr_tpu/fec/bch_device.py:206")]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,12 +6,14 @@ scramblers): frame modulation, batch and streaming demodulation. And the
 conformant DVB-T 2K receive chain: ``DvbTFrameMod`` and ``DvbTFrameDemod``
 (GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)),
 the hierarchical link (``DvbTHierFrameMod``/``DvbTHierFrameDemod``), blind
-decode, the super-frame and the stream receivers. Two hand-written Hopper
+decode, the super-frame and the stream receivers. Three hand-written Hopper
 kernels carry them: LDPC belief propagation (``ops/ldpc_bp.py``,
-``csrc/ldpc_bp.cu``, four check rules) and the Viterbi ACS + traceback
-(``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4). Every constructor and entry point
-that takes host data takes an explicit ``device``; at the frame layer bytes
-go in and numpy complex64 IQ comes out, as in the JAX package.
+``csrc/ldpc_bp.cu``, four check rules), the Viterbi ACS + traceback
+(``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4) and the BCH/RS
+outer decoder (``ops/outer_fec.py``, ``csrc/outer_fec.cu``). Every
+constructor and entry point that takes host data takes an explicit
+``device``; at the frame layer bytes go in and numpy complex64 IQ comes
+out, as in the JAX package.
 """
 
 from .frame import (

@@ -1,4 +1,4 @@
-"""Gray-coded constellations: BPSK/QPSK/QAM-16/64 map and max-log soft LLRs
+"""Gray-coded constellations: BPSK/QPSK/QAM-16/64/256 map and max-log soft LLRs
 (counterpart of ``orion_sdr_tpu/constellation.py``).
 
 Per-axis independent Gray coding, unit average symbol energy
@@ -11,14 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-BITS_PER_SYMBOL = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6}
+BITS_PER_SYMBOL = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6, "qam256": 8}
 
 
 def bits_per_symbol(order: str) -> int:
     if order not in BITS_PER_SYMBOL:
-        raise NotImplementedError(
-            f"constellation {order!r} is not in the port yet (bpsk, qpsk, "
-            "qam16 and qam64 are)")
+        raise ValueError(f"unknown constellation {order!r} (expected one of "
+                         f"{sorted(BITS_PER_SYMBOL)})")
     return BITS_PER_SYMBOL[order]
 
 

@@ -9,10 +9,9 @@ import numpy as np
 from .fec.ldpc import LdpcGraph
 from .frame.types import (InnerFec, InterleaverKind, Mcs, McsTable, OuterFec,
                           ScramblerKind)
-from .multicarrier import CarrierPlan
+from .multicarrier import CarrierPlan, TxLowpass
 from .ofdm import OfdmConfig
 from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
-from .unported import TX_LOWPASS, not_ported
 from .waveform.dvb_t import DvbTFrameParams, DvbTLinkParams
 
 
@@ -36,10 +35,10 @@ def carrier_plan_from_fields(d: dict) -> CarrierPlan:
 
 
 def ofdm_config_from_fields(d: dict) -> OfdmConfig:
-    if d.get("tx_lowpass") is not None:
-        raise not_ported("the TX lowpass", TX_LOWPASS)
     fields = dict(d)
     fields["carrier_plan"] = carrier_plan_from_fields(d["carrier_plan"])
+    if d.get("tx_lowpass") is not None:
+        fields["tx_lowpass"] = TxLowpass(**d["tx_lowpass"])
     for name, cls in (("outer_fec", OuterFec), ("inner_fec", InnerFec),
                       ("outer_interleaver", InterleaverKind),
                       ("inner_interleaver", InterleaverKind),

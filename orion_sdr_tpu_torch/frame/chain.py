@@ -1,12 +1,15 @@
 """Shared TX/RX coding chain + BlockPlan (counterpart of
 ``orion_sdr_tpu/frame/chain.py``).
 
-The byte-domain stages (CRC, byte scramblers, BCH and RS outer codes, the
-outer interleavers) run on the host in numpy; the inner code (LDPC or
-convolutional), the inner block interleaver, the bit-domain scrambler and
-the LLR normalisation run on the device of the tensors they are given. FEC
-blocks and frames are stacked on a leading axis, so each LDPC or Viterbi
-stage is one batched call.
+The byte-domain stages (CRC, byte scramblers, the outer interleavers) run
+on the host in numpy; the inner code (LDPC or convolutional), the inner
+block interleaver, the bit-domain scrambler and the LLR normalisation run on
+the device of the tensors they are given. The BCH and RS outer codes run on
+a CUDA device when a call holds enough codewords (``_outer_device_ok``:
+the products mod 2 of ``fec/bch_device.py`` and the kernel of
+``ops/outer_fec.py``), else on the host through the native coders; both
+give the same bits. FEC blocks and frames are stacked on a leading axis, so
+each LDPC, Viterbi or outer-code stage is one batched call.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..fec.bch_device import (MAX_DEVICE_T, bch_decode_batch_device,
+                              bch_encode_batch_device, bits_from_bytes,
+                              bytes_from_bits, rs_decode_batch_device,
+                              rs_encode_batch_device)
 from ..fec.conv import (conv_encode_punctured, punctured_coded_len,
                         viterbi_decode_soft, viterbi_decode_soft_chunked)
 from ..fec.crc import crc16, crc32
@@ -275,24 +282,60 @@ def block_plan(info_bytes: int, crc: str, outer: OuterFec, inner: InnerFec,
 # ── encode side ──────────────────────────────────────────────────────────────
 
 
-def outer_encode(outer: OuterFec, message_bytes) -> np.ndarray:
-    """Bytes → outer-coded bits on the host: BCH in 120-bit blocks, RS in
-    k-byte blocks, each zero-padded to whole blocks."""
+# At or above this many codewords in one call, on a CUDA device, the outer
+# code runs on the card; below it the native host coder runs (the outputs
+# are the same bits either way). Set from chip_smoke.py's sweep [18] of the
+# chain's outer decode on an NVIDIA H100 80GB HBM3 at its 700 W power
+# limit: BCH's card path is faster from 4 blocks on over the main path's own
+# blocks (from 1 on over rows with errors: 0.15 against 0.54 ms at one
+# block, 0.59 against 8.7 ms at 12 928); RS's two paths tie within the host
+# clock's noise at every count from 1 to 3 048 (the bit packing around the
+# host's Forney deinterleaver costs more than either decoder), so one
+# threshold serves both.
+_DEVICE_OUTER_MIN_BLOCKS = 4
+
+
+def _outer_device_ok(t: int, n_blocks: int, device) -> bool:
+    """Whether ``n_blocks`` codewords of a t-error outer code go to the
+    device coders: t <= MAX_DEVICE_T, enough codewords, and a CUDA
+    ``device``."""
+    return (t <= MAX_DEVICE_T and n_blocks >= _DEVICE_OUTER_MIN_BLOCKS
+            and device is not None and torch.device(device).type == "cuda")
+
+
+def outer_encode(outer: OuterFec, message_bytes, device=None):
+    """Bytes → outer-coded bits: BCH in 120-bit blocks, RS in k-byte
+    blocks, each zero-padded to whole blocks. Numpy bits from the host
+    coder when ``device`` is None; else a uint8 tensor on ``device``, coded
+    there when :func:`_outer_device_ok` says so."""
     message_bytes = np.asarray(message_bytes, np.uint8)
+
+    def out(bits):
+        return bits if device is None else torch.as_tensor(bits,
+                                                           device=device)
     if outer.kind == "none":
-        return bytes_to_bits(message_bytes)
+        return out(bytes_to_bits(message_bytes))
     if outer.kind == "bch":
         code = shortened_bch_for(outer.t)
         bits = bytes_to_bits(message_bytes)
         n_blk = -(-len(bits) // BCH_INFO_BITS)
-        padded = np.concatenate([bits, np.zeros(
-            n_blk * BCH_INFO_BITS - len(bits), np.uint8)])
-        return code.encode(padded.reshape(n_blk, BCH_INFO_BITS)).reshape(-1)
+        blocks = np.concatenate([bits, np.zeros(
+            n_blk * BCH_INFO_BITS - len(bits), np.uint8)]).reshape(
+                n_blk, BCH_INFO_BITS)
+        if _outer_device_ok(outer.t, n_blk, device):
+            return bch_encode_batch_device(
+                code.n, code.k, code.t,
+                torch.as_tensor(blocks, device=device)).reshape(-1)
+        return out(code.encode(blocks).reshape(-1))
     rs = rs_for(outer.n, outer.n_parity)
     n_blk = -(-len(message_bytes) // rs.k)
-    padded = np.concatenate([message_bytes, np.zeros(
-        n_blk * rs.k - len(message_bytes), np.uint8)])
-    return bytes_to_bits(rs.encode(padded.reshape(n_blk, rs.k)).reshape(-1))
+    blocks = np.concatenate([message_bytes, np.zeros(
+        n_blk * rs.k - len(message_bytes), np.uint8)]).reshape(n_blk, rs.k)
+    if _outer_device_ok(outer.n_parity // 2, n_blk, device):
+        return bits_from_bytes(rs_encode_batch_device(
+            rs.n, rs.n_parity, torch.as_tensor(blocks, device=device))
+        ).reshape(-1)
+    return out(bytes_to_bits(rs.encode(blocks).reshape(-1)))
 
 
 def inner_encode(inner: InnerFec, info_bits: torch.Tensor) -> torch.Tensor:
@@ -320,7 +363,8 @@ def encode_chain(data_bytes, crc: str, outer: OuterFec, inner: InnerFec,
     framed = append_crc(crc, data_bytes)
     if scrambler_pos == SCRAMBLER_BEFORE_OUTER:
         framed = scramble_bytes(scrambler, per_frame_seed, framed)
-    outer_bits = interleave_bits(outer_il, outer_encode(outer, framed))
+    outer_bits = interleave_bits(outer_il, outer_encode(outer, framed,
+                                                        device=device))
     coded = interleave_bits(inner_il, inner_encode(
         inner, torch.as_tensor(outer_bits, device=device)))
     if scrambler_pos == SCRAMBLER_AFTER_INNER and scrambler.kind != "none":
@@ -363,31 +407,63 @@ def inner_decode_batch(inner: InnerFec, coded_llrs: torch.Tensor,
     return msg.reshape(nb, -1), ok
 
 
-def outer_decode_batch(outer: OuterFec, coded_bits):
-    """(B, L) numpy bits → ((B, msg) bits, (B,) ok): every frame's BCH or
-    RS codewords go through one host batch decode; a failed codeword keeps
-    its systematic prefix, so the CRC still adjudicates."""
-    bits = np.asarray(coded_bits, np.uint8)
-    nb, nbits = bits.shape
+def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
+    """(B, L) bits (numpy, or a uint8 tensor) → ((B, msg) numpy bits, (B,)
+    ok): every frame's BCH or RS codewords decode in one batch, on
+    ``device`` (default: the tensor's device; the host for numpy bits) when
+    :func:`_outer_device_ok` says so, else through the native host decoder.
+    A failed codeword keeps its systematic prefix, so the CRC still
+    adjudicates."""
+    if isinstance(coded_bits, torch.Tensor):
+        device = coded_bits.device if device is None else device
+    else:
+        coded_bits = np.asarray(coded_bits, np.uint8)
+    nb, nbits = coded_bits.shape
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def on_device(x):
+        return torch.as_tensor(x, device=device).to(torch.uint8).contiguous()
     if outer.kind == "none":
-        return bits.copy(), np.ones(nb, bool)
+        return np.array(host(coded_bits), np.uint8), np.ones(nb, bool)
     if outer.kind == "bch":
         code = shortened_bch_for(outer.t)
         n_full = nbits // code.n
         if n_full == 0:
             return np.zeros((nb, 0), np.uint8), np.zeros(nb, bool)
-        msg, ok = code.decode_batch(bits[:, : n_full * code.n]
-                                    .reshape(nb * n_full, code.n))
+        blocks = coded_bits[:, : n_full * code.n].reshape(nb * n_full, code.n)
+        if _outer_device_ok(outer.t, nb * n_full, device):
+            msg, ok = bch_decode_batch_device(code.n, code.k, code.t,
+                                              on_device(blocks))
+            msg, ok = msg.cpu().numpy(), ok.cpu().numpy().astype(bool)
+        else:
+            msg, ok = code.decode_batch(host(blocks))
         ok = ok.reshape(nb, n_full).all(axis=1) & (nbits % code.n == 0)
         return msg.reshape(nb, -1), ok
     rs = rs_for(outer.n, outer.n_parity)
-    byts = np.packbits(bits, axis=1)
-    n_full = byts.shape[1] // rs.n
+    n_bytes = -(-nbits // 8)
+    n_full = n_bytes // rs.n
     if n_full == 0:
         return np.zeros((nb, 0), np.uint8), np.zeros(nb, bool)
-    msg, ok = rs.decode_batch(byts[:, : n_full * rs.n]
-                              .reshape(nb * n_full, rs.n))
-    ok = ok.reshape(nb, n_full).all(axis=1) & (byts.shape[1] % rs.n == 0)
+    card = _outer_device_ok(outer.n_parity // 2, nb * n_full, device)
+    if card and isinstance(coded_bits, torch.Tensor):
+        need = n_full * rs.n * 8
+        bits = on_device(coded_bits[:, :need])
+        if bits.shape[1] < need:               # as np.packbits: zero-fill
+            bits = torch.nn.functional.pad(bits, (0, need - bits.shape[1]))
+        blocks = bytes_from_bits(bits)
+    else:
+        blocks = np.packbits(host(coded_bits), axis=1)[:, : n_full * rs.n]
+    blocks = blocks.reshape(nb * n_full, rs.n)
+    if card:
+        # bytes cross to the card and back, a bit a bit only on the host
+        msg, ok = rs_decode_batch_device(rs.n, rs.n_parity,
+                                         on_device(blocks))
+        msg, ok = msg.cpu().numpy(), ok.cpu().numpy().astype(bool)
+    else:
+        msg, ok = rs.decode_batch(blocks)
+    ok = ok.reshape(nb, n_full).all(axis=1) & (n_bytes % rs.n == 0)
     return np.unpackbits(msg.reshape(nb, -1), axis=1), ok
 
 
@@ -412,7 +488,8 @@ def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
     """decode_chain over B same-plan frames: (B, L) LLR tensor → (list of
     byte arrays or None, (B,) ok). The inner code runs batched on the
     device, the outer deinterleaver per frame (each row its own stream) and
-    the outer code batched on the host, CRCs per frame."""
+    the outer code batched (on the device past the block threshold), CRCs
+    per frame."""
     seeds = [int(s) for s in per_frame_seeds]
     llrs = coded_llrs[:, : plan.coded_bits]
     nb = llrs.shape[0]
@@ -423,10 +500,15 @@ def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
     inner_de = deinterleave_llrs(inner_il, llrs)[:, : plan.inner_coded_bits]
     inner_bits, inner_ok = inner_decode_batch(inner, inner_de,
                                               plan.outer_il_bits, ldpc_rule)
-    inner_bits = inner_bits[:, : plan.outer_il_bits].cpu().numpy()
-    outer_de = deinterleave_bits(outer_il, inner_bits)[
-        :, : plan.outer_coded_bits]
-    framed_bits, outer_ok = outer_decode_batch(outer, outer_de)
+    inner_bits = inner_bits[:, : plan.outer_il_bits]
+    if outer_il.kind == "none":
+        # nothing to undo: the bits stay on their device for the outer code
+        outer_de = inner_bits[:, : plan.outer_coded_bits]
+    else:
+        outer_de = deinterleave_bits(outer_il, inner_bits.cpu().numpy())[
+            :, : plan.outer_coded_bits]
+    framed_bits, outer_ok = outer_decode_batch(outer, outer_de,
+                                               device=coded_llrs.device)
     datas, oks = [], np.zeros(nb, bool)
     for b in range(nb):
         fb = framed_bits[b][: plan.framed_bytes * 8]

@@ -2,9 +2,11 @@
 ``orion_sdr_tpu/frame/demodulator.py``).
 
 soft_demap runs a whole symbol run as one batched tensor program (symbol
-FFT → optional ZF equalize → grid extract → max-log LLRs) on the IQ's
-device; the header/payload decode chains and the streaming feed/flush driver
-are host orchestration around it, holding an incomplete frame rather than
+FFT → optional ZF equalize, from a held estimate or per symbol from the
+pilots → grid extract → optional DFT despreading and common-phase
+correction → max-log LLRs, CSI-weighted) on the IQ's device; the
+header/payload decode chains and the streaming feed/flush loop are host
+orchestration around it, holding an incomplete frame rather than
 mis-reporting it and skipping past a corrupt preamble on failure.
 """
 
@@ -21,10 +23,9 @@ from ..dsp.device import sanitize_iq
 from ..dsp.osc import rotate
 from ..multicarrier import CarrierGrid, grid_extract, symbol_fft
 from ..ofdm import OfdmConfig, OfdmRxFrame, channel_estimate_denoise, \
-    zf_equalize
+    channel_estimate_pilots, cpe_correct, dft_deprecode, zf_equalize
 from ..sync.ofdm_sync import OfdmPreamble, first_preamble, \
     training_symbol_freq_pattern
-from ..unported import RX_EXTRAS, not_ported
 from .chain import block_plan, decode_chain, decode_chain_batch
 from .modulator import (HEADER_CONSTELLATION, HEADER_FIELD_BYTES, HEADER_LDPC,
                         header_block_plan, symbols_for_coded_bits)
@@ -44,31 +45,46 @@ def soft_demap(cfg: OfdmConfig, constellation: str, iq: torch.Tensor,
     symbols; None if iq is too short.
 
     ``estimate``: optional (n_fft,) channel for per-bin ZF equalization (the
-    streaming training-symbol path); each data bin's LLRs are then weighted
-    by |h|²/mean_sym(|h|²). None = flat channel."""
+    streaming training-symbol path); None = flat channel. With
+    ``cfg.equalizer_method == 'pilot_interp'`` and pilots in the plan, the
+    channel is instead estimated every symbol by linear interpolation
+    between the pilot bins. Either way each data bin's LLRs are weighted by
+    |h|²/mean_sym(|h|²). Then, in this order: DFT despreading
+    (``transform_precoding``; it mixes every bin into every symbol, so no
+    CSI weighting follows) and common-phase correction (``phase_tracking
+    == 'cpe'``)."""
     g = CarrierGrid(cfg.carrier_plan)
-    if cfg.equalizer_method == "pilot_interp" and g.pilot_bins.size:
-        raise not_ported("pilot_interp equalization", RX_EXTRAS)
-    if cfg.transform_precoding:
-        raise not_ported("DFT precoding", RX_EXTRAS)
-    if cfg.phase_tracking == "cpe":
-        raise not_ported("cpe phase tracking", RX_EXTRAS)
     sps = g.n_fft + g.cp_len
     if iq.shape[-1] < n_symbols * sps:
         return None
     freq = symbol_fft(iq[..., : n_symbols * sps], g.n_fft, g.cp_len,
                       backoff=cfg.rx_window_backoff, n_symbols=n_symbols)
-    if estimate is not None:
+    csi = None
+    if cfg.equalizer_method == "pilot_interp" and g.pilot_bins.size:
+        est = channel_estimate_pilots(freq, g.pilot_bins,
+                                      g.pilot_values * np.complex64(cfg.gain),
+                                      g.n_fft)
+        freq = zf_equalize(freq, est)
+        csi = (est.abs() ** 2).to(torch.float32)
+    elif estimate is not None:
         freq = zf_equalize(freq, estimate)
+        csi = (estimate.abs() ** 2).to(torch.float32)
     syms = grid_extract(g, freq)
+    if cfg.transform_precoding:
+        syms = dft_deprecode(syms)
+        csi = None
+    if cfg.phase_tracking == "cpe":
+        syms, _ = cpe_correct(syms, constellation)
     llr = soft_llr(syms.reshape(syms.shape[:-2] + (-1,)), constellation)
-    if estimate is not None:
+    if csi is not None:
         # CSI weighting (max-ratio): ZF amplifies noise 1/|h| on faded bins
-        # while the max-log distances keep full confidence
-        cd = grid_extract(g, (estimate.abs() ** 2).to(torch.float32))
+        # while the max-log distances keep full confidence; per-symbol
+        # normalisation, so a flat channel weighs 1
+        cd = grid_extract(g, csi)
         w = cd / torch.clamp(cd.mean(-1, keepdim=True), min=1e-9)
         bits = bits_per_symbol(constellation)
-        llr = (llr.reshape(llr.shape[:-1] + (-1, cd.shape[-1], bits))
+        llr = (llr.reshape(llr.shape[:-1] + (n_symbols, g.num_data_carriers,
+                                             bits))
                * w[..., None]).reshape(llr.shape)
     return llr
 

@@ -4,7 +4,8 @@ Assembles [preamble+training][header][payload] as one IQ stream on the
 modulator's device. The header is a fixed BPSK + rate-1/2 LDPC block (wire
 layout: mcs 1B, payload_len 4B, seq 4B, flags 1B, seed 4B, big-endian +
 CRC); the payload is coded per the frame's MCS. Symbol windowing tapers
-every CP-bearing symbol (training onward) but never the raw S&C repeats.
+every CP-bearing symbol (training onward) but never the raw S&C repeats;
+the config's TX lowpass runs last, over the whole burst.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from ..constellation import bits_per_symbol
 from ..multicarrier import symbol_taper
 from ..ofdm import OfdmConfig, ofdm_mod
 from ..sync.ofdm_sync import OfdmPreamble, generate_ofdm_preamble
-from ..unported import TX_LOWPASS, not_ported
 from .chain import block_plan, encode_chain
 from .types import (FramePacket, InnerFec, InterleaverKind, McsTable,
                     OuterFec, ScramblerKind, SCRAMBLER_BEFORE_OUTER,
@@ -55,7 +55,8 @@ def symbols_for_coded_bits(cfg: OfdmConfig, constellation: str,
 
 def _map_bits(cfg: OfdmConfig, constellation: str, bits: torch.Tensor
               ) -> torch.Tensor:
-    iq, _ = ofdm_mod(replace(cfg, constellation=constellation), bits)
+    iq, _ = ofdm_mod(replace(cfg, constellation=constellation,
+                             tx_lowpass=None), bits)
     return iq
 
 
@@ -65,8 +66,6 @@ class OfdmFrameMod:
 
     def __init__(self, cfg: OfdmConfig, mcs_table: McsTable,
                  preamble: OfdmPreamble, *, device) -> None:
-        if cfg.tx_lowpass is not None:
-            raise not_ported("the TX lowpass", TX_LOWPASS)
         self.cfg = cfg
         self.mcs_table = mcs_table
         self.preamble = preamble
@@ -110,4 +109,7 @@ class OfdmFrameMod:
             start = self.preamble.num_repeats * self.preamble.repeat_len
             out[start:start + len(taper)] *= torch.as_tensor(taper,
                                                              device=out.device)
+        # the spectral mask covers the entire burst, S&C repeats included
+        if cfg.tx_lowpass is not None:
+            out = cfg.tx_lowpass.apply(out)
         return out.to(torch.complex64).cpu().numpy()

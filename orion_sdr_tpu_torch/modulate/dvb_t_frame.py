@@ -5,14 +5,14 @@ Figure-9a mapping through the four-phase scattered-pilot grid → TPS DBPSK
 on the 17 reserved carriers → IFFT + CP.
 
 The byte stages run on the host; the inner code, mapping, grid scatter and
-one (n_sym, 2048) IFFT run on the modulator's device. ``DvbTHierFrameMod``
-carries two transport streams per frame (§4.3.5/§5.1). The TX lowpass is
-not in the port yet.
+one (n_sym, 2048) IFFT run on the modulator's device, then the optional TX
+lowpass over the whole frame. ``DvbTHierFrameMod`` carries two transport
+streams per frame (§4.3.5/§5.1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,10 +20,10 @@ import torch
 from ..constellation import BITS_PER_SYMBOL
 from ..frame.chain import block_plan, encode_chain
 from ..frame.types import InterleaverKind, ScramblerKind, SCRAMBLER_BEFORE_OUTER
-from ..multicarrier import ofdm_assemble, symbol_taper
-from ..unported import TX_LOWPASS, not_ported
+from ..multicarrier import TxLowpass, ofdm_assemble, symbol_taper
 from ..waveform.dvb_t import (
-    DVB_T_N_FFT, DVB_T_DATA_CARRIERS, DvbTFrameParams, DvbTHierFrameParams,
+    DVB_T_N_FFT, DVB_T_KMAX, DVB_T_DATA_CARRIERS, DvbTFrameParams,
+    DvbTHierFrameParams,
     guard_cp_len_2k,
     dvb_t_map_symbols, scattered_map_frame, tps_carrier_bins,
     dvb_t_frame_outer, dvb_t_frame_outer_il,
@@ -42,8 +42,10 @@ class DvbTFrame(NamedTuple):
     samples_per_symbol: int
 
 
-def tx_lowpass_for_2k(num_taps: int, stopband_db: float):
-    raise not_ported("the TX lowpass", TX_LOWPASS)
+def tx_lowpass_for_2k(num_taps: int, stopband_db: float) -> TxLowpass:
+    """Spectral mask sized for the 2K band edge (active ±852 of 2048)."""
+    return TxLowpass.for_null_band(DVB_T_N_FFT, DVB_T_KMAX // 2, num_taps,
+                                   stopband_db)
 
 
 def _coded_bits_for_stream(n_pkt: int, inner) -> int:
@@ -66,19 +68,23 @@ def _as_bytes(payload) -> np.ndarray:
 
 class DvbTFrameMod:
     """One-frame-per-call DVB-T modulator on ``device``; ``window_roll_off``
-    tapers each symbol's edges (raised cosine, 0 = off)."""
+    tapers each symbol's edges (raised cosine, 0 = off) and ``tx_lowpass``
+    masks the whole frame."""
 
-    def __init__(self, params: DvbTFrameParams, window_roll_off: int = 0, *,
-                 device) -> None:
+    def __init__(self, params: DvbTFrameParams, window_roll_off: int = 0,
+                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
         self.params = params
         self.window_roll_off = window_roll_off
+        self.tx_lowpass = tx_lowpass
         self.device = torch.device(device)
 
     def with_symbol_window(self, roll_off: int) -> "DvbTFrameMod":
-        return DvbTFrameMod(self.params, roll_off, device=self.device)
+        return DvbTFrameMod(self.params, roll_off, self.tx_lowpass,
+                            device=self.device)
 
-    def with_tx_lowpass(self, lowpass) -> "DvbTFrameMod":
-        raise not_ported("the TX lowpass", TX_LOWPASS)
+    def with_tx_lowpass(self, lowpass: TxLowpass) -> "DvbTFrameMod":
+        return DvbTFrameMod(self.params, self.window_roll_off, lowpass,
+                            device=self.device)
 
     def modulate(self, payload) -> DvbTFrame:
         params = self.params
@@ -112,6 +118,8 @@ class DvbTFrameMod:
         cells_all = np.tile(cells, (reps, 1))[:n_symbols]
         iq = assemble_frame(coded[:capacity_bits], cells_all, vbits,
                             n_symbols, cp_len, self.window_roll_off)
+        if self.tx_lowpass is not None:
+            iq = self.tx_lowpass.apply(iq)
         return DvbTFrame(iq=iq.cpu().numpy(), n_symbols=n_symbols,
                          samples_per_symbol=DVB_T_N_FFT + cp_len)
 
@@ -158,16 +166,19 @@ class DvbTHierFrameMod:
     code."""
 
     def __init__(self, params: DvbTHierFrameParams, window_roll_off: int = 0,
-                 *, device) -> None:
+                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
         self.params = params
         self.window_roll_off = window_roll_off
+        self.tx_lowpass = tx_lowpass
         self.device = torch.device(device)
 
     def with_symbol_window(self, roll_off: int) -> "DvbTHierFrameMod":
-        return DvbTHierFrameMod(self.params, roll_off, device=self.device)
+        return DvbTHierFrameMod(self.params, roll_off, self.tx_lowpass,
+                                device=self.device)
 
-    def with_tx_lowpass(self, lowpass) -> "DvbTHierFrameMod":
-        raise not_ported("the TX lowpass", TX_LOWPASS)
+    def with_tx_lowpass(self, lowpass: TxLowpass) -> "DvbTHierFrameMod":
+        return DvbTHierFrameMod(self.params, self.window_roll_off, lowpass,
+                                device=self.device)
 
     def modulate(self, hp_payload, lp_payload) -> DvbTFrame:
         params = self.params
@@ -197,5 +208,7 @@ class DvbTHierFrameMod:
         cells_all = np.tile(cells, (reps, 1))[:n_symbols]
         iq = assemble_frame(bits, cells_all, vbits, n_symbols, cp_len,
                             self.window_roll_off, params.link.alpha)
+        if self.tx_lowpass is not None:
+            iq = self.tx_lowpass.apply(iq)
         return DvbTFrame(iq=iq.cpu().numpy(), n_symbols=n_symbols,
                          samples_per_symbol=DVB_T_N_FFT + cp_len)

@@ -4,17 +4,18 @@
 Four frames 0..3 with the alternating TPS sync word; the 16-bit cell id
 rides split high/low byte; the payload splits four ways, zero-padded to a
 common per-frame length. Each frame is modulated on the modulator's device
-by :class:`DvbTFrameMod`. The TX lowpass is not in the port yet.
+by :class:`DvbTFrameMod`; the optional TX lowpass masks the concatenated
+super-frame.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..unported import TX_LOWPASS, not_ported
+from ..multicarrier import TxLowpass
 from ..waveform.dvb_t import DVB_T_FRAMES_PER_SUPER_FRAME, DvbTSuperFrameParams
 from .dvb_t_frame import DvbTFrameMod, _as_bytes
 
@@ -33,16 +34,19 @@ class DvbTSuperFrameMod:
     """Super-frame modulator on ``device``."""
 
     def __init__(self, params: DvbTSuperFrameParams, window_roll_off: int = 0,
-                 *, device) -> None:
+                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
         self.params = params
         self.window_roll_off = window_roll_off
+        self.tx_lowpass = tx_lowpass
         self.device = torch.device(device)
 
     def with_symbol_window(self, roll_off: int) -> "DvbTSuperFrameMod":
-        return DvbTSuperFrameMod(self.params, roll_off, device=self.device)
+        return DvbTSuperFrameMod(self.params, roll_off, self.tx_lowpass,
+                                 device=self.device)
 
-    def with_tx_lowpass(self, lowpass) -> "DvbTSuperFrameMod":
-        raise not_ported("the TX lowpass", TX_LOWPASS)
+    def with_tx_lowpass(self, lowpass: TxLowpass) -> "DvbTSuperFrameMod":
+        return DvbTSuperFrameMod(self.params, self.window_roll_off, lowpass,
+                                 device=self.device)
 
     def modulate(self, payload) -> DvbTSuperFrame:
         payload = _as_bytes(payload)
@@ -58,7 +62,11 @@ class DvbTSuperFrameMod:
             frames.append(DvbTFrameMod(self.params.frame(f),
                                        self.window_roll_off,
                                        device=self.device).modulate(part))
-        return DvbTSuperFrame(iq=np.concatenate([f.iq for f in frames]),
+        iq = np.concatenate([f.iq for f in frames])
+        if self.tx_lowpass is not None:
+            iq = self.tx_lowpass.apply(torch.as_tensor(
+                iq, device=self.device)).cpu().numpy()
+        return DvbTSuperFrame(iq=iq,
                               symbols_per_frame=frames[0].n_symbols,
                               samples_per_symbol=frames[0].samples_per_symbol,
                               frame_payload_lens=lens)

@@ -1,3 +1,4 @@
 from .plan import CarrierPlan, CarrierPlanError, CarrierGrid
 from .ops import (grid_map, map_bits_grid, grid_extract, ofdm_assemble,
                   symbol_taper, symbol_fft)
+from .txlp import TxLowpass

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from ..constellation import map_bits, bits_per_symbol
-from ..unported import DVB_T_PRESETS, not_ported
 from .plan import CarrierGrid
 
 
@@ -22,22 +21,29 @@ def grid_map(grid: CarrierGrid, data_symbols: torch.Tensor,
              pilot_bins=None, pilot_values=None) -> torch.Tensor:
     """Scatter dense data symbols (..., n_sym, n_data) into FFT bins →
     (..., n_sym, n_fft), nulls zeroed and pilots inserted. ``pilot_bins``/
-    ``pilot_values`` (numpy, (n_pilots,)) override the grid's own pilots.
-    Each bin reads from concat([data, pilots, 0]) through one static index
-    table."""
+    ``pilot_values`` (numpy) override the grid's own pilots, as (n_pilots,)
+    or per symbol (n_sym, n_pilots) for scattered layouts. Each bin reads
+    from concat([data, pilots, 0]) through one static index table (one
+    row a symbol for a per-symbol layout)."""
     d = data_symbols.to(torch.complex64)
     pb = grid.pilot_bins if pilot_bins is None else np.asarray(pilot_bins)
     pv = grid.pilot_values if pilot_values is None else np.asarray(pilot_values)
-    if pb.ndim > 1:
-        raise not_ported("per-symbol pilot layouts", DVB_T_PRESETS)
-    n_data, n_pil = d.shape[-1], pb.size
-    pvt = torch.as_tensor(np.asarray(pv, np.complex64).reshape(-1),
+    pb = pb.astype(np.int64)
+    n_data, n_pil = d.shape[-1], (pb.shape[-1] if pb.size else 0)
+    pvt = torch.as_tensor(np.asarray(pv, np.complex64),
                           device=d.device).expand(d.shape[:-1] + (n_pil,))
     src = torch.cat([d, pvt, d.new_zeros(d.shape[:-1] + (1,))], dim=-1)
-    idx = np.full(grid.n_fft, n_data + n_pil, np.int64)   # nulls → the 0 slot
-    idx[grid.data_bins] = np.arange(n_data)
-    idx[pb] = n_data + np.arange(n_pil)
-    return src[..., torch.as_tensor(idx, device=d.device)]
+    zero_slot = n_data + n_pil                            # nulls → the 0 slot
+    if pb.ndim <= 1:
+        idx = np.full(grid.n_fft, zero_slot, np.int64)
+        idx[grid.data_bins] = np.arange(n_data)
+        idx[pb] = n_data + np.arange(n_pil)
+        return src[..., torch.as_tensor(idx, device=d.device)]
+    idx = np.full((pb.shape[0], grid.n_fft), zero_slot, np.int64)
+    idx[:, grid.data_bins] = np.arange(n_data)
+    np.put_along_axis(idx, pb, n_data + np.arange(n_pil), axis=-1)
+    idx = torch.as_tensor(idx, device=d.device)
+    return src.gather(-1, idx.expand(d.shape[:-1] + (grid.n_fft,)))
 
 
 def map_bits_grid(grid: CarrierGrid, bits: torch.Tensor, order: str

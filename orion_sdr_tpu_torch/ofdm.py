@@ -1,7 +1,8 @@
-"""OFDM waveform: config, whole-frame modulation, ZF equalization, channel
-estimate denoising and pilot interpolation (counterpart of the parts of
-``orion_sdr_tpu/ofdm.py`` that the coded frame link and the DVB-T frame
-link use).
+"""OFDM waveform: config, whole-frame modulation (TX lowpass and DFT-s-OFDM
+transform precoding included), ZF equalization, channel estimate denoising,
+pilot interpolation and common-phase-error tracking (counterpart of the
+parts of ``orion_sdr_tpu/ofdm.py`` that the coded frame link and the DVB-T
+frame link use).
 """
 
 from __future__ import annotations
@@ -13,11 +14,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .constellation import bits_per_symbol
-from .multicarrier import CarrierPlan, CarrierGrid, map_bits_grid, \
-    ofdm_assemble, symbol_taper
+from .constellation import bits_per_symbol, map_bits
+from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass, grid_map, \
+    map_bits_grid, ofdm_assemble, symbol_taper
 from .dsp.osc import rotate
-from .unported import RX_EXTRAS, TX_LOWPASS, not_ported
 
 EQUALIZER_FLOOR = 1e-6  # |h|² floor in ZF division
 
@@ -35,7 +35,7 @@ class OfdmConfig:
     equalizer_method: str = "training_symbol"
     phase_tracking: str = "off"
     rx_window_backoff: int = 0
-    tx_lowpass: Optional[object] = None
+    tx_lowpass: Optional[TxLowpass] = None
     outer_fec: object = None             # frame.types.OuterFec
     inner_fec: object = None             # frame.types.InnerFec
     outer_interleaver: object = None     # frame.types.InterleaverKind
@@ -112,7 +112,11 @@ class OfdmConfig:
         return replace(self, tx_lowpass=lowpass)
 
     def with_tx_lowpass_null_band(self, num_taps: int, stopband_db: float):
-        raise not_ported("the TX lowpass", TX_LOWPASS)
+        """TX mask centred in the unoccupied band above the plan's edge."""
+        return self.with_tx_lowpass(TxLowpass.for_null_band(
+            self.carrier_plan.n_fft,
+            self.carrier_plan.occupied_half_carriers(), num_taps,
+            stopband_db))
 
     def with_symbol_window(self, roll_off: int):
         """TX symbol windowing: ``roll_off``-sample raised-cosine taper per
@@ -142,26 +146,47 @@ class OfdmConfig:
         return CarrierGrid(self.carrier_plan)
 
 
+def dft_precode(syms: torch.Tensor) -> torch.Tensor:
+    """Unitary M-point DFT across the data-carrier axis (SC-FDMA TX
+    spreading): X[k] = (1/√M)·Σₘ x[m]·e^(−2πi·mk/M)."""
+    m = syms.shape[-1]
+    return (torch.fft.fft(syms.to(torch.complex64), dim=-1)
+            * np.float32(1.0 / np.sqrt(m))).to(torch.complex64)
+
+
+def dft_deprecode(syms: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`dft_precode` (RX despreading after the
+    frequency-domain equalizer)."""
+    m = syms.shape[-1]
+    return (torch.fft.ifft(syms.to(torch.complex64), dim=-1)
+            * np.float32(np.sqrt(m))).to(torch.complex64)
+
+
 def ofdm_mod(cfg: OfdmConfig, bits: torch.Tensor, phase0: float = 0.0):
     """bits (..., n_bits) → IQ for whole frames on the bits' device. The
     bit count is zero-padded up to a whole number of OFDM symbols; the
-    plan's symbol-window taper applies. Returns (iq complex64, phase)."""
-    if cfg.tx_lowpass is not None:
-        raise not_ported("the TX lowpass", TX_LOWPASS)
-    if cfg.transform_precoding:
-        raise not_ported("DFT precoding", RX_EXTRAS)
+    plan's symbol-window taper and the config's TX lowpass apply, and with
+    ``transform_precoding`` each symbol's data cells are DFT-spread before
+    grid mapping. Returns (iq complex64, phase)."""
     g = cfg.grid()
     bps = cfg.bits_per_ofdm_symbol()
     n_sym = -(-bits.shape[-1] // bps)
     pad = n_sym * bps - bits.shape[-1]
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    freq = map_bits_grid(g, bits, cfg.constellation)
+    if cfg.transform_precoding:
+        syms = map_bits(bits, cfg.constellation)
+        syms = syms.reshape(syms.shape[:-1] + (n_sym, g.num_data_carriers))
+        freq = grid_map(g, dft_precode(syms))
+    else:
+        freq = map_bits_grid(g, bits, cfg.constellation)
     taper = symbol_taper(cfg.samples_per_ofdm_symbol(),
                          cfg.carrier_plan.window_roll_off)
     t = ofdm_assemble(freq, cfg.carrier_plan.cp_len, taper=taper) * cfg.gain
     if cfg.rf_hz != 0.0:
         t, phase0 = rotate(t, cfg.rf_hz, cfg.fs, phase0)
+    if cfg.tx_lowpass is not None:
+        t = cfg.tx_lowpass.apply(t)
     return t.to(torch.complex64), phase0
 
 
@@ -208,33 +233,103 @@ def _pilot_interp_matrix(pb_key: tuple, n_fft: int,
     return torch.as_tensor(W, device=device)
 
 
+def cpe_raw_phases(syms: torch.Tensor, constellation: str) -> torch.Tensor:
+    """Per-OFDM-symbol common-phase estimates, Viterbi & Viterbi style:
+    ``syms`` (..., n_sym, n_data) equalized data cells → (..., n_sym)
+    wrapped phases. BPSK: ∠(Σz²)/2 mod π; QPSK/QAM: ∠(−Σz⁴)/4 mod π/2."""
+    z2 = syms * syms
+    if constellation == "bpsk":
+        return torch.angle(z2.sum(-1)) / 2.0
+    return torch.angle(-(z2 * z2).sum(-1)) / 4.0
+
+
+def cpe_unwrap(raw: torch.Tensor, constellation: str) -> torch.Tensor:
+    """Cumulatively unwrap the modulus-π/2 (π for BPSK) phases along the
+    symbol axis: each step takes the branch nearest the previous symbol's
+    phase."""
+    per = np.pi if constellation == "bpsk" else np.pi / 2.0
+    d = torch.diff(raw, dim=-1)
+    d = torch.remainder(d + per / 2.0, per) - per / 2.0
+    return torch.cat([raw[..., :1], raw[..., :1] + torch.cumsum(d, dim=-1)],
+                     dim=-1)
+
+
+def cpe_correct(syms: torch.Tensor, constellation: str):
+    """Estimate and remove per-symbol common phase error from equalized
+    data cells (the ``phase_tracking='cpe'`` RX stage): raw phases →
+    cumulative unwrap → derotate. Returns (corrected, phases)."""
+    phases = cpe_unwrap(cpe_raw_phases(syms, constellation), constellation)
+    rot = torch.polar(torch.ones_like(phases, dtype=torch.float32),
+                      -phases.to(torch.float32))
+    return syms * rot[..., None], phases
+
+
+def _interp_per_symbol(pb: torch.Tensor, ratio: torch.Tensor,
+                       n_fft: int) -> torch.Tensor:
+    """Linear interpolation of ``ratio`` (..., n_sym, P), known at the
+    bin-sorted ``pb`` (n_sym, P), onto bins 0..n_fft−1, holding the edge
+    values outside them, every symbol at once (the arithmetic of
+    ``jnp.interp``: the segment right of the last pilot ≤ bin, weight
+    (bin − x₀)/(x₁ − x₀), a zero-width segment taking its left value)."""
+    xp = pb.to(torch.float32)
+    n_sym, P = xp.shape
+    x = torch.arange(n_fft, dtype=torch.float32,
+                     device=xp.device).expand(n_sym, n_fft).contiguous()
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, P - 1)
+    x0, x1 = xp.gather(-1, i - 1), xp.gather(-1, i)
+    lead = ratio.shape[:-2]
+    idx = (i - 1).expand(lead + (n_sym, n_fft))
+    f0 = ratio.gather(-1, idx)
+    f1 = ratio.gather(-1, idx + 1)
+    dx = x1 - x0
+    zero = dx.abs() <= np.spacing(np.finfo(np.float32).eps)
+    f = torch.where(zero, f0, f0 + ((x - x0) / torch.where(zero, 1.0, dx))
+                    * (f1 - f0))
+    f = torch.where(x < xp[:, :1], ratio[..., :1], f)
+    return torch.where(x > xp[:, -1:], ratio[..., -1:], f)
+
+
 def channel_estimate_pilots(freq_syms: torch.Tensor, pilot_bins, pilot_values,
                             n_fft: int) -> torch.Tensor:
     """Per-symbol pilot interpolation: linear complex interpolation between
-    the bin-sorted known-vs-received pilot ratios, edge hold. ``freq_syms``:
-    (..., n_sym, n_fft); ``pilot_bins``/``pilot_values``: constant 1-D numpy
-    arrays. Returns the (..., n_sym, n_fft) complex64 channel estimate as
+    the bin-sorted known-vs-received pilot ratios, edge hold.
+    ``freq_syms``: (..., n_sym, n_fft); ``pilot_bins``/``pilot_values``:
+    (n_pilots,) or per symbol (n_sym, n_pilots). Returns the (..., n_sym,
+    n_fft) complex64 channel estimate. Constant 1-D numpy pilot bins take
     two float32 products with an interpolation matrix, TF32 off (full
-    float32, as the JAX package's ``Precision.HIGHEST``)."""
-    if not (isinstance(pilot_bins, np.ndarray) and pilot_bins.ndim == 1):
-        raise not_ported("per-symbol pilot layouts in channel_estimate_pilots",
-                         RX_EXTRAS)
+    float32, as the JAX package's ``Precision.HIGHEST``); other layouts a
+    batched interpolation over every symbol."""
     dev = freq_syms.device
-    order = np.argsort(pilot_bins, kind="stable")
-    pb_s = pilot_bins[order]
-    W = _pilot_interp_matrix(tuple(int(b) for b in pb_s), int(n_fft),
-                             str(dev))
-    pv_s = torch.as_tensor(np.asarray(pilot_values)[order].astype(np.complex64),
-                           device=dev)
-    ratio = freq_syms[..., torch.as_tensor(pb_s, device=dev)] / pv_s
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        est = torch.complex(torch.matmul(ratio.real.contiguous(), W),
-                            torch.matmul(ratio.imag.contiguous(), W))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    return est.to(torch.complex64)
+    if isinstance(pilot_bins, np.ndarray) and pilot_bins.ndim == 1:
+        order = np.argsort(pilot_bins, kind="stable")
+        pb_s = pilot_bins[order]
+        W = _pilot_interp_matrix(tuple(int(b) for b in pb_s), int(n_fft),
+                                 str(dev))
+        pv_s = torch.as_tensor(np.asarray(pilot_values)[order].astype(
+            np.complex64), device=dev)
+        ratio = freq_syms[..., torch.as_tensor(pb_s, device=dev)] / pv_s
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            est = torch.complex(torch.matmul(ratio.real.contiguous(), W),
+                                torch.matmul(ratio.imag.contiguous(), W))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        return est.to(torch.complex64)
+    n_sym = freq_syms.shape[-2]
+    pb = torch.as_tensor(np.asarray(pilot_bins), device=dev).to(torch.int64)
+    pv = torch.as_tensor(np.asarray(pilot_values, np.complex64), device=dev)
+    pb = pb.expand(n_sym, pb.shape[-1])
+    pv = pv.expand(n_sym, pv.shape[-1])
+    order = torch.argsort(pb, dim=-1, stable=True)
+    pb = pb.gather(-1, order)
+    pv = pv.gather(-1, order)
+    lead = freq_syms.shape[:-2]
+    rx = freq_syms.gather(-1, pb.expand(lead + pb.shape))
+    ratio = (rx / pv).to(torch.complex64)
+    re = _interp_per_symbol(pb, ratio.real.contiguous(), n_fft)
+    im = _interp_per_symbol(pb, ratio.imag.contiguous(), n_fft)
+    return torch.complex(re, im)
 
 
 class OfdmRxFrame(NamedTuple):

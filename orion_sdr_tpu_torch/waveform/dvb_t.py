@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from ..multicarrier import CarrierPlan
-from ..unported import DVB_T_PRESETS, not_ported
 
 # ── energy dispersal (EN 300 744 §4.3.1) ─────────────────────────────────────
 
@@ -391,12 +390,26 @@ def dvb_t_mcs_table():
 
 
 def dvb_t_config(guard: str, occupied_hz: float):
-    raise not_ported("the dvb_t_config COFDM preset", DVB_T_PRESETS)
+    """Continual-pilot DVB-T link config for the COFDM frame layer."""
+    return _config_with_plan(dvb_t_2k_plan(guard), occupied_hz)
 
 
 def dvb_t_scattered_config(guard: str, occupied_hz: float):
-    raise not_ported("the dvb_t_scattered_config COFDM preset",
-                     DVB_T_PRESETS)
+    """Conformant scattered-pilot link config (phase-0 representative
+    plan)."""
+    return _config_with_plan(dvb_t_2k_plans(guard)[0], occupied_hz) \
+        .with_dvb_t_scattered(True)
+
+
+def _config_with_plan(plan: CarrierPlan, occupied_hz: float):
+    from ..ofdm import OfdmConfig
+    from ..frame.types import (InterleaverKind, ScramblerKind,
+                               SCRAMBLER_BEFORE_OUTER)
+    return OfdmConfig(plan, fs=dvb_t_fs_for_bandwidth(occupied_hz),
+                      constellation="qpsk") \
+        .with_scrambler(ScramblerKind.dvb_t_energy_dispersal()) \
+        .with_scrambler_pos(SCRAMBLER_BEFORE_OUTER) \
+        .with_outer_interleaver(InterleaverKind.convolutional(12, 17))
 
 
 def dvb_t_frame_outer():

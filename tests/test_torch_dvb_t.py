@@ -17,6 +17,7 @@ import orion_sdr_tpu.frame as JC
 from orion_sdr_tpu.demodulate.dvb_t_frame import (
     DvbTFrameDemod as JDemod, _receive_frame as jax_receive_frame)
 from orion_sdr_tpu.dsp.osc import rotate as jax_rotate
+from orion_sdr_tpu.modulate import dvb_t_frame as JMF
 from orion_sdr_tpu.modulate.dvb_t_frame import DvbTFrameMod as JMod
 from orion_sdr_tpu.ofdm import channel_estimate_pilots as jax_estimate
 from orion_sdr_tpu.waveform import dvb_t as JD
@@ -279,9 +280,12 @@ def test_scattered_map_extract_and_channel_estimate_match():
                                   g.ref_vals[1], 2048)
     ref = np.asarray(jax_estimate(freq, g.ref_bins[1], g.ref_vals[1], 2048))
     np.testing.assert_allclose(est.numpy(), ref, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        channel_estimate_pilots(torch.as_tensor(freq), np.stack(
-            [g.ref_bins[1]] * 9), np.stack([g.ref_vals[1]] * 9), 2048)
+    # a per-symbol layout: each symbol its own phase's pilots
+    bins = np.stack([g.ref_bins[s % 4] for s in range(9)])
+    vals = np.stack([g.ref_vals[s % 4] for s in range(9)])
+    est = channel_estimate_pilots(torch.as_tensor(freq), bins, vals, 2048)
+    ref = np.asarray(jax_estimate(freq, bins, vals, 2048))
+    np.testing.assert_allclose(est.numpy(), ref, rtol=0, atol=1e-5)
 
 
 def test_tps_and_ts_layers_match():
@@ -348,16 +352,20 @@ def test_convert_dvb_t_params():
 
 
 def test_unported_dvb_t_configurations_raise():
-    # what is left of the DVB-T chain: the band receive (slice 5, with the
-    # channelizer), the COFDM presets (slice 1 item 4) and the TX lowpass
+    # what is left of the DVB-T chain is the band receive (slice 5, with the
+    # channelizer); the COFDM presets and the TX lowpass, which raised here
+    # before slice 1 was finished, now match the JAX package
     _, pp = _params("qpsk")
-    for call, item in (
-            (lambda: P.DvbTBandStreamDemod(pp, 68, 100, [0.0], 1e6, 4e6),
-             "slice 5"),
-            (lambda: PD.dvb_t_config("1/8", 1e6), "slice 1 item 4"),
-            (lambda: PD.dvb_t_scattered_config("1/8", 1e6), "slice 1 item 4"),
-            (lambda: PMF.tx_lowpass_for_2k(89, 60.0), "txlp"),
-            (lambda: P.DvbTFrameMod(pp, device="cpu").with_tx_lowpass(None),
-             "txlp")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 5"):
+        P.DvbTBandStreamDemod(pp, 68, 100, [0.0], 1e6, 4e6)
+    for name in ("dvb_t_config", "dvb_t_scattered_config"):
+        for guard, bw in (("1/8", 1e6), ("1/32", 2e6)):
+            ref = getattr(JD, name)(guard, bw)
+            ours = getattr(PD, name)(guard, bw)
+            assert convert.ofdm_config_from_fields(
+                dataclasses.asdict(ref)) == ours
+    assert dataclasses.asdict(PMF.tx_lowpass_for_2k(89, 60.0)) == \
+        dataclasses.asdict(JMF.tx_lowpass_for_2k(89, 60.0))
+    mask = PMF.tx_lowpass_for_2k(89, 60.0)
+    assert P.DvbTFrameMod(pp, device="cpu").with_tx_lowpass(
+        mask).tx_lowpass == mask

@@ -14,7 +14,9 @@ import torch
 
 import orion_sdr_tpu.frame as J
 from orion_sdr_tpu.dsp.osc import rotate as jax_rotate
+from orion_sdr_tpu.multicarrier import CarrierGrid as JaxGrid
 from orion_sdr_tpu.multicarrier import CarrierPlan as JaxPlan
+from orion_sdr_tpu.multicarrier import grid_map as jax_grid_map
 from orion_sdr_tpu.ofdm import OfdmConfig as JaxOfdmConfig
 from orion_sdr_tpu.sync.ofdm_sync import OfdmPreamble as JaxPreamble
 
@@ -91,23 +93,39 @@ def test_modulate_frame_matches():
 
 
 def test_unported_configurations_raise():
-    _, pc, _, pp = _links()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.soft_demap(pc.with_phase_tracking("cpe"), "qpsk",
-                     torch.zeros(4000, dtype=torch.complex64), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.soft_demap(pc.with_transform_precoding(True), "qpsk",
-                     torch.zeros(4000, dtype=torch.complex64), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pc.with_tx_lowpass_null_band(89, 60.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.OfdmFrameMod(pc.with_tx_lowpass(object()),
-                       P.McsTable.default_ladder(), pp, device="cpu")
+    # the configurations that raised here before slice 1 was finished (CPE
+    # tracking, DFT precoding, the TX lowpass, per-symbol pilot layouts)
+    # now run and match the JAX package
+    jc, pc, jp, pp = _links()
+    rng = np.random.default_rng(12)
+    iq = ((rng.standard_normal(4000) + 1j * rng.standard_normal(4000))
+          * 0.1).astype(np.complex64)
+    for jcfg, pcfg in ((jc.with_phase_tracking("cpe"),
+                        pc.with_phase_tracking("cpe")),
+                       (jc.with_transform_precoding(True),
+                        pc.with_transform_precoding(True))):
+        ref = np.asarray(J.soft_demap(jcfg, "qpsk", iq, 2))
+        ours = P.soft_demap(pcfg, "qpsk", torch.as_tensor(iq), 2).numpy()
+        np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
+    lp = pc.with_tx_lowpass_null_band(89, 60.0).tx_lowpass
+    assert dataclasses.asdict(lp) == dataclasses.asdict(
+        jc.with_tx_lowpass_null_band(89, 60.0).tx_lowpass)
+    data = _payload(40, 9)
+    ref = J.OfdmFrameMod(jc.with_tx_lowpass_null_band(89, 60.0),
+                         J.McsTable.default_ladder(), jp).modulate_frame(
+        J.FramePacket(J.FrameMetadata(1, 0), data), 3)
+    ours = P.OfdmFrameMod(pc.with_tx_lowpass(lp), P.McsTable.default_ladder(),
+                          pp, device="cpu").modulate_frame(
+        P.FramePacket(P.FrameMetadata(1, 0), data), 3)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
     grid = P.CarrierGrid(pc.carrier_plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grid_map(grid, torch.zeros((2, grid.num_data_carriers),
-                                   dtype=torch.complex64),
-                 np.array([[1, 2], [3, 4]]), np.ones((2, 2), np.complex64))
+    syms = (rng.standard_normal((2, grid.num_data_carriers))
+            + 0j).astype(np.complex64)
+    bins, vals = np.array([[1, 2], [3, 4]]), np.arange(4).reshape(2, 2) + 1j
+    assert np.array_equal(
+        grid_map(grid, torch.as_tensor(syms), bins, vals).numpy(),
+        np.asarray(jax_grid_map(JaxGrid(jc.carrier_plan), syms, bins,
+                                vals.astype(np.complex64))))
 
 
 # ── RS / conv / interleaver / DVB scrambler branches of the chain ───────────

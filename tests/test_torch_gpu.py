@@ -3,7 +3,10 @@ its plain torch version for each code and rule (the edge-layout rule
 included; batch sizes around the persistent grid, max_iter 0/1/2, rows
 converged at the start, ±0.0 and ±1e30 LLRs, back-to-back launches,
 unaligned rows, the (174, 91) and (1200, 600) graphs), the Viterbi kernel
-against its plain version in both modes and both radices, and frame decodes
+against its plain version in both modes and both radices, the BCH/RS
+outer-code kernel against its plain version and the native host decoders
+(every t, an empty batch, one row, exactly t errors, rows that all fail, RS
+rows where the error locator's derivative vanishes), and frame decodes
 (COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels.
 They skip without a CUDA card.
 
@@ -20,7 +23,10 @@ import orion_sdr_tpu_torch as P
 from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, LdpcGraph, \
     _build_msg_col_rows, ldpc_encode, ldpc_graph
 from orion_sdr_tpu_torch.fec import conv
-from orion_sdr_tpu_torch.ops import ldpc_bp, viterbi
+from orion_sdr_tpu_torch.fec import bch_device
+from orion_sdr_tpu_torch.fec.galois import Bch, ReedSolomon
+from orion_sdr_tpu_torch.frame import chain
+from orion_sdr_tpu_torch.ops import ldpc_bp, outer_fec, viterbi
 
 pytestmark = pytest.mark.gpu
 
@@ -474,3 +480,154 @@ def test_viterbi_code_without_end_taps(cuda, monkeypatch):
     assert torch.equal(got, want)
     with pytest.raises(RuntimeError):
         viterbi.viterbi_chunks_kernel(c0, c1, pm0, "test_k6", radix=2)
+
+
+# ── the BCH/RS outer-code kernel ─────────────────────────────────────────────
+
+
+def _outer_check(kind, code, words, cuda):
+    """Kernel vs plain version vs native host decoder on ``words`` (numpy):
+    messages and ok flags equal on every row. Returns (messages, ok)."""
+    x = torch.as_tensor(words, device=cuda)
+    if kind == "bch":
+        args = (code.n, code.k, code.t)
+        before = outer_fec.bch_decode_kernel.launches
+        kb, kok = outer_fec.bch_decode_kernel(*args, x)
+        launched = outer_fec.bch_decode_kernel.launches - before
+        rb, rok = bch_device.bch_decode_batch_reference(*args, x)
+    else:
+        args = (code.n, code.n_parity)
+        before = outer_fec.rs_decode_kernel.launches
+        kb, kok = outer_fec.rs_decode_kernel(*args, x)
+        launched = outer_fec.rs_decode_kernel.launches - before
+        rb, rok = bch_device.rs_decode_batch_reference(*args, x)
+    torch.cuda.synchronize()
+    assert launched == (1 if len(words) else 0)
+    assert torch.equal(kb, rb) and torch.equal(kok, rok)
+    hb, hok = code.decode_batch(words)
+    assert np.array_equal(kb.cpu().numpy(), hb)
+    assert np.array_equal(kok.cpu().numpy().astype(bool), hok.astype(bool))
+    return kb.cpu().numpy(), kok.cpu().numpy().astype(bool)
+
+
+def _bch_words(t, B, errors, seed):
+    code = chain.shortened_bch_for(t)
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (B, code.k)).astype(np.uint8)
+    words = code.encode(msgs)
+    for i in range(B):
+        ne = errors(i, rng)
+        if ne:
+            words[i, rng.choice(code.n, ne, replace=False)] ^= 1
+    return code, msgs, words
+
+
+def _rs_words(n, p, B, errors, seed):
+    rs = ReedSolomon(n, p)
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 256, (B, rs.k)).astype(np.uint8)
+    words = rs.encode(msgs)
+    for i in range(B):
+        ne = errors(i, rng)
+        if ne:
+            words[i, rng.choice(n, ne, replace=False)] ^= rng.integers(
+                1, 256, ne).astype(np.uint8)
+    return rs, msgs, words
+
+
+@pytest.mark.parametrize("t", range(1, 9))
+def test_outer_bch_kernel_matches_plain_version(cuda, t):
+    # 0..t+3 errors a row, 1 000 rows: a partial last block
+    code, msgs, words = _bch_words(t, 1000, lambda i, r: i % (t + 4), t)
+    out, ok = _outer_check("bch", code, words, cuda)
+    within = np.arange(1000) % (t + 4) <= t
+    assert ok[within].all() and np.array_equal(out[within], msgs[within])
+
+
+@pytest.mark.parametrize("p", [2, 4, 8, 12, 16])
+def test_outer_rs_kernel_matches_plain_version(cuda, p):
+    rs, msgs, words = _rs_words(204, p, 999, lambda i, r: i % (p // 2 + 4),
+                                p)
+    out, ok = _outer_check("rs", rs, words, cuda)
+    within = np.arange(999) % (p // 2 + 4) <= p // 2
+    assert ok[within].all() and np.array_equal(out[within], msgs[within])
+
+
+def test_outer_kernels_take_an_empty_batch_and_one_row(cuda):
+    code, _, words = _bch_words(8, 1, lambda i, r: 8, 1)
+    _outer_check("bch", code, words[:0], cuda)
+    out, ok = _outer_check("bch", code, words, cuda)
+    assert ok.all()
+    rs, _, words = _rs_words(204, 16, 1, lambda i, r: 8, 2)
+    _outer_check("rs", rs, words[:0], cuda)
+    assert _outer_check("rs", rs, words, cuda)[1].all()
+
+
+def test_outer_bch_kernel_at_exactly_t_errors(cuda):
+    code, msgs, words = _bch_words(8, 4096, lambda i, r: 8, 3)
+    out, ok = _outer_check("bch", code, words, cuda)
+    assert ok.all() and np.array_equal(out, msgs)
+
+
+def test_outer_kernels_on_rows_that_all_fail(cuda):
+    code, _, words = _bch_words(8, 640, lambda i, r: int(r.integers(12, 40)),
+                                4)
+    _, ok = _outer_check("bch", code, words, cuda)
+    rs, _, words = _rs_words(204, 16, 640, lambda i, r: int(r.integers(
+        20, 60)), 5)
+    _, rok = _outer_check("rs", rs, words, cuda)
+    assert not ok.any() and not rok.any()
+
+
+def test_outer_rs_kernel_where_the_derivative_vanishes(cuda):
+    # seed 0's 4 096 rows of 9..13 byte errors hold 12 rows whose error
+    # locator has a root at which its derivative is 0 (bad_dv), found by
+    # tests/test_torch_bch_device.py
+    rs, _, words = _rs_words(204, 16, 4096, lambda i, r: int(r.integers(
+        9, 14)), 0)
+    _outer_check("rs", rs, words, cuda)
+
+
+@pytest.mark.parametrize("kind,n,p", [("bch", 255, 8), ("bch", 70, 2),
+                                      ("rs", 255, 16), ("rs", 20, 16),
+                                      ("rs", 255, 2)])
+def test_outer_kernel_other_code_lengths(cuda, kind, n, p):
+    if kind == "bch":
+        code = Bch(p, n)
+        rng = np.random.default_rng(n)
+        words = code.encode(rng.integers(0, 2, (129, code.k)).astype(
+            np.uint8))
+        for i in range(129):
+            words[i, rng.choice(n, i % (p + 3), replace=False)] ^= 1
+        _outer_check("bch", code, words, cuda)
+    else:
+        rs, _, words = _rs_words(n, p, 129, lambda i, r: i % (p // 2 + 3), n)
+        _outer_check("rs", rs, words, cuda)
+
+
+def test_decode_chain_batch_runs_the_outer_kernel(cuda):
+    # enough frames that the payload's BCH blocks reach the threshold: the
+    # kernel runs once for them; the header (no outer code) never
+    cfg = P.OfdmConfig(P.CarrierPlan(256, 64).with_contiguous_data(
+        edge_guard=16), fs=1e6)
+    pre = P.OfdmPreamble(repeat_len=128, num_repeats=4).with_training_symbol(
+        256, 64)
+    table = P.McsTable.default_ladder()
+    mod = P.OfdmFrameMod(cfg, table, pre, device=cuda)
+    rng = np.random.default_rng(9)
+    per_frame = -(-(1500 + 4) * 8 // chain.BCH_INFO_BITS)
+    n_frames = max(-(-chain._DEVICE_OUTER_MIN_BLOCKS // per_frame), 2)
+    frames = [(P.FrameMetadata(i, 1), rng.integers(0, 256, 1500).astype(
+        np.uint8)) for i in range(n_frames)]
+    iq = np.stack([mod.modulate_frame(P.FramePacket(m, d), i)[
+        pre.total_len():] for i, (m, d) in enumerate(frames)])
+    before = outer_fec.bch_decode_kernel.launches
+    out = P.OfdmFrameDemod(cfg, table, device=cuda).decode_batch(iq)
+    assert outer_fec.bch_decode_kernel.launches == before + 1
+    for (meta, data), got in zip(frames, out):
+        assert got.metadata == meta and np.array_equal(got.payload, data)
+    before = outer_fec.bch_decode_kernel.launches
+    got = P.OfdmFrameDemod(cfg, table, device=cuda).decode(iq[0])
+    if per_frame < chain._DEVICE_OUTER_MIN_BLOCKS:
+        assert outer_fec.bch_decode_kernel.launches == before
+    assert np.array_equal(got.payload, frames[0][1])
