@@ -133,15 +133,47 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    of a decode path counts the outer kernel's launches from 0 and notes
    each outer decode's block count: a decode at or above the threshold on
    the card must launch the kernel, one below must not.
-25. Prints the kernels' JSON line (each kernel's main-path launches, error
+25. FT8/FT4 batched receive (slice 3's main path, the JAX bench's
+   ft8_batched_receive_throughput link): ft8_decode_windows(device="cuda")
+   on 64 windows of 180 000 samples (15 s at 12 kHz), 56 of them with one
+   frame at sample 0, each its own standard message on a carrier drawn
+   from 300-2900 Hz on the 6.25 Hz grid, 8 noise only, AWGN at -12 dB in
+   2500 Hz (tests/test_ft8.py's batched-window SNR); search band 200-3000
+   Hz, max_cand 4 (458 bins, 451 candidate frequencies a window). Every
+   message and carrier must come back and every noise window None, in a
+   warm-up, three timed runs (windows/s and Msps of the median, host clock
+   around work that ends in torch.cuda.synchronize()) and a run with
+   ft8_ap_prior("CQ") (the AP rows in the same BP batch); one run under
+   torch.profiler gives the card's busy share, and each layer (waterfall
+   GEMM, Costas grid + top-k, LLR gather, BP, batched CRC) is timed with
+   CUDA events, the host's unpack77 on the host clock. Then the same for
+   FT4: ft4_decode_windows on 64 windows of 90 000 samples (7.5 s) at -8
+   dB, carriers on FT4's 20.83 Hz grid.
+26. The BP kernel on ft8_174_91 (n 174, k 91, m 83, check degree 7, the
+   kernel's exact width 7): its launch plan and ptxas registers at width
+   7; held to bp_decode_reference exactly (bits and unsat on every row) on
+   the four BP batches [25] handed the wrapper, recorded as the path made
+   them, and on 4096 decodable rows (±4, 6 flips) + 256 garbage rows; timed
+   there with its bound. Rows are 696 bytes, so each is staged by 4-byte
+   cp.async.
+27. FT8/FT4 TX and the other decoders (tests/test_ft8.py's setups):
+   ft8_mod_batch of 64 messages on the card through ft8_demod (exact
+   tones); Ft8StreamDecoder.new_ft8 / new_ft4 at -15 / -11 dB, five seeds
+   each; ft8_decode_multi_frame on four -21 dB repeats;
+   ft8_decode_multi_signal on a co-channel pair with max_passes 1 (the
+   strong call) and 3 (both); ft4_decode_multi_signal on two signals.
+   Every message must come back; each run counts the BP launches from 0.
+28. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
    their sum over the default paths, the resident lanes an SM and waves at
    3168 x 1216 and the times at phase 13's chunk batches; for the BP rules
-   the launches by phase ([4] by rule, [5], [12]), the registers, the
-   launch plan, the times at max_iter 0/1/2 and at [4]'s batches with
-   their bounds; for the outer-code decoders, which no Pallas kernel
+   the launches by phase ([4] by rule, [5], [12], [25] and [27] by run),
+   the registers, the launch plan, the times at max_iter 0/1/2 and at
+   [4]'s and [25]'s batches with their bounds, the time at [26]'s 4096
+   rows, the registers at width 7 and [25]'s receive readings; for the
+   outer-code decoders, which no Pallas kernel
    computes, the launches by phase, the chain's two paths at the main
    batch, the sweeps and crossovers and the threshold), the card's name
    and power limit, then the result line
@@ -212,6 +244,14 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # ~10 ms of the card's clock: longer than the host takes to queue any timed
 # run of kernel launches below
 SLEEP_CYCLES = 20_000_000
+# FT8/FT4 (phases 25-27): the JAX bench's ft8_batched_receive_throughput
+# windows (15 s FT8 / 7.5 s FT4 at 12 kHz), the full search band, and the
+# SNR of tests/test_ft8.py's batched-window tests (in 2500 Hz)
+FT_FS, FT_BASE, FT_MAX, FT_MAX_CAND = 12000.0, 200.0, 3000.0, 4
+FT_WINDOWS, FT_SIGNALS = 64, 56
+FT_WIN = {"ft8": 180_000, "ft4": 90_000}
+FT_SNR = {"ft8": -12.0, "ft4": -8.0}
+FT_BP_ROWS, FT_BP_FLIPS = 4096, 6
 
 
 def fail(msg: str):
@@ -314,11 +354,12 @@ def bp_iter_times(ldpc_bp, g, x, rule):
     return times
 
 
-def bp_path_times(ldpc_bp, batches, rule):
-    """``rule`` at [4]'s recorded batches, each at the max_iter the path
-    gave it: the kernel against its plain version (exact: bits and unsat
-    equal on every row), then kernel ms, bound and the host's ms a call.
-    Returns (max |kernel − plain|, {label: (ms, bound)})."""
+def bp_path_times(ldpc_bp, batches, rule, where="[4]'s"):
+    """``rule`` at a path's recorded batches ([4]'s by default), each at the
+    max_iter the path gave it: the kernel against its plain version (exact:
+    bits and unsat equal on every row), then kernel ms, bound and the
+    host's ms a call. Returns (max |kernel − plain|, {label: (ms,
+    bound)})."""
     out, max_err = {}, 0.0
     for label, (g, x, max_iter) in batches.items():
         kb, ku = ldpc_bp.bp_decode_kernel(g, x, max_iter, rule)
@@ -328,7 +369,7 @@ def bp_path_times(ldpc_bp, batches, rule):
                   float((ku - ru).abs().max()))
         max_err = max(max_err, err)
         if err != 0.0:
-            fail(f"{rule} at [4]'s {label} batch: kernel and plain version "
+            fail(f"{rule} at {where} {label} batch: kernel and plain version "
                  f"differ")
         ms = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, x, max_iter, rule),
                      reps=20)
@@ -341,7 +382,7 @@ def bp_path_times(ldpc_bp, batches, rule):
             ldpc_bp.bp_decode_kernel(g, x, max_iter, rule)
         host_ms = (time.perf_counter() - t0) / 20 * 1e3
         torch.cuda.synchronize()
-        print(f"  {rule} at [4]'s {label} batch ({x.shape[0]} rows, grid "
+        print(f"  {rule} at {where} {label} batch ({x.shape[0]} rows, grid "
               f"{grid}, max_iter {max_iter}): max|kernel-plain|={err:g}, "
               f"{int((ku > 0).sum())} rows left unsatisfied; rows "
               f"unsatisfied after 0, 1, 2, ... iterations {bnd[3]}; kernel "
@@ -547,23 +588,27 @@ def cofdm_frames(P, dev, rng):
             sum(len(b) for b in bodies))
 
 
-def record_bp(run):
-    """Calls ``run()`` with every LDPC decode of the frame chain recorded as
-    the path hands it to the BP wrapper: returns [(graph, LLRs, max_iter,
-    rule)]."""
+def record_bp(run, module=None, attr="ldpc_decode"):
+    """Calls ``run()`` with every LDPC decode that ``module.attr`` makes
+    (the frame chain's ``ldpc_decode`` by default, or FT8's
+    ``codec.ft8_ldpc.bp_decode``; its first argument a code name or a
+    graph) recorded as the path hands it to the BP wrapper: returns
+    [(graph, LLRs, max_iter, rule)]."""
     from orion_sdr_tpu_torch.fec.ldpc import ldpc_graph
     from orion_sdr_tpu_torch.frame import chain
+    module = chain if module is None else module
     seen = []
-    real = chain.ldpc_decode
+    real = getattr(module, attr)
 
-    def rec(name, llr, max_iter=50, rule="sum_product", alpha=0.75):
-        seen.append((ldpc_graph(name), llr.clone(), max_iter, rule))
-        return real(name, llr, max_iter, rule, alpha)
-    chain.ldpc_decode = rec
+    def rec(code, llr, max_iter=50, rule="sum_product", alpha=0.75):
+        g = ldpc_graph(code) if isinstance(code, str) else code
+        seen.append((g, llr.clone(), max_iter, rule))
+        return real(code, llr, max_iter, rule, alpha)
+    setattr(module, attr, rec)
     try:
         run()
     finally:
-        chain.ldpc_decode = real
+        setattr(module, attr, real)
     return seen
 
 
@@ -1651,6 +1696,388 @@ def new_links(P, dev, rng):
     return runs
 
 
+# ── FT8/FT4 (slice 3) ────────────────────────────────────────────────────────
+
+
+def ft_noise_power(snr_db: float) -> float:
+    """Noise power a sample at ``snr_db`` in 2500 Hz for a unit-power signal
+    at 12 kHz (tests/test_ft8.py::snr_to_noise_power)."""
+    return FT_FS / (2500.0 * 10.0 ** (snr_db / 10.0))
+
+
+def ft_awgn(rng, n: int, power: float) -> np.ndarray:
+    """tests/test_ft8.py::_awgn."""
+    return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            * np.sqrt(power / 2)).astype(np.complex64)
+
+
+def ft_messages(P, n: int):
+    """``n`` distinct standard messages: calls W<d><L><L><L>, half to CQ
+    (what ft8_ap_prior("CQ") pins), the rest to a call, over grids and
+    reports."""
+    L = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    extras = ("FN42", "JN58", "IO91", "EN50", "-12", "R+03", "RR73", "73")
+    return [P.Ft8Standard("CQ" if i % 2 == 0 else f"K{(i + 3) % 10}XYZ",
+                          f"W{i % 10}{L[i // 10 % 26]}{L[i * 7 % 26]}"
+                          f"{L[i * 11 % 26]}", extras[i % len(extras)])
+            for i in range(n)]
+
+
+def ft_windows(P, mode: str, dev, rng):
+    """[25]'s capture: FT_WINDOWS windows of FT_WIN[mode] samples on the card;
+    FT_SIGNALS of them (at places drawn from ``rng``) hold one frame at
+    sample 0 with its own message on a carrier drawn from 300-2900 Hz on the
+    mode's tone grid, the rest noise only; AWGN at FT_SNR[mode] in 2500 Hz
+    over every window. → (windows, expected message or None each, carrier
+    each)."""
+    from orion_sdr_tpu_torch.modulate import ft8 as M
+    ft8 = mode == "ft8"
+    spacing = M.FT8_TONE_SPACING_HZ if ft8 else M.FT4_TONE_SPACING_HZ
+    encode, mod = (P.ft8_encode, P.ft8_mod) if ft8 else (P.ft4_encode,
+                                                         P.ft4_mod)
+    ht = P.CallsignHashTable()
+    msgs = ft_messages(P, FT_SIGNALS)
+    j = rng.integers(int(np.ceil(100.0 / spacing)),
+                     int((2900.0 - FT_BASE) / spacing) + 1, FT_SIGNALS)
+    where = np.sort(rng.choice(FT_WINDOWS, FT_SIGNALS, replace=False))
+    x = torch.zeros((FT_WINDOWS, FT_WIN[mode]), dtype=torch.complex64,
+                    device=dev)
+    expect, carriers = [None] * FT_WINDOWS, [None] * FT_WINDOWS
+    for w, msg, jj in zip(where, msgs, j):
+        carrier = FT_BASE + int(jj) * spacing
+        frame = mod(encode(P.pack77(msg, ht), device=dev), FT_FS, carrier,
+                    device=dev)
+        x[w, :frame.shape[0]] = frame
+        expect[w], carriers[w] = msg, carrier
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    x += torch.randn(x.shape, dtype=torch.complex64, device=dev,
+                     generator=gen) * float(np.sqrt(ft_noise_power(
+                         FT_SNR[mode])))
+    return x, expect, carriers
+
+
+def ft_check(out, expect, carriers, label):
+    bad = [w for w, (o, e, c) in enumerate(zip(out, expect, carriers))
+           if (o is None) != (e is None)
+           or (o is not None and (o.message != e
+                                  or abs(o.carrier_hz - c) > 1e-6))]
+    if bad:
+        fail(f"{label}: windows {bad[:8]} did not come back as sent "
+             f"({len(bad)} of {len(out)})")
+
+
+def busy_share(fn):
+    """One run of ``fn`` under torch.profiler: (host ms around the run,
+    ending in torch.cuda.synchronize(); the card's busy ms, the union of
+    its kernel and copy intervals, or None where the profiler recorded no
+    device activity; [(kernel name, ms)] by device time, largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, by_name = 0.0, -np.inf, {}
+    for (s, e) in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return wall, (busy / 1e3 if spans else None), top
+
+
+def ft_layers(P, ldpc_bp, mode, x, batch):
+    """The receive's layers at [25]'s batch, each on the card with CUDA
+    events (the host's unpack77 on the host clock): {layer: ms}."""
+    from orion_sdr_tpu_torch.codec.ft8_crc import ft8_check_crc_batch
+    from orion_sdr_tpu_torch.dsp.device import sanitize_iq
+    from orion_sdr_tpu_torch.message import unpack77
+    from orion_sdr_tpu_torch.sync import ft8_sync as S
+    from orion_sdr_tpu_torch.sync.costas import (candidate_score_grid,
+                                                 top_k_stable)
+    from orion_sdr_tpu_torch.sync.waterfall import compute_waterfall
+    m = S._MODE[mode]
+    costas, sync_pos, data_pos, gray = S._mode_tables(mode)
+    nb = S._num_bins(FT_BASE, FT_MAX + m["spacing"], m)
+    k = FT_MAX_CAND
+    out = {"sanitize_iq": cuda_ms(lambda: sanitize_iq(x), reps=5)}
+    out["waterfall GEMM"] = cuda_ms(lambda: compute_waterfall(
+        x, FT_FS, FT_BASE, m["spacing"], m["sps"], m["total_syms"], nb),
+        reps=5)
+    wf = compute_waterfall(x, FT_FS, FT_BASE, m["spacing"], m["sps"],
+                           m["total_syms"], nb)
+
+    def grid():
+        sc = candidate_score_grid(wf, costas, sync_pos, m["n_tones"], 0, 0)
+        return top_k_stable(sc.reshape(sc.shape[0], -1), k)
+    out["Costas grid + top-k"] = cuda_ms(grid, reps=5)
+    _, idx = grid()
+    f_count = nb - m["n_tones"] + 1
+    win = torch.arange(x.shape[0], device=x.device).repeat_interleave(k)
+    flat = idx.reshape(-1)
+    out["LLR gather + normalise"] = cuda_ms(lambda: S._extract_llrs(
+        wf, win, flat // f_count, flat % f_count, data_pos, gray,
+        m["bits_per_sym"]), reps=5)
+    g, llr, max_iter = batch
+    bits, _ = ldpc_bp.bp_decode_kernel(g, llr, max_iter)
+    out["BP kernel"] = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(
+        g, llr, max_iter), reps=10)
+    out["batched CRC-14"] = cuda_ms(lambda: ft8_check_crc_batch(bits),
+                                    reps=10)
+    payloads = [P.pack77(msg, P.CallsignHashTable())
+                for msg in ft_messages(P, FT_SIGNALS)]
+    t0 = time.perf_counter()
+    for p in payloads:
+        unpack77(p, P.CallsignHashTable())
+    out[f"host unpack77 x{FT_SIGNALS}"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def ft_receive(P, ldpc_bp, dev, rng, mode):
+    """[25] for one mode: returns ({run: BP launches}, {label: (graph,
+    LLRs, max_iter)} of the BP batches the path handed the wrapper (the
+    plain run's and the AP run's), {"ms": median ms, ...})."""
+    from orion_sdr_tpu_torch.codec import ft8_ldpc
+    ft8 = mode == "ft8"
+    x, expect, carriers = ft_windows(P, mode, dev, rng)
+    decode = P.ft8_decode_windows if ft8 else P.ft4_decode_windows
+    ap = P.ft8_ap_prior("CQ", ft4=not ft8)
+
+    def run(prior=None):
+        return decode(x, FT_FS, FT_BASE, FT_MAX, FT_MAX_CAND, ap=prior,
+                      device=dev)
+    t0 = time.perf_counter()
+    out = []
+    recorded = record_bp(lambda: out.append(run()), ft8_ldpc, "bp_decode")
+    torch.cuda.synchronize()
+    print(f"  {mode}: {FT_WINDOWS} windows x {FT_WIN[mode]} samples, "
+          f"{FT_SIGNALS} frames at {FT_SNR[mode]} dB in 2500 Hz, band "
+          f"{FT_BASE:g}-{FT_MAX:g} Hz, max_cand {FT_MAX_CAND}; warm-up "
+          f"{time.perf_counter() - t0:.3f} s")
+    ft_check(out[0], expect, carriers, f"[25] {mode} warm-up")
+    launches = {}
+    ldpc_bp.bp_decode_kernel.launches = 0
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        ft_check(got, expect, carriers, f"[25] {mode}")
+    launches[f"25 {mode}"] = ldpc_bp.bp_decode_kernel.launches
+    dt = sorted(secs)[1]
+    n_samp = FT_WINDOWS * FT_WIN[mode]
+    print(f"  {mode} decode_windows: {FT_SIGNALS}/{FT_SIGNALS} messages and "
+          f"carriers back, {FT_WINDOWS - FT_SIGNALS} noise windows None, in "
+          f"each of 3 runs ({launches[f'25 {mode}']} BP launches); runs "
+          f"{', '.join(f'{v:.4f}' for v in secs)} s; median "
+          f"{FT_WINDOWS / dt:.4g} windows/s, {n_samp / dt / 1e6:.4g} Msps")
+    ldpc_bp.bp_decode_kernel.launches = 0
+    got = []
+    recorded += record_bp(lambda: got.append(run(ap)), ft8_ldpc, "bp_decode")
+    torch.cuda.synchronize()
+    launches[f"25 {mode} ap"] = ldpc_bp.bp_decode_kernel.launches
+    ft_check(got[0], expect, carriers, f"[25] {mode} with ap")
+    print(f"  {mode} with ft8_ap_prior('CQ'{', ft4=True' if not ft8 else ''}"
+          f"): every message back, noise windows None "
+          f"({launches[f'25 {mode} ap']} BP launch of "
+          f"{recorded[-1][1].shape[0]} rows)")
+    if min(launches.values()) <= 0:
+        fail(f"[25] {mode}: the receive launched no BP kernel")
+    wall, busy, top = busy_share(run)
+    print(f"  {mode} one run under torch.profiler: {wall:.3f} ms host; card "
+          + (f"busy {busy:.3f} ms ({busy / wall:.1%})" if busy is not None
+             else "busy not measured (no device events)")
+          + "; by device time: " + ", ".join(f"{n[:48]} {v:.3f}"
+                                              for n, v in top[:6]))
+    if len(recorded) != 2:
+        fail(f"[25] {mode}: {len(recorded)} BP batches, not one a run")
+    batches = {f"{mode}{' ap' if i else ''} {x_.shape[0]}x{g.n}": (g, x_, mi)
+               for i, (g, x_, mi, _) in enumerate(recorded)}
+    layers = ft_layers(P, ldpc_bp, mode, x, recorded[0][:3])
+    print(f"  {mode} layers (ms): " + ", ".join(f"{k} {v:.4f}"
+                                                for k, v in layers.items()))
+    return launches, batches, {"ms": dt * 1e3,
+                               "windows_per_s": FT_WINDOWS / dt,
+                               "msps": n_samp / dt / 1e6, "busy_ms": busy,
+                               "profiled_ms": wall, "layers_ms": layers}
+
+
+def ft_bp_inputs(g, dev, rng, rows: int, flips: int):
+    """``rows`` decodable FT8 codewords (±4 LLRs, ``flips`` flipped) →
+    (messages, LLRs, LLRs with BP_GARBAGE random-normal rows appended)."""
+    from orion_sdr_tpu_torch.codec.ft8_ldpc import ldpc_encode
+    msg = torch.as_tensor(rng.integers(0, 2, (rows, g.k)), dtype=torch.uint8,
+                          device=dev)
+    llr = (1.0 - 2.0 * ldpc_encode(msg).to(torch.float32)) * 4.0
+    pick = torch.as_tensor(np.stack([rng.choice(g.n, flips, replace=False)
+                                     for _ in range(rows)]), device=dev)
+    llr.scatter_(1, pick, -llr.gather(1, pick))
+    junk = torch.as_tensor(rng.standard_normal((BP_GARBAGE, g.n)),
+                           dtype=torch.float32, device=dev)
+    return msg, llr.contiguous(), torch.cat([llr, junk]).contiguous()
+
+
+def ft_bp_phase(ldpc_bp, built, dev, rng, recorded):
+    """[26]: the BP kernel on ft8_174_91 at its exact width 7, held to its
+    plain version (exact) on [25]'s batches and on FT_BP_ROWS + garbage
+    rows, and timed. Returns (max |kernel − plain|, kernel ms, plain ms,
+    bound, {label: (ms, bound)} at [25]'s batches, registers)."""
+    from orion_sdr_tpu_torch.codec.ft8_ldpc import ft8_ldpc_graph
+    g = ft8_ldpc_graph()
+    regs = {r: ptxas_registers(built, code, g.max_deg)
+            for r, code in ldpc_bp._RULE_CODE.items()}
+    for B in (FT_BP_ROWS, FT_WINDOWS * FT_MAX_CAND):
+        p = ldpc_bp.launch_plan(g, "sum_product", B)
+        print(f"  {g.name} (n {g.n}, k {g.k}, m {g.m}, D {g.max_deg}) "
+              f"sum_product B={B}: {p['threads']} threads a block, "
+              f"{p['blocks_per_sm']} blocks an SM (occupancy query), "
+              f"{p['smem']} B shared memory a block, {p['sms']} SMs: grid "
+              f"{p['grid']}, {p['codewords_per_block']} codewords a block")
+    print(f"  registers at width {g.max_deg} (ptxas): {regs}")
+    if regs["sum_product"] is None:
+        fail(f"no exact width-{g.max_deg} instantiation in the build report")
+    err, at25 = bp_path_times(ldpc_bp, recorded, "sum_product", "[25]'s")
+    msg, llr, both = ft_bp_inputs(g, dev, rng, FT_BP_ROWS, FT_BP_FLIPS)
+    kb, ku = ldpc_bp.bp_decode_kernel(g, both, 20)
+    rb, ru = ldpc_bp.bp_decode_reference(g, both, 20)
+    torch.cuda.synchronize()
+    e = max(float((kb.int() - rb.int()).abs().max()),
+            float((ku - ru).abs().max()))
+    right = (ku[:FT_BP_ROWS] == 0) & (kb[:FT_BP_ROWS] == msg).all(dim=1)
+    print(f"  {FT_BP_ROWS} rows (±4, {FT_BP_FLIPS} flips) + {BP_GARBAGE} "
+          f"garbage, max_iter 20: max|kernel-plain|={e:g}; sent message "
+          f"{int(right.sum())}/{FT_BP_ROWS}; garbage min unsat kernel "
+          f"{int(ku[FT_BP_ROWS:].min())} plain {int(ru[FT_BP_ROWS:].min())}")
+    if e != 0.0:
+        fail("ft8_174_91: kernel and plain version differ")
+    if float(right.float().mean()) < 0.95:
+        fail("ft8_174_91: decodable rows did not decode")
+    if int(ku[FT_BP_ROWS:].min()) <= 0 or int(ru[FT_BP_ROWS:].min()) <= 0:
+        fail("ft8_174_91: a garbage row converged")
+    k_ms = cuda_ms(lambda: ldpc_bp.bp_decode_kernel(g, llr, 20))
+    p_ms = cuda_ms(lambda: ldpc_bp.bp_decode_reference(g, llr, 20), reps=3,
+                   warmup=1)
+    bnd = bp_bound(ldpc_bp, g, llr, "sum_product", 20)
+    print(f"  {FT_BP_ROWS} rows: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]}, {bnd[2]:.3f} iterations a "
+          f"row), {bnd[0] / k_ms:.1%} of it; rows of {g.n * 4} bytes, not a "
+          f"multiple of 16, so each row is staged by 4-byte cp.async")
+    return max(err, e), k_ms, p_ms, bnd, at25, regs
+
+
+def ft_others(P, ldpc_bp, dev, rng):
+    """[27]: FT8/FT4 TX and the other decoders, each run's BP launches
+    counted from 0 (tests/test_ft8.py's setups). Returns {run: launches}."""
+    runs = {}
+
+    def count(label, fn):
+        ldpc_bp.bp_decode_kernel.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        runs[label] = ldpc_bp.bp_decode_kernel.launches
+        return out
+
+    msgs = ft_messages(P, FT_WINDOWS)
+    tones = np.stack([P.ft8_encode(P.pack77(m), device=dev) for m in msgs])
+    iq = P.ft8_mod_batch(tones, FT_FS, 1000.0, device=dev)
+    back = P.ft8_demod(iq, FT_FS, 1000.0, device=dev)
+    one = P.ft8_mod(tones[0], FT_FS, 1000.0, device=dev)
+    err = float((iq[0] - one).abs().max())
+    print(f"  ft8_mod_batch of {FT_WINDOWS} messages on the card, ft8_demod: "
+          f"tones exact {np.array_equal(back, tones)}; batch vs ft8_mod "
+          f"max |diff| {err:.2e}")
+    if not np.array_equal(back, tones) or err > 2e-3:
+        fail("ft8_mod_batch / ft8_demod")
+
+    def msg_of(call_to, call_de, extra):
+        return P.pack77(P.Ft8Standard(call_to, call_de, extra),
+                        P.CallsignHashTable())
+
+    cq = msg_of("CQ", "KA1ABC", "FN42")
+    for ft8, snr in ((True, -15.0), (False, -11.0)):
+        mode = "ft8" if ft8 else "ft4"
+        sig = (P.ft8_mod(P.ft8_encode(cq, device=dev), FT_FS, 1012.5,
+                         device=dev) if ft8 else
+               P.ft4_mod(P.ft4_encode(cq, device=dev), FT_FS, 1012.5,
+                         device=dev)).cpu().numpy()
+        mk = (P.Ft8StreamDecoder.new_ft8 if ft8
+              else P.Ft8StreamDecoder.new_ft4)
+
+        def streams():
+            ok = 0
+            for seed in range(5):
+                r = np.random.default_rng(2000 + seed)
+                dec = mk(FT_FS, 950.0, 1150.0, max_cand=4, device=dev)
+                res = dec.feed(sig + ft_awgn(r, len(sig),
+                                             ft_noise_power(snr)))
+                ok += bool(res and res[0].message.call_de == "KA1ABC"
+                           and res[0].message.extra == "FN42")
+            return ok
+        ok = count(f"27 stream {mode}", streams)
+        print(f"  Ft8StreamDecoder.new_{mode} at {snr:g} dB: {ok}/5 "
+              f"({runs[f'27 stream {mode}']} BP launches)")
+        if ok != 5:
+            fail(f"the {mode} stream decoder lost frames at its floor")
+
+    sig = P.ft8_mod(P.ft8_encode(cq, device=dev), FT_FS, 1012.5,
+                    device=dev).cpu().numpy()
+    r = np.random.default_rng(101)
+    frames = np.stack([sig + ft_awgn(r, len(sig), ft_noise_power(-21.0))
+                       for _ in range(4)])
+    got = count("27 multi-frame", lambda: P.ft8_decode_multi_frame(
+        frames, FT_FS, 950.0, 1150.0, device=dev))
+    print(f"  ft8_decode_multi_frame, 4 repeats at -21 dB: "
+          f"{got.message if got else None} ({runs['27 multi-frame']} BP "
+          f"launch(es))")
+    if got is None or got.message.call_de != "KA1ABC":
+        fail("multi-frame decode")
+
+    def ft8_sig(fields, base, amp):
+        return amp * P.ft8_mod(P.ft8_encode(msg_of(*fields), device=dev),
+                               FT_FS, base, device=dev).cpu().numpy()
+    strong = ft8_sig(("CQ", "KA1ABC", "FN42"), 1012.5, 1.0)
+    weak = ft8_sig(("KA1ABC", "W9XYZ", "EN50"), 1012.5, 0.12)
+    r = np.random.default_rng(12)
+    iq = (strong + weak + 0.01 * (r.standard_normal(len(strong)) + 1j
+                                   * r.standard_normal(len(strong)))
+          ).astype(np.complex64)
+    for passes, want in ((1, {"KA1ABC"}), (3, {"KA1ABC", "W9XYZ"})):
+        got = count(f"27 multi-signal {passes}", lambda:
+                    P.ft8_decode_multi_signal(iq, FT_FS, 950.0, 1150.0,
+                                              max_passes=passes, device=dev))
+        calls = {g.message.call_de for g in got}
+        print(f"  ft8_decode_multi_signal, co-channel pair, max_passes="
+              f"{passes}: {sorted(calls)} "
+              f"({runs[f'27 multi-signal {passes}']} BP launches)")
+        if calls != want:
+            fail(f"multi-signal decode with max_passes={passes}")
+    a = P.ft4_mod(P.ft4_encode(msg_of("CQ", "KA1ABC", "FN42"), device=dev),
+                  FT_FS, 1012.5, device=dev).cpu().numpy()
+    b = P.ft4_mod(P.ft4_encode(msg_of("CQ", "W9XYZ", "EN50"), device=dev),
+                  FT_FS, 1300.0, device=dev).cpu().numpy()
+    got = count("27 ft4 multi-signal", lambda: P.ft4_decode_multi_signal(
+        (a + 0.5 * b).astype(np.complex64), FT_FS, 950.0, 1400.0,
+        device=dev))
+    calls = {g.message.call_de for g in got}
+    print(f"  ft4_decode_multi_signal, two signals: {sorted(calls)} "
+          f"({runs['27 ft4 multi-signal']} BP launches)")
+    if calls != {"KA1ABC", "W9XYZ"}:
+        fail("FT4 multi-signal decode")
+    if min(runs.values()) <= 0:
+        fail("an FT8/FT4 decoder launched no BP kernel")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1803,6 +2230,32 @@ def main() -> int:
               f"{r['decodes']} decodes, up to {r['max_blocks']} blocks)"
               for ph, r in outer_runs.items()))
 
+    t_ft = time.perf_counter()
+    print(f"[25] FT8/FT4 batched receive: ft8_decode_windows / "
+          f"ft4_decode_windows(device='cuda') on {FT_WINDOWS} windows, "
+          f"{FT_SIGNALS} frames, then with ft8_ap_prior('CQ')")
+    ft_batches, ft_stats = {}, {}
+    for mode in ("ft8", "ft4"):
+        runs, b, ft_stats[mode] = ft_receive(P, ldpc_bp, dev, rng, mode)
+        bp_runs.update(runs)
+        ft_batches.update(b)
+    print(f"  [25] took {time.perf_counter() - t_ft:.1f} s")
+    t_ft = time.perf_counter()
+    print(f"[26] BP kernel on ft8_174_91 (D 7, exact width 7) vs plain "
+          f"version (exact): [25]'s batches, {FT_BP_ROWS} + {BP_GARBAGE} rows")
+    ft_err, ft_k_ms, ft_p_ms, ft_bnd, ft_at25, ft_regs = ft_bp_phase(
+        ldpc_bp, built, dev, rng, ft_batches)
+    max_err = max(max_err, ft_err)
+    print(f"  [26] took {time.perf_counter() - t_ft:.1f} s")
+    t_ft = time.perf_counter()
+    print("[27] FT8/FT4 TX and the other decoders: ft8_mod_batch + "
+          "ft8_demod, the stream decoders at their floors, multi-frame, "
+          "multi-signal")
+    bp_runs.update(ft_others(P, ldpc_bp, dev, rng))
+    print(f"  [27] took {time.perf_counter() - t_ft:.1f} s")
+    print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
+          f"{{'12': {edge_launches}}}")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda",
@@ -1831,6 +2284,14 @@ def main() -> int:
                 "ms_at_4": {k: v[0] for k, v in path.items()},
                 "bound_ms_at_4": {k: v[1][0] for k, v in path.items()}}
 
+    ft8_bp = {"ms_at_25": {k: v[0] for k, v in ft_at25.items()},
+              "bound_ms_at_25": {k: v[1][0] for k, v in ft_at25.items()},
+              "ft8_174_91": {"rows": FT_BP_ROWS, "ms": ft_k_ms,
+                             "plain_ms": ft_p_ms, "bound_ms": ft_bnd[0],
+                             "bound_by": ft_bnd[1],
+                             "registers_width7": ft_regs},
+              "ft_receive": ft_stats}
+
     def outer_entry(kind, name, replaces):
         t = outer_t[kind]
         return entry(
@@ -1855,7 +2316,8 @@ def main() -> int:
         entry("ldpc_bp_decode", "ldpc_bp.cu",
               "orion_sdr_tpu/ops/ldpc_bp.py:256", sum(bp_runs.values()),
               max_err, k_ms, p_ms, bp_bnd,
-              **bp_extra("sum_product", bp_runs, bp_iters, bp_path)),
+              **bp_extra("sum_product", bp_runs, bp_iters, bp_path),
+              **ft8_bp),
         entry("ldpc_bp_decode_sum_product_edge", "ldpc_bp.cu",
               "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
               edge_ms, edge_plain_ms, edge_bnd,

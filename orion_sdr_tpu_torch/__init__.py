@@ -1,12 +1,16 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-Two slices so far. The coded COFDM frame link (LDPC or convolutional inner
+Three slices so far. The coded COFDM frame link (LDPC or convolutional inner
 code, BCH or RS outer code, block/Forney interleavers, additive or DVB
 scramblers): frame modulation, batch and streaming demodulation. And the
 conformant DVB-T 2K receive chain: ``DvbTFrameMod`` and ``DvbTFrameDemod``
 (GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)),
 the hierarchical link (``DvbTHierFrameMod``/``DvbTHierFrameDemod``), blind
-decode, the super-frame and the stream receivers. Three hand-written Hopper
+decode, the super-frame and the stream receivers. And FT8/FT4: CPFSK TX,
+message packing, the batched many-window receive (``ft8_decode_windows``:
+waterfall, Costas search, LLRs and one BP launch for every candidate of
+every window, on the card), the stream, multi-frame and multi-signal
+decoders. Three hand-written Hopper
 kernels carry them: LDPC belief propagation (``ops/ldpc_bp.py``,
 ``csrc/ldpc_bp.cu``, four check rules), the Viterbi ACS + traceback
 (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4) and the BCH/RS
@@ -50,3 +54,25 @@ from .demodulate import (DvbTFrameDemod, DvbTRxError, DvbTRxFrame,
                          DvbTSuperFrameDemod, DvbTRxSuperFrame,
                          DvbTRxSuperFrameError, DvbTFrameStreamDemod,
                          DvbTHierFrameStreamDemod, DvbTBandStreamDemod)
+
+# ── FT8/FT4 (message packing, CPFSK TX, sync, the many-window receive) ───────
+from .modulate.ft8 import ft8_mod, ft4_mod, ft8_mod_batch, ft4_mod_batch
+from .demodulate.ft8 import ft8_demod, ft4_demod
+from .codec.ft8 import (
+    ft8_encode, ft4_encode, ft8_decode_soft, ft4_decode_soft,
+    ft8_decode_hard, ft4_decode_hard, ft8_ap_prior, apply_ap_prior,
+)
+from .codec.ft8_stream import (Ft8StreamDecoder, Ft8DecodeResult,
+                               ft8_decode_windows, ft4_decode_windows,
+                               ft8_decode_multi_frame, ft4_decode_multi_frame,
+                               ft8_decode_multi_signal,
+                               ft4_decode_multi_signal)
+from .sync.ft8_sync import (ft8_sync, ft4_sync, ft8_sync_batch,
+                            ft4_sync_batch)
+from . import message
+from .message import (
+    pack77, unpack77, CallsignHashTable,
+    ft8_pack_standard, ft8_pack_free_text, ft8_pack_telemetry, ft8_unpack,
+    Standard as Ft8Standard, FreeText as Ft8FreeText,
+    NonStd as Ft8NonStd, Telemetry as Ft8Telemetry,
+)

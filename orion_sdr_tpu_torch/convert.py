@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 
 from .fec.ldpc import LdpcGraph
+from .message import CallsignHashTable, hash22
 from .frame.types import (InnerFec, InterleaverKind, Mcs, McsTable, OuterFec,
                           ScramblerKind)
 from .multicarrier import CarrierPlan, TxLowpass
@@ -23,6 +24,19 @@ def ldpc_graph_from_fields(d: dict) -> LdpcGraph:
         check_bits=np.asarray(d["check_bits"], np.int32).reshape(m, D),
         check_mask=np.asarray(d["check_mask"], bool).reshape(m, D),
         max_deg=D)
+
+
+def callsign_hash_table_from_fields(entries) -> CallsignHashTable:
+    """A JAX ``CallsignHashTable``'s entries (its ``n22 → call`` mapping)
+    → the port's table with the same entries, so a stream decoder's hashed
+    calls move from one package to the other. Raises ValueError for an
+    entry whose call does not hash to its key."""
+    ht = CallsignHashTable()
+    for n22, call in dict(entries).items():
+        if hash22(str(call)) != int(n22):
+            raise ValueError(f"call {call!r} does not hash to {int(n22)}")
+        ht.save(str(call))
+    return ht
 
 
 def carrier_plan_from_fields(d: dict) -> CarrierPlan:

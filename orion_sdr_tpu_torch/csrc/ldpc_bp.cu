@@ -46,8 +46,10 @@
 //  * slot-major edge state: edge (c, j) at j*m + c, so the 32 checks of a
 //    warp read 32 consecutive words at every slot, for any D;
 //  * the check update is instantiated at the exact degree D of the repo's
-//    codes (5, 8, 11) and of the (174, 91) graph (6), so only real slots are
-//    computed; any other D takes a padded width of 8, 16 or 32;
+//    codes (5, 8, 11), of FT8/FT4's LDPC(174, 91) graph (7: its checks hold
+//    6 or 7 bits) and of the staircase (174, 91) test graph (6), so only
+//    real slots are computed; any other D takes a padded width of 8, 16 or
+//    32;
 //  * a row starts with the channel's syndrome alone, so a row that arrives
 //    as a codeword costs one barrier and no check update;
 //  * one fused check phase reads each check's D totals once: their hard
@@ -453,6 +455,7 @@ KernelFn pick_width(int D) {
     switch (D) {
         case 5: return ldpc_bp_kernel<RULE, 5, true>;
         case 6: return ldpc_bp_kernel<RULE, 6, true>;
+        case 7: return ldpc_bp_kernel<RULE, 7, true>;
         case 8: return ldpc_bp_kernel<RULE, 8, true>;
         case 11: return ldpc_bp_kernel<RULE, 11, true>;
         default: break;

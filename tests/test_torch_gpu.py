@@ -2,13 +2,16 @@
 its plain torch version for each code and rule (the edge-layout rule
 included; batch sizes around the persistent grid, max_iter 0/1/2, rows
 converged at the start, ±0.0 and ±1e30 LLRs, back-to-back launches,
-unaligned rows, the (174, 91) and (1200, 600) graphs), the Viterbi kernel
+unaligned rows, FT8/FT4's LDPC(174, 91) graph at its exact width 7, a
+staircase graph of its size and a (1200, 600) one), the Viterbi kernel
 against its plain version in both modes and both radices, the BCH/RS
 outer-code kernel against its plain version and the native host decoders
 (every t, an empty batch, one row, exactly t errors, rows that all fail, RS
 rows where the error locator's derivative vanishes), and frame decodes
-(COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels.
-They skip without a CUDA card.
+(COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels;
+then the FT8 receive's device code (waterfall and Costas grid against the
+CPU, the stable top-k on a tied grid, the many-window decode through the BP
+kernel). They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 import orion_sdr_tpu_torch as P
+from orion_sdr_tpu_torch.codec import ft8_ldpc
 from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, LdpcGraph, \
     _build_msg_col_rows, ldpc_encode, ldpc_graph
 from orion_sdr_tpu_torch.fec import conv
@@ -107,9 +111,18 @@ def _staircase_graph(n, k):
     return g, encode
 
 
+def _graph_174_91(kind):
+    """FT8/FT4's LDPC(174, 91) graph (D = 7: checks of 6 and 7 bits, the
+    kernel's exact width 7) or the staircase graph of its size."""
+    if kind == "ft8":
+        return ft8_ldpc.ft8_ldpc_graph(), ft8_ldpc.ldpc_encode
+    return _staircase_graph(174, 91)
+
+
 def test_kernel_takes_other_graph_sizes(cuda):
-    for n, k in ((174, 91), (1200, 600)):
-        g, encode = _staircase_graph(n, k)
+    graphs = [_graph_174_91("ft8"), _staircase_graph(174, 91),
+              _staircase_graph(1200, 600)]
+    for g, encode in graphs:
         for rule in ldpc_bp.RULES:
             _check(g, _llrs(g, encode, 64, 3, 8, 2, cuda)[1], rule, 64)
 
@@ -160,9 +173,10 @@ def test_kernel_at_the_edges_of_the_persistent_loop(cuda, rule):
             assert (unsat[2::4] == 0).all()
 
 
+@pytest.mark.parametrize("kind", ["ft8", "staircase"])
 @pytest.mark.parametrize("rule", ldpc_bp.RULES)
-def test_kernel_edge_cases_on_the_174_91_graph(cuda, rule):
-    g, encode = _staircase_graph(174, 91)
+def test_kernel_edge_cases_on_the_174_91_graph(cuda, rule, kind):
+    g, encode = _graph_174_91(kind)
     grid = ldpc_bp.launch_plan(g, rule, 10**6)["grid"]
     for B in (1, 131, grid + 1):
         llr = _edge_rows(g, encode, B, 50 + B, cuda)
@@ -631,3 +645,64 @@ def test_decode_chain_batch_runs_the_outer_kernel(cuda):
     if per_frame < chain._DEVICE_OUTER_MIN_BLOCKS:
         assert outer_fec.bch_decode_kernel.launches == before
     assert np.array_equal(got.payload, frames[0][1])
+
+
+# ── the FT8 receive's device code ────────────────────────────────────────────
+
+
+def _ft8_windows(n_win, seed):
+    """``n_win`` noisy FT8 windows at -12 dB in 2500 Hz, one frame each
+    (carriers 1000 + 25·i Hz), and their messages."""
+    from orion_sdr_tpu_torch.message import CallsignHashTable, Standard, pack77
+    rng = np.random.default_rng(seed)
+    calls = [f"K{i}ABC" for i in range(n_win)]
+    ht = CallsignHashTable()
+    tones = np.stack([P.ft8_encode(pack77(Standard("CQ", c, "FN42"), ht),
+                                   device="cpu") for c in calls])
+    iq = np.stack([P.ft8_mod(t, 12000.0, 1000.0 + 25 * i, device="cpu")
+                   .numpy() for i, t in enumerate(tones)])
+    p = 12000.0 / (2500.0 * 10 ** (-12.0 / 10))
+    iq = iq + ((rng.standard_normal(iq.shape) + 1j * rng.standard_normal(
+        iq.shape)) * np.sqrt(p / 2)).astype(np.complex64)
+    return iq.astype(np.complex64), calls
+
+
+def test_waterfall_and_costas_grid_on_the_card_match_the_cpu(cuda):
+    from orion_sdr_tpu_torch.sync.costas import candidate_score_grid
+    from orion_sdr_tpu_torch.sync.waterfall import compute_waterfall
+    from orion_sdr_tpu_torch.modulate.ft8 import FT8_COSTAS
+    iq, _ = _ft8_windows(3, 1)
+    x = torch.as_tensor(iq)
+    wf_cpu = compute_waterfall(x, 12000.0, 200.0, 6.25, 1920, 79, 458)
+    wf_gpu = compute_waterfall(x.to(cuda), 12000.0, 200.0, 6.25, 1920, 79,
+                               458)
+    # log-power to 1e-3 absolute (complex64 products, other sum orders)
+    assert float((wf_gpu.cpu() - wf_cpu).abs().max()) < 1e-3
+    args = (FT8_COSTAS, [0, 36, 72], 8, 0, 0)
+    s_cpu = candidate_score_grid(wf_cpu, *args)
+    s_gpu = candidate_score_grid(wf_cpu.to(cuda), *args)
+    # the same waterfall: the same sums in the same order
+    assert float((s_gpu.cpu() - s_cpu).abs().max()) <= 1e-3 * float(
+        s_cpu.abs().max())
+
+
+def test_stable_top_k_on_the_card_on_a_tied_grid(cuda):
+    from orion_sdr_tpu_torch.sync.costas import top_k_stable
+    flat = torch.zeros((4, 451), device=cuda)
+    flat[1, 7] = flat[1, 300] = 2.0
+    vals, idx = top_k_stable(flat, 4)
+    assert idx[0].tolist() == [0, 1, 2, 3]
+    assert idx[1].tolist() == [7, 300, 0, 1]
+    assert vals[1].tolist() == [2.0, 2.0, 0.0, 0.0]
+
+
+def test_ft8_decode_windows_runs_through_the_kernel(cuda):
+    iq, calls = _ft8_windows(4, 2)
+    iq = np.concatenate([iq, np.zeros_like(iq[:1])])
+    before = ldpc_bp.bp_decode_kernel.launches
+    out = P.ft8_decode_windows(iq, 12000.0, 950.0, 1150.0, device=cuda)
+    assert ldpc_bp.bp_decode_kernel.launches == before + 1
+    ref = P.ft8_decode_windows(iq, 12000.0, 950.0, 1150.0, device="cpu")
+    assert [o.message.call_de if o else None for o in out] == calls + [None]
+    assert [(o.message, o.carrier_hz) if o else None for o in out] == \
+        [(o.message, o.carrier_hz) if o else None for o in ref]

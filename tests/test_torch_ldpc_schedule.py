@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from orion_sdr_tpu_torch.codec import ft8_ldpc
 from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, LdpcGraph, \
     _build_msg_col_rows, ldpc_encode, ldpc_graph
 from orion_sdr_tpu_torch.ops import ldpc_bp
@@ -29,7 +30,11 @@ from orion_sdr_tpu_torch.ops import ldpc_bp
 # one thread per test worker, as in every tests/test_torch_*.py
 torch.set_num_threads(1)
 
-FLIPS = {"N512R12": 6, "N576R23": 4, "N512R34": 3, "test_174_91": 3}
+FLIPS = {"N512R12": 6, "N576R23": 4, "N512R34": 3, "test_174_91": 3,
+         "ft8_174_91": 3}
+# every graph the kernel decodes: the three codes, FT8/FT4's LDPC(174, 91)
+# (D = 7, the kernel's exact width 7) and a staircase graph of its size
+GRAPHS = sorted(LDPC_CODES) + ["test_174_91", "ft8_174_91"]
 
 
 def graph_174_91() -> LdpcGraph:
@@ -55,12 +60,16 @@ def graph_174_91() -> LdpcGraph:
 
 
 def _graph(name):
+    if name == "ft8_174_91":
+        return ft8_ldpc.ft8_ldpc_graph()
     return graph_174_91() if name == "test_174_91" else ldpc_graph(name)
 
 
 def _codewords(g, msg):
     if g.name in LDPC_CODES:
         return ldpc_encode(g.name, torch.as_tensor(msg)).numpy()
+    if g.name == "ft8_174_91":
+        return ft8_ldpc.ldpc_encode(torch.as_tensor(msg)).numpy()
     s = (msg.astype(np.int64) @ g.A.T.astype(np.int64)) & 1
     return np.concatenate([msg, np.cumsum(s, -1) & 1], -1).astype(np.uint8)
 
@@ -137,7 +146,7 @@ def schedule_model(g, llr, max_iter, rule, alpha=0.75):
 
 @pytest.mark.parametrize("max_iter", [0, 1, 2, 50])
 @pytest.mark.parametrize("rule", ldpc_bp.RULES)
-@pytest.mark.parametrize("name", sorted(LDPC_CODES) + ["test_174_91"])
+@pytest.mark.parametrize("name", GRAPHS)
 def test_schedule_equals_plain_version(name, rule, max_iter):
     g = _graph(name)
     llr = _llrs(g, 11)
@@ -150,7 +159,7 @@ def test_schedule_equals_plain_version(name, rule, max_iter):
         assert (unsat[:5] == 0).all() and (unsat[5:7] > 0).all()
 
 
-@pytest.mark.parametrize("name", sorted(LDPC_CODES) + ["test_174_91"])
+@pytest.mark.parametrize("name", GRAPHS)
 def test_compact_tables(name):
     g = _graph(name)
     t = ldpc_bp.graph_tables(g, "cpu")
