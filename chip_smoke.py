@@ -5,9 +5,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Environment: requires a CUDA card (exits 1 otherwise; there is no CPU
    path) and prints its name and power limit.
-2. Builds the three kernels in parallel with nvcc, one process per source
+2. Builds the five kernels in parallel with nvcc, one process per source
    (the LDPC belief-propagation kernel csrc/ldpc_bp.cu, the Viterbi kernel
-   csrc/viterbi.cu and the BCH/RS outer-code kernel csrc/outer_fec.cu), and
+   csrc/viterbi.cu, the BCH/RS outer-code kernel csrc/outer_fec.cu, the
+   PSK31 PLL csrc/psk31_pll.cu and the two-rate one-pole
+   csrc/onepole_two_rate.cu), and
    prints the BP kernel's build time and ptxas
    register/shared-memory report, then the BP launch for each code and rule
    at B=3072 (ops.ldpc_bp.launch_plan: threads a block, resident blocks an
@@ -163,7 +165,37 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    ft8_decode_multi_signal on a co-channel pair with max_passes 1 (the
    strong call) and 3 (both); ft4_decode_multi_signal on two signals.
    Every message must come back; each run counts the BP launches from 0.
-28. Prints the kernels' JSON line (each kernel's main-path launches, error
+28. FM chain (slice 4; the JAX bench's fm_demod_chain_throughput,
+   bench.py:160-188): 64 rows of 2^20 random-normal IQ (numpy seed 0, as
+   the bench) at 480 kHz through the bench's body on the card (the
+   delay-conjugate product, atan2_approx, lp_cascade with the LR4 at 5
+   kHz, k = 1/75 kHz); Msps of the median of 7 timed runs after a warm-up
+   (host clock around work that ends in torch.cuda.synchronize()); rows 0
+   and 63 against the port's CPU output (1e-5 of the peak); then fm_mod ->
+   fm_demod (audio bandwidth 5 kHz) of a 1 kHz tone at 75 kHz deviation on
+   all 64 rows (random start phases): the tone SNR of every row's last
+   three quarters above 20 dB (tests/test_analog_roundtrip.py:20-26).
+29. PSK31 roundtrip (psk31_roundtrip_throughput, bench.py:194-233): 16 x
+   2048 random bits (seed 1) through the batched DBPSK crossfade and
+   bpsk31_demod on the card; every bit back, one PLL launch; Msps of the
+   median of 7 timed runs. The PLL kernel against its plain version on the
+   roundtrip's matched-filter dots, BPSK and QPSK: decisions exact, soft
+   values, symbols and phases within 1e-5 of the peak (the kernel's cosf,
+   sinf and rsqrtf against torch's own on the card); both timed (CUDA
+   events), with the bound.
+30. PSK31 receivers (tests/test_psk31.py's setups) on the card, each run's
+   PLL launches counted from 0: psk31_decode_band on three BPSK31 texts off
+   the waterfall grid and on a QPSK31 text; Psk31Stream at -5 dB (BPSK31)
+   and -6 dB (QPSK31), five seeds each; every text back. The batch
+   viterbi_decode (a torch loop, no kernel yet) on 16 x 2048 noisy symbols,
+   timed, exact against the CPU on two rows and every bit back.
+31. The two-rate one-pole kernel against its plain version, exact, at 64 x
+   8192 on agc_rms's real and complex powers (x^2 > env) and cw_mod's keys
+   (target >= env), both timed; then agc_rms on 64 x 2^20 complex IQ
+   (tail RMS within 25 % of the target) and cw_mod on 64 x 2^20 keys
+   (the envelope at 1 at the end of a mark) with the launches counted from
+   0 (two), and the kernel timed at 64 x 2^20.
+32. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -175,7 +207,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    rows, the registers at width 7 and [25]'s receive readings; for the
    outer-code decoders, which no Pallas kernel
    computes, the launches by phase, the chain's two paths at the main
-   batch, the sweeps and crossovers and the threshold), the card's name
+   batch, the sweeps and crossovers and the threshold; for the PSK31 PLL
+   and the two-rate one-pole, which replace lax.scan recurrences, the
+   launches by phase, the dependent steps a row and [28]-[30]'s rates),
+   the card's name
    and power limit, then the result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
@@ -190,7 +225,10 @@ operation counts are the least each algorithm needs, a transcendental
 counting as one. Viterbi branch sums that every state of a lane shares are
 counted once a lane (viterbi_ops). The outer decode's GF table steps are
 counted per row and per row that is not a codeword (outer_bound), at the
-same rate outside the tensor cores.
+same rate outside the tensor cores. The PSK31 PLL and the two-rate
+one-pole are bound by bytes (each input read once, each output written
+once); both are chains of dependent steps a row by design, and the line
+states the chain's length beside the bound.
 """
 
 import json
@@ -252,6 +290,15 @@ FT_WINDOWS, FT_SIGNALS = 64, 56
 FT_WIN = {"ft8": 180_000, "ft4": 90_000}
 FT_SNR = {"ft8": -12.0, "ft4": -8.0}
 FT_BP_ROWS, FT_BP_FLIPS = 4096, 6
+# slice 4 (phases 28-31): the JAX bench's FM chain (bench.py:160-188: 64
+# channels of 2^20 samples at 480 kHz, LR4 at 5 kHz, k = 1/75 kHz) and PSK31
+# roundtrip (bench.py:194-233: 16 channels of 2048 bits at 8 kHz), and the
+# two-rate one-pole at the FM width
+FM_ROWS, FM_LOG2_N, FM_FS, FM_LP_HZ, FM_RUNS = 64, 20, 480e3, 5e3, 7
+FM_K = float(np.float32(1.0 / 75e3))
+FM_TONE_HZ, FM_DEV_HZ, FM_AUDIO_BW_HZ = 1000.0, 75e3, 5000.0
+PSK_FS, PSK_ROWS, PSK_BITS, PSK_RUNS = 8000.0, 16, 2048, 7
+ONEPOLE_FS, ONEPOLE_ROWS, ONEPOLE_CMP, ONEPOLE_LOG2_N = 8000.0, 64, 8192, 20
 
 
 def fail(msg: str):
@@ -2078,6 +2125,351 @@ def ft_others(P, ldpc_bp, dev, rng):
     return runs
 
 
+# ── slice 4: the FM chain and PSK31 (phases 28-31) ─────────────────────────
+
+
+def median_ms(fn, runs: int):
+    """Host ms of ``fn`` (work ending in torch.cuda.synchronize()), each of
+    ``runs`` runs after a warm-up: (median, all)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out)), out
+
+
+def fm_body(P, re, im):
+    """bench.py:160-188's body: delay-conjugate product, atan2_approx, LR4."""
+    from orion_sdr_tpu_torch.demodulate.analog import delay_conj_product
+    from orion_sdr_tpu_torch.dsp.iir import design_butter_lp, lp_cascade
+    z = torch.complex(re, im)
+    prod = delay_conj_product(z, torch.ones_like(z[..., 0]))
+    disc = P.atan2_approx(prod.imag, prod.real) * FM_K
+    audio, _ = lp_cascade(disc, design_butter_lp(FM_FS, FM_LP_HZ))
+    return audio
+
+
+def tone_snr_rows(x: torch.Tensor, fs: float, f0: float) -> torch.Tensor:
+    """tests/helpers.py::tone_snr_db of every row, in float64 on the card:
+    the projection on f0 over the projection on 0.73·f0, in dB."""
+    x = x.to(torch.float64)
+    t = torch.arange(x.shape[-1], dtype=torch.float64, device=x.device)
+
+    def proj(f):
+        w = -2.0 * np.pi * f / fs * t
+        return ((x * torch.cos(w)).sum(-1) ** 2
+                + (x * torch.sin(w)).sum(-1) ** 2) / x.shape[-1] ** 2
+    return 10.0 * torch.log10(proj(f0) / (proj(0.73 * f0) + 1e-20))
+
+
+def fm_phase(P, dev):
+    """[28]: the JAX bench's FM chain at its width on the card, its rate,
+    two rows against the port's CPU output, and the fm_mod → fm_demod
+    roundtrip of a 1 kHz tone at 75 kHz deviation on every row."""
+    n = 1 << FM_LOG2_N
+    rng = np.random.default_rng(0)
+    re = torch.as_tensor(rng.standard_normal((FM_ROWS, n)).astype(np.float32),
+                         device=dev)
+    im = torch.as_tensor(rng.standard_normal((FM_ROWS, n)).astype(np.float32),
+                         device=dev)
+    med, runs = median_ms(lambda: fm_body(P, re, im), FM_RUNS)
+    msps = FM_ROWS * n / med / 1e3
+    print(f"  fm_demod_chain_throughput: {msps:.1f} Msps ({FM_ROWS} x {n}, "
+          f"median of {FM_RUNS} runs {med:.3f} ms; runs "
+          f"{[round(r, 3) for r in runs]})")
+    prof_ms, busy, top = busy_share(lambda: fm_body(P, re, im))
+    print(f"  under torch.profiler: {prof_ms:.3f} ms, card busy "
+          f"{busy if busy is None else round(busy, 3)} ms; largest: "
+          + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:6]))
+    audio = fm_body(P, re, im)
+    rows = [0, FM_ROWS - 1]
+    cpu = fm_body(P, re[rows].cpu(), im[rows].cpu())
+    err = float((audio[rows].cpu() - cpu).abs().max())
+    peak = float(cpu.abs().max())
+    print(f"  rows {rows} against the CPU: max |diff| {err:.3e} of peak "
+          f"{peak:.3e} (tolerance 1e-5 of the peak)")
+    if not err <= 1e-5 * peak:
+        fail("[28] the FM chain on the card disagrees with the CPU")
+    del re, im, audio
+    t = torch.arange(n, dtype=torch.float64, device=dev) / FM_FS
+    phi = torch.as_tensor(rng.uniform(0, 2 * np.pi, (FM_ROWS, 1)),
+                          device=dev)
+    tone = torch.sin(2 * np.pi * FM_TONE_HZ * t + phi).to(torch.float32)
+    iq, _ = P.fm_mod(tone, FM_FS, FM_DEV_HZ, device=dev)
+    out, _ = P.fm_demod(iq, FM_FS, FM_DEV_HZ, FM_AUDIO_BW_HZ, device=dev)
+    snr = tone_snr_rows(out[:, n // 4:], FM_FS, FM_TONE_HZ).cpu().numpy()
+    print(f"  fm_mod -> fm_demod, 1 kHz at 75 kHz deviation, {FM_ROWS} rows: "
+          f"tone SNR {snr.min():.1f}-{snr.max():.1f} dB (bound 20 dB)")
+    if not (np.isfinite(snr).all() and snr.min() > 20.0):
+        fail("[28] the FM roundtrip fell below 20 dB")
+    return {"msps": msps, "median_ms": med, "runs_ms": runs,
+            "profiled_ms": prof_ms, "busy_ms": busy,
+            "top_kernels_ms": dict(top[:6]),
+            "cpu_rows_max_abs_err": err, "tone_snr_db_min": float(snr.min())}
+
+
+def psk31_bound(rows: int, n: int, qpsk: bool):
+    """Kernel A's bound from its inputs: dots, carries and soft values moved
+    once over the card's rate; the chain is n dependent steps a row."""
+    return bound_ms(rows * n * 8 + rows * 12 * 2
+                    + rows * n * 4 * (2 if qpsk else 1), 0)
+
+
+def psk31_phase(P, pll, dev):
+    """[29]: the JAX bench's PSK31 roundtrip at its width: every bit back,
+    its rate, and the PLL kernel (module ``pll``) against its plain version
+    on its dots."""
+    psk31_pll = pll.psk31_pll
+    from orion_sdr_tpu_torch.demodulate.psk31 import (matched_filter_dots,
+                                                      pll_constants, _hann)
+    from orion_sdr_tpu_torch.modulate.psk31 import bpsk31_mod_bits_batch
+    sps = P.modulate.psk31.psk31_sps(PSK_FS)
+    bits = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 2, (PSK_ROWS, PSK_BITS)).astype(np.uint8), device=dev)
+
+    def body():
+        iq = bpsk31_mod_bits_batch(bits, PSK_FS)
+        return P.bpsk31_demod(iq, PSK_FS, device=dev) >= 0
+    psk31_pll.launches = 0
+    back = body()
+    torch.cuda.synchronize()
+    launches = psk31_pll.launches
+    if not torch.equal(back.to(torch.uint8), bits):
+        fail("[29] the PSK31 roundtrip lost bits")
+    if launches != 1:
+        fail(f"[29] the PSK31 roundtrip launched the PLL kernel {launches} "
+             f"times, not once")
+    med, runs = median_ms(body, PSK_RUNS)
+    msps = PSK_ROWS * PSK_BITS * sps / med / 1e3
+    print(f"  psk31_roundtrip_throughput: {msps:.1f} Msps ({PSK_ROWS} x "
+          f"{PSK_BITS} bits x {sps} samples, every bit back; median of "
+          f"{PSK_RUNS} runs {med:.3f} ms; runs {[round(r, 3) for r in runs]})")
+    prof_ms, busy, top = busy_share(body)
+    print(f"  under torch.profiler: {prof_ms:.3f} ms, card busy "
+          f"{busy if busy is None else round(busy, 3)} ms; largest: "
+          + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:6]))
+    iq = bpsk31_mod_bits_batch(bits, PSK_FS)
+    dots = matched_filter_dots(iq.reshape(PSK_ROWS, -1, sps), _hann(sps, dev))
+    prev = torch.ones(PSK_ROWS, dtype=torch.complex64, device=dev)
+    acc = torch.zeros(PSK_ROWS, dtype=torch.float32, device=dev)
+    c_fb, scale = pll_constants(sps, 1.0)
+    stats = {}
+    for qpsk in (False, True):
+        args = (dots, prev, acc, c_fb, scale, 0.05, qpsk)
+        ks, kp, ka = psk31_pll(*args)
+        rs, rp, ra = pll.psk31_pll_reference(*args)
+        dec = (ks[..., 0] >= 0) if qpsk else (ks >= 0)
+        rdec = (rs[..., 0] >= 0) if qpsk else (rs >= 0)
+        err = max(float((ks - rs).abs().max()), float((kp - rp).abs().max()),
+                  float((ka - ra).abs().max()))
+        peak = float(rs.abs().max())
+        mode = "qpsk" if qpsk else "bpsk"
+        print(f"  PLL kernel vs plain version ({mode}, {PSK_ROWS} x "
+              f"{dots.shape[-1]} dots): decisions exact "
+              f"{bool(torch.equal(dec, rdec))}, max |diff| {err:.3e} of peak "
+              f"{peak:.3e} (bound 1e-5 of the peak)")
+        if not torch.equal(dec, rdec) or not err <= 1e-5 * max(peak, 1.0):
+            fail(f"[29] the PLL kernel disagrees with its plain version "
+                 f"({mode})")
+        stats[mode] = {"max_abs_err": err,
+                       "ms": cuda_ms(lambda: psk31_pll(*args)),
+                       "plain_ms": cuda_ms(
+                           lambda: pll.psk31_pll_reference(*args),
+                           reps=2, warmup=1),
+                       "bound": psk31_bound(PSK_ROWS, dots.shape[-1], qpsk)}
+        print(f"    kernel {stats[mode]['ms']:.4f} ms, plain "
+              f"{stats[mode]['plain_ms']:.2f} ms, bound "
+              f"{stats[mode]['bound'][0]:.6f} ms (bytes; the chain is "
+              f"{dots.shape[-1]} dependent steps a row)")
+    return launches, {"msps": msps, "median_ms": med, "runs_ms": runs,
+                      "profiled_ms": prof_ms, "busy_ms": busy,
+                      "top_kernels_ms": dict(top[:6])}, stats
+
+
+def psk31_receivers(P, pll, dev):
+    """[30]: tests/test_psk31.py's receivers on the card: the three-carrier
+    band decode, the QPSK band smoke, the stream decoders at their floors
+    (five seeds each) and the batch Viterbi, timed. Returns {run: PLL
+    launches}."""
+    from orion_sdr_tpu_torch.codec import psk31 as C
+    psk31_pll = pll.psk31_pll
+    runs = {}
+    fs, baud = PSK_FS, P.modulate.psk31.PSK31_BAUD
+
+    def count(label, fn):
+        psk31_pll.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        runs[label] = psk31_pll.launches
+        return out
+
+    def awgn(rng, n, power):
+        return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                * np.sqrt(power / 2)).astype(np.complex64)
+
+    def text_iq(msg, hz, qpsk=False, pre=64):
+        mod = P.qpsk31_mod_text if qpsk else P.bpsk31_mod_text
+        return mod(msg, fs, rf_hz=hz, preamble_bits=pre,
+                   device="cpu").numpy()
+
+    base = 900.0
+    msgs = {base + 4 * baud + 12.5: "CQ DX ALPHA",
+            base + 12 * baud + 12.5: "HELLO BAND",
+            base + 22 * baud + 12.5: "TEST 73"}
+    n = int(fs * 6)
+    buf = np.zeros(n, np.complex64)
+    rng = np.random.default_rng(21)
+    for (hz, msg), a in zip(msgs.items(), [1.0, 0.4, 0.15]):
+        iq = a * text_iq(msg, hz)
+        start = int(rng.integers(0, fs // 4))
+        buf[start:start + len(iq)] += iq[: n - start]
+    buf += awgn(rng, n, 1e-4)
+    t0 = time.perf_counter()
+    got = count("30 band", lambda: P.psk31_decode_band(
+        buf, fs, base, base + 30 * baud, device=dev))
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"  psk31_decode_band, three carriers: "
+          f"{[(round(r.carrier_hz, 2), r.text) for r in got]} ({ms:.1f} ms)")
+    ok = len(got) == 3 and all(
+        any(abs(r.carrier_hz - hz) < 40.0 and msg in r.text for r in got)
+        for hz, msg in msgs.items())
+    if not ok:
+        fail("[30] the three-carrier band decode lost a text")
+    hz = base + 6 * baud
+    qbuf = np.concatenate([text_iq("QPSK BAND", hz, True),
+                           np.zeros(int(fs), np.complex64)])
+    got = count("30 band qpsk", lambda: P.psk31_decode_band(
+        qbuf, fs, base, base + 200.0, qpsk=True, device=dev))
+    print(f"  psk31_decode_band, QPSK: {[r.text for r in got]}")
+    if not (got and "QPSK BAND" in got[0].text):
+        fail("[30] the QPSK band decode lost its text")
+    carrier = 993.75
+    for qpsk, snr in ((False, -5.0), (True, -6.0)):
+        iq = text_iq("CQ TEST", carrier, qpsk)
+        power = fs / (2500.0 * 10.0 ** (snr / 10.0))
+        mk = P.Psk31Stream.new_qpsk if qpsk else P.Psk31Stream.new_bpsk
+
+        def streams():
+            ok = 0
+            for seed in range(5):
+                r = np.random.default_rng(1000 + seed)
+                st = mk(fs, carrier, device=dev)
+                ok += "CQ TEST" in st.feed(iq + awgn(r, len(iq), power)) \
+                    + st.flush()
+            return ok
+        mode = "qpsk" if qpsk else "bpsk"
+        ok = count(f"30 stream {mode}", streams)
+        print(f"  Psk31Stream.new_{mode} at {snr:g} dB: {ok}/5 "
+              f"({runs[f'30 stream {mode}']} PLL launches)")
+        if ok != 5:
+            fail(f"[30] the {mode} stream decoder lost a text at its floor")
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, (PSK_ROWS, PSK_BITS)).astype(np.uint8)
+    pairs = []
+    for row in bits:
+        c = C.conv_encode(row)
+        d = C.DQPSK_EXP[c[0::2] * 2 + c[1::2]] + 0.3 * (
+            rng.standard_normal(PSK_BITS) + 1j * rng.standard_normal(PSK_BITS))
+        pairs.append(np.stack([d.real, d.imag], -1).astype(np.float32))
+    pairs = torch.as_tensor(np.stack(pairs), device=dev)
+    vit_ms, vit_runs = median_ms(lambda: C.viterbi_decode(pairs, device=dev),
+                                 3)
+    out = C.viterbi_decode(pairs, device=dev).cpu().numpy()
+    cpu = C.viterbi_decode(pairs[:2].cpu(), device="cpu").numpy()
+    print(f"  psk31 viterbi_decode (torch loop) on {PSK_ROWS} x {PSK_BITS} "
+          f"symbols: {vit_ms:.1f} ms (median of 3); bit errors "
+          f"{int((out != bits).sum())}; rows 0-1 equal to the CPU "
+          f"{np.array_equal(out[:2], cpu)}")
+    if not np.array_equal(out[:2], cpu) or (out != bits).any():
+        fail("[30] the batch Viterbi on the card")
+    if min(runs.values()) <= 0:
+        fail("[30] a PSK31 receiver launched no PLL kernel")
+    return runs, vit_ms
+
+
+def onepole_phase(P, one, dev):
+    """[31]: the two-rate one-pole kernel on the paths that launch it
+    (agc_rms with attack != release, real and complex, and cw_mod) against
+    its plain version at 64 x 8192 (exact); then the entry points at 64 x
+    2^20 with the launches counted, and the kernel timed there."""
+    from orion_sdr_tpu_torch.dsp.agc import agc_rms, design_agc
+    onepole = one.onepole_two_rate
+    rng = np.random.default_rng(31)
+    p = design_agc(ONEPOLE_FS, 5.0, 50.0, 0.3)
+    a_r = float(np.exp(-1.0 / (3.0 * 1e-3 * ONEPOLE_FS)))
+    x = torch.as_tensor(rng.standard_normal((ONEPOLE_ROWS, ONEPOLE_CMP))
+                        .astype(np.float32), device=dev)
+    z = torch.complex(x, x.flip(-1))
+    key = torch.as_tensor(((np.arange(ONEPOLE_CMP) // 700 + np.arange(
+        ONEPOLE_ROWS)[:, None]) % 2).astype(np.float32), device=dev)
+    cases = {"agc_rms real": (x.abs() ** 2, p.attack_a, p.release_a, False),
+             "agc_rms complex": (z.abs() ** 2, p.attack_a, p.release_a,
+                                 False),
+             "cw_mod": (key, a_r, a_r * 0.999, True)}
+    err, plain_ms, k_ms = 0.0, {}, {}
+    for label, (xs, a_hi, a_lo, ge) in cases.items():
+        e0 = torch.clamp(xs[..., 0], min=1e-12).contiguous()
+        ke, kl = onepole(xs, e0, a_hi, a_lo, ge)
+        re_, rl = one.onepole_two_rate_reference(xs, e0, a_hi, a_lo, ge)
+        same = torch.equal(ke, re_) and torch.equal(kl, rl)
+        err = max(err, float((ke - re_).abs().max()))
+        k_ms[label] = cuda_ms(lambda: onepole(xs, e0, a_hi, a_lo, ge))
+        plain_ms[label] = cuda_ms(lambda: one.onepole_two_rate_reference(
+            xs, e0, a_hi, a_lo, ge), reps=1, warmup=1)
+        print(f"  {label}: kernel vs plain version at {ONEPOLE_ROWS} x "
+              f"{ONEPOLE_CMP}: exact {same}; kernel {k_ms[label]:.4f} ms, "
+              f"plain {plain_ms[label]:.1f} ms")
+        if not same:
+            fail(f"[31] the two-rate one-pole kernel disagrees with its "
+                 f"plain version ({label})")
+    n = 1 << ONEPOLE_LOG2_N
+    iq = torch.complex(*(torch.randn((ONEPOLE_ROWS, n), device=dev,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(s)) for s in (1, 2))) * 3.0
+    keys = ((torch.arange(n, device=dev)[None, :] // 4000
+             + torch.arange(ONEPOLE_ROWS, device=dev)[:, None]) % 2).float()
+    onepole.launches = 0
+    y, _ = agc_rms(iq, p)
+    cw, _ = P.cw_mod(keys, ONEPOLE_FS, 700.0, device=dev)
+    torch.cuda.synchronize()
+    launches = onepole.launches
+    tail_rms = float(y[:, n // 2:].abs().pow(2).mean().sqrt())
+    mark = keys[:, 7999] > 0                    # rows keyed over 4000-7999
+    on = float(cw[mark, 7999].abs().min())
+    # the first CMP samples of two rows through the CPU path
+    head = slice(0, ONEPOLE_CMP)
+    y_cpu, _ = agc_rms(iq[:2, head].cpu(), p)
+    cw_cpu, _ = P.cw_mod(keys[:2, head].cpu(), ONEPOLE_FS, 700.0,
+                         device="cpu")
+    err_agc = float((y[:2, head].cpu() - y_cpu).abs().max())
+    err_cw = float((cw[:2, head].cpu() - cw_cpu).abs().max())
+    in_rms = float(iq[:, n // 2:].abs().pow(2).mean().sqrt())
+    print(f"  agc_rms on {ONEPOLE_ROWS} x {n} complex IQ (rms {in_rms:.3f}): "
+          f"tail rms {tail_rms:.4f} (target {p.target_rms}; the fast attack "
+          f"holds it below); cw_mod on {ONEPOLE_ROWS} x {n} keys: envelope "
+          f"{on:.4f} at the end of a 4000-sample mark; the first "
+          f"{ONEPOLE_CMP} samples of rows 0-1 against the CPU path: agc "
+          f"{err_agc:.2e}, cw {err_cw:.2e} (tolerance 1e-5); two-rate "
+          f"launches {launches}")
+    if launches != 2 or not 0.5 < tail_rms / p.target_rms < 2.0 \
+            or not on > 0.99 or not max(err_agc, err_cw) <= 1e-5:
+        fail("[31] agc_rms / cw_mod on the card")
+    x2 = (iq.abs() ** 2).contiguous()
+    e0 = torch.clamp(x2[..., 0], min=1e-12).contiguous()
+    ms_full = cuda_ms(lambda: onepole(x2, e0, p.attack_a, p.release_a, False),
+                      reps=3, warmup=1)
+    bnd = bound_ms(ONEPOLE_ROWS * n * 8 + ONEPOLE_ROWS * 8, 0)
+    print(f"  kernel at {ONEPOLE_ROWS} x {n}: {ms_full:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms (bytes; the chain is {n} dependent steps a row)")
+    return {"launches": launches, "max_abs_err": err, "ms": ms_full,
+            "ms_at_8192": k_ms, "plain_ms_at_8192": plain_ms, "bound": bnd,
+            "tail_rms": tail_rms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2100,10 +2492,13 @@ def main() -> int:
     from orion_sdr_tpu_torch.ops import outer_fec, viterbi
     from orion_sdr_tpu_torch.fec import bch_device
     from orion_sdr_tpu_torch.frame import chain
-    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, together
+    from orion_sdr_tpu_torch.ops import onepole_two_rate, psk31_pll
+    with ThreadPoolExecutor(5) as pool:       # one nvcc per source, together
         builds = [pool.submit(ldpc_bp.build), pool.submit(viterbi.build),
-                  pool.submit(outer_fec.build)]
-        built, vit_built, outer_built = [b.result() for b in builds]
+                  pool.submit(outer_fec.build), pool.submit(psk31_pll.build),
+                  pool.submit(onepole_two_rate.build)]
+        (built, vit_built, outer_built, pll_built,
+         one_built) = [b.result() for b in builds]
     global OUTER
     OUTER = OuterSpy(chain, outer_fec, bch_device)
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
@@ -2256,6 +2651,39 @@ def main() -> int:
     print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
           f"{{'12': {edge_launches}}}")
 
+    t_s4 = time.perf_counter()
+    print(f"[28] FM chain (the JAX bench's fm_demod_chain_throughput): "
+          f"{FM_ROWS} x 2^{FM_LOG2_N} at {FM_FS:g} Hz, then fm_mod -> "
+          f"fm_demod of a 1 kHz tone at 75 kHz deviation")
+    fm_stats = fm_phase(P, dev)
+    print(f"  [28] took {time.perf_counter() - t_s4:.1f} s")
+    t_s4 = time.perf_counter()
+    print(f"[29] PSK31 roundtrip (psk31_roundtrip_throughput): {PSK_ROWS} x "
+          f"{PSK_BITS} bits, batched DBPSK crossfade -> bpsk31_demod; PLL "
+          f"kernel vs plain version")
+    for line in pll_built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("   ", line.strip())
+    pll_runs = {}
+    pll_runs["29"], psk_stats, pll_stats = psk31_phase(P, psk31_pll, dev)
+    print(f"  [29] took {time.perf_counter() - t_s4:.1f} s")
+    t_s4 = time.perf_counter()
+    print("[30] PSK31 receivers: three-carrier band decode, QPSK band, "
+          "Psk31Stream at -5 / -6 dB (five seeds each), batch Viterbi")
+    runs30, vit_psk_ms = psk31_receivers(P, psk31_pll, dev)
+    pll_runs.update(runs30)
+    print(f"  PLL launches by phase: {pll_runs}")
+    print(f"  [30] took {time.perf_counter() - t_s4:.1f} s")
+    t_s4 = time.perf_counter()
+    print(f"[31] two-rate one-pole kernel: agc_rms (real, complex) and cw_mod "
+          f"vs plain version at {ONEPOLE_ROWS} x {ONEPOLE_CMP}; agc_rms and "
+          f"cw_mod at {ONEPOLE_ROWS} x 2^{ONEPOLE_LOG2_N}")
+    for line in one_built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("   ", line.strip())
+    one_stats = onepole_phase(P, onepole_two_rate, dev)
+    print(f"  [31] took {time.perf_counter() - t_s4:.1f} s")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda",
@@ -2332,7 +2760,41 @@ def main() -> int:
         outer_entry("bch", "outer_bch_decode",
                     "orion_sdr_tpu/fec/bch_device.py:87"),
         outer_entry("rs", "outer_rs_decode",
-                    "orion_sdr_tpu/fec/bch_device.py:206")]}))
+                    "orion_sdr_tpu/fec/bch_device.py:206"),
+        entry("psk31_pll", "psk31_pll.cu",
+              "orion_sdr_tpu/demodulate/psk31.py:65",
+              sum(pll_runs.values()),
+              max(v["max_abs_err"] for v in pll_stats.values()),
+              pll_stats["bpsk"]["ms"], pll_stats["bpsk"]["plain_ms"],
+              pll_stats["bpsk"]["bound"], pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scan _pll_scan; latency-bound by "
+                   "design (one row a thread)",
+              launches_by_phase=pll_runs,
+              shape=f"{PSK_ROWS}x{PSK_BITS}",
+              chain_steps_per_row=PSK_BITS,
+              qpsk={k: v for k, v in pll_stats["qpsk"].items()
+                    if k != "bound"},
+              psk31_roundtrip=psk_stats, fm_demod_chain=fm_stats,
+              viterbi_decode_torch_loop_ms=vit_psk_ms),
+        entry("onepole_two_rate", "onepole_two_rate.cu",
+              "orion_sdr_tpu/dsp/agc.py:59", one_stats["launches"],
+              one_stats["max_abs_err"], one_stats["ms"],
+              one_stats["plain_ms_at_8192"]["agc_rms real"],
+              one_stats["bound"], pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scan recurrences of agc_rms "
+                   "(dsp/agc.py:59-69) and cw_mod "
+                   "(modulate/analog.py:40-47); latency-bound by design "
+                   "(one row a thread); ms at the main path's "
+                   f"{ONEPOLE_ROWS}x2^{ONEPOLE_LOG2_N}, plain_ms at "
+                   f"{ONEPOLE_ROWS}x{ONEPOLE_CMP} (the per-step plain loop "
+                   "would take minutes at the full width)",
+              launches_by_phase={"31": one_stats["launches"]},
+              shape=f"{ONEPOLE_ROWS}x{1 << ONEPOLE_LOG2_N}",
+              chain_steps_per_row=1 << ONEPOLE_LOG2_N,
+              ms_at_8192=one_stats["ms_at_8192"],
+              plain_ms_at_8192=one_stats["plain_ms_at_8192"])]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,11 +10,17 @@ decode, the super-frame and the stream receivers. And FT8/FT4: CPFSK TX,
 message packing, the batched many-window receive (``ft8_decode_windows``:
 waterfall, Costas search, LLRs and one BP launch for every candidate of
 every window, on the card), the stream, multi-frame and multi-signal
-decoders. Three hand-written Hopper
-kernels carry them: LDPC belief propagation (``ops/ldpc_bp.py``,
-``csrc/ldpc_bp.cu``, four check rules), the Viterbi ACS + traceback
-(``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4) and the BCH/RS
-outer decoder (``ops/outer_fec.py``, ``csrc/outer_fec.cu``). Every
+decoders. And the analog modes and PSK31: the DSP layer (parallel-scan
+IIR sections, FIR, AGC, rational resampling), CW/AM/SSB/FM/PM modulators
+and demodulators, BPSK31/QPSK31 modulation, the decision-feedback demod,
+carrier search, the whole-band decode and the stream decoder. Five
+hand-written Hopper kernels carry them: LDPC belief propagation
+(``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check rules), the Viterbi
+ACS + traceback (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4),
+the BCH/RS outer decoder (``ops/outer_fec.py``, ``csrc/outer_fec.cu``),
+the PSK31 PLL recurrence (``ops/psk31_pll.py``, ``csrc/psk31_pll.cu``) and
+the two-rate one-pole envelope of the AGC and the CW keyer
+(``ops/onepole_two_rate.py``, ``csrc/onepole_two_rate.cu``). Every
 constructor and entry point that takes host data takes an explicit
 ``device``; at the frame layer bytes go in and numpy complex64 IQ comes
 out, as in the JAX package.
@@ -76,3 +82,22 @@ from .message import (
     Standard as Ft8Standard, FreeText as Ft8FreeText,
     NonStd as Ft8NonStd, Telemetry as Ft8Telemetry,
 )
+
+# ── analog modes and PSK31 (the DSP layer is under ``dsp``) ─────────────────
+from . import util
+from .util import (rms, hann, tone, gen_complex_tone, snr_db_at,
+                   power_spectrum, nb_spectrum_snr_db, wb_spectrum_snr_db,
+                   spectrum_bw_hz, SIGNAL_THRESHOLD, PSK31_BW_HZ, awgn,
+                   atan2_approx, spectrum_scan, SpectrumSegment)
+from .modulate.analog import cw_mod, am_mod, ssb_mod, fm_mod, pm_mod
+from .demodulate.analog import (cw_demod, cw_envelope_multi, am_demod,
+                                ssb_demod, fm_demod, pm_demod,
+                                am_band_demod, ssb_band_demod)
+from .codec.varicode import (VaricodeEncoder, VaricodeDecoder,
+                             varicode_encode, varicode_decode)
+from .modulate.psk31 import (bpsk31_mod_bits, qpsk31_mod_bits,
+                             bpsk31_mod_text, qpsk31_mod_text)
+from .demodulate.psk31 import bpsk31_demod, qpsk31_demod, bpsk31_decide
+from .sync.psk31_sync import psk31_sync, best_sync as best_psk31_sync
+from .codec.psk31_stream import Psk31Stream, Psk31BandResult, \
+    psk31_decode_band

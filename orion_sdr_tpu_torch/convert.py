@@ -1,10 +1,14 @@
-"""Build the port's graph and config objects from plain field dicts, such as
-``dataclasses.asdict`` gives for the JAX package's objects (numpy arrays and
-nested dicts; nothing of that package is imported here)."""
+"""Build the port's graph, config and state objects from plain fields, such
+as ``dataclasses.asdict`` gives for the JAX package's objects or a JAX
+state NamedTuple with its leaves as numpy arrays (numpy arrays, nested
+dicts or NamedTuples; nothing of that package is imported here). With the
+state converters a capture begun in one package finishes in the other
+with the same output."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .fec.ldpc import LdpcGraph
 from .message import CallsignHashTable, hash22
@@ -14,6 +18,11 @@ from .multicarrier import CarrierPlan, TxLowpass
 from .ofdm import OfdmConfig
 from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
 from .waveform.dvb_t import DvbTFrameParams, DvbTLinkParams
+from .codec.psk31 import StreamingViterbi
+from .codec.psk31_stream import Psk31Stream
+from .demodulate.analog import QuadDemodState, SsbDemodState
+from .dsp.iir import BiquadState, LpDcState
+from .modulate.analog import CwState, FmState, SsbState
 
 
 def ldpc_graph_from_fields(d: dict) -> LdpcGraph:
@@ -83,3 +92,97 @@ def dvb_t_frame_params_from_fields(d: dict) -> DvbTFrameParams:
     return DvbTFrameParams(link=dvb_t_link_params_from_fields(d["link"]),
                            frame_number=int(d["frame_number"]),
                            cell_id=int(d["cell_id"]))
+
+
+# ── DSP / analog states (JAX state NamedTuples with numpy leaves) ────────────
+
+
+def _fields(obj) -> dict:
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def _t(v, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+
+def biquad_state_from_fields(d, device="cuda") -> BiquadState:
+    d = _fields(d)
+    x_tail = np.asarray(d["x_tail"])
+    return BiquadState(sp=_t(d["sp"], device, torch.complex64),
+                       x_tail=_t(x_tail, device, torch.complex64
+                                 if np.iscomplexobj(x_tail)
+                                 else torch.float32))
+
+
+def _biquad_pair(pair, device) -> tuple:
+    return tuple(biquad_state_from_fields(b, device) for b in pair)
+
+
+def lp_dc_state_from_fields(d, device="cuda") -> LpDcState:
+    d = _fields(d)
+    return LpDcState(bq=_biquad_pair(d["bq"], device),
+                     dc=_t(d["dc"], device, torch.float32))
+
+
+def quad_demod_state_from_fields(d, device="cuda") -> QuadDemodState:
+    """``fm_demod`` / ``pm_demod`` state."""
+    d = _fields(d)
+    return QuadDemodState(prev=_t(d["prev"], device, torch.complex64),
+                          lp=_biquad_pair(d["lp"], device),
+                          xlate_phase=_t(d["xlate_phase"], device,
+                                         torch.float32))
+
+
+def ssb_demod_state_from_fields(d, device="cuda") -> SsbDemodState:
+    d = _fields(d)
+    return SsbDemodState(filt=lp_dc_state_from_fields(d["filt"], device),
+                         bfo_phase=_t(d["bfo_phase"], device, torch.float32))
+
+
+def ssb_state_from_fields(d, device="cuda") -> SsbState:
+    """``ssb_mod`` state."""
+    d = _fields(d)
+    return SsbState(lp_i=_biquad_pair(d["lp_i"], device),
+                    lp_q=_biquad_pair(d["lp_q"], device),
+                    aud_phase=_t(d["aud_phase"], device, torch.float32),
+                    rf_phase=_t(d["rf_phase"], device, torch.float32))
+
+
+def cw_state_from_fields(d, device="cuda") -> CwState:
+    d = _fields(d)
+    return CwState(env=_t(d["env"], device, torch.float32),
+                   phase=_t(d["phase"], device, torch.float32))
+
+
+def fm_state_from_fields(d, device="cuda") -> FmState:
+    d = _fields(d)
+    return FmState(phase=_t(d["phase"], device, torch.float32),
+                   rf_phase=_t(d["rf_phase"], device, torch.float32))
+
+
+def psk31_stream_from_fields(d: dict, device="cuda") -> Psk31Stream:
+    """A JAX ``Psk31Stream``'s attributes (``vars(stream)``, with ``vdec``
+    and ``viterbi`` given as their own ``vars``, or ``viterbi`` None) → the
+    port's stream in the same state: the buffered samples, the down-mix
+    phase (samples mixed so far), the PLL carry (previous symbol, phase
+    accumulator), the varicode decoder and the QPSK Viterbi's metrics and
+    path memory."""
+    st = Psk31Stream(float(d["fs"]), float(d["carrier_hz"]),
+                     float(d["gain"]), qpsk=bool(d["qpsk"]), device=device)
+    st._buf = np.asarray(d["_buf"], np.complex64).copy()
+    st._fed_up_to = int(d["_fed_up_to"])
+    st._n_mixed = int(d["_n_mixed"])
+    st._prev_sym = complex(d["_prev_sym"])
+    st._phase_acc = float(d["_phase_acc"])
+    v = dict(d["vdec"])
+    st.vdec.shift, st.vdec.len = int(v["shift"]), int(v["len"])
+    st.vdec.prev_zero = bool(v["prev_zero"])
+    st.vdec.chars.extend(int(c) for c in v["chars"])
+    if d.get("viterbi") is not None:
+        w = dict(d["viterbi"])
+        sv = StreamingViterbi(np.asarray(w["_exp"], np.complex64))
+        sv.pm = np.asarray(w["pm"], np.float32).copy()
+        sv.history = np.asarray(w["history"], np.int32).copy()
+        sv.ptr, sv.count = int(w["ptr"]), int(w["count"])
+        st.viterbi = sv
+    return st

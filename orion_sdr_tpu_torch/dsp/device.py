@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,13 @@ def sanitize_iq(iq: torch.Tensor) -> torch.Tensor:
     z = iq.to(torch.complex64)
     bad = ~torch.isfinite(z.real) | ~torch.isfinite(z.imag)
     return torch.where(bad, torch.zeros_like(z), z)
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """Host data (numpy, lists) or a tensor → a tensor on ``device``, of
+    ``dtype`` when one is given."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.as_tensor(a if a.flags.writeable else a.copy())
+    return x.to(device=device, dtype=dtype) if dtype is not None else \
+        x.to(device)

@@ -1,10 +1,11 @@
-"""FIR design and group-delay-aligned filtering (counterpart of the parts of
-``orion_sdr_tpu/dsp/fir.py`` that the TX lowpass uses).
+"""FIR design and application (counterpart of ``orion_sdr_tpu/dsp/fir.py``;
+behavioral spec: dsp/fir.rs, dsp/decim.rs).
 
 The design functions run in numpy and give constant float32 taps. Filtering
 runs on the input tensor's device: a direct ``conv1d`` for short taps and
 an FFT overlap-save for long ones (``_FFT_MIN_TAPS``); the two agree within
-float32 rounding.
+float32 rounding. The streaming forms carry the input tail (the last
+``ntaps − 1`` samples) as their state.
 """
 
 from __future__ import annotations
@@ -67,6 +68,30 @@ def kaiser_num_taps(transition_norm: float, stopband_db: float) -> int:
     return max(m, 3) | 1
 
 
+def fir_lowpass_design(fs: float, pass_hz: float,
+                       trans_hz: float) -> np.ndarray:
+    """Sinc + Hann lowpass, unit DC gain (dsp/fir.rs:14-45)."""
+    pass_hz = max(pass_hz, 10.0)
+    trans_hz = max(trans_hz, pass_hz * 0.2)
+    ntaps = max(int(np.ceil(fs / trans_hz)), 31) | 1
+    fc = pass_hz / fs
+    m = np.arange(ntaps) - ntaps // 2
+    sinc = np.where(m == 0, 2.0 * fc,
+                    (2.0 * fc) * np.sin(2.0 * np.pi * fc * m)
+                    / np.where(m == 0, 1.0, np.pi * m))
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(ntaps) / (ntaps - 1.0))
+    taps = sinc * w
+    return (taps / taps.sum()).astype(np.float32)
+
+
+def half_cosine_taps(sps: int) -> np.ndarray:
+    """Unit-energy Hann matched-filter taps for PSK31 (dsp/fir.rs:317-340)."""
+    if sps <= 1:
+        return np.ones(max(sps, 1), dtype=np.float32)
+    h = 0.5 - 0.5 * np.cos(np.pi * np.arange(sps) / (sps - 1.0))
+    return (h / np.sqrt((h * h).sum())).astype(np.float32)
+
+
 def group_delay(taps) -> int:
     return (len(taps) - 1) // 2
 
@@ -82,24 +107,32 @@ _FFT_MIN_TAPS = 1025
 _FFT_BLOCK = 65536
 
 
-def _conv_direct(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """VALID correlation of (R, L) float32 rows with ``taps`` by conv1d:
-    y[i] = Σ_j taps[j]·x[i + T − 1 − j]. TF32 off (cuDNN would otherwise
-    round the operands to TF32 on the card)."""
-    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
-                        device=x.device).reshape(1, 1, -1)
+def conv1d_f32(rows: torch.Tensor, w: torch.Tensor,
+               stride: int = 1) -> torch.Tensor:
+    """``conv1d`` (a correlation) of (R, L) float32 rows with (C, 1, K)
+    kernels → (R, C, L_out), TF32 off (cuDNN would otherwise round the
+    operands to TF32 on the card)."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return torch.nn.functional.conv1d(x[:, None, :], w)[:, 0]
+        return torch.nn.functional.conv1d(rows[:, None, :], w, stride=stride)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def _conv_direct(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """VALID correlation of (R, L) float32 rows with ``taps`` by conv1d:
+    y[i] = Σ_j taps[j]·x[i + T − 1 − j]."""
+    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
+                        device=x.device).reshape(1, 1, -1)
+    return conv1d_f32(x, w)[:, 0]
+
+
 def _fft_overlap_save(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """The same VALID correlation by FFT overlap-save: blocks of a power of
-    two ≥ 4·T (``_FFT_BLOCK`` for long inputs), hop block − T + 1."""
-    T = len(taps)
+    two ≥ 4·T (``_FFT_BLOCK`` for long inputs), hop block − T + 1. ``taps``
+    (T,) for every row, or (R, T): one kernel a row."""
+    T = taps.shape[-1]
     L = x.shape[-1]
     n_out = L - (T - 1)
     block = min(_FFT_BLOCK, max(2048, 1 << int(np.ceil(np.log2(4 * T))),
@@ -110,8 +143,10 @@ def _fft_overlap_save(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     nblk = -(-n_out // hop)
     xb = torch.nn.functional.pad(x, (0, nblk * hop + T - 1 - L))
     blocks = xb.unfold(-1, block, hop)                 # (R, nblk, block)
-    H = torch.fft.rfft(torch.as_tensor(np.ascontiguousarray(taps[::-1]),
-                                       device=x.device), block)
+    H = torch.fft.rfft(torch.as_tensor(
+        np.ascontiguousarray(taps[..., ::-1]), device=x.device), block)
+    if H.dim() == 2:
+        H = H[:, None, :]                              # (R, 1, nf)
     y = torch.fft.irfft(torch.fft.rfft(blocks, dim=-1) * H, block,
                         dim=-1)[..., T - 1:]
     return y.reshape(x.shape[0], -1)[:, :n_out].to(torch.float32)
@@ -132,14 +167,104 @@ def fir_filter_aligned(x: torch.Tensor, taps) -> torch.Tensor:
         return x * float(taps[0])
     gd = group_delay(taps)
     n = x.shape[-1]
-    lead = x.shape[:-1]
-    cplx = x.is_complex()
-    rows = (torch.cat([x.real.reshape(-1, n), x.imag.reshape(-1, n)])
-            if cplx else x.reshape(-1, n)).to(torch.float32)
+    rows, how = to_rows(x)
     # causal filter over [T − 1 zeros, x, gd zeros], then drop the delay
     xp = torch.nn.functional.pad(rows, (len(taps) - 1, gd))
-    y = _conv_valid(xp, taps)[:, gd:gd + n]
+    return from_rows(_conv_valid(xp, taps)[:, gd:gd + n], how)
+
+
+def to_rows(x: torch.Tensor):
+    """(..., n) real or complex → ((R, n) float32 rows, how to undo it):
+    a complex tensor rides as its real rows then its imaginary rows."""
+    n = x.shape[-1]
+    if x.is_complex():
+        return torch.cat([x.real.reshape(-1, n), x.imag.reshape(-1, n)]
+                         ).to(torch.float32), (x.shape[:-1], True)
+    return x.reshape(-1, n).to(torch.float32), (x.shape[:-1], False)
+
+
+def from_rows(y: torch.Tensor, how) -> torch.Tensor:
+    lead, cplx = how
     if cplx:
         half = y.shape[0] // 2
         y = torch.complex(y[:half], y[half:])
-    return y.reshape(lead + (n,))
+    return y.reshape(tuple(lead) + (y.shape[-1],))
+
+
+def _causal_conv(x: torch.Tensor, taps, state=None):
+    """Causal FIR with explicit tail state. Returns (y, new_state)."""
+    taps = np.asarray(taps, np.float32)
+    ntaps = len(taps)
+    if ntaps == 1:
+        y = x * float(taps[0])
+        return y, (state if state is not None else
+                   x.new_zeros(x.shape[:-1] + (0,)))
+    if state is None:
+        state = x.new_zeros(x.shape[:-1] + (ntaps - 1,))
+    xp = torch.cat([state.to(x.dtype), x], dim=-1)
+    rows, how = to_rows(xp)
+    y = from_rows(_conv_valid(rows, taps), how)
+    return y, xp[..., xp.shape[-1] - (ntaps - 1):]
+
+
+def fir_apply(x: torch.Tensor, taps, state=None):
+    """Streaming causal FIR: the output lags the input by
+    ``group_delay(taps)`` (FirLowpass(Iq)::process / push, dsp/fir.rs:47-67,
+    229-257). Returns (y, state), the state being the carried input
+    tail."""
+    return _causal_conv(x, taps, state)
+
+
+def fir_decimate(x: torch.Tensor, taps, m: int, state=None):
+    """Lowpass, then every m-th sample from phase 0 (FirDecimator,
+    dsp/decim.rs:10-77). Returns (y, state)."""
+    y, state = _causal_conv(x, taps, state)
+    return y[..., ::m], state
+
+
+def fir_filter_aligned_bank(pairs):
+    """Aligned same-length filtering of several signals, each with its own
+    odd-length taps, in one overlap-save call: ``pairs`` is a list of
+    (x (..., n), taps); returns the filtered signals, each
+    ``fir_filter_aligned(x, taps)`` up to FFT rounding. Complex signals
+    ride as two real channels."""
+    n = pairs[0][0].shape[-1]
+    taps = [np.asarray(t, np.float32) for _, t in pairs]
+    gds = [group_delay(t) for t in taps]
+    G = max(gds)
+    L = max(len(t) - 1 - gd for t, gd in zip(taps, gds))
+    K = G + L + 1
+    chans, kerns, hows = [], [], []
+    for (x, _), t, gd in zip(pairs, taps, gds):
+        # aligned y[i] = Σ_j t[j]·x[i+gd−j]: a VALID correlation of x padded
+        # by G on the left and L on the right with w[G+gd−j] = t[j]
+        w = np.zeros(K, np.float32)
+        w[G + gd - np.arange(len(t))] = t
+        rows, how = to_rows(x)
+        chans.append(rows)
+        kerns.append(np.broadcast_to(w, (rows.shape[0], K)))
+        hows.append((how, rows.shape[0]))
+    X = torch.nn.functional.pad(torch.cat(chans), (G, L))
+    Y = _fft_overlap_save(X, np.ascontiguousarray(np.concatenate(kerns)))
+    out, r0 = [], 0
+    for how, rows in hows:
+        out.append(from_rows(Y[r0:r0 + rows], how))
+        r0 += rows
+    return out
+
+
+def convolve(x: torch.Tensor, taps, mode: str = "same") -> torch.Tensor:
+    """Row-wise ``numpy.convolve(x, taps, mode)`` (``jnp.convolve``'s
+    flipping and centring) of (..., n) real or complex rows with real taps:
+    ``same`` keeps n samples from index (T−1)//2 of the full convolution,
+    ``valid`` the n − T + 1 where the taps lie inside the row."""
+    taps = np.asarray(taps, np.float32)
+    T = len(taps)
+    rows, how = to_rows(x)
+    # convolution = correlation with the reversed taps
+    if mode == "same":
+        rows = torch.nn.functional.pad(rows, (T - 1 - (T - 1) // 2,
+                                              (T - 1) // 2))
+    elif mode != "valid":
+        raise ValueError(f"mode {mode!r}")
+    return from_rows(_conv_valid(rows, taps), how)

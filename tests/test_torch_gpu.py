@@ -11,7 +11,11 @@ rows where the error locator's derivative vanishes), and frame decodes
 (COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels;
 then the FT8 receive's device code (waterfall and Costas grid against the
 CPU, the stable top-k on a tied grid, the many-window decode through the BP
-kernel). They skip without a CUDA card.
+kernel); and slice 4's two recurrence kernels (the PSK31 PLL against its
+plain version, decisions exact and soft values within 1e-5 of the peak;
+the two-rate one-pole exact) with the entry points that launch them, and
+the FM chain on the card against the CPU. They skip without a CUDA
+card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -706,3 +710,117 @@ def test_ft8_decode_windows_runs_through_the_kernel(cuda):
     assert [o.message.call_de if o else None for o in out] == calls + [None]
     assert [(o.message, o.carrier_hz) if o else None for o in out] == \
         [(o.message, o.carrier_hz) if o else None for o in ref]
+
+
+# ── slice 4: the PSK31 PLL and the two-rate one-pole kernels ─────────────────
+
+def _pll_dots(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    flips = np.where(rng.integers(0, 2, (rows, n)) == 1, 1.0, -1.0)
+    qpsk_steps = np.exp(0.5j * np.pi * rng.integers(0, 4, (rows, n)))
+    base = np.exp(1j * (0.01 * k + rng.uniform(0, 6, (rows, 1)))) * 120.0
+    noise = 30.0 * (rng.standard_normal((rows, n))
+                    + 1j * rng.standard_normal((rows, n)))
+    return ((base * flips).astype(np.complex64),
+            (base * qpsk_steps + noise).astype(np.complex64))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (16, 2048), (33, 300), (5, 0)])
+@pytest.mark.parametrize("qpsk", [False, True])
+def test_psk31_pll_kernel_matches_plain_version(cuda, rows, n, qpsk):
+    """Decisions exact; soft values, symbols and phases within 1e-5 of the
+    peak (the kernel's cosf/sinf/rsqrtf against torch's own calls of them
+    on the card; every product and sum rounds apart in both)."""
+    from orion_sdr_tpu_torch.demodulate.psk31 import pll_constants
+    from orion_sdr_tpu_torch.ops import psk31_pll as K
+    clean, noisy = _pll_dots(rows, n, rows + n)
+    dots = torch.as_tensor(noisy if qpsk else clean, device=cuda)
+    rng = np.random.default_rng(3)
+    prev = torch.as_tensor(np.exp(1j * rng.uniform(0, 6, rows)).astype(
+        np.complex64), device=cuda)
+    acc = torch.as_tensor(rng.uniform(-3, 3, rows).astype(np.float32),
+                          device=cuda)
+    c_fb, scale = pll_constants(256, 1.0)
+    before = K.psk31_pll.launches
+    soft, p, a = K.psk31_pll(dots, prev, acc, c_fb, scale, 0.05, qpsk)
+    rs, rp, ra = K.psk31_pll_reference(dots, prev, acc, c_fb, scale, 0.05,
+                                       qpsk)
+    torch.cuda.synchronize()
+    assert K.psk31_pll.launches == before + (1 if rows and n else 0)
+    assert soft.shape == rs.shape
+    if n:
+        assert torch.equal(soft[..., 0] >= 0 if qpsk else soft >= 0,
+                           rs[..., 0] >= 0 if qpsk else rs >= 0)
+        peak = float(rs.abs().max())
+        assert float((soft - rs).abs().max()) <= 1e-5 * peak
+    assert float((p - rp).abs().max()) <= 1e-5
+    assert float((a - ra).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (33, 5000), (64, 8192), (3, 0)])
+@pytest.mark.parametrize("ge", [False, True])
+def test_onepole_two_rate_kernel_is_exact(cuda, rows, n, ge):
+    from orion_sdr_tpu_torch.ops import onepole_two_rate as K
+    rng = np.random.default_rng(rows + n)
+    x = rng.uniform(0, 1, (rows, n)).astype(np.float32)
+    x[:, n // 3:n // 2] = 0.5                        # runs of ties
+    x = torch.as_tensor(x, device=cuda)
+    env0 = torch.as_tensor(rng.uniform(0, 1, rows).astype(np.float32),
+                           device=cuda)
+    before = K.onepole_two_rate.launches
+    env, last = K.onepole_two_rate(x, env0, 0.9, 0.999, ge)
+    renv, rlast = K.onepole_two_rate_reference(x, env0, 0.9, 0.999, ge)
+    torch.cuda.synchronize()
+    assert K.onepole_two_rate.launches == before + (1 if rows and n else 0)
+    assert torch.equal(env, renv) and torch.equal(last, rlast)
+
+
+def test_slice4_entry_points_run_through_the_kernels(cuda):
+    """agc_rms (two rates), cw_mod, bpsk31_demod and Psk31Stream on the
+    card launch their kernels and agree with the CPU path."""
+    from orion_sdr_tpu_torch.dsp.agc import agc_rms, design_agc
+    from orion_sdr_tpu_torch.ops import onepole_two_rate, psk31_pll
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 3000)) + 1j * rng.standard_normal(
+        (4, 3000))).astype(np.complex64)
+    p = design_agc(8000.0, 5.0, 50.0, 0.3)
+    b0 = onepole_two_rate.onepole_two_rate.launches
+    yg, eg = agc_rms(torch.as_tensor(x, device=cuda), p)
+    yc, ec = agc_rms(torch.as_tensor(x), p)
+    key = (np.arange(4000) // 500 % 2).astype(np.float32)
+    cg, _ = P.cw_mod(key, 8000.0, 700.0, device=cuda)
+    cc, _ = P.cw_mod(key, 8000.0, 700.0, device="cpu")
+    torch.cuda.synchronize()
+    assert onepole_two_rate.onepole_two_rate.launches == b0 + 2
+    # the envelope is exact; the gain's sqrt/divide and the phase ramp's
+    # cos/sin round on the card as torch rounds them there
+    assert torch.equal(eg.cpu(), ec)
+    assert float((yg.cpu() - yc).abs().max()) <= 1e-5 * float(yc.abs().max())
+    assert float((cg.cpu() - cc).abs().max()) <= 1e-5
+    bits = rng.integers(0, 2, 200).astype(np.uint8)
+    iq, _ = P.bpsk31_mod_bits(bits, 8000.0, rf_hz=1000.0, device="cpu")
+    b1 = psk31_pll.psk31_pll.launches
+    soft = P.bpsk31_demod(iq, 8000.0, 1000.0, device=cuda)
+    assert np.array_equal(P.bpsk31_decide(soft), bits)
+    text = P.bpsk31_mod_text("CUDA PSK31", 8000.0, rf_hz=900.0, device="cpu")
+    st = P.Psk31Stream.new_bpsk(8000.0, 900.0, device=cuda)
+    out = "".join(st.feed(text[i:i + 5000].numpy())
+                  for i in range(0, len(text), 5000)) + st.flush()
+    assert "CUDA PSK31" in out
+    assert psk31_pll.psk31_pll.launches > b1 + 1
+
+
+def test_fm_chain_on_the_card_matches_the_cpu(cuda):
+    """fm_demod (delay-conjugate product, atan2_approx, the chunked LR4
+    matmuls) on the card against the CPU on the same IQ: 1e-5 of the
+    peak."""
+    audio = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(1 << 16) / 480e3)
+             ).astype(np.float32)
+    iq, _ = P.fm_mod(np.stack([audio, -audio]), 480e3, 75e3, device="cpu")
+    out = {}
+    for dev in (cuda, "cpu"):
+        out[str(dev)], _ = P.fm_demod(iq, 480e3, 75e3, 5e3, device=dev)
+    ref = out["cpu"]
+    assert float((out[str(cuda)].cpu() - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
