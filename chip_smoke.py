@@ -194,7 +194,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    (target >= env), both timed; then agc_rms on 64 x 2^20 complex IQ
    (tail RMS within 25 % of the target) and cw_mod on 64 x 2^20 keys
    (the envelope at 1 at the end of a mark) with the launches counted from
-   0 (two), and the kernel timed at 64 x 2^20.
+   0 (two); every step of those two launches is held to the plain
+   version at once (each step recomputed from the launch's own previous
+   envelope in the plain version's float32 operations, exact at every
+   step, so exact over the whole run by induction), and the kernel is
+   timed at 64 x 2^20.
 32. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
@@ -209,7 +213,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    computes, the launches by phase, the chain's two paths at the main
    batch, the sweeps and crossovers and the threshold; for the PSK31 PLL
    and the two-rate one-pole, which replace lax.scan recurrences, the
-   launches by phase, the dependent steps a row and [28]-[30]'s rates),
+   launches by phase, the dependent steps a row and [28]-[30]'s rates;
+   the two-rate one-pole's ms, plain_ms and bound_ms are at 64 x 8192,
+   where the plain loop runs, and its 64 x 2^20 time and bound are under
+   ms_full and bound_ms_full),
    the card's name
    and power limit, then the result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
@@ -2391,11 +2398,28 @@ def psk31_receivers(P, pll, dev):
     return runs, vit_ms
 
 
+def onepole_steps_exact(one, x, env0, a_hi, a_lo, ge, env, last) -> bool:
+    """Holds a two-rate one-pole run to its plain version at every step at
+    once: each step recomputed from the run's own previous envelope (env0
+    before the first) in the plain version's float32 operations (the two
+    products rounded apart, then the sum). Exact at every step is exact
+    over the whole run, by induction from env0."""
+    ah, bh, al, bl = (float(v) for v in one._poles(a_hi, a_lo))
+    prev = torch.cat([env0[..., None], env[..., :-1]], dim=-1)
+    hi = x >= prev if ge else x > prev
+    expect = torch.where(hi, ah * prev + bh * x, al * prev + bl * x)
+    return torch.equal(expect, env) and torch.equal(last, env[..., -1])
+
+
 def onepole_phase(P, one, dev):
     """[31]: the two-rate one-pole kernel on the paths that launch it
     (agc_rms with attack != release, real and complex, and cw_mod) against
-    its plain version at 64 x 8192 (exact); then the entry points at 64 x
-    2^20 with the launches counted, and the kernel timed there."""
+    its plain loop at 64 x 8192 (exact) and timed there; then the entry
+    points at 64 x 2^20 with the launches counted, every step of those
+    launches held to the plain version (exact), and the kernel timed at
+    that width."""
+    import orion_sdr_tpu_torch.dsp.agc as agc_mod
+    import orion_sdr_tpu_torch.modulate.analog as analog_mod
     from orion_sdr_tpu_torch.dsp.agc import agc_rms, design_agc
     onepole = one.onepole_two_rate
     rng = np.random.default_rng(31)
@@ -2432,11 +2456,25 @@ def onepole_phase(P, one, dev):
                                      .manual_seed(s)) for s in (1, 2))) * 3.0
     keys = ((torch.arange(n, device=dev)[None, :] // 4000
              + torch.arange(ONEPOLE_ROWS, device=dev)[:, None]) % 2).float()
-    onepole.launches = 0
-    y, _ = agc_rms(iq, p)
-    cw, _ = P.cw_mod(keys, ONEPOLE_FS, 700.0, device=dev)
-    torch.cuda.synchronize()
-    launches = onepole.launches
+    seen = []
+
+    def rec(x, env0, a_hi, a_lo, ge):
+        env, last = onepole(x, env0, a_hi, a_lo, ge)
+        seen.append((x, env0, a_hi, a_lo, ge, env, last))
+        return env, last
+    for m in (agc_mod, analog_mod):
+        m.onepole_two_rate = rec
+    try:
+        onepole.launches = 0
+        y, _ = agc_rms(iq, p)
+        cw, _ = P.cw_mod(keys, ONEPOLE_FS, 700.0, device=dev)
+        torch.cuda.synchronize()
+        launches = onepole.launches
+    finally:
+        for m in (agc_mod, analog_mod):
+            m.onepole_two_rate = onepole
+    steps_exact = [onepole_steps_exact(one, *r) for r in seen]
+    del seen
     tail_rms = float(y[:, n // 2:].abs().pow(2).mean().sqrt())
     mark = keys[:, 7999] > 0                    # rows keyed over 4000-7999
     on = float(cw[mark, 7999].abs().min())
@@ -2454,20 +2492,28 @@ def onepole_phase(P, one, dev):
           f"{on:.4f} at the end of a 4000-sample mark; the first "
           f"{ONEPOLE_CMP} samples of rows 0-1 against the CPU path: agc "
           f"{err_agc:.2e}, cw {err_cw:.2e} (tolerance 1e-5); two-rate "
-          f"launches {launches}")
+          f"launches {launches}; every step of each launch at {ONEPOLE_ROWS}"
+          f" x {n} against the plain version's step: exact {steps_exact}")
     if launches != 2 or not 0.5 < tail_rms / p.target_rms < 2.0 \
             or not on > 0.99 or not max(err_agc, err_cw) <= 1e-5:
         fail("[31] agc_rms / cw_mod on the card")
+    if len(steps_exact) != 2 or not all(steps_exact):
+        fail("[31] the two-rate one-pole kernel disagrees with its plain "
+             "version on the main path's launches")
     x2 = (iq.abs() ** 2).contiguous()
     e0 = torch.clamp(x2[..., 0], min=1e-12).contiguous()
     ms_full = cuda_ms(lambda: onepole(x2, e0, p.attack_a, p.release_a, False),
                       reps=3, warmup=1)
-    bnd = bound_ms(ONEPOLE_ROWS * n * 8 + ONEPOLE_ROWS * 8, 0)
+    bnd_full = bound_ms(ONEPOLE_ROWS * n * 8 + ONEPOLE_ROWS * 8, 0)
+    bnd = bound_ms(ONEPOLE_ROWS * ONEPOLE_CMP * 8 + ONEPOLE_ROWS * 8, 0)
     print(f"  kernel at {ONEPOLE_ROWS} x {n}: {ms_full:.3f} ms, bound "
-          f"{bnd[0]:.4f} ms (bytes; the chain is {n} dependent steps a row)")
-    return {"launches": launches, "max_abs_err": err, "ms": ms_full,
-            "ms_at_8192": k_ms, "plain_ms_at_8192": plain_ms, "bound": bnd,
-            "tail_rms": tail_rms}
+          f"{bnd_full[0]:.4f} ms (bytes; the chain is {n} dependent steps a "
+          f"row); at {ONEPOLE_ROWS} x {ONEPOLE_CMP}: bound {bnd[0]:.5f} ms")
+    return {"launches": launches, "max_abs_err": err,
+            "ms": k_ms["agc_rms real"], "plain_ms": plain_ms["agc_rms real"],
+            "bound": bnd, "ms_full": ms_full, "bound_full": bnd_full,
+            "ms_at_8192": k_ms, "plain_ms_at_8192": plain_ms,
+            "steps_exact_at_full": all(steps_exact), "tail_rms": tail_rms}
 
 
 def main() -> int:
@@ -2780,19 +2826,27 @@ def main() -> int:
         entry("onepole_two_rate", "onepole_two_rate.cu",
               "orion_sdr_tpu/dsp/agc.py:59", one_stats["launches"],
               one_stats["max_abs_err"], one_stats["ms"],
-              one_stats["plain_ms_at_8192"]["agc_rms real"],
-              one_stats["bound"], pallas_counterpart=None,
+              one_stats["plain_ms"], one_stats["bound"],
+              pallas_counterpart=None,
               note="no Pallas kernel in the JAX package computes this: it "
                    "replaces the lax.scan recurrences of agc_rms "
                    "(dsp/agc.py:59-69) and cw_mod "
                    "(modulate/analog.py:40-47); latency-bound by design "
-                   "(one row a thread); ms at the main path's "
-                   f"{ONEPOLE_ROWS}x2^{ONEPOLE_LOG2_N}, plain_ms at "
-                   f"{ONEPOLE_ROWS}x{ONEPOLE_CMP} (the per-step plain loop "
-                   "would take minutes at the full width)",
+                   "(one row a thread); ms, plain_ms and bound_ms at "
+                   f"{ONEPOLE_ROWS}x{ONEPOLE_CMP} (agc_rms real; the "
+                   "per-step plain loop would take minutes at the full "
+                   "width), the main path's "
+                   f"{ONEPOLE_ROWS}x2^{ONEPOLE_LOG2_N} under ms_full and "
+                   "bound_ms_full, its launches held to the plain version "
+                   "step by step (steps_exact_at_full)",
               launches_by_phase={"31": one_stats["launches"]},
-              shape=f"{ONEPOLE_ROWS}x{1 << ONEPOLE_LOG2_N}",
-              chain_steps_per_row=1 << ONEPOLE_LOG2_N,
+              shape=f"{ONEPOLE_ROWS}x{ONEPOLE_CMP}",
+              shape_full=f"{ONEPOLE_ROWS}x{1 << ONEPOLE_LOG2_N}",
+              chain_steps_per_row=ONEPOLE_CMP,
+              chain_steps_per_row_full=1 << ONEPOLE_LOG2_N,
+              ms_full=one_stats["ms_full"],
+              bound_ms_full=one_stats["bound_full"][0],
+              steps_exact_at_full=one_stats["steps_exact_at_full"],
               ms_at_8192=one_stats["ms_at_8192"],
               plain_ms_at_8192=one_stats["plain_ms_at_8192"])]}))
     print(smi_line)

@@ -4,17 +4,35 @@ Outputs go to ``orion_sdr_tpu_torch/_build/`` (git-ignored), named by a hash
 of the compiler command and the source text, so an edited source or flag
 never reuses a stale library. The compile writes to a per-process temporary
 name and renames it into place, so concurrent test workers can race safely.
+
+:class:`CudaLib` is one hand-written kernel library: ``csrc/<name>.cu``
+built with nvcc for ``sm_90a`` at first use, loaded by ctypes, and called on
+the current stream with its CUDA error checked.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 from typing import NamedTuple, Sequence
 
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# -fmad=false: no fused multiply-add contraction, so the kernel's float
+# arithmetic rounds exactly like the plain version's separate tensor ops
+NVCC_FLAGS_NO_FMA = NVCC_FLAGS + ["-fmad=false"]
+# ctypes argument types of the kernels' C entry points
+PTR, INT, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_float
 
 
 class Built(NamedTuple):
@@ -53,3 +71,49 @@ def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
     os.replace(f"{tmp}.log", f"{path}.log")
     os.replace(tmp, path)
     return Built(path, log, time.perf_counter() - t0)
+
+
+class CudaLib:
+    """The kernel library ``csrc/<name>.cu``, compiled with ``flags`` at
+    first use. ``argtypes`` maps each exported function to its ctypes
+    argument types; every one returns a CUDA error code (int)."""
+
+    def __init__(self, name: str, flags: Sequence[str],
+                 argtypes: dict[str, list]):
+        self.name, self.flags, self.argtypes = name, list(flags), argtypes
+        self.src = os.path.join(_PKG, "csrc", f"{name}.cu")
+        self.lib = None
+        self.built: Built | None = None
+
+    def build(self) -> Built:
+        """Compile (once per process) and load. Returns the build record;
+        its log holds the ``-Xptxas -v`` report."""
+        if self.lib is None:
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            self.built = build_shared(self.name, [nvcc] + self.flags,
+                                      [self.src])
+            lib = ctypes.CDLL(self.built.path)
+            for fn, types in self.argtypes.items():
+                getattr(lib, fn).argtypes = types
+                getattr(lib, fn).restype = ctypes.c_int
+            self.lib = lib
+        return self.built
+
+    def call(self, fn: str, device, *args) -> None:
+        """``fn(*args)`` with ``device`` current; raises RuntimeError on a
+        CUDA error."""
+        self.build()
+        with torch.cuda.device(device):
+            err = getattr(self.lib, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn} failed: CUDA error {err}")
+
+    def launch(self, fn: str, device, *args) -> None:
+        """``fn(*args, stream)`` on ``device``'s current stream; raises
+        RuntimeError on a CUDA error."""
+        self.build()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(self.lib, fn)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

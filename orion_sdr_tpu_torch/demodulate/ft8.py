@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dsp.device import full_f32
 from ..sync.waterfall import tone_matrix
 from ..modulate.ft8 import (
     FT8_SAMPLES_PER_SYM, FT8_TOTAL_SYMS, FT8_TONE_SPACING_HZ, FT8_TONES,
@@ -27,7 +28,8 @@ def _detect_tones(iq: torch.Tensor, fs, base_hz, spacing, sps, n_syms,
     z = iq.to(torch.complex64)[..., : n_syms * sps]
     seg = z.reshape(z.shape[:-1] + (n_syms, sps))
     w = tone_matrix(fs, base_hz, spacing, sps, n_tones, z.device)
-    energy = (seg @ w).abs() ** 2
+    with full_f32():
+        energy = (seg @ w).abs() ** 2
     return torch.argmax(energy, dim=-1).to(torch.uint8)
 
 

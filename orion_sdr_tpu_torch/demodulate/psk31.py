@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dsp.device import to_device
+from ..dsp.device import full_f32, to_device
 from ..dsp.fir import convolve
 from ..dsp.osc import rotate
 from ..modulate.psk31 import PSK31_BAUD, psk31_hann, psk31_sps
@@ -50,9 +50,10 @@ def pll_constants(sps: int, gain: float):
 
 def matched_filter_dots(seg: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """(..., n_syms, sps) complex64 → (..., n_syms) complex64 ⟨h, s_k⟩: one
-    real matmul of the (…, n_syms, 2, sps) view against h."""
+    real matmul of the (…, n_syms, 2, sps) view against h, TF32 off."""
     ri = torch.view_as_real(seg).transpose(-1, -2)          # (…, 2, sps)
-    dots = torch.matmul(ri, h)                               # (…, n_syms, 2)
+    with full_f32():
+        dots = torch.matmul(ri, h)                           # (…, n_syms, 2)
     return torch.view_as_complex(dots.contiguous())
 
 

@@ -1,7 +1,10 @@
 """Receiver input hygiene (counterpart of
-``orion_sdr_tpu/dsp/device.py::sanitize_iq``)."""
+``orion_sdr_tpu/dsp/device.py::sanitize_iq``), host-to-device moves, and the
+full-float32 guard of the port's products."""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -24,3 +27,21 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
         x = torch.as_tensor(a if a.flags.writeable else a.copy())
     return x.to(device=device, dtype=dtype) if dtype is not None else \
         x.to(device)
+
+
+@contextmanager
+def full_f32():
+    """Float32 matmuls and convolutions at full float32 precision inside
+    the block, as the JAX package's ``Precision.HIGHEST``: TF32 off for
+    cuBLAS and cuDNN whatever the caller set, and restored on exit. With
+    TF32 the operands would carry 10-bit mantissas, far outside the
+    filters' and matched filters' stated tolerances."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    cd = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = cd

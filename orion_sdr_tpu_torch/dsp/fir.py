@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import full_f32
+
 # ── design (numpy) ───────────────────────────────────────────────────────────
 
 
@@ -112,12 +114,8 @@ def conv1d_f32(rows: torch.Tensor, w: torch.Tensor,
     """``conv1d`` (a correlation) of (R, L) float32 rows with (C, 1, K)
     kernels → (R, C, L_out), TF32 off (cuDNN would otherwise round the
     operands to TF32 on the card)."""
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with full_f32():
         return torch.nn.functional.conv1d(rows[:, None, :], w, stride=stride)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _conv_direct(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:

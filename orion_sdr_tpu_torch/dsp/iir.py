@@ -12,8 +12,9 @@ real (…, C) @ (C, C) matmul a call, with tables built in float64 and
 rounded once (kept per device); chunk carries chain through a small complex
 scan. Other inputs take the complex one-pole route
 (:func:`~orion_sdr_tpu_torch.dsp.recurrence.first_order`). Every product
-is ``torch.matmul`` in float32 / complex64 with TF32 left off (PyTorch's
-default), as the JAX package runs them at ``Precision.HIGHEST``.
+is ``torch.matmul`` in float32 / complex64 with TF32 off
+(:func:`~orion_sdr_tpu_torch.dsp.device.full_f32`), as the JAX package runs
+them at ``Precision.HIGHEST``.
 
 States: BiquadState (complex carry, last two inputs); a cascade carries a
 pair of them; the DC blocker a (..., 2) tensor (x1, y1).
@@ -27,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import full_f32
 from .recurrence import _first_order_assoc, first_order
 
 
@@ -132,17 +134,18 @@ def _biquad_chunked_real(v: torch.Tensor, p: complex, A: complex,
     ko = (n - 1) % C
     L, carry, u, w, pC, lastm, pko1 = _biquad_tables(p, A, C, ko, v.device)
 
-    zs = torch.matmul(vc, L)                               # (..., nchunk, C)
-    e = torch.matmul(vc, carry)                            # (..., nchunk, 2)
+    with full_f32():
+        zs = torch.matmul(vc, L)                           # (..., nchunk, C)
+        e = torch.matmul(vc, carry)                        # (..., nchunk, 2)
+        # carry out = state at the last TRUE sample (the padded tail would
+        # otherwise go on advancing the pole with zero drive)
+        sl = torch.matmul(vc[..., -1, :], lastm)           # (..., 2)
     z = torch.complex(e[..., 0], e[..., 1])                # Σ p^(C−1−j)·v[j]
     s0 = torch.broadcast_to(s0.to(torch.complex64), lead)
     chain, _ = _first_order_assoc(complex(pC), z, s0)
     s_in = torch.cat([s0[..., None], chain[..., :-1]], dim=-1)  # carry in
     y = zs + s_in.real[..., None] * u + s_in.imag[..., None] * w
     y = y.reshape(lead + (nchunk * C,))[..., :n]
-    # carry out = state at the last TRUE sample (the padded tail would
-    # otherwise go on advancing the pole with zero drive)
-    sl = torch.matmul(vc[..., -1, :], lastm)               # (..., 2)
     s_last = s_in[..., -1] * complex(np.complex64(pko1)) + torch.complex(
         sl[..., 0], sl[..., 1])
     return y, s_last

@@ -10,8 +10,8 @@ are grouped differently from XLA's tree, so results agree with the JAX
 package within float32 rounding (the tests state the tolerance), not bit
 for bit. The constant-coefficient route is the JAX package's chunked
 triangular matmul: one ``torch.matmul`` a call (float32 or complex64, TF32
-left at its default, off), so the whole capture is two passes over the
-data.
+off under :func:`~orion_sdr_tpu_torch.dsp.device.full_f32`), so the whole
+capture is two passes over the data.
 
 Signals are float32 / complex64 with time on the last axis; every function
 takes an optional carry-in and returns the carry-out, so a long capture can
@@ -24,6 +24,8 @@ import numbers
 
 import numpy as np
 import torch
+
+from .device import full_f32
 
 _CHUNK = 8192      # the JAX package's associative-scan chunk for array ``a``
 _GEOM_CHUNK = 128  # chunk of the constant-coefficient matmul route
@@ -99,7 +101,8 @@ def _first_order_const(a, b: torch.Tensor, y0):
     bp = torch.nn.functional.pad(b, (0, pad)) if pad else b
     bc = bp.reshape(lead + (nchunk, C))
     L, a_k1, aC = _geom_tables(a, C, bc.dtype, bc.device)
-    zero_state = torch.matmul(bc, L)
+    with full_f32():
+        zero_state = torch.matmul(bc, L)
     z = zero_state[..., -1]                                 # (..., nchunk)
     # boundary chain: y_in[i] = aC·y_in[i−1] + z[i−1], y_in[0] = y0
     if y0 is None:
@@ -156,15 +159,17 @@ def affine2(A, B, x: torch.Tensor, s0=None):
     n = x.shape[-1]
     As = torch.broadcast_to(A, x.shape + (2, 2))
     bs = x[..., None] * Bv                                   # (..., n, 2)
-    if s0 is not None:
-        b0 = bs[..., 0, :] + torch.einsum("ij,...j->...i", A, _as(s0, x))
-        bs = torch.cat([b0[..., None, :], bs[..., 1:, :]], dim=-2)
-    d = 1
-    while d < n:
-        A_hi, b_hi = As[..., d:, :, :], bs[..., d:, :]
-        A_lo, b_lo = As[..., :-d, :, :], bs[..., :-d, :]
-        bs = torch.cat([bs[..., :d, :], torch.einsum(
-            "...ij,...j->...i", A_hi, b_lo) + b_hi], dim=-2)
-        As = torch.cat([As[..., :d, :, :], torch.matmul(A_hi, A_lo)], dim=-3)
-        d *= 2
+    with full_f32():
+        if s0 is not None:
+            b0 = bs[..., 0, :] + torch.einsum("ij,...j->...i", A, _as(s0, x))
+            bs = torch.cat([b0[..., None, :], bs[..., 1:, :]], dim=-2)
+        d = 1
+        while d < n:
+            A_hi, b_hi = As[..., d:, :, :], bs[..., d:, :]
+            A_lo, b_lo = As[..., :-d, :, :], bs[..., :-d, :]
+            bs = torch.cat([bs[..., :d, :], torch.einsum(
+                "...ij,...j->...i", A_hi, b_lo) + b_hi], dim=-2)
+            As = torch.cat([As[..., :d, :, :], torch.matmul(A_hi, A_lo)],
+                           dim=-3)
+            d *= 2
     return bs, bs[..., -1, :]

@@ -17,6 +17,7 @@ import torch
 from .constellation import bits_per_symbol, map_bits
 from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass, grid_map, \
     map_bits_grid, ofdm_assemble, symbol_taper
+from .dsp.device import full_f32
 from .dsp.osc import rotate
 
 EQUALIZER_FLOOR = 1e-6  # |h|² floor in ZF division
@@ -308,13 +309,9 @@ def channel_estimate_pilots(freq_syms: torch.Tensor, pilot_bins, pilot_values,
         pv_s = torch.as_tensor(np.asarray(pilot_values)[order].astype(
             np.complex64), device=dev)
         ratio = freq_syms[..., torch.as_tensor(pb_s, device=dev)] / pv_s
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with full_f32():
             est = torch.complex(torch.matmul(ratio.real.contiguous(), W),
                                 torch.matmul(ratio.imag.contiguous(), W))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
         return est.to(torch.complex64)
     n_sym = freq_syms.shape[-2]
     pb = torch.as_tensor(np.asarray(pilot_bins), device=dev).to(torch.int64)

@@ -32,15 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
-import shutil
 import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..buildlib import Built, build_shared
+from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, F32, CudaLib
 
 RULES = ("sum_product", "min_sum", "scaled_min_sum", "sum_product_edge")
 # the kernel's rule codes: 1 is min-sum with the extrinsics scaled
@@ -48,12 +46,6 @@ _RULE_CODE = {"sum_product": 0, "min_sum": 1, "scaled_min_sum": 1,
               "sum_product_edge": 2}
 _CLIP_EDGE = 0.9999999
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "ldpc_bp.cu")
-# -fmad=false: no fused multiply-add contraction, so the kernel's float
-# arithmetic rounds exactly like the plain version's separate tensor ops
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 
 # the kernel's tables hold bit indices and edge ids as uint16; this marks a
@@ -259,27 +251,11 @@ def bp_decode_reference(g, llr: torch.Tensor, max_iter: int = 50,
 
 # ── CUDA kernel ──────────────────────────────────────────────────────────────
 
-_lib = None
-_built: Built | None = None
-
-
-def build() -> Built:
-    """Compile ``csrc/ldpc_bp.cu`` with nvcc (once per process) and load it.
-    Returns the build record; its log holds the ``-Xptxas -v`` report."""
-    global _lib, _built
-    if _lib is None:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _built = build_shared("ldpc_bp", [nvcc] + NVCC_FLAGS, [_SRC])
-        lib = ctypes.CDLL(_built.path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ldpc_bp_launch_plan.argtypes = [i, i, i, i, i, p, p, p]
-        lib.ldpc_bp_launch_plan.restype = i
-        lib.ldpc_bp_decode.argtypes = [p, i, i, i, i, i, i, p, p, i, i,
-                                       ctypes.c_float, i, i, ctypes.c_longlong,
-                                       p, p, p]
-        lib.ldpc_bp_decode.restype = i
-        _lib = lib
-    return _built
+_LIB = CudaLib("ldpc_bp", NVCC_FLAGS_NO_FMA, {
+    "ldpc_bp_launch_plan": [INT, INT, INT, INT, INT, PTR, PTR, PTR],
+    "ldpc_bp_decode": [PTR, INT, INT, INT, INT, INT, INT, PTR, PTR, INT, INT,
+                       F32, INT, INT, ctypes.c_longlong, PTR, PTR, PTR]})
+build = _LIB.build
 
 
 def _check_rule(rule: str) -> None:
@@ -296,16 +272,10 @@ def _resident(t: BpTables, code: int, device: torch.device) -> dict:
     key = (t.key, code)
     base = _PLANS.get(key)
     if base is None:
-        build()
         thr, bps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-        with torch.cuda.device(device):
-            err = _lib.ldpc_bp_launch_plan(t.n, t.m, t.D, t.C, code,
-                                           ctypes.byref(thr),
-                                           ctypes.byref(bps),
-                                           ctypes.byref(smem))
-            sms = torch.cuda.get_device_properties(device).multi_processor_count
-        if err != 0:
-            raise RuntimeError(f"ldpc_bp_launch_plan failed: CUDA error {err}")
+        _LIB.call("ldpc_bp_launch_plan", device, t.n, t.m, t.D, t.C, code,
+                  ctypes.byref(thr), ctypes.byref(bps), ctypes.byref(smem))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
         if bps.value < 1:
             raise RuntimeError(f"no block of the BP kernel fits an SM "
                                f"({smem.value} B shared memory)")
@@ -363,15 +333,11 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     plan = _resident(t, code, llr.device)
     grid = min(B, plan["blocks_per_sm"] * plan["sms"])
     scale = float(alpha) if rule == "scaled_min_sum" else 1.0
-    with torch.cuda.device(llr.device):
-        stream = torch.cuda.current_stream(llr.device).cuda_stream
-        err = _lib.ldpc_bp_decode(
-            llr.data_ptr(), B, t.n, t.k, t.m, t.D, t.C,
-            t.check_slots.data_ptr(), t.bit_slots.data_ptr(), int(max_iter),
-            code, scale, grid, plan["threads"], plan["smem"], bits.data_ptr(),
-            unsat.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ldpc_bp_decode launch failed: CUDA error {err}")
+    _LIB.launch("ldpc_bp_decode", llr.device, llr.data_ptr(), B, t.n, t.k,
+                t.m, t.D, t.C, t.check_slots.data_ptr(),
+                t.bit_slots.data_ptr(), int(max_iter), code, scale, grid,
+                plan["threads"], plan["smem"], bits.data_ptr(),
+                unsat.data_ptr())
     if rule == "sum_product_edge":
         bp_decode_kernel.launches_edge += 1
     else:

@@ -20,38 +20,15 @@ ulp a step), not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-
 import numpy as np
 import torch
 
-from ..buildlib import Built, build_shared
+from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "onepole_two_rate.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-_built: Built | None = None
-
-
-def build() -> Built:
-    """Compile ``csrc/onepole_two_rate.cu`` with nvcc (once per process) and
-    load it. Returns the build record (its log holds the ptxas report)."""
-    global _lib, _built
-    if _lib is None:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _built = build_shared("onepole_two_rate", [nvcc] + NVCC_FLAGS, [_SRC])
-        lib = ctypes.CDLL(_built.path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.onepole_two_rate.argtypes = [p, p, i, ctypes.c_int64, f, f, f, f,
-                                         i, p, p, p]
-        lib.onepole_two_rate.restype = i
-        _lib = lib
-    return _built
+_LIB = CudaLib("onepole_two_rate", NVCC_FLAGS_NO_FMA, {
+    "onepole_two_rate": [PTR, PTR, INT, I64, F32, F32, F32, F32, INT, PTR,
+                         PTR, PTR]})
+build = _LIB.build
 
 
 def _poles(a_hi: float, a_lo: float):
@@ -90,7 +67,6 @@ def onepole_two_rate(x: torch.Tensor, env0: torch.Tensor, a_hi: float,
         return onepole_two_rate_reference(x, env0, a_hi, a_lo, ge)
     if x.device.type != "cuda":
         raise ValueError(f"no two-rate one-pole kernel for device {x.device}")
-    build()
     n = x.shape[-1]
     rows = env0.numel()
     xs = x.reshape(rows, n).contiguous()
@@ -98,15 +74,10 @@ def onepole_two_rate(x: torch.Tensor, env0: torch.Tensor, a_hi: float,
     env = torch.empty_like(xs)
     last = torch.empty_like(e0)
     if rows and n:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _lib.onepole_two_rate(
-                xs.data_ptr(), e0.data_ptr(), rows, n,
-                *(float(v) for v in _poles(a_hi, a_lo)), int(bool(ge)),
-                env.data_ptr(), last.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"onepole_two_rate launch failed: CUDA error "
-                               f"{err}")
+        _LIB.launch("onepole_two_rate", x.device, xs.data_ptr(),
+                    e0.data_ptr(), rows, n,
+                    *(float(v) for v in _poles(a_hi, a_lo)), int(bool(ge)),
+                    env.data_ptr(), last.data_ptr())
         onepole_two_rate.launches += 1
     else:
         last = e0.clone()

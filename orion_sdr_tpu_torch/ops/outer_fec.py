@@ -18,44 +18,19 @@ in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-
 import numpy as np
 import torch
 
-from ..buildlib import Built, build_shared
+from ..buildlib import NVCC_FLAGS, PTR, INT, CudaLib
 from ..fec.bch_device import (MAX_DEVICE_T, bch_decode_batch_reference,
                               rs_decode_batch_reference)
 from ..fec.galois import GF_EXP, GF_LOG
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "outer_fec.cu")
 # integer arithmetic only: no float flags matter for exactness
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-_built: Built | None = None
-
-
-def build() -> Built:
-    """Compile ``csrc/outer_fec.cu`` with nvcc (once per process) and load
-    it. Returns the build record; its log holds the ``-Xptxas -v``
-    report."""
-    global _lib, _built
-    if _lib is None:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _built = build_shared("outer_fec", [nvcc] + NVCC_FLAGS, [_SRC])
-        lib = ctypes.CDLL(_built.path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.outer_bch_decode.argtypes = [p, i, i, i, i, p, p, p, p]
-        lib.outer_bch_decode.restype = i
-        lib.outer_rs_decode.argtypes = [p, i, i, i, p, p, p, p]
-        lib.outer_rs_decode.restype = i
-        _lib = lib
-    return _built
+_LIB = CudaLib("outer_fec", NVCC_FLAGS, {
+    "outer_bch_decode": [PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR],
+    "outer_rs_decode": [PTR, INT, INT, INT, PTR, PTR, PTR, PTR]})
+build = _LIB.build
 
 
 _TABLES: dict = {}
@@ -80,7 +55,7 @@ def _check_rows(x: torch.Tensor, n: int, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(fn, x: torch.Tensor, k: int, *args):
+def _launch(fn: str, x: torch.Tensor, k: int, *args):
     """Allocates (B, k) uint8 messages and (B,) int32 flags on ``x``'s card
     and launches ``fn`` on the current stream; raises on a CUDA error."""
     B = x.shape[0]
@@ -88,12 +63,9 @@ def _launch(fn, x: torch.Tensor, k: int, *args):
     ok = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return out, ok, False
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), B, *args, _gf_tables(x.device).data_ptr(),
-                 out.data_ptr(), ok.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    _LIB.launch(fn, x.device, x.data_ptr(), B, *args,
+                _gf_tables(x.device).data_ptr(), out.data_ptr(),
+                ok.data_ptr())
     return out, ok, True
 
 
@@ -109,8 +81,7 @@ def bch_decode_kernel(n: int, k: int, t: int, bits: torch.Tensor):
         return bch_decode_batch_reference(n, k, t, bits)
     if bits.device.type != "cuda":
         raise ValueError(f"no outer-code kernel for device {bits.device}")
-    build()
-    out, ok, launched = _launch(_lib.outer_bch_decode, bits, k, n, k, t)
+    out, ok, launched = _launch("outer_bch_decode", bits, k, n, k, t)
     bch_decode_kernel.launches += launched
     return out, ok
 
@@ -128,8 +99,7 @@ def rs_decode_kernel(n: int, n_parity: int, received: torch.Tensor):
         return rs_decode_batch_reference(n, n_parity, received)
     if received.device.type != "cuda":
         raise ValueError(f"no outer-code kernel for device {received.device}")
-    build()
-    out, ok, launched = _launch(_lib.outer_rs_decode, received, n - n_parity,
+    out, ok, launched = _launch("outer_rs_decode", received, n - n_parity,
                                 n, n_parity)
     rs_decode_kernel.launches += launched
     return out, ok

@@ -24,41 +24,18 @@ symbols exactly.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-
 import numpy as np
 import torch
 
-from ..buildlib import Built, build_shared
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "psk31_pll.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
 
 _PI = float(np.float32(np.pi))
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
-_lib = None
-_built: Built | None = None
-
-
-def build() -> Built:
-    """Compile ``csrc/psk31_pll.cu`` with nvcc (once per process) and load
-    it. Returns the build record (its log holds the ptxas report)."""
-    global _lib, _built
-    if _lib is None:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _built = build_shared("psk31_pll", [nvcc] + NVCC_FLAGS, [_SRC])
-        lib = ctypes.CDLL(_built.path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.psk31_pll.argtypes = [p, p, p, i, ctypes.c_int64, f, f, f, i, p,
-                                  p, p, p]
-        lib.psk31_pll.restype = i
-        _lib = lib
-    return _built
+_LIB = CudaLib("psk31_pll", NVCC_FLAGS_NO_FMA, {
+    "psk31_pll": [PTR, PTR, PTR, INT, I64, F32, F32, F32, INT, PTR, PTR, PTR,
+                  PTR]})
+build = _LIB.build
 
 
 def psk31_pll_reference(dots: torch.Tensor, prev0: torch.Tensor,
@@ -118,7 +95,6 @@ def psk31_pll(dots: torch.Tensor, prev0: torch.Tensor, acc0: torch.Tensor,
         return psk31_pll_reference(dots, prev0, acc0, c_fb, scale, gain, qpsk)
     if dots.device.type != "cuda":
         raise ValueError(f"no PSK31 PLL kernel for device {dots.device}")
-    build()
     n = dots.shape[-1]
     rows = prev0.numel()
     d = dots.reshape(rows, n).contiguous()
@@ -129,15 +105,10 @@ def psk31_pll(dots: torch.Tensor, prev0: torch.Tensor, acc0: torch.Tensor,
     prev_out = p0.clone()
     acc_out = a0.clone()
     if rows and n:
-        with torch.cuda.device(dots.device):
-            stream = torch.cuda.current_stream(dots.device).cuda_stream
-            err = _lib.psk31_pll(d.data_ptr(), p0.data_ptr(), a0.data_ptr(),
-                                 rows, n, float(c_fb), float(scale),
-                                 float(gain), int(bool(qpsk)),
-                                 soft.data_ptr(), prev_out.data_ptr(),
-                                 acc_out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"psk31_pll launch failed: CUDA error {err}")
+        _LIB.launch("psk31_pll", dots.device, d.data_ptr(), p0.data_ptr(),
+                    a0.data_ptr(), rows, n, float(c_fb), float(scale),
+                    float(gain), int(bool(qpsk)), soft.data_ptr(),
+                    prev_out.data_ptr(), acc_out.data_ptr())
         psk31_pll.launches += 1
     return (soft.reshape(lead + soft.shape[1:]), prev_out.reshape(lead),
             acc_out.reshape(lead))

@@ -35,22 +35,14 @@ size and occupancy a launch takes.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..buildlib import Built, build_shared
+from ..buildlib import NVCC_FLAGS_NO_FMA as NVCC_FLAGS, PTR, INT, CudaLib
 from ..fec.conv import CONV_CODES, _tables, depuncture_llrs, tail_bits
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "viterbi.cu")
-# -fmad=false: no fused multiply-add contraction, so the kernel's float
-# arithmetic rounds exactly like the plain version's separate tensor ops
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 # trellises longer than this keep their decisions in a global scratch buffer
 # (256 bytes a 32-step block a lane) instead of shared memory
 MAX_SMEM_STEPS = 200 * 1024 // 8
@@ -272,28 +264,15 @@ def viterbi_terminated_reference(llrs: torch.Tensor, info_bits: int,
 
 # ── CUDA kernel ──────────────────────────────────────────────────────────────
 
-_lib = None
-_built: Built | None = None
-
-
-def build() -> Built:
-    """Compile ``csrc/viterbi.cu`` with nvcc (once per process) and load it.
-    Returns the build record; its log holds the ``-Xptxas -v`` report."""
-    global _lib, _built
-    if _lib is None:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _built = build_shared("viterbi", [nvcc] + NVCC_FLAGS, [_SRC])
-        lib = ctypes.CDLL(_built.path)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.viterbi_acs_traceback.argtypes = [p, p, ll, i, p, i, i, i, i, i,
-                                              i, p, p, p, p, p]
-        lib.viterbi_acs_traceback.restype = ctypes.c_int
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.viterbi_launch_plan.argtypes = [i, i, i, i, i, i, i, i, ip, ip,
-                                            ctypes.POINTER(ll)]
-        lib.viterbi_launch_plan.restype = ctypes.c_int
-        _lib = lib
-    return _built
+_LL = ctypes.c_longlong
+_IP = ctypes.POINTER(INT)
+_LIB = CudaLib("viterbi", NVCC_FLAGS, {
+    "viterbi_acs_traceback": [PTR, PTR, _LL, INT, PTR, INT, INT, INT, INT, INT,
+                              INT, PTR, PTR, PTR, PTR, PTR],
+    "viterbi_launch_plan": [INT, INT, INT, INT, INT, INT, INT, INT, _IP, _IP,
+                            ctypes.POINTER(_LL)]})
+_SRC = _LIB.src
+build = _LIB.build
 
 
 def _check_code(code: str) -> None:
@@ -349,20 +328,15 @@ def launch_plan(L: int, T: int, code: str, radix: int,
     cudaOccupancyMaxActiveBlocksPerMultiprocessor with that block size and
     shared memory), ``smem`` (bytes a block), ``lanes_per_sm``, ``sms`` and
     ``waves`` (blocks over what the card holds at once, rounded up)."""
-    build()
     _check_code(code)
     _check_radix(radix, T, code)
     device = torch.device("cuda") if device is None else torch.device(device)
     w, b, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     c = CONV_CODES[code]
-    with torch.cuda.device(device):
-        err = _lib.viterbi_launch_plan(L, T, c["K"], c["g0"], c["g1"], radix,
-                                       int(chunked), int(T > MAX_SMEM_STEPS),
-                                       ctypes.byref(w), ctypes.byref(b),
-                                       ctypes.byref(smem))
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if err != 0:
-        raise RuntimeError(f"viterbi_launch_plan failed: CUDA error {err}")
+    _LIB.call("viterbi_launch_plan", device, L, T, c["K"], c["g0"], c["g1"],
+              radix, int(chunked), int(T > MAX_SMEM_STEPS), ctypes.byref(w),
+              ctypes.byref(b), ctypes.byref(smem))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = -(-L // w.value)
     return {"warps": w.value, "blocks_per_sm": b.value, "smem": smem.value,
             "lanes_per_sm": w.value * b.value, "sms": sms,
@@ -371,7 +345,6 @@ def launch_plan(L: int, T: int, code: str, radix: int,
 
 def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
             code: str, radix: int, device) -> torch.Tensor:
-    build()
     c = CONV_CODES[code]
     bits = torch.empty((L, T), dtype=torch.uint8, device=device)
     # global decision scratch, both radices: 256 bytes a 32-step block
@@ -381,17 +354,12 @@ def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
     index = spec = None
     if radix == 4:
         index, spec = _r4_device_tables(code, torch.device(device))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib.viterbi_acs_traceback(
-            l0_ptr, l1_ptr, ld, es, None if pm0 is None else pm0.data_ptr(),
-            L, T, c["K"], c["g0"], c["g1"], radix,
-            None if index is None else index.data_ptr(),
-            None if spec is None else spec.data_ptr(), bits.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"viterbi_acs_traceback launch failed: CUDA error "
-                           f"{err}")
+    _LIB.launch("viterbi_acs_traceback", device, l0_ptr, l1_ptr, ld, es,
+                None if pm0 is None else pm0.data_ptr(), L, T, c["K"],
+                c["g0"], c["g1"], radix,
+                None if index is None else index.data_ptr(),
+                None if spec is None else spec.data_ptr(), bits.data_ptr(),
+                None if scratch is None else scratch.data_ptr())
     return bits
 
 

@@ -10,10 +10,10 @@ to complex64, as in the JAX package). Log-power output matches the
 reference: ln(|acc|² + 1e−12), with out-of-buffer symbols left at 0.0 (safe
 for max-log scoring).
 
-The product is ``torch.matmul`` in complex64, with the backend's TF32
-switches left at their defaults (off), as for the DVB-T pilot GEMMs: with
-TF32 the tone phasors and samples would carry 10-bit mantissas, and the
-log-powers that rank the Costas candidates would move by ~1e-3.
+The product is ``torch.matmul`` in complex64 with TF32 off
+(:func:`~orion_sdr_tpu_torch.dsp.device.full_f32`), as for the DVB-T pilot
+GEMMs: with TF32 the tone phasors and samples would carry 10-bit mantissas,
+and the log-powers that rank the Costas candidates would move by ~1e-3.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..dsp.device import full_f32
 
 
 @lru_cache(maxsize=64)
@@ -65,7 +67,8 @@ def compute_waterfall(iq: torch.Tensor, fs: float, base_hz: float,
     seg = z.reshape(z.shape[:-1] + (num_syms, samples_per_sym))
     w = tone_matrix(fs, base_hz, tone_spacing_hz, samples_per_sym, num_tones,
                     z.device)
-    acc = seg @ w                                   # (…, num_syms, num_tones)
+    with full_f32():
+        acc = seg @ w                               # (…, num_syms, num_tones)
     mag = torch.log(acc.abs() ** 2 + 1e-12).to(torch.float32)
     # symbols that start at or past the end of the buffer: a suffix of rows
     first_missing = min(max(-(-(n - time_offset) // samples_per_sym), 0),

@@ -154,6 +154,29 @@ def test_lp_cascade(n, cplx):
     close(r1.x_tail, p1.x_tail)
 
 
+def test_full_f32_turns_tf32_off_inside_and_restores_the_callers_flags():
+    """The guard of the port's float32 products: TF32 off for cuBLAS and
+    cuDNN inside, the caller's settings back after, an exception included;
+    the products it guards leave the caller's settings as they were."""
+    from orion_sdr_tpu_torch.dsp.device import full_f32
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with pytest.raises(KeyError):
+            with full_f32():
+                assert [f.allow_tf32 for f in flags] == [False, False]
+                raise KeyError
+        assert [f.allow_tf32 for f in flags] == [True, True]
+        c = JI.design_butter_lp(FS, 3000.0)
+        PI.lp_cascade(t(rows((2, 1000), 8)), c)
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
 def test_dc_blocker_and_lp_dc_cascade():
     c = JI.design_butter_lp(FS, 3000.0)
     r = JI.dc_pole(FS, 2.0)

@@ -13,9 +13,9 @@ then the FT8 receive's device code (waterfall and Costas grid against the
 CPU, the stable top-k on a tied grid, the many-window decode through the BP
 kernel); and slice 4's two recurrence kernels (the PSK31 PLL against its
 plain version, decisions exact and soft values within 1e-5 of the peak;
-the two-rate one-pole exact) with the entry points that launch them, and
-the FM chain on the card against the CPU. They skip without a CUDA
-card.
+the two-rate one-pole exact) with the entry points that launch them, the
+FM chain on the card against the CPU, and the float32 products unmoved by
+a caller's TF32 switches. They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -824,3 +824,31 @@ def test_fm_chain_on_the_card_matches_the_cpu(cuda):
     ref = out["cpu"]
     assert float((out[str(cuda)].cpu() - ref).abs().max()) <= 1e-5 * float(
         ref.abs().max())
+
+
+def test_float32_products_ignore_the_callers_tf32(cuda):
+    """With the caller's TF32 switches on, the chunked LR4 matmuls of
+    fm_demod and the PSK31 matched filter give what they give with TF32
+    off, bit for bit: every float32 product runs under full_f32."""
+    from orion_sdr_tpu_torch.demodulate.psk31 import matched_filter_dots
+    from orion_sdr_tpu_torch.modulate.psk31 import psk31_hann
+    rng = np.random.default_rng(5)
+    iq = torch.as_tensor((rng.standard_normal((4, 1 << 14))
+                          + 1j * rng.standard_normal((4, 1 << 14)))
+                         .astype(np.complex64), device=cuda)
+    h = torch.as_tensor(psk31_hann(256), device=cuda)
+    seg = iq.reshape(4, -1, 256)
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    out = {}
+    try:
+        for on in (False, True):
+            for f in flags:
+                f.allow_tf32 = on
+            audio, _ = P.fm_demod(iq, 480e3, 75e3, 5e3, device=cuda)
+            out[on] = (audio, matched_filter_dots(seg, h))
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
