@@ -199,14 +199,51 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    envelope in the plain version's float32 operations, exact at every
    step, so exact over the whole run by induction), and the kernel is
    timed at 64 x 2^20.
-32. Prints the kernels' JSON line (each kernel's main-path launches, error
+32. PFB (slice 5a; the JAX bench's pfb_channelizer_throughput, bench.py:
+   749-761): pfb_channelize at C = 64, n = 2^20 on the card; four unit
+   tones at channel centers (3, 17, -20, -31) must land in their rows more
+   than 60 dB over every other row; rows 3 and 40 of a random-normal
+   capture (numpy seed 11, as the bench) within 1e-5 of the rows' peak of
+   a float64 host bank; Msps of the median of 7 runs beside the bytes
+   bound.
+33. Band receivers on the card (slice 5a's main path): the COFDM band
+   (tests/test_frame.py:487's three links at 8 MS/s in chunks of 37 003,
+   every payload back) with its BP launches counted from 0 and each held
+   to the plain version (exact: bits and unsat on every row); the DVB-T
+   band (tests/test_dvb_t.py:377's two muxes, every payload and cell id
+   back) with its radix-2 Viterbi launches counted from 0, each chunk
+   batch recorded as the path hands it over and held to the plain version
+   (exact), a radix-4 launch failing the run; the AM blind scan (three
+   stations, each audio peak within 5 Hz), SSB on three USB channels and
+   one LSB (tone SNR > 20 dB) and the FM band (2.6 M samples at 2.4 MHz,
+   three stereo + RDS stations found blind: PS names, centers within 5
+   kHz, pilot 0.09 ± 10 %, tones 0.8 ± 10 %, separation > 25 dB), the JAX
+   tests' bounds (tests/test_fm_broadcast.py:160, :214, :247); the
+   channelizer's output on the FM band under one push and 100 003-sample
+   chunks, equal.
+34. FM stereo + RDS (fm_stereo_rds_throughput, bench.py:800-813):
+   _stereo_device at 1 x 2^17 (the bench) and 64 x 2^17 random-normal
+   samples at 240 kHz, Msps beside the bytes bound and the card's busy
+   share under torch.profiler; RDS PS/RT at 15 dB through fm_stereo_mod
+   and fm_stereo_demod on the card (tests/test_fm_broadcast.py:114); the
+   clean L/R separation (> 40 dB, levels within 5 %).
+35. CSS (css_dechirp_throughput, bench.py:763-779): _dechirp_fft at SF 9 x
+   128 symbols, Msps; css_mod -> css_demod for SF 7-12 at an unknown
+   offset (777 samples) and 10 dB: every payload and CRC. (Without noise
+   the offset search is a tie decided by rounding, in the JAX package
+   too: every sub-symbol offset dechirps the repeated preamble to a pure
+   tone over a median of rounding residue.)
+36. WSPR (wspr_energy_grid_throughput, bench.py:781-799): _energy_grid at
+   166 x 8192 samples, 9 dt x 7 df, Msps; wspr_decode_band on
+   tests/test_wspr.py:114's three beacons: all three messages.
+37. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
    their sum over the default paths, the resident lanes an SM and waves at
    3168 x 1216 and the times at phase 13's chunk batches; for the BP rules
-   the launches by phase ([4] by rule, [5], [12], [25] and [27] by run),
-   the registers, the launch plan, the times at max_iter 0/1/2 and at
+   the launches by phase ([4] by rule, [5], [12], [25], [27] by run and
+   [33]), the registers, the launch plan, the times at max_iter 0/1/2 and at
    [4]'s and [25]'s batches with their bounds, the time at [26]'s 4096
    rows, the registers at width 7 and [25]'s receive readings; for the
    outer-code decoders, which no Pallas kernel
@@ -216,9 +253,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    launches by phase, the dependent steps a row and [28]-[30]'s rates;
    the two-rate one-pole's ms, plain_ms and bound_ms are at 64 x 8192,
    where the plain loop runs, and its 64 x 2^20 time and bound are under
-   ms_full and bound_ms_full),
-   the card's name
-   and power limit, then the result line
+   ms_full and bound_ms_full), and a "slice5" object with [32]-[36]'s
+   rates, bounds and readings; the card's name and power limit, then the
+   result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
 
@@ -306,6 +343,15 @@ FM_K = float(np.float32(1.0 / 75e3))
 FM_TONE_HZ, FM_DEV_HZ, FM_AUDIO_BW_HZ = 1000.0, 75e3, 5000.0
 PSK_FS, PSK_ROWS, PSK_BITS, PSK_RUNS = 8000.0, 16, 2048, 7
 ONEPOLE_FS, ONEPOLE_ROWS, ONEPOLE_CMP, ONEPOLE_LOG2_N = 8000.0, 64, 8192, 20
+# slice 5a (phases 32-36): the JAX bench's family shapes (bench.py:742-815):
+# the PFB at C = 64, n = 2^20 (P = 12 taps a phase), the FM stereo program
+# at 2^17 samples of 240 kHz (and a 64-channel batch), the CSS dechirp at SF
+# 9 x 128 symbols; each rate the median of S5_RUNS runs
+PFB_C, PFB_LOG2_N, PFB_TAPS = 64, 20, 12
+PFB_TONE_CH = (3, 17, -20, -31)
+STEREO_FS, STEREO_LOG2_N, STEREO_ROWS = 240e3, 17, 64
+CSS_SF, CSS_SYMS = 9, 128
+S5_RUNS = 7
 
 
 def fail(msg: str):
@@ -2516,6 +2562,508 @@ def onepole_phase(P, one, dev):
             "steps_exact_at_full": all(steps_exact), "tail_rms": tail_rms}
 
 
+# ── slice 5a (phases 32-36) ─────────────────────────────────────────────────
+
+def s5_rate(label, fn, n_samples, n_bytes, runs=S5_RUNS):
+    """Host ms of ``fn`` (median of ``runs`` after a warm-up, work ending in
+    torch.cuda.synchronize()), its Msps over ``n_samples`` and its bytes
+    bound; printed and returned as a dict."""
+    med, all_ms = median_ms(fn, runs)
+    bnd = bound_ms(n_bytes, 0)[0]
+    msps = n_samples / med / 1e3
+    print(f"  {label}: {msps:.1f} Msps (median of {runs} runs {med:.4f} ms; "
+          f"runs {[round(r, 4) for r in all_ms]}); bytes bound {bnd:.5f} ms, "
+          f"{bnd / med:.2%} of it")
+    return {"msps": msps, "median_ms": med, "runs_ms": all_ms,
+            "bound_ms": bnd, "bound_by": "bytes", "samples": n_samples}
+
+
+def pfb_float64(x: np.ndarray, proto: np.ndarray, c: int, rows):
+    """The polyphase bank in float64 on the host: the rows ``rows``."""
+    h = proto.reshape(-1, c).astype(np.float64)
+    p = h.shape[0]
+    n_out = len(x) // c - (p - 1)
+    xb = x[: (n_out + p - 1) * c].astype(np.complex128).reshape(-1, c)
+    acc = sum(xb[j: j + n_out] * h[j] for j in range(p))
+    return np.fft.fft(acc, axis=-1).T[rows]
+
+
+def pfb_phase(P, dev):
+    """[32]: pfb_channelize at the JAX bench's C = 64, n = 2^20 (bench.py:
+    749-761): four tones at channel centers land in their rows > 60 dB over
+    every other row; two rows of a random-normal capture against a float64
+    host bank (1e-5 of the rows' peak); Msps."""
+    from orion_sdr_tpu_torch.dsp.pfb import pfb_prototype
+    c, n = PFB_C, 1 << PFB_LOG2_N
+    k = torch.arange(n, dtype=torch.float64, device=dev)
+    x = sum(torch.exp(2j * np.pi * ch / c * k) for ch in PFB_TONE_CH).to(
+        torch.complex64)
+    y = P.pfb_channelize(x, c, device=dev)
+    power = (y[:, PFB_TAPS:].abs() ** 2).mean(dim=-1).cpu().numpy()
+    rows = [ch % c for ch in PFB_TONE_CH]
+    others = np.delete(power, rows)
+    margin = float(10 * np.log10(power[rows].min() / max(others.max(),
+                                                         1e-30)))
+    print(f"  tones in channels {PFB_TONE_CH} (rows {rows}): row power "
+          f"{np.round(power[rows], 4).tolist()}, the other rows at most "
+          f"{others.max():.3e}: {margin:.1f} dB apart (bound 60 dB)")
+    if not margin > 60.0:
+        fail("[32] a PFB tone leaked into another channel")
+    rng = np.random.default_rng(11)
+    xn = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    xd = torch.as_tensor(xn, device=dev)
+    y = P.pfb_channelize(xd, c, device=dev)
+    cmp_rows = [3, 40]
+    want = pfb_float64(xn, pfb_prototype(c), c, cmp_rows)
+    err = float(np.abs(y[cmp_rows].cpu().numpy() - want).max())
+    peak = float(np.abs(want).max())
+    print(f"  rows {cmp_rows} against a float64 host bank: max |diff| "
+          f"{err:.3e} of peak {peak:.3e} (tolerance 1e-5 of the peak)")
+    if not err <= 1e-5 * peak:
+        fail("[32] the PFB disagrees with the float64 bank")
+    return {**s5_rate(f"pfb_channelizer_throughput (C={c}, n=2^{PFB_LOG2_N})",
+                      lambda: P.pfb_channelize(xd, c, device=dev), n,
+                      n * 8 + y.numel() * 8),
+            "tone_margin_db": margin, "rows_max_abs_err": err}
+
+
+def upsample(x, m: int) -> np.ndarray:
+    """Exact bandlimited m× upsampling by FFT zero padding (the signal is
+    zero-guarded, so the circular wrap touches only dead air)."""
+    x = np.concatenate([np.zeros(256), np.asarray(x, np.complex128),
+                        np.zeros(256)])
+    X = np.fft.fft(x)
+    n = len(x)
+    Y = np.zeros(m * n, np.complex128)
+    Y[: n // 2] = X[: n // 2]
+    Y[-(n - n // 2):] = X[n // 2:]
+    return m * np.fft.ifft(Y)
+
+
+def wideband(parts, centers, starts, n_wide, fs_wide, m, rng, noise):
+    """Channel-rate signals upsampled ×m, placed at their starts, mixed to
+    their centers and summed, with AWGN at ``noise`` × the signal power."""
+    wide = np.zeros(n_wide, np.complex128)
+    k = np.arange(n_wide)
+    for x, fc, start in zip(parts, centers, starts):
+        u = upsample(x, m)
+        wide[start:start + len(u)] += u * np.exp(
+            2j * np.pi * fc * k[start:start + len(u)] / fs_wide)
+    wide = wide.astype(np.complex64)
+    sig = float(np.mean(np.abs(wide) ** 2))
+    return wide + ((rng.standard_normal(n_wide)
+                    + 1j * rng.standard_normal(n_wide))
+                   * np.sqrt(sig * noise / 2)).astype(np.complex64)
+
+
+def band_run(rx, wide, chunk: int):
+    got = {}
+    for i in range(0, len(wide), chunk):
+        for c, res in rx.feed(wide[i:i + chunk]).items():
+            got.setdefault(c, []).extend(res)
+    for c, res in rx.flush().items():
+        got.setdefault(c, []).extend(res)
+    return got
+
+
+def record_chunks(run):
+    """Calls ``run()`` with every chunked Viterbi decode's inputs recorded
+    as the path hands them to the kernel: [(c0, c1, pm0)]."""
+    from orion_sdr_tpu_torch.fec import conv
+    seen = []
+    real = conv.chunk_llrs
+
+    def rec(*a):
+        out = real(*a)
+        seen.append(tuple(t.clone() for t in out[:3]))
+        return out
+    conv.chunk_llrs = rec
+    try:
+        run()
+    finally:
+        conv.chunk_llrs = real
+    return seen
+
+
+def cofdm_band(P, ldpc_bp, dev, rng):
+    """[33] COFDM: tests/test_frame.py:487's three links at 8 MS/s, fed in
+    chunks of 37 003; returns (BP launches, the largest |kernel − plain|
+    over the run's recorded BP launches)."""
+    cfg = P.OfdmConfig(P.CarrierPlan(256, 64).with_contiguous_data(
+        edge_guard=16), fs=1e6)
+    pre = P.OfdmPreamble(repeat_len=128, num_repeats=4).with_training_symbol(
+        256, 64)
+    table = P.McsTable.default_ladder()
+    payloads = [rng.integers(0, 256, 120).astype(np.uint8) for _ in range(3)]
+    mod = P.OfdmFrameMod(cfg, table, pre, device=dev)
+    frames = [mod.modulate_frame(P.FramePacket(P.FrameMetadata(i, 1), p), i)
+              for i, p in enumerate(payloads)]
+    centers = [-2.1e6, 0.3e6, 1.5e6]
+    wide = wideband([f / 8.0 for f in frames], centers,
+                    [3000 + 9000 * i for i in range(3)], 120_000, 8e6, 8,
+                    rng, 0.001)
+    rx = P.OfdmFrameBandStreamDemod(cfg, table, pre, centers, 8e6,
+                                    device=dev)
+    ldpc_bp.bp_decode_kernel.launches = 0
+    ldpc_bp.bp_decode_kernel.launches_edge = 0
+    got = {}
+    t0 = time.perf_counter()
+    recorded = record_bp(lambda: got.update(band_run(rx, wide, 37_003)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ldpc_bp.bp_decode_kernel.launches
+    edge = ldpc_bp.bp_decode_kernel.launches_edge
+    back = [c for c, p in enumerate(payloads) if any(
+        isinstance(r, P.RxFrame) and np.array_equal(r.packet.payload, p)
+        for r in got.get(c, []))]
+    print(f"  COFDM band: channels {back} of 3 back, {launches} BP launches "
+          f"({edge} of the edge rule), {len(wide)} samples in {dt:.4f} s "
+          f"(first run)")
+    if len(back) != 3:
+        fail("[33] the COFDM band receiver lost a payload")
+    if launches <= 0 or launches != len(recorded):
+        fail(f"[33] {launches} BP launches for {len(recorded)} recorded "
+             f"decodes")
+    err = 0.0
+    for g, x, max_iter, rule in recorded:
+        kb, ku = ldpc_bp.bp_decode_kernel(g, x, max_iter, rule)
+        rb, ru = ldpc_bp.bp_decode_reference(g, x, max_iter, rule)
+        err = max(err, float((kb.int() - rb.int()).abs().max()),
+                  float((ku - ru).abs().max()))
+    print(f"  its {len(recorded)} BP launches "
+          f"{[(g.name, tuple(x.shape), r) for g, x, _, r in recorded]} "
+          f"against the plain version: max |kernel - plain| {err:g}")
+    if err != 0.0:
+        fail("[33] a BP launch of the COFDM band differs from its plain "
+             "version")
+    return launches, edge, err
+
+
+def dvb_t_band(P, viterbi, dev, rng):
+    """[33] DVB-T: tests/test_dvb_t.py:377's two muxes; returns ((radix-2,
+    radix-4) launches, the largest |kernel − plain| bit)."""
+    from orion_sdr_tpu_torch.waveform.dvb_t import dvb_t_fs_for_bandwidth
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/32", "qpsk", "1/2"), 0, 5)
+    payloads = [rng.integers(0, 256, 300).astype(np.uint8) for _ in range(2)]
+    mod = P.DvbTFrameMod(params, device=dev)
+    frames = [mod.modulate(p) for p in payloads]
+    fs = dvb_t_fs_for_bandwidth(1_000_000.0)
+    centers = [-1.4e6, 1.1e6]
+    n_wide = max(len(upsample(f.iq, 4)) for f in frames) + 40_000
+    wide = wideband([f.iq for f in frames], centers, [8_000, 12_000], n_wide,
+                    4 * fs, 4, rng, 0.002)
+    rx = P.DvbTBandStreamDemod(params, frames[0].n_symbols, 300, centers, fs,
+                               4 * fs, device=dev)
+    zero_vit(viterbi)
+    got = {}
+    t0 = time.perf_counter()
+    chunks = record_chunks(lambda: got.update(band_run(rx, wide, 120_000)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    runs = read_vit(viterbi)
+    ok = [c for c, p in enumerate(payloads) if any(
+        isinstance(r, P.DvbTRxFrame) and np.array_equal(r.payload, p)
+        and r.tps.cell_id == 5 for r in got.get(c, []))]
+    print(f"  DVB-T band: muxes {ok} of 2 back with cell id 5, Viterbi "
+          f"launches radix 2 / 4: {runs[0]} / {runs[1]}, {len(wide)} "
+          f"samples in {dt:.4f} s (first run)")
+    if len(ok) != 2:
+        fail("[33] the DVB-T band receiver lost a payload or cell id")
+    if runs[1]:
+        fail("[33] the DVB-T band receiver launched the radix-4 kernel")
+    if runs[0] <= 0 or runs[0] != len(chunks):
+        fail(f"[33] {runs[0]} radix-2 launches for {len(chunks)} recorded "
+             f"chunked decodes")
+    err = 0.0
+    for c0, c1, pm0 in chunks:
+        a = viterbi.viterbi_chunks_kernel(c0, c1, pm0, "dvb_k7", radix=2)
+        b = viterbi.viterbi_chunks_reference(c0, c1, pm0, "dvb_k7", radix=2)
+        err = max(err, float((a.int() - b.int()).abs().max()))
+    print(f"  its {len(chunks)} radix-2 launches "
+          f"{[tuple(c0.shape) for c0, _, _ in chunks]} against the plain "
+          f"version: max |kernel - plain| {err:g}")
+    if err != 0.0:
+        fail("[33] a Viterbi launch of the DVB-T band differs from its "
+             "plain version")
+    return runs, err
+
+
+def tone_amp(x: torch.Tensor, f: float, fs: float, guard: int = 20_000):
+    """tests/test_fm_broadcast.py::_tone_amp: 2·|mean(x·e^{−j2πft})| away
+    from the edges."""
+    seg = x[guard:-guard].to(torch.float64)
+    t = torch.arange(guard, guard + seg.shape[0], dtype=torch.float64,
+                     device=x.device)
+    ph = -2 * np.pi * f / fs * t
+    return float(2 * torch.complex(seg * torch.cos(ph),
+                                   seg * torch.sin(ph)).mean().abs())
+
+
+def analog_bands(P, dev, rng):
+    """[33] AM blind scan, SSB on three channels (and LSB), FM band stereo
+    (tests/test_fm_broadcast.py:160, :214, :247); returns the readings."""
+    from orion_sdr_tpu_torch.dsp.channelizer import Channelizer
+    from orion_sdr_tpu_torch.dsp.osc import rotate
+    out = {}
+
+    def noise(n, scale):
+        return torch.as_tensor(((rng.standard_normal(n) + 1j
+                                 * rng.standard_normal(n)) * scale).astype(
+            np.complex64), device=dev)
+
+    fs, n = 1_000_000.0, 1 << 19
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs
+    band = noise(n, 0.01)
+    for f_a, center, gain in ((800, -300e3, 1.0), (1500, 50e3, 0.6),
+                              (2200, 350e3, 0.3)):
+        iq, _ = P.am_mod((0.6 * torch.sin(2 * np.pi * f_a * t)).float(), fs,
+                         device=dev)
+        band = band + gain * rotate(iq, center, fs)[0]
+    t0 = time.perf_counter()
+    stations = P.am_band_demod(band, fs, device=dev)
+    dt = time.perf_counter() - t0
+    got = {}
+    for s in stations:
+        seg = s.audio[4000:].cpu().numpy()
+        spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+        f = np.fft.rfftfreq(len(seg), 1 / s.fs_audio)
+        got[round(s.center_hz / 1e3)] = float(f[np.argmax(spec[5:]) + 5])
+    print(f"  AM band (blind scan, 2^19 at 1 MHz): stations (kHz: audio "
+          f"peak Hz) {got} in {dt:.4f} s")
+    if len(stations) != 3 or any(
+            abs(got.get(k, 0.0) - f) >= 5 for k, f in ((-300, 800),
+                                                       (50, 1500),
+                                                       (350, 2200))):
+        fail("[33] the AM band receiver missed a station or its tone")
+    out["am_peaks_hz"] = got
+
+    fs, n = 480_000.0, 1 << 17
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs
+
+    def ssb(f_a, dial, usb=True):
+        a = (0.5 * torch.sin(2 * np.pi * f_a * t)).float()
+        iq, _ = P.ssb_mod(a, fs, 2800.0, 1500.0, 0.0, usb=usb, device=dev)
+        return rotate(iq, dial, fs)[0]
+    band = ssb(1200, -150e3) + ssb(800, 10e3) + ssb(500, 120e3) \
+        + noise(n, 0.005)
+    snrs = []
+    for s, f_a in zip(P.ssb_band_demod(band, fs, [-150e3, 10e3, 120e3],
+                                       device=dev), (1200, 800, 500)):
+        seg = s.audio[int(0.12 * s.fs_audio):]
+        snrs.append(float(tone_snr_rows(seg[None], s.fs_audio, f_a)[0]))
+    lsb = P.ssb_band_demod(ssb(900, -40e3, usb=False) + noise(n, 0.005), fs,
+                           [-40e3], usb=False, device=dev)[0]
+    snrs.append(float(tone_snr_rows(lsb.audio[int(0.12 * lsb.fs_audio):]
+                                    [None], lsb.fs_audio, 900)[0]))
+    print(f"  SSB band: tone SNR of the three USB channels and the LSB one "
+          f"{np.round(snrs, 1).tolist()} dB (bound 20 dB)")
+    if not min(snrs) > 20.0:
+        fail("[33] an SSB band channel fell below 20 dB")
+    out["ssb_tone_snr_db"] = snrs
+
+    fs_w, n = 2_400_000.0, (1 << 18) * 10
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs_w
+    plan = {"ALPHA FM": (1000, 2500, -800e3, 1.0),
+            "BETA  FM": (600, 1800, 0.0, 1.0),
+            "GAMMAFM ": (400, 3000, 650e3, 0.5)}
+    band = noise(n, 0.02)
+    for ps, (f_l, f_r, center, gain) in plan.items():
+        bits = P.rds_encode_groups(P.rds_groups_0a(0x1234, ps_name=ps))
+        iq, _ = P.fm_stereo_mod((0.8 * torch.sin(2 * np.pi * f_l * t)).float(),
+                                (0.8 * torch.sin(2 * np.pi * f_r * t)).float(),
+                                fs_w, rds_bits=bits, device=dev)
+        band = band + gain * rotate(iq, center, fs_w)[0]
+    t0 = time.perf_counter()
+    stations = P.fm_band_demod(band, fs_w, decode_rds=True, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    found = {s.audio.rds.ps_name: s for s in stations}
+    readings, bad = {}, set(found) != set(plan)
+    for ps, (f_l, f_r, center, _) in plan.items():
+        if ps not in found:
+            continue
+        s = found[ps]
+        a = s.audio
+        l_amp = tone_amp(a.left, f_l, 240_000.0)
+        leak = tone_amp(a.right, f_l, 240_000.0)
+        r_amp = tone_amp(a.right, f_r, 240_000.0)
+        sep = 20 * np.log10(l_amp / max(leak, 1e-9))
+        readings[ps] = {"center_hz": s.center_hz, "pilot": a.pilot_level,
+                        "left": l_amp, "right": r_amp, "separation_db": sep}
+        bad |= not (abs(s.center_hz - center) < 5e3
+                    and abs(a.pilot_level - 0.09) <= 0.009
+                    and abs(l_amp - 0.8) <= 0.08 and abs(r_amp - 0.8) <= 0.08
+                    and sep > 25.0)
+    print(f"  FM band (blind scan, {n} samples at 2.4 MHz, RDS): "
+          f"{sorted(found)} in {dt:.4f} s; "
+          + "; ".join(f"{ps!r} at {r['center_hz']:.0f} Hz pilot "
+                      f"{r['pilot']:.4f} L {r['left']:.4f} R {r['right']:.4f} "
+                      f"separation {r['separation_db']:.1f} dB"
+                      for ps, r in readings.items()))
+    if bad:
+        fail("[33] the FM band receiver missed a station, its text or its "
+             "stereo bounds")
+    out["fm_band"] = readings
+
+    centers = [s.center_hz for s in stations]
+    outs = []
+    for chunk in (n, 100_003):
+        ch = Channelizer(fs_w, 240_000.0, centers, passband_hz=60_000.0,
+                         device=dev)
+        parts = [ch.push(band[i:i + chunk]) for i in range(0, n, chunk)]
+        outs.append(torch.cat(parts + [ch.flush()], dim=-1))
+    same = torch.equal(outs[0], outs[1])
+    print(f"  channelizer on the FM band, one push against 100 003-sample "
+          f"chunks: equal {same} ({tuple(outs[0].shape)})")
+    if not same:
+        fail("[33] the channelizer's output depends on the chunking")
+    return out
+
+
+def band_phase(P, ldpc_bp, viterbi, dev, rng):
+    """[33]: the band receivers on the card."""
+    bp, edge, bp_err = cofdm_band(P, ldpc_bp, dev, rng)
+    vit, vit_err = dvb_t_band(P, viterbi, dev, rng)
+    return bp, edge, bp_err, vit, vit_err, analog_bands(P, dev, rng)
+
+
+def stereo_phase(P, dev):
+    """[34]: _stereo_device at the bench's 1 × 2^17 at 240 kHz and at a
+    64-channel batch (rates, bytes bounds, busy share); RDS PS/RT end to
+    end at 15 dB (tests/test_fm_broadcast.py:114) and the clean L/R
+    separation (tests/test_fm_broadcast.py:71)."""
+    from orion_sdr_tpu_torch.demodulate.fm_stereo import _stereo_device
+    n = 1 << STEREO_LOG2_N
+    rng = np.random.default_rng(11)
+    out = {}
+    for rows in (1, STEREO_ROWS):
+        re = torch.as_tensor(rng.standard_normal((rows, n)).astype(
+            np.float32), device=dev)
+        im = torch.as_tensor(rng.standard_normal((rows, n)).astype(
+            np.float32), device=dev)
+
+        def body():
+            return _stereo_device(re, im, STEREO_FS, 75e3, 15e3, 0.45, True)
+        # inputs re, im; outputs mono, sub, RDS baseband, pilot level
+        r = s5_rate(f"fm_stereo_rds_throughput ({rows} x 2^{STEREO_LOG2_N} "
+                    f"at {STEREO_FS:g} Hz)", body, rows * n,
+                    rows * n * 4 * 5 + rows * 4)
+        prof_ms, busy, top = busy_share(body)
+        print(f"    under torch.profiler: {prof_ms:.3f} ms, card busy "
+              f"{busy if busy is None else round(busy, 3)} ms"
+              + (f" ({busy / prof_ms:.1%})" if busy else "") + "; largest: "
+              + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:5]))
+        out[f"{rows}x{n}"] = {**r, "profiled_ms": prof_ms, "busy_ms": busy,
+                              "busy_share": busy / prof_ms if busy else None,
+                              "top_kernels_ms": dict(top[:5])}
+    n = 1 << 19
+    t = torch.arange(n, dtype=torch.float64, device=dev) / STEREO_FS
+    left = (0.8 * torch.sin(2 * np.pi * 1000 * t)).float()
+    right = (0.8 * torch.sin(2 * np.pi * 2500 * t)).float()
+    bits = P.rds_encode_groups(
+        P.rds_groups_0a(0x52A1, pty=9, tp=True, ps_name="ORIONFM ")
+        + P.rds_groups_2a(0x52A1, pty=9, radiotext="TPU NATIVE SDR"))
+    iq, _ = P.fm_stereo_mod(left, right, STEREO_FS, rds_bits=bits, device=dev)
+    z = iq + torch.as_tensor(((rng.standard_normal(n) + 1j
+                               * rng.standard_normal(n))
+                              * np.sqrt(1.0 / 10 ** 1.5 / 2)).astype(
+        np.complex64), device=dev)
+    a = P.fm_stereo_demod(z, STEREO_FS, decode_rds=True, device=dev)
+    print(f"  RDS at 15 dB through the FM chain: PI {a.rds.pi:#06x}, PS "
+          f"{a.rds.ps_name!r}, RT {a.rds.radiotext!r}, {len(a.rds.groups)} "
+          f"groups")
+    if (a.rds.pi, a.rds.ps_name, a.rds.radiotext) != (
+            0x52A1, "ORIONFM ", "TPU NATIVE SDR"):
+        fail("[34] the RDS text did not come back")
+    iq, _ = P.fm_stereo_mod(left[:1 << 18], right[:1 << 18], STEREO_FS,
+                            device=dev)
+    a = P.fm_stereo_demod(iq, STEREO_FS, device=dev)
+    lL, lR = tone_amp(a.left, 1000, STEREO_FS), tone_amp(a.right, 1000,
+                                                         STEREO_FS)
+    rR, rL = tone_amp(a.right, 2500, STEREO_FS), tone_amp(a.left, 2500,
+                                                          STEREO_FS)
+    sep = (20 * np.log10(lL / max(lR, 1e-9)), 20 * np.log10(rR / max(rL,
+                                                                     1e-9)))
+    print(f"  clean stereo: pilot {a.pilot_level:.4f}, L {lL:.4f}, R "
+          f"{rR:.4f}, separation {sep[0]:.1f} / {sep[1]:.1f} dB (bounds "
+          f"0.09 ± 5 %, 0.8 ± 5 %, 40 dB)")
+    if not (abs(a.pilot_level - 0.09) <= 0.0045 and abs(lL - 0.8) <= 0.04
+            and abs(rR - 0.8) <= 0.04 and min(sep) > 40.0):
+        fail("[34] the stereo separation or levels missed their bounds")
+    out["separation_db"] = sep
+    return out
+
+
+def css_phase(P, dev):
+    """[35]: _dechirp_fft at the bench's SF 9, 128 symbols (bench.py:763-
+    779); the roundtrip at an unknown offset (777 samples) for SF 7-12 at
+    10 dB: every payload back, CRC ok."""
+    from orion_sdr_tpu_torch.demodulate.css import _base_tensor, _dechirp_fft
+    sf, spsym = CSS_SF, 1 << CSS_SF
+    n = CSS_SYMS * spsym
+    rng = np.random.default_rng(11)
+    z = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(n)
+                         ).astype(np.complex64), device=dev)
+    base = _base_tensor(sf, 125e3, 125e3, False, dev)
+    r = s5_rate(f"css_dechirp_throughput (SF {sf}, {CSS_SYMS} symbols)",
+                lambda: _dechirp_fft(z, base, CSS_SYMS, spsym, spsym), n,
+                n * 8 + spsym * 8 + n * 4)
+    msg = b"hello chirp world"
+    back = {}
+    for sf in range(7, 13):
+        iq = P.css_mod(msg, sf=sf, device=dev).cpu().numpy()
+        buf = np.concatenate([np.zeros(777, np.complex64), iq,
+                              np.zeros(500, np.complex64)])
+        buf = buf + ((rng.standard_normal(len(buf)) + 1j * rng.standard_normal(
+            len(buf))) * np.sqrt(0.1 / 2)).astype(np.complex64)
+        t0 = time.perf_counter()
+        out = P.css_demod(buf, sf=sf, device=dev)
+        back[sf] = (out is not None and out.crc_ok and out.payload == msg,
+                    round(time.perf_counter() - t0, 4),
+                    None if out is None else round(out.snr_db, 2))
+    print(f"  roundtrip at offset 777, 10 dB (SF: payload and CRC ok, s, "
+          f"SNR dB): {back}")
+    if not all(v[0] for v in back.values()):
+        fail("[35] a CSS roundtrip lost its payload")
+    return {**r, "roundtrip": {str(k): v for k, v in back.items()}}
+
+
+def wspr_phase(P, dev):
+    """[36]: _energy_grid at the bench's 166 × 8192 samples, 9 dt × 7 df
+    (bench.py:781-799); wspr_decode_band on tests/test_wspr.py:114's three
+    beacons."""
+    from orion_sdr_tpu_torch.demodulate.wspr import _energy_grid
+    n = 166 * 8192
+    rng = np.random.default_rng(11)
+    z = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(n)
+                         ).astype(np.complex64), device=dev)
+    dts = tuple(int(d) for d in np.arange(-4, 5) * 1024)
+    dfs = np.linspace(-2.0, 2.0, 7).astype(np.float32)
+    r = s5_rate("wspr_energy_grid_throughput (166 x 8192, 9 dt x 7 df)",
+                lambda: _energy_grid(z, dts, dfs, 12_000.0, 1500.0), n,
+                n * 8 + 7 * 9 * 162 * 4 * 4)
+    beacons = [("K1ABC", "FN42", 30, 1420.0, 1.0, 0),
+               ("W1AW", "FN31", 37, 1500.0, 0.5, 8000),
+               ("DL2XYZ", "JO62", 23, 1570.0, 0.25, 20000)]
+    b = [P.wspr_mod(c, g, d, base_hz=f, device=dev) * a
+         for c, g, d, f, a, _ in beacons]
+    band = torch.as_tensor(((rng.standard_normal(b[0].shape[0] + 30000) + 1j
+                             * rng.standard_normal(b[0].shape[0] + 30000))
+                            * 0.05).astype(np.complex64), device=dev)
+    for x, (*_, start) in zip(b, beacons):
+        band[start:start + x.shape[0]] += x
+    t0 = time.perf_counter()
+    got = {m.callsign: (m.grid, m.dbm)
+           for m in P.wspr_decode_band(band, device=dev)}
+    dt = time.perf_counter() - t0
+    want = {c: (g, d) for c, g, d, *_ in beacons}
+    print(f"  wspr_decode_band, three beacons: {got} in {dt:.4f} s")
+    if got != want:
+        fail("[36] the WSPR band decode lost a beacon")
+    return {**r, "band_decode_s": dt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2730,6 +3278,45 @@ def main() -> int:
     one_stats = onepole_phase(P, onepole_two_rate, dev)
     print(f"  [31] took {time.perf_counter() - t_s4:.1f} s")
 
+    t_s5 = time.perf_counter()
+    print(f"[32] PFB channelizer (pfb_channelizer_throughput): C={PFB_C}, "
+          f"n=2^{PFB_LOG2_N}")
+    pfb_stats = pfb_phase(P, dev)
+    print(f"  [32] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print("[33] band receivers on the card: COFDM (three links, BP), DVB-T "
+          "(two muxes, Viterbi), AM blind scan, SSB, FM band stereo + RDS, "
+          "the channelizer under two chunkings")
+    (bp_runs["33"], edge33, bp33_err, vit_runs["33"], vit33_err,
+     band_stats) = band_phase(P, ldpc_bp, viterbi, dev, rng)
+    max_err = max(max_err, bp33_err)
+    vit_err = max(vit_err, vit33_err)
+    default = [p for p in vit_runs if p != FORCED]
+    by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
+                for k, radix in enumerate((2, 4))}
+    if any(by_phase[4][p] for p in default):
+        fail("a default path launched the radix-4 Viterbi kernel")
+    print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
+          f"{{'12': {edge_launches}, '33': {edge33}}}; Viterbi radix 2: "
+          f"{by_phase[2]}")
+    print(f"  [33] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[34] FM stereo + RDS (fm_stereo_rds_throughput): _stereo_device "
+          f"at 1 and {STEREO_ROWS} x 2^{STEREO_LOG2_N}, RDS text, "
+          f"separation")
+    stereo_stats = stereo_phase(P, dev)
+    print(f"  [34] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[35] CSS (css_dechirp_throughput): SF {CSS_SF} x {CSS_SYMS} "
+          f"symbols; roundtrip SF 7-12")
+    css_stats = css_phase(P, dev)
+    print(f"  [35] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print("[36] WSPR (wspr_energy_grid_throughput): 166 x 8192, 9 dt x 7 "
+          "df; three-beacon band decode")
+    wspr_stats = wspr_phase(P, dev)
+    print(f"  [36] took {time.perf_counter() - t_s5:.1f} s")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda",
@@ -2793,9 +3380,10 @@ def main() -> int:
               **bp_extra("sum_product", bp_runs, bp_iters, bp_path),
               **ft8_bp),
         entry("ldpc_bp_decode_sum_product_edge", "ldpc_bp.cu",
-              "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches, edge_err,
-              edge_ms, edge_plain_ms, edge_bnd,
-              **bp_extra("sum_product_edge", {"12": edge_launches},
+              "orion_sdr_tpu/ops/ldpc_bp.py:200", edge_launches + edge33,
+              edge_err, edge_ms, edge_plain_ms, edge_bnd,
+              **bp_extra("sum_product_edge",
+                         {"12": edge_launches, "33": edge33},
                          edge_iters, edge_path)),
         entry("viterbi_acs_traceback", "viterbi.cu",
               "orion_sdr_tpu/ops/viterbi.py:200", sum(by_phase[2].values()),
@@ -2848,7 +3436,12 @@ def main() -> int:
               bound_ms_full=one_stats["bound_full"][0],
               steps_exact_at_full=one_stats["steps_exact_at_full"],
               ms_at_8192=one_stats["ms_at_8192"],
-              plain_ms_at_8192=one_stats["plain_ms_at_8192"])]}))
+              plain_ms_at_8192=one_stats["plain_ms_at_8192"])],
+        "slice5": {"32 pfb_channelizer_throughput": pfb_stats,
+                   "33 band_receivers": band_stats,
+                   "34 fm_stereo_rds_throughput": stereo_stats,
+                   "35 css_dechirp_throughput": css_stats,
+                   "36 wspr_energy_grid_throughput": wspr_stats}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

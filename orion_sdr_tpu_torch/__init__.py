@@ -1,6 +1,6 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-Three slices so far. The coded COFDM frame link (LDPC or convolutional inner
+Four slices and part of the fifth so far. The coded COFDM frame link (LDPC or convolutional inner
 code, BCH or RS outer code, block/Forney interleavers, additive or DVB
 scramblers): frame modulation, batch and streaming demodulation. And the
 conformant DVB-T 2K receive chain: ``DvbTFrameMod`` and ``DvbTFrameDemod``
@@ -13,7 +13,11 @@ every window, on the card), the stream, multi-frame and multi-signal
 decoders. And the analog modes and PSK31: the DSP layer (parallel-scan
 IIR sections, FIR, AGC, rational resampling), CW/AM/SSB/FM/PM modulators
 and demodulators, BPSK31/QPSK31 modulation, the decision-feedback demod,
-carrier search, the whole-band decode and the stream decoder. Five
+carrier search, the whole-band decode and the stream decoder. And
+whole-band gateway receive: the streaming channelizer and the polyphase
+filter bank (``dsp/channelizer.py``, ``dsp/pfb.py``) with the band
+receivers on top of them (COFDM, DVB-T, AM, SSB, FM stereo), FM stereo
+with RDS, chirp spread spectrum and WSPR (stack-decoded K=32 code). Five
 hand-written Hopper kernels carry them: LDPC belief propagation
 (``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check rules), the Viterbi
 ACS + traceback (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4),
@@ -44,7 +48,7 @@ from .frame import (
     pack_header_fields, header_block_plan, symbols_for_coded_bits,
     OfdmFrameMod,
     soft_demap, decode_frame_body, OfdmFrameDemod, OfdmFrameStreamDemod,
-    RxFrame,
+    RxFrame, OfdmFrameBandStreamDemod,
 )
 from .multicarrier import CarrierPlan, CarrierGrid
 from .ofdm import OfdmConfig
@@ -92,7 +96,8 @@ from .util import (rms, hann, tone, gen_complex_tone, snr_db_at,
 from .modulate.analog import cw_mod, am_mod, ssb_mod, fm_mod, pm_mod
 from .demodulate.analog import (cw_demod, cw_envelope_multi, am_demod,
                                 ssb_demod, fm_demod, pm_demod,
-                                am_band_demod, ssb_band_demod)
+                                am_band_demod, AmStation,
+                                ssb_band_demod, SsbStation)
 from .codec.varicode import (VaricodeEncoder, VaricodeDecoder,
                              varicode_encode, varicode_decode)
 from .modulate.psk31 import (bpsk31_mod_bits, qpsk31_mod_bits,
@@ -101,3 +106,20 @@ from .demodulate.psk31 import bpsk31_demod, qpsk31_demod, bpsk31_decide
 from .sync.psk31_sync import psk31_sync, best_sync as best_psk31_sync
 from .codec.psk31_stream import Psk31Stream, Psk31BandResult, \
     psk31_decode_band
+
+# ── slice 5a: channelizers, FM stereo + RDS, CSS, WSPR ──────────────────────
+from .dsp.channelizer import Channelizer, band_compose
+from .dsp.pfb import pfb_channelize, pfb_channel_freqs, pfb_prototype
+from .modulate.fm_stereo import (fm_stereo_mod, stereo_mpx, rds_manchester,
+                                 FM_STEREO_PILOT_HZ, RDS_CARRIER_HZ)
+from .demodulate.fm_stereo import (fm_stereo_demod, FmStereoAudio,
+                                   fm_band_demod, FmStation)
+from .codec.rds import (RDS_OFFSETS, rds_crc10, rds_block_encode,
+                        rds_groups_0a, rds_groups_2a, rds_encode_groups,
+                        rds_decode_bits, RdsData)
+from .modulate.css import css_mod
+from .demodulate.css import css_demod, CssFrame
+from .fec.sequential import conv_encode_long, stack_decode
+from .codec.wspr import WsprMessage, wspr_pack, wspr_unpack
+from .modulate.wspr import wspr_mod
+from .demodulate.wspr import wspr_demod, wspr_decode_band

@@ -21,6 +21,7 @@ from .waveform.dvb_t import DvbTFrameParams, DvbTLinkParams
 from .codec.psk31 import StreamingViterbi
 from .codec.psk31_stream import Psk31Stream
 from .demodulate.analog import QuadDemodState, SsbDemodState
+from .dsp.channelizer import Channelizer
 from .dsp.iir import BiquadState, LpDcState
 from .modulate.analog import CwState, FmState, SsbState
 
@@ -186,3 +187,17 @@ def psk31_stream_from_fields(d: dict, device="cuda") -> Psk31Stream:
         sv.ptr, sv.count = int(w["ptr"]), int(w["count"])
         st.viterbi = sv
     return st
+
+
+def channelizer_from_jax(d: dict, device="cuda") -> Channelizer:
+    """The port's :class:`Channelizer` on ``device`` from a JAX package's
+    ``Channelizer``'s fields (``vars(ch)``): its rates, centers and taps,
+    carried mixer phases, FIR tails and input remainder, so a stream that
+    the JAX channelizer began continues in the port to the same output."""
+    ch = Channelizer(float(d["fs_wide"]), float(d["fs_out"]),
+                     np.asarray(d["centers_hz"], np.float32), device=device)
+    ch.taps = np.asarray(d["taps"], np.float32).copy()
+    ch._phase = _t(d["_phase"], device, torch.float32)
+    ch._state = _t(d["_state"], device, torch.complex64)
+    ch._rem = _t(d["_rem"], device, torch.complex64)
+    return ch

@@ -7,8 +7,9 @@ Every per-sample IIR loop is a parallel scan or a chunked matmul
 (delay-conjugate product, then :func:`~orion_sdr_tpu_torch.util.atan2_approx`).
 Every entry point takes host data or a tensor and ``device`` (default
 ``"cuda"``), and returns tensors on it. The band receivers
-(``am_band_demod``, ``ssb_band_demod``) need the channelizer and raise
-until it is ported.
+(``am_band_demod``, ``ssb_band_demod``) channelize every station out of
+one wideband capture (``dsp/channelizer.py``) and demodulate the channel
+batch together.
 """
 
 from __future__ import annotations
@@ -18,14 +19,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..dsp.channelizer import Channelizer
 from ..dsp.device import to_device
 from ..dsp.fir import convolve, kaiser_lowpass_taps, kaiser_num_taps
 from ..dsp.iir import (LpDcState, biquad_init, dc_pole, design_butter_lp,
                        lp_cascade, lp_dc_cascade)
 from ..dsp.osc import mix_usb, rotate
 from ..dsp.recurrence import first_order
-from ..unported import CHANNELIZER, not_ported
-from ..util import atan2_approx
+from ..util import atan2_approx, spectrum_scan
 
 
 def cw_demod(iq, fs, env_bw_hz=300.0, gain=1.0, y0=0.0, device="cuda"):
@@ -76,14 +77,96 @@ def am_demod(iq, fs, audio_bw_hz, method="power_sqrt",
     return lp_dc_cascade(e, c, r, state=state)
 
 
-def am_band_demod(*args, **kwargs):
-    """Whole-band AM receive; needs the channelizer (not in the port yet)."""
-    raise not_ported("am_band_demod", CHANNELIZER)
+class AmStation(NamedTuple):
+    """One AM transmission recovered by :func:`am_band_demod`."""
+    center_hz: float
+    audio: torch.Tensor
+    carrier_level: float
+    fs_audio: float
 
 
-def ssb_band_demod(*args, **kwargs):
-    """Whole-band SSB receive; needs the channelizer (not in the port yet)."""
-    raise not_ported("ssb_band_demod", CHANNELIZER)
+def channelize_all(iq: torch.Tensor, fs: float, ch_fs: float, centers_hz,
+                   passband_hz: float) -> torch.Tensor:
+    """Every center of ``centers_hz`` out of one capture (push and flush of
+    a :class:`Channelizer` on the capture's device) → (C, n) channels."""
+    chan = Channelizer(fs, ch_fs, centers_hz, passband_hz=passband_hz,
+                       device=iq.device)
+    parts = [p for p in (chan.push(iq), chan.flush()) if p.shape[-1]]
+    return torch.cat(parts, dim=-1)
+
+
+def wideband_capture(iq, device, what: str) -> torch.Tensor:
+    """A band receiver's input: one 1-D complex64 capture on ``device``."""
+    z = to_device(iq, device, torch.complex64)
+    if z.dim() != 1:
+        raise ValueError(f"{what} takes a 1-D wideband capture")
+    return z
+
+
+def am_band_demod(iq, fs, stations_hz=None, audio_bw_hz: float = 5000.0,
+                  method: str = "power_sqrt",
+                  scan_threshold_db: float = 10.0,
+                  min_station_bw_hz: float = 2000.0, device="cuda") -> list:
+    """Whole-band AM receive: scan (or take) carrier centers, channelize
+    every station out of the wideband capture in one batch, envelope-
+    demodulate them together. Returns [AmStation] with audio at fs/m (m
+    chosen so the channel rate lands just above 4·audio_bw); stations
+    whose mean channel magnitude is under 3 % of the strongest (leakage
+    skirts a blind scan can surface) are dropped."""
+    z = wideband_capture(iq, device, "am_band_demod")
+    if stations_hz is None:
+        segs = spectrum_scan(z, fs, threshold_db=scan_threshold_db,
+                             min_bw_hz=min_station_bw_hz, device=z.device)
+        stations_hz = [s.center_hz for s in segs]
+    stations_hz = list(stations_hz)
+    if not stations_hz:
+        return []
+    m = max(1, int(fs // (4.0 * audio_bw_hz)))
+    ch_fs = fs / m
+    chans = channelize_all(z, fs, ch_fs, stations_hz, audio_bw_hz * 1.2)
+    audio, _ = am_demod(chans, ch_fs, audio_bw_hz, method=method,
+                        device=z.device)
+    levels = chans.abs().mean(dim=-1).cpu().numpy()
+    gate = 0.03 * float(levels.max())
+    return [AmStation(center_hz=float(c), audio=audio[i],
+                      carrier_level=float(levels[i]), fs_audio=ch_fs)
+            for i, c in enumerate(stations_hz) if levels[i] >= gate]
+
+
+class SsbStation(NamedTuple):
+    """One SSB transmission recovered by :func:`ssb_band_demod`."""
+    center_hz: float
+    audio: torch.Tensor
+    fs_audio: float
+
+
+def ssb_band_demod(iq, fs, stations_hz, audio_bw_hz: float = 2700.0,
+                   audio_if_hz: float = 1500.0, usb: bool = True,
+                   device="cuda") -> list:
+    """Whole-band SSB receive of the dial (suppressed-carrier) frequencies
+    ``stations_hz``: channelize each sideband's middle in one batch, then
+    product-detect the channels together (an LSB channel conjugates into
+    USB). ``audio_if_hz``/``usb`` follow ``ssb_mod``'s conventions. Audio
+    at fs/m (m near 4·audio_bw)."""
+    z = wideband_capture(iq, device, "ssb_band_demod")
+    stations_hz = list(stations_hz)
+    if not stations_hz:
+        return []
+    m = max(1, int(fs // (4.0 * audio_bw_hz)))
+    ch_fs = fs / m
+    # a USB signal occupies [dial+if, dial+if+bw]: center the channel on
+    # the middle of that sideband (mirrored for LSB)
+    half = audio_if_hz + audio_bw_hz / 2.0
+    offs = half if usb else -half
+    chans = channelize_all(z, fs, ch_fs, [c + offs for c in stations_hz],
+                           audio_bw_hz * 0.7)
+    if not usb:
+        chans = chans.conj()
+    # in-channel the audio tone f sits at if + f − offs ⇒ BFO = if − offs
+    audio, _ = ssb_demod(chans, ch_fs, bfo_hz=audio_if_hz - abs(offs),
+                         audio_bw_hz=audio_bw_hz, device=z.device)
+    return [SsbStation(center_hz=float(c), audio=audio[i], fs_audio=ch_fs)
+            for i, c in enumerate(stations_hz)]
 
 
 class SsbDemodState(NamedTuple):

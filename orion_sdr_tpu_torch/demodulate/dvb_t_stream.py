@@ -17,10 +17,10 @@ from typing import List, Union
 import numpy as np
 import torch
 
+from ..dsp.channelizer import BandStreams, Channelizer
 from ..dsp.device import sanitize_iq
 from ..sync.dvb_t_gi_sync import dvb_t_gi_sync
-from ..unported import DVB_T_BAND, not_ported
-from ..waveform.dvb_t import (DVB_T_N_FFT, DvbTFrameParams,
+from ..waveform.dvb_t import (DVB_T_KMAX, DVB_T_N_FFT, DvbTFrameParams,
                               DvbTHierFrameParams, guard_cp_len_2k)
 from .dvb_t_frame import (DvbTFrameDemod, DvbTHierFrameDemod, DvbTRxError,
                           DvbTRxFrame, _as_iq)
@@ -153,9 +153,24 @@ class DvbTHierFrameStreamDemod(DvbTFrameStreamDemod):
                                  self.lp_payload_len)
 
 
-class DvbTBandStreamDemod:
-    """Multi-mux DVB-T receive over one wideband capture; needs the
-    channelizer, which is not in the port yet."""
+class DvbTBandStreamDemod(BandStreams):
+    """Multi-mux DVB-T receive: C equal-geometry multiplexes at known
+    centers in one wideband capture, channelized as one batch on
+    ``device``, each mux drained by its own :class:`DvbTFrameStreamDemod`
+    (its decodes launch the Viterbi kernel on the card).
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise not_ported("DvbTBandStreamDemod", DVB_T_BAND)
+    ``fs`` is the per-mux sample rate (an NB-mode rate); ``fs_wide`` must
+    be an integer multiple of it. Results come back as {mux_index:
+    [DvbTRxFrame | DvbTRxError]}."""
+
+    def __init__(self, params: DvbTFrameParams, n_symbols: int,
+                 payload_len: int, centers_hz, fs: float, fs_wide: float,
+                 stopband_db: float = 60.0, device="cuda") -> None:
+        # occupied band: 1705 active carriers of 2048 → ±KMAX/2 bins
+        occ_hz = (DVB_T_KMAX / 2 + 1) / DVB_T_N_FFT * fs
+        chan = Channelizer(fs_wide, fs, centers_hz, passband_hz=occ_hz,
+                           stopband_db=stopband_db, device=device)
+        super().__init__(chan, [
+            DvbTFrameStreamDemod(params, n_symbols, payload_len,
+                                 device=device)
+            for _ in range(chan.num_channels)])

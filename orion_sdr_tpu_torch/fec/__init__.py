@@ -11,3 +11,5 @@ from .conv import (CONV_CODES, PUNCTURE, tail_bits, conv_encode,
 from .interleave import (block_interleave, block_deinterleave,
                          conv_roundtrip_delay, ForneyState,
                          forney_interleave, forney_deinterleave, forney_flush)
+from .sequential import (conv_encode_long, stack_decode, LL_POLY1,
+                         LL_POLY2)

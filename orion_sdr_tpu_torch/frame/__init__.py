@@ -24,3 +24,4 @@ from .demodulator import (
     soft_demap, decode_frame_body, OfdmFrameDemod, OfdmFrameStreamDemod,
     RxFrame,
 )
+from .band import OfdmFrameBandStreamDemod

@@ -1,3 +1,9 @@
 from .dvb_t_frame import (DvbTFrame, DvbTFrameMod, DvbTHierFrameMod,
                           assemble_frame, tx_lowpass_for_2k)
 from .dvb_t_super_frame import DvbTSuperFrame, DvbTSuperFrameMod
+from .css import css_mod, css_samples_per_symbol
+from .wspr import wspr_mod
+from .fm_stereo import (
+    fm_stereo_mod, stereo_mpx, rds_manchester,
+    FM_STEREO_PILOT_HZ, RDS_CARRIER_HZ, FM_STEREO_MIN_FS,
+)

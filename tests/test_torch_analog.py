@@ -23,6 +23,7 @@ from helpers import tail, tone_snr_db
 from test_torch_dsp_iir import close
 
 from orion_sdr_tpu.demodulate import analog as JD
+from orion_sdr_tpu.dsp import osc as JO
 from orion_sdr_tpu.modulate import analog as JM
 
 from orion_sdr_tpu_torch import convert
@@ -220,6 +221,50 @@ def test_fm_tone_roundtrip_in_the_port():
 
 
 def test_band_demods_raise_naming_their_slice():
-    for fn in (PD.am_band_demod, PD.ssb_band_demod):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            fn(np.zeros(1000, np.complex64), FS, [1000.0])
+    """The whole-band AM and SSB receivers (slice 5a: they no longer
+    raise) against the JAX package on one capture each: explicit centers,
+    the same stations, audio within 1e-5 of its peak (the SSB case with
+    tests/test_fm_broadcast.py's three USB channels and its LSB sense)."""
+    fs = 480_000.0
+    n = 1 << 17
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(0)
+
+    def noise(scale):
+        return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                * scale).astype(np.complex64)
+
+    def ssb(f_audio, dial, usb=True):
+        a = (0.5 * np.sin(2 * np.pi * f_audio * t)).astype(np.float32)
+        iq, _ = JM.ssb_mod(a, fs, 2800.0, 1500.0, 0.0, usb=usb)
+        return np.asarray(JO.rotate(np.asarray(iq), dial, fs)[0])
+
+    def am(f_audio, center, gain):
+        a = (0.6 * np.sin(2 * np.pi * f_audio * t)).astype(np.float32)
+        iq, _ = JM.am_mod(a, fs)
+        return gain * np.asarray(JO.rotate(np.asarray(iq), center, fs)[0])
+
+    dials = [-150e3, 10e3, 120e3]
+    band = (ssb(1200, dials[0]) + ssb(800, dials[1]) + ssb(500, dials[2])
+            + noise(0.005)).astype(np.complex64)
+    lsb = (ssb(900, -40e3, usb=False) + noise(0.005)).astype(np.complex64)
+    am_band = (am(800, -150e3, 1.0) + am(1500, 40e3, 0.6)
+               + noise(0.01)).astype(np.complex64)
+    cases = [(JD.ssb_band_demod, PD.ssb_band_demod, band, dials, {}),
+             (JD.ssb_band_demod, PD.ssb_band_demod, lsb, [-40e3],
+              {"usb": False}),
+             (JD.am_band_demod, PD.am_band_demod, am_band, [-150e3, 40e3],
+              {})]
+    for jfn, pfn, capture, centers, kw in cases:
+        want = jfn(capture, fs, centers, **kw)
+        got = pfn(capture, fs, centers, device=CPU, **kw)
+        assert [s.center_hz for s in got] == [s.center_hz for s in want]
+        assert len(got) == len(centers)
+        for g, w in zip(got, want):
+            assert g.fs_audio == w.fs_audio
+            close(w.audio, g.audio)
+    stations = PD.ssb_band_demod(band, fs, dials, device=CPU)
+    for s, f_a in zip(stations, (1200, 800, 500)):
+        seg = s.audio.numpy()[int(0.12 * s.fs_audio):]
+        assert tone_snr_db(s.fs_audio, f_a, seg) > 20.0, s.center_hz
+    assert PD.am_band_demod(am_band, fs, [], device=CPU) == []

@@ -352,12 +352,11 @@ def test_convert_dvb_t_params():
 
 
 def test_unported_dvb_t_configurations_raise():
-    # what is left of the DVB-T chain is the band receive (slice 5, with the
-    # channelizer); the COFDM presets and the TX lowpass, which raised here
-    # before slice 1 was finished, now match the JAX package
+    # nothing of the DVB-T chain raises any more: the COFDM presets and the
+    # TX lowpass, which raised here before slice 1 was finished, match the
+    # JAX package, and the band receive came with slice 5a's channelizer
+    # (tests/test_torch_band.py)
     _, pp = _params("qpsk")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 5"):
-        P.DvbTBandStreamDemod(pp, 68, 100, [0.0], 1e6, 4e6)
     for name in ("dvb_t_config", "dvb_t_scattered_config"):
         for guard, bw in (("1/8", 1e6), ("1/32", 2e6)):
             ref = getattr(JD, name)(guard, bw)

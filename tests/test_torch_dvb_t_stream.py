@@ -251,6 +251,18 @@ def test_hier_stream_demod_chunked_two_frames():
 
 
 def test_band_receive_stays_unported():
+    """The band receiver is ported (slice 5a): the port's
+    DvbTBandStreamDemod designs the JAX one's channelizer (the same taps,
+    centers and decimation) and one stream a mux on its device."""
+    from orion_sdr_tpu.demodulate.dvb_t_stream import DvbTBandStreamDemod
+    jp = JD.DvbTFrameParams(JD.DvbTLinkParams(*LINK))
     params = P.DvbTFrameParams(P.DvbTLinkParams(*LINK))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        P.DvbTBandStreamDemod(params, 68, 100, [0.0], 1e6, 4e6)
+    for fs, centers in ((1e6, [-1.4e6, 1.1e6]), (2e6, [0.0])):
+        ref = DvbTBandStreamDemod(jp, 68, 100, centers, fs, 4 * fs)
+        rx = P.DvbTBandStreamDemod(params, 68, 100, centers, fs, 4 * fs,
+                                   device="cpu")
+        assert np.array_equal(rx.channelizer.taps, ref.channelizer.taps)
+        assert np.array_equal(rx.centers_hz, ref.centers_hz)
+        assert rx.channelizer.m == ref.channelizer.m == 4
+        assert len(rx.streams) == len(centers) and len(rx) == 0
+        assert all(s.device == torch.device("cpu") for s in rx.streams)

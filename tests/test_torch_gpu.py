@@ -15,7 +15,12 @@ kernel); and slice 4's two recurrence kernels (the PSK31 PLL against its
 plain version, decisions exact and soft values within 1e-5 of the peak;
 the two-rate one-pole exact) with the entry points that launch them, the
 FM chain on the card against the CPU, and the float32 products unmoved by
-a caller's TF32 switches. They skip without a CUDA card.
+a caller's TF32 switches; and slice 5a on the card against the CPU path
+(the channelizer on both FIR routes and under two chunkings, the PFB,
+band_compose, AM/SSB band audio, the FM stereo program and RDS, the CSS
+dechirp and WSPR energy grid) with the band receivers' BP and Viterbi
+launches, and the CSS and WSPR receivers on the card. They skip without a
+CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -28,6 +33,7 @@ import torch
 
 import orion_sdr_tpu_torch as P
 from orion_sdr_tpu_torch.codec import ft8_ldpc
+from orion_sdr_tpu_torch.dsp.osc import rotate
 from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, LdpcGraph, \
     _build_msg_col_rows, ldpc_encode, ldpc_graph
 from orion_sdr_tpu_torch.fec import conv
@@ -852,3 +858,236 @@ def test_float32_products_ignore_the_callers_tf32(cuda):
             f.allow_tf32 = v
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][1])
+
+
+# ── slice 5a: channelizers, band receivers, FM stereo + RDS, CSS, WSPR ──────
+
+def _noise_iq(n, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * scale
+            ).astype(np.complex64)
+
+
+def _close_on_card(got, ref, rtol=1e-5):
+    ref = ref.cpu() if isinstance(ref, torch.Tensor) else torch.as_tensor(ref)
+    assert got.shape == ref.shape
+    scale = max(float(ref.abs().max()), 1e-30)
+    assert float((got.cpu() - ref).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("passband", [None, 0.49e6])
+def test_channelizer_on_the_card_matches_the_cpu(cuda, passband):
+    """Both FIR routes (291 taps by conv1d, 2897 by FFT overlap-save): the
+    card within 1e-5 of the CPU's peak, carried phases exact, and the
+    card's output equal under two chunkings (the fixed internal block)."""
+    from orion_sdr_tpu_torch.dsp.channelizer import Channelizer
+    x = _noise_iq(70_001, 2)
+    outs = {}
+    for dev, chunk in ((cuda, 20_000), (cuda, 7_001), ("cpu", 70_001)):
+        ch = Channelizer(8e6, 1e6, [-2.1e6, 0.3e6, 1.5e6],
+                         passband_hz=passband, device=dev)
+        parts = [ch.push(x[i:i + chunk]) for i in range(0, len(x), chunk)]
+        outs[str(dev), chunk] = (torch.cat(parts + [ch.flush()], dim=-1),
+                                 ch._phase)
+    ref, ph = outs["cpu", 70_001]
+    got, gph = outs[str(cuda), 20_000]
+    _close_on_card(got, ref)
+    assert torch.equal(gph.cpu(), ph)
+    assert torch.equal(got, outs[str(cuda), 7_001][0])
+
+
+def test_pfb_and_band_compose_on_the_card_match_the_cpu(cuda):
+    x = _noise_iq(1 << 16, 3)
+    _close_on_card(P.pfb_channelize(x, 64, device=cuda),
+                   P.pfb_channelize(x, 64, device="cpu"), rtol=2e-6)
+    chans = _noise_iq(3 * 3000, 4).reshape(3, 3000)
+    _close_on_card(P.band_compose(chans, [-2e6, 0.1e6, 3e6], 8e6, 1e6,
+                                  device=cuda),
+                   P.band_compose(chans, [-2e6, 0.1e6, 3e6], 8e6, 1e6,
+                                  device="cpu"))
+
+
+def _upsample(x, m):
+    x = np.concatenate([np.zeros(256), np.asarray(x, np.complex128),
+                        np.zeros(256)])
+    X = np.fft.fft(x)
+    n = len(x)
+    Y = np.zeros(m * n, np.complex128)
+    Y[: n // 2] = X[: n // 2]
+    Y[-(n - n // 2):] = X[n // 2:]
+    return m * np.fft.ifft(Y)
+
+
+def _wideband(parts, centers, starts, n_wide, fs_wide, m, seed, noise):
+    wide = np.zeros(n_wide, np.complex128)
+    k = np.arange(n_wide)
+    for x, fc, start in zip(parts, centers, starts):
+        u = _upsample(x, m)
+        wide[start:start + len(u)] += u * np.exp(
+            2j * np.pi * fc * k[start:start + len(u)] / fs_wide)
+    wide = wide.astype(np.complex64)
+    sig = float(np.mean(np.abs(wide) ** 2))
+    return wide + _noise_iq(n_wide, seed, np.sqrt(sig * noise / 2))
+
+
+def _band_run(rx, wide, chunk):
+    got = {}
+    for i in range(0, len(wide), chunk):
+        for c, res in rx.feed(wide[i:i + chunk]).items():
+            got.setdefault(c, []).extend(res)
+    for c, res in rx.flush().items():
+        got.setdefault(c, []).extend(res)
+    return got
+
+
+def test_cofdm_band_receive_launches_the_bp_kernel(cuda):
+    """tests/test_frame.py:487's three links at 8 MS/s on the card: every
+    payload back under two chunkings, BP launches counted."""
+    cfg = P.OfdmConfig(P.CarrierPlan(256, 64).with_contiguous_data(
+        edge_guard=16), fs=1e6)
+    pre = P.OfdmPreamble(repeat_len=128, num_repeats=4).with_training_symbol(
+        256, 64)
+    table = P.McsTable.default_ladder()
+    payloads = [np.random.default_rng(40 + i).integers(0, 256, 120).astype(
+        np.uint8) for i in range(3)]
+    mod = P.OfdmFrameMod(cfg, table, pre, device=cuda)
+    frames = [mod.modulate_frame(P.FramePacket(P.FrameMetadata(i, 1), p), i)
+              for i, p in enumerate(payloads)]
+    centers = [-2.1e6, 0.3e6, 1.5e6]
+    wide = _wideband([f / 8.0 for f in frames], centers,
+                     [3000 + 9000 * i for i in range(3)], 120_000, 8e6, 8,
+                     50, 0.001)
+    for chunk in (37_003, 50_000):
+        b0 = ldpc_bp.bp_decode_kernel.launches
+        rx = P.OfdmFrameBandStreamDemod(cfg, table, pre, centers, 8e6,
+                                        device=cuda)
+        got = _band_run(rx, wide, chunk)
+        torch.cuda.synchronize()
+        assert ldpc_bp.bp_decode_kernel.launches > b0
+        for c, p in enumerate(payloads):
+            ok = [r for r in got.get(c, []) if isinstance(r, P.RxFrame)]
+            assert ok and np.array_equal(ok[0].packet.payload, p), c
+
+
+def test_dvb_t_band_receive_launches_the_viterbi_kernel(cuda):
+    """tests/test_dvb_t.py:377's two muxes on the card: both payloads and
+    cell ids back, radix-2 Viterbi launches counted, none of radix 4."""
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/32", "qpsk", "1/2"), 0, 5)
+    rng = np.random.default_rng(3)
+    payloads = [rng.integers(0, 256, 300).astype(np.uint8) for _ in range(2)]
+    mod = P.DvbTFrameMod(params, device=cuda)
+    frames = [mod.modulate(p) for p in payloads]
+    fs = 1201173.0205278592           # dvb_t_fs_for_bandwidth(1 MHz)
+    centers = [-1.4e6, 1.1e6]
+    n_wide = max(len(_upsample(f.iq, 4)) for f in frames) + 40_000
+    wide = _wideband([f.iq for f in frames], centers, [8_000, 12_000],
+                     n_wide, 4 * fs, 4, 3, 0.002)
+    k = viterbi.viterbi_chunks_kernel
+    r2, r4 = k.launches, k.launches_radix4
+    rx = P.DvbTBandStreamDemod(params, frames[0].n_symbols, 300, centers, fs,
+                               4 * fs, device=cuda)
+    got = _band_run(rx, wide, 120_000)
+    torch.cuda.synchronize()
+    assert k.launches > r2 and k.launches_radix4 == r4
+    for c, p in enumerate(payloads):
+        ok = [r for r in got.get(c, []) if isinstance(r, P.DvbTRxFrame)]
+        assert ok and np.array_equal(ok[0].payload, p), c
+        assert ok[0].tps.cell_id == 5
+
+
+def test_am_ssb_band_on_the_card_match_the_cpu(cuda):
+    fs = 480_000.0
+    t = np.arange(1 << 16) / fs
+    a = (0.5 * np.sin(2 * np.pi * 900 * t)).astype(np.float32)
+    ssb, _ = P.ssb_mod(a, fs, 2800.0, 1500.0, 0.0, device="cpu")
+    am, _ = P.am_mod(a, fs, device="cpu")
+    band = (rotate(ssb, -40e3, fs)[0] + rotate(am, 100e3, fs)[0]
+            ).numpy() + _noise_iq(len(t), 6, 0.005)
+    for fn, centers in ((P.ssb_band_demod, [-40e3]),
+                        (P.am_band_demod, [100e3])):
+        got = fn(band, fs, centers, device=cuda)
+        ref = fn(band, fs, centers, device="cpu")
+        assert len(got) == len(ref) == 1
+        _close_on_card(got[0].audio, ref[0].audio)
+
+
+def _stereo_iq(n, fs, rds=True, seed=None):
+    t = np.arange(n) / fs
+    left = (0.8 * np.sin(2 * np.pi * 1000 * t)).astype(np.float32)
+    right = (0.8 * np.sin(2 * np.pi * 2500 * t)).astype(np.float32)
+    bits = P.rds_encode_groups(P.rds_groups_0a(0x52A1, ps_name="ORIONFM ")
+                               + P.rds_groups_2a(0x52A1,
+                                                 radiotext="CUDA SDR"))
+    iq, _ = P.fm_stereo_mod(left, right, fs, rds_bits=bits if rds else None,
+                            device="cpu")
+    iq = iq.numpy()
+    if seed is not None:
+        iq = iq + _noise_iq(n, seed, np.sqrt(1.0 / 10 ** 1.5 / 2))
+    return iq
+
+
+def test_fm_stereo_on_the_card_matches_the_cpu(cuda):
+    """The stereo program on the card against the CPU (mono, difference,
+    pilot, RDS baseband within 1e-5 of their peaks), and the RDS bits and
+    text of a 15 dB capture equal on both."""
+    from orion_sdr_tpu_torch.demodulate.fm_stereo import _stereo_device
+    fs = 240_000.0
+    iq = _stereo_iq(1 << 18, fs, seed=5)
+    z = torch.as_tensor(iq)
+    args = (fs, 75e3, 15e3, 0.9, True)
+    ref = _stereo_device(z.real.contiguous(), z.imag.contiguous(), *args)
+    zg = z.to(cuda)
+    got = _stereo_device(zg.real.contiguous(), zg.imag.contiguous(), *args)
+    for g, r in zip(got, ref):
+        _close_on_card(g, r)
+    a = P.fm_stereo_demod(iq, fs, decode_rds=True, device=cuda)
+    b = P.fm_stereo_demod(iq, fs, decode_rds=True, device="cpu")
+    assert np.array_equal(a.rds_bits, b.rds_bits)
+    assert a.rds.ps_name == "ORIONFM " and a.rds.radiotext == "CUDA SDR"
+
+
+def test_css_on_the_card(cuda):
+    """The dechirp FFT on the card against the CPU; the roundtrip at an
+    unknown offset at 10 dB for SF 7 and 12 on the card."""
+    from orion_sdr_tpu_torch.demodulate.css import _base_tensor, _dechirp_fft
+    z = _noise_iq(128 * 512, 7)
+    got = _dechirp_fft(torch.as_tensor(z, device=cuda),
+                       _base_tensor(9, 125e3, 125e3, False, cuda), 128, 512,
+                       512)
+    ref = _dechirp_fft(torch.as_tensor(z),
+                       _base_tensor(9, 125e3, 125e3, False, "cpu"), 128, 512,
+                       512)
+    _close_on_card(got, ref)
+    for sf in (7, 12):
+        iq = P.css_mod(b"hello chirp world", sf=sf, device=cuda).cpu().numpy()
+        buf = np.concatenate([np.zeros(777, np.complex64), iq,
+                              np.zeros(500, np.complex64)])
+        buf = buf + _noise_iq(len(buf), sf, np.sqrt(0.1 / 2))
+        out = P.css_demod(buf, sf=sf, device=cuda)
+        assert out is not None and out.crc_ok
+        assert out.payload == b"hello chirp world"
+
+
+def test_wspr_on_the_card(cuda):
+    """The energy grid on the card against the CPU (2e-5 of its peak) and
+    tests/test_wspr.py's three-beacon band decoded on the card."""
+    from orion_sdr_tpu_torch.demodulate.wspr import _energy_grid
+    b = [P.wspr_mod(c, g, d, base_hz=f, device=cuda).cpu().numpy() * a
+         for c, g, d, f, a in (("K1ABC", "FN42", 30, 1420.0, 1.0),
+                               ("W1AW", "FN31", 37, 1500.0, 0.5),
+                               ("DL2XYZ", "JO62", 23, 1570.0, 0.25))]
+    n = len(b[0]) + 30000
+    band = np.zeros(n, np.complex64)
+    for x, start in zip(b, (0, 8000, 20000)):
+        band[start:start + len(x)] += x
+    band += _noise_iq(n, 0, 0.05)
+    dts = tuple(int(d) for d in np.arange(-4, 5) * 1024)
+    dfs = np.linspace(-2.0, 2.0, 7).astype(np.float32)
+    got = _energy_grid(torch.as_tensor(band, device=cuda), dts, dfs,
+                       12_000.0, 1500.0)
+    ref = _energy_grid(torch.as_tensor(band), dts, dfs, 12_000.0, 1500.0)
+    _close_on_card(got, ref, rtol=2e-5)
+    out = {m.callsign: (m.grid, m.dbm)
+           for m in P.wspr_decode_band(band, device=cuda)}
+    assert out == {"K1ABC": ("FN42", 30), "W1AW": ("FN31", 37),
+                   "DL2XYZ": ("JO62", 23)}
