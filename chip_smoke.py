@@ -5,11 +5,13 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Environment: requires a CUDA card (exits 1 otherwise; there is no CPU
    path) and prints its name and power limit.
-2. Builds the five kernels in parallel with nvcc, one process per source
+2. Builds the eight kernels in parallel with nvcc, one process per source
    (the LDPC belief-propagation kernel csrc/ldpc_bp.cu, the Viterbi kernel
    csrc/viterbi.cu, the BCH/RS outer-code kernel csrc/outer_fec.cu, the
-   PSK31 PLL csrc/psk31_pll.cu and the two-rate one-pole
-   csrc/onepole_two_rate.cu), and
+   PSK31 PLL csrc/psk31_pll.cu, the two-rate one-pole
+   csrc/onepole_two_rate.cu, the burst modem's DD-PLL csrc/dd_pll.cu and
+   Gardner loop csrc/gardner.cu, and the GPS tracking loops
+   csrc/gnss_track.cu), and
    prints the BP kernel's build time and ptxas
    register/shared-memory report, then the BP launch for each code and rule
    at B=3072 (ops.ldpc_bp.launch_plan: threads a block, resident blocks an
@@ -236,7 +238,42 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 36. WSPR (wspr_energy_grid_throughput, bench.py:781-799): _energy_grid at
    166 x 8192 samples, 9 dt x 7 df, Msps; wspr_decode_band on
    tests/test_wspr.py:114's three beacons: all three messages.
-37. Prints the kernels' JSON line (each kernel's main-path launches, error
+37. The DD-PLL kernel (slice 5b) against its plain version, exact, on
+   every order (BPSK to 256-QAM) at the JAX bench's 4 x 2048 symbols and
+   at 64 x 2048 (constellation symbols behind a phase ramp, so the
+   unwrapped phase reaches ~27 rad); kernel and plain times at 4 and 64
+   rows of 16-QAM with the bytes bound.
+38. The Gardner kernel against its plain version, exact (symbols and final
+   positions), at 64 rows x 2^17 samples of RRC-shaped QPSK at sps 8
+   through the matched filter; the loop locks (|y| spread < 0.25); timed
+   with the bytes bound. After [42], symbol_sync_gardner on 4096 QPSK
+   symbols with its launches counted from 0.
+39. The burst modem (burst_modem_throughput, bench.py:851-874): the bench's
+   body (RRC matched filter, energy timing, the batched DD-PLL) at 4 and
+   64 x 16384 random-normal samples, Msps beside the bytes bound;
+   burst_mod -> burst_demod for BPSK to 256-QAM under
+   tests/test_digital.py:142-169's impairments (37-sample delay, 0.21 %
+   CFO, 1.1 rad, ~34 dB), every bit back; digital_mod -> digital_demod
+   through a 12 kHz carrier, every order. DD-PLL launches counted from 0
+   for each run.
+40. GNSS acquisition (gnss_acquisition_throughput, bench.py:833-849):
+   _acquire_grid at 32 PRNs x 41 Dopplers x 2048 samples, 4 blocks, M
+   cells/s beside its bound; gps_acquire on tests/test_gnss.py:51-80's
+   three satellites: each at its Doppler (250 Hz) and code phase (1.5
+   samples).
+41. The tracking kernel against its plain version, exact (prompts,
+   frequencies, bases, fractions), at the bench's 8 satellites x 2000
+   epochs (bench.py:906-940); gnss_tracking_throughput from the kernel's
+   marginal time of 2000 over 100 epochs; then tests/test_gnss_nav.py:
+   139-183's two-satellite ~18.7 s capture through gps_decode_ephemeris on
+   the card, every ephemeris field within that test's tolerances, each of
+   the path's tracking launches recorded and its first 2000 epochs held to
+   the plain version (run from the same start for 2000 epochs), exact.
+42. The 2-FSK family (fsk2_engine_throughput, bench.py:815-831):
+   fsk2_decision at 4 and 64 x 2^18 samples at 48 kHz, Msps beside the
+   bytes bound; an AX.25 beacon, Afsk1200Stream under two chunkings, RTTY
+   from audio and from IQ FSK, POCSAG pages and AIS reports, each back.
+43. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -253,8 +290,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    launches by phase, the dependent steps a row and [28]-[30]'s rates;
    the two-rate one-pole's ms, plain_ms and bound_ms are at 64 x 8192,
    where the plain loop runs, and its 64 x 2^20 time and bound are under
-   ms_full and bound_ms_full), and a "slice5" object with [32]-[36]'s
-   rates, bounds and readings; the card's name and power limit, then the
+   ms_full and bound_ms_full; for the DD-PLL, Gardner and tracking
+   kernels of slice 5b the same, with their launches by phase: [39]'s
+   runs, symbol_sync_gardner, [41]'s ephemeris path), a "slice5" object
+   with [32]-[36]'s rates, bounds and readings, and a "slice5b" object
+   with [39]-[42]'s; the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
@@ -269,10 +309,12 @@ operation counts are the least each algorithm needs, a transcendental
 counting as one. Viterbi branch sums that every state of a lane shares are
 counted once a lane (viterbi_ops). The outer decode's GF table steps are
 counted per row and per row that is not a codeword (outer_bound), at the
-same rate outside the tensor cores. The PSK31 PLL and the two-rate
-one-pole are bound by bytes (each input read once, each output written
-once); both are chains of dependent steps a row by design, and the line
-states the chain's length beside the bound.
+same rate outside the tensor cores. The PSK31 PLL, the two-rate one-pole,
+the DD-PLL and the Gardner loop are bound by bytes (each input read once,
+each output written once), the tracking loops by operations (34 float32
+operations a sample and satellite an epoch); all are chains of dependent
+steps by design, and the line states the chain's length beside the
+bound.
 """
 
 import json
@@ -352,6 +394,16 @@ PFB_TONE_CH = (3, 17, -20, -31)
 STEREO_FS, STEREO_LOG2_N, STEREO_ROWS = 240e3, 17, 64
 CSS_SF, CSS_SYMS = 9, 128
 S5_RUNS = 7
+# slice 5b (phases 37-42): the JAX bench's family shapes (bench.py:815-940)
+# and wider batches: the burst modem at 4 and 64 rows of 2048 16-QAM symbols
+# at sps 8, the Gardner loop at 64 x 2^17 samples, acquisition at 32 PRNs x
+# 41 Dopplers x 2048 samples (2.048 MHz), tracking at 8 satellites x 2000
+# epochs (100 for the marginal), the 2-FSK decision at 4 and 64 x 2^18
+BURST_SPS, BURST_SYMS, BURST_ROWS, BURST_ORDER = 8, 2048, (4, 64), "qam16"
+GARDNER_ROWS, GARDNER_LOG2_N = 64, 17
+GNSS_FS, GNSS_SPMS = 2.048e6, 2048
+TRACK_SATS, TRACK_EPOCHS, TRACK_SHORT = 8, 2000, 100
+FSK_LOG2_N, FSK_ROWS = 18, (4, 64)
 
 
 def fail(msg: str):
@@ -2457,6 +2509,31 @@ def onepole_steps_exact(one, x, env0, a_hi, a_lo, ge, env, last) -> bool:
     return torch.equal(expect, env) and torch.equal(last, env[..., -1])
 
 
+def agc_parting(one, p, x, y, y_cpu, env_card):
+    """Prints where agc_rms on the card and on the CPU part: the first
+    (row, sample) whose outputs differ by more than 1e-5, with both paths'
+    x², envelopes and gains there and one sample before (the card's
+    envelope as its launch wrote it, the CPU's from the plain version)."""
+    from orion_sdr_tpu_torch.dsp.agc import _gain
+    bad = ((y.cpu() - y_cpu).abs() > 1e-5).nonzero()
+    r, i = (int(v) for v in bad[0])
+    x2_card = (x.abs() ** 2).to(torch.float32).cpu()
+    x2_cpu = (x.cpu().abs() ** 2).to(torch.float32)
+    env_cpu, _ = one.onepole_two_rate_reference(
+        x2_cpu, torch.clamp(x2_cpu[..., 0], min=1e-12), p.attack_a,
+        p.release_a, False)
+    g_card = _gain(env_card, p) if env_card is not None else None
+    g_cpu = _gain(env_cpu, p)
+    for k in (max(i - 1, 0), i):
+        print(f"  [31] agc parting: row {r}, sample {k}: x^2 card "
+              f"{float(x2_card[r, k])!r} cpu {float(x2_cpu[r, k])!r}; env "
+              f"card {None if env_card is None else float(env_card[r, k])!r}"
+              f" cpu {float(env_cpu[r, k])!r}; gain card "
+              f"{None if g_card is None else float(g_card[r, k])!r} cpu "
+              f"{float(g_cpu[r, k])!r}; y card {complex(y[r, k])!r} cpu "
+              f"{complex(y_cpu[r, k])!r}")
+
+
 def onepole_phase(P, one, dev):
     """[31]: the two-rate one-pole kernel on the paths that launch it
     (agc_rms with attack != release, real and complex, and cw_mod) against
@@ -2520,6 +2597,7 @@ def onepole_phase(P, one, dev):
         for m in (agc_mod, analog_mod):
             m.onepole_two_rate = onepole
     steps_exact = [onepole_steps_exact(one, *r) for r in seen]
+    agc_env = seen[0][5][:2, :ONEPOLE_CMP].cpu() if seen else None
     del seen
     tail_rms = float(y[:, n // 2:].abs().pow(2).mean().sqrt())
     mark = keys[:, 7999] > 0                    # rows keyed over 4000-7999
@@ -2531,6 +2609,8 @@ def onepole_phase(P, one, dev):
                          device="cpu")
     err_agc = float((y[:2, head].cpu() - y_cpu).abs().max())
     err_cw = float((cw[:2, head].cpu() - cw_cpu).abs().max())
+    if not err_agc <= 1e-5:
+        agc_parting(one, p, iq[:2, head], y[:2, head], y_cpu, agc_env)
     in_rms = float(iq[:, n // 2:].abs().pow(2).mean().sqrt())
     print(f"  agc_rms on {ONEPOLE_ROWS} x {n} complex IQ (rms {in_rms:.3f}): "
           f"tail rms {tail_rms:.4f} (target {p.target_rms}; the fast attack "
@@ -3064,6 +3144,466 @@ def wspr_phase(P, dev):
     return {**r, "band_decode_s": dt}
 
 
+# ── slice 5b (phases 37-42) ─────────────────────────────────────────────────
+
+def exact_all(got, ref) -> bool:
+    """Every tensor of ``got`` equal to its counterpart in ``ref``."""
+    return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def max_diff(got, ref) -> float:
+    """The largest |difference| over the pairs of tensors (in double)."""
+    def diff(g, r):
+        if g.is_complex():
+            return g.to(torch.complex128) - r.to(torch.complex128)
+        return g.double() - r.double()
+    return max(float(diff(g, r).abs().max()) if g.numel() else 0.0
+               for g, r in zip(got, ref))
+
+
+def ramped_symbols(P, order, rows, n, seed, cfo=0.013):
+    """Constellation symbols of ``order`` behind a random phase and a
+    0.013 rad/symbol ramp (φ reaches ~27 rad at 2048 symbols), light
+    noise: (rows, n) complex64 on the host."""
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(rng.integers(0, 2, (
+        rows, n * P.BITS_PER_SYMBOL[order])).astype(np.uint8))
+    s = P.map_bits(bits, order).numpy()
+    k = np.arange(n)
+    z = s * np.exp(1j * (rng.uniform(0, 6, (rows, 1)) + cfo * k)) + 0.02 * (
+        rng.standard_normal((rows, n)) + 1j * rng.standard_normal((rows, n)))
+    return z.astype(np.complex64)
+
+
+def dd_pll_phase(P, dd, dev):
+    """[37]: kernel D against its plain version, exact, on every order at
+    the bench's 4 × 2048 symbols and a 64-row batch; times at 4 and 64 ×
+    2048 (qam16, the bench's order) with the bytes bound."""
+    err, same = 0.0, True
+    stats = {}
+    for rows in BURST_ROWS:
+        for order in P.constellation.ORDERS:
+            z = torch.as_tensor(ramped_symbols(P, order, rows, BURST_SYMS,
+                                               rows), device=dev)
+            got = dd.dd_pll(z, order, 0.03)
+            ref = dd.dd_pll_reference(z, order, 0.03)
+            ok = torch.equal(got, ref)
+            same &= ok
+            err = max(err, max_diff([got], [ref]))
+            print(f"  {order} {rows} x {BURST_SYMS}: exact {ok}")
+            if order == BURST_ORDER:
+                bnd = bound_ms(2 * rows * BURST_SYMS * 8, 0)
+                k_ms = cuda_ms(lambda: dd.dd_pll(z, order, 0.03))
+                p_ms = cuda_ms(lambda: dd.dd_pll_reference(z, order, 0.03),
+                               reps=1, warmup=0)
+                stats[f"{rows}x{BURST_SYMS}"] = {
+                    "ms": k_ms, "plain_ms": p_ms, "bound": bnd}
+                print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+                      f"bound {bnd[0]:.6f} ms (bytes; the chain is "
+                      f"{BURST_SYMS} dependent steps a row)")
+    if not same:
+        fail("[37] the DD-PLL kernel disagrees with its plain version")
+    return err, stats
+
+
+def gardner_phase(P, ga, dev):
+    """[38]: kernel G against its plain version, exact, at 64 rows × 2^17
+    samples (sps 8, RRC-shaped QPSK through the matched filter) and timed
+    there with the bytes bound."""
+    from orion_sdr_tpu_torch.dsp.fir import fir_filter_aligned
+    n = 1 << GARDNER_LOG2_N
+    rng = np.random.default_rng(38)
+    bits = rng.integers(0, 2, (GARDNER_ROWS, 2 * (n // BURST_SPS))).astype(
+        np.uint8)
+    zf = fir_filter_aligned(P.burst_mod(bits, "qpsk", BURST_SPS, device=dev),
+                            P.rrc_taps(BURST_SPS))
+    n_out = n // BURST_SPS - 4
+    got = ga.gardner(zf, float(BURST_SPS), n_out, 0.02, 3.0)
+    zn = ga.normalise(zf).contiguous()
+    t0 = time.perf_counter()
+    ref = ga.gardner_reference(zn, float(BURST_SPS), n_out, 0.02, 3.0)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    same = exact_all(got, ref)
+    err = max_diff(got, ref)
+    mags = got[0][:, 200:].abs()
+    spread = float((mags.std(-1) / mags.mean(-1)).max())
+    k_ms = cuda_ms(lambda: ga.gardner(zf, float(BURST_SPS), n_out, 0.02,
+                                      3.0), reps=5, warmup=1)
+    bnd = bound_ms(GARDNER_ROWS * (n + n_out) * 8 + GARDNER_ROWS * 4, 0)
+    print(f"  {GARDNER_ROWS} x 2^{GARDNER_LOG2_N} samples, {n_out} symbols "
+          f"a row: exact {same}; locked |y| spread {spread:.3f} (bound "
+          f"0.25); kernel {k_ms:.3f} ms, plain {p_ms:.0f} ms (host clock, "
+          f"the compared run), bound {bnd[0]:.5f} ms (bytes; the chain is "
+          f"{n_out} dependent steps a row)")
+    if not same:
+        fail("[38] the Gardner kernel disagrees with its plain version")
+    if not spread < 0.25:
+        fail("[38] the Gardner loop did not lock")
+    return err, {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                 "shape": f"{GARDNER_ROWS}x{n}", "n_out": n_out}
+
+
+def burst_body(P, dd, re, im, taps):
+    """bench.py:851-874's body: RRC matched filter, energy timing, the
+    batched DD-PLL."""
+    from orion_sdr_tpu_torch.dsp.fir import fir_filter_aligned
+    rows, n = re.shape
+    zf = fir_filter_aligned(torch.complex(re, im), taps)
+    grid = zf[..., : BURST_SYMS * BURST_SPS].reshape(rows, BURST_SYMS,
+                                                     BURST_SPS)
+    ph = (grid.real ** 2 + grid.imag ** 2).mean(1).argmax(-1)
+    syms = torch.gather(grid, 2, ph[:, None, None].expand(
+        rows, BURST_SYMS, 1))[..., 0]
+    y = dd.dd_pll(syms.contiguous(), BURST_ORDER, 0.03)
+    return y.abs().sum()
+
+
+def burst_phase(P, dd, dev):
+    """[39]: burst_modem_throughput at 4 and 64 × 16384 samples (Msps and
+    the bytes bound); burst_mod → burst_demod for every order under
+    tests/test_digital.py:142-169's impairments; digital_mod →
+    digital_demod through a 12 kHz carrier. Returns ({run: D launches},
+    rates)."""
+    from orion_sdr_tpu_torch.dsp.osc import rotate
+    runs, rates = {}, {}
+    n = BURST_SYMS * BURST_SPS
+    taps = P.rrc_taps(BURST_SPS, 0.35, 8)
+    rng = np.random.default_rng(39)
+    for rows in BURST_ROWS:
+        re = torch.as_tensor(rng.standard_normal((rows, n)).astype(
+            np.float32), device=dev)
+        im = torch.as_tensor(rng.standard_normal((rows, n)).astype(
+            np.float32), device=dev)
+        dd.dd_pll.launches = 0
+        r = s5_rate(f"burst_modem_throughput ({rows} x {n}, sps "
+                    f"{BURST_SPS}, {BURST_ORDER})",
+                    lambda: burst_body(P, dd, re, im, taps), rows * n,
+                    rows * n * 8 + rows * BURST_SYMS * 8)
+        torch.cuda.synchronize()
+        runs[f"39 body {rows}"] = dd.dd_pll.launches
+        rates[f"{rows}x{n}"] = r
+    pre = P.burst_preamble(32)
+    lost = {}
+    dd.dd_pll.launches = 0
+    # tests/test_digital.py:142-169's draws (numpy seed 0, its four orders
+    # in its order), then BPSK on the next draws
+    rng = np.random.default_rng(0)
+    for order, nb in (("qpsk", 512), ("qam16", 1024), ("qam64", 1536),
+                      ("qam256", 2048), ("bpsk", 256)):
+        bits = rng.integers(0, 2, nb).astype(np.uint8)
+        iq = P.burst_mod(bits, order, BURST_SPS, preamble_syms=pre,
+                         device=dev)
+        z = torch.cat([torch.zeros(37, dtype=torch.complex64, device=dev), iq,
+                       torch.zeros(50, dtype=torch.complex64, device=dev)])
+        z = rotate(z, 0.0021 * BURST_SPS, float(BURST_SPS))[0] \
+            * np.exp(1j * 1.1)
+        z = (z + torch.as_tensor((0.02 * (rng.standard_normal(z.shape[0])
+                                          + 1j * rng.standard_normal(
+                                              z.shape[0]))).astype(
+            np.complex64), device=dev)).to(torch.complex64)
+        got, _ = P.burst_demod(z, order, BURST_SPS, pre, device=dev)
+        got = got.cpu().numpy()
+        m = min(len(got), nb)
+        lost[order] = int((got[:m] != bits[:m]).sum()) + (nb - m)
+    torch.cuda.synchronize()
+    runs["39 burst_demod"] = dd.dd_pll.launches
+    carrier = {}
+    rng = np.random.default_rng(3)
+    for order in P.constellation.ORDERS:
+        bits = rng.integers(0, 2, 120 * P.BITS_PER_SYMBOL[order]).astype(
+            np.uint8)
+        iq, _ = P.digital_mod(bits, order, 48_000.0, 12_000.0, device=dev)
+        back, _ = P.digital_demod(iq, order, 48_000.0, 12_000.0, device=dev)
+        carrier[order] = int((back.cpu().numpy() != bits).sum())
+    print(f"  burst_mod -> burst_demod (37-sample delay, 0.21 % CFO, 1.1 "
+          f"rad, ~34 dB), bit errors by order: {lost}; digital_mod -> "
+          f"digital_demod at 12 kHz: {carrier}; DD-PLL launches {runs}")
+    if any(lost.values()) or any(carrier.values()):
+        fail("[39] the burst modem lost bits")
+    if min(runs.values()) <= 0:
+        fail("[39] a burst path launched no DD-PLL kernel")
+    return runs, rates
+
+
+def multi_sv_capture(P, n_ms, rng):
+    """tests/test_gnss.py:51-80's three satellites in unit noise."""
+    svs = [(7, 1200.0, 101.7, 1.0), (13, -2600.0, 512.2, 0.7),
+           (28, 350.0, 900.9, 0.55)]
+    n = GNSS_SPMS * n_ms
+    z = (1.0 / np.sqrt(2) * (rng.standard_normal(n)
+                             + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    for prn, dopp, chips, amp in svs:
+        z += P.gps_ca_mod(prn, GNSS_FS, n_ms, dopp, chips, amplitude=amp,
+                          carrier_phase=rng.uniform(0, 2 * np.pi))
+    return z, svs
+
+
+def acquire_phase(P, dev):
+    """[40]: gnss_acquisition_throughput (_acquire_grid at 32 PRNs × 41
+    Dopplers × 2048 samples, 4 blocks, 2.048 MHz; M cells/s and the
+    bound); gps_acquire on tests/test_gnss.py's three-satellite capture."""
+    from orion_sdr_tpu_torch.gnss import _acquire_grid, _ca_pm_sampled
+    rng = np.random.default_rng(40)
+    codes = torch.as_tensor(np.stack([_ca_pm_sampled(p, GNSS_FS)
+                                      for p in range(1, 33)]), device=dev)
+    dopp = torch.as_tensor(np.arange(-5000.0, 5001.0, 250.0, np.float32),
+                           device=dev)
+    n = 5 * GNSS_SPMS
+    z = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(
+        n)).astype(np.complex64), device=dev)
+    cells = 32 * dopp.shape[0] * GNSS_SPMS
+    med, runs = median_ms(lambda: _acquire_grid(z, codes, dopp, GNSS_FS, 4),
+                          S5_RUNS)
+    # bytes: capture and codes in, the grid out; operations: the wipes,
+    # the block FFTs, the products and inverse FFTs (5·N·log2 N a complex
+    # FFT), the power sums
+    planes = 32 * dopp.shape[0] * 4
+    ops = (dopp.shape[0] * 4 * GNSS_SPMS * (8 + 5 * 11)
+           + planes * GNSS_SPMS * (6 + 5 * 11 + 3))
+    bnd = bound_ms(n * 8 + codes.numel() * 4 + cells * 4, ops)
+    rate = {"mcells_per_s": cells / med / 1e3, "median_ms": med,
+            "runs_ms": runs, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "cells": cells}
+    print(f"  gnss_acquisition_throughput: {cells / med / 1e3:.1f} M cells/s "
+          f"(32 x 41 x {GNSS_SPMS}, 4 blocks; median of {S5_RUNS} runs "
+          f"{med:.4f} ms; runs {[round(r, 4) for r in runs]}); bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / med:.2%} of it")
+    cap, svs = multi_sv_capture(P, 8, rng)
+    hits = {h.prn: h for h in P.gps_acquire(cap, GNSS_FS, device=dev)}
+    ok = set(hits) == {prn for prn, *_ in svs}
+    for prn, dopp_hz, chips, _ in svs:
+        h = hits.get(prn)
+        err = None if h is None else (h.code_phase_samples - chips * GNSS_FS
+                                      / 1.023e6 + GNSS_SPMS / 2) \
+            % GNSS_SPMS - GNSS_SPMS / 2
+        ok &= h is not None and abs(h.doppler_hz - dopp_hz) <= 250.0 \
+            and abs(err) <= 1.5
+    print("  gps_acquire, three satellites: "
+          + str([(h.prn, h.doppler_hz, h.code_phase_samples)
+                 for h in hits.values()]))
+    if not ok:
+        fail("[40] gps_acquire missed a satellite")
+    return rate
+
+
+def track_bench_inputs(P, dev, n_epochs):
+    """bench.py:906-940's tracking bank: 8 satellites (PRNs 1-8) on one
+    random-normal capture of n_epochs + 2 epochs, starts 8, initial
+    Dopplers linspace(-3000, 3000)."""
+    from orion_sdr_tpu_torch.gnss import _ca_pm_sampled
+    rng = np.random.default_rng(41)
+    n = (n_epochs + 2) * GNSS_SPMS
+    z = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(
+        n)).astype(np.complex64), device=dev)
+    codes = torch.as_tensor(np.stack([_ca_pm_sampled(p, GNSS_FS)
+                                      for p in range(1, TRACK_SATS + 1)]),
+                            device=dev)
+    starts = torch.full((TRACK_SATS,), 8, dtype=torch.int32, device=dev)
+    f0 = torch.as_tensor(np.linspace(-3000, 3000, TRACK_SATS,
+                                     dtype=np.float32), device=dev)
+    return z, codes, starts, f0
+
+
+def track_bound(n_capture, sats, epochs):
+    """Kernel T's bound: the capture read once, codes and starts in, the
+    four outputs out; or its float32 operations (a sample's wipe phase,
+    cos, sin and 3 × 10 for the wiped products and sums), the larger."""
+    n_bytes = n_capture * 8 + sats * GNSS_SPMS * 4 + sats * epochs * 20
+    ops = sats * epochs * GNSS_SPMS * 34
+    return bound_ms(n_bytes, ops)
+
+
+def ephemeris_capture(P, rng):
+    """tests/test_gnss_nav.py:139-183's two-satellite capture: ~18.7 s at
+    2.048 MHz, three subframes behind 30 random bits a satellite."""
+    eph1 = P.GpsEphemeris(
+        week=221, ura=1, sv_health=0, iodc=0x1A7, t_gd=-5.12e-9,
+        t_oc=302400.0, a_f2=0.0, a_f1=-3.1e-12, a_f0=4.57e-4,
+        iode=0xA7, c_rs=-112.8125, delta_n=4.3e-9, m0=1.23456,
+        c_uc=-6.3e-6, e=0.0123456, c_us=5.2e-6, sqrt_a=5153.712,
+        t_oe=302400.0, c_ic=1.1e-7, omega0=-2.2345, c_is=-9.3e-8,
+        i0=0.9617, c_rc=287.46875, omega=2.7182, omega_dot=-8.1e-9,
+        idot=4.0e-10)
+    eph2 = P.GpsEphemeris(
+        week=222, ura=2, sv_health=0, iodc=0x055, t_gd=3.1e-9,
+        t_oc=54000.0, a_f2=0.0, a_f1=1.2e-12, a_f0=-2.3e-4,
+        iode=0x55, c_rs=54.03125, delta_n=5.1e-9, m0=-2.5,
+        c_uc=3.1e-6, e=0.0045, c_us=-1.2e-6, sqrt_a=5153.655,
+        t_oe=54000.0, c_ic=-6.5e-8, omega0=1.75, c_is=4.1e-8,
+        i0=0.9722, c_rc=-198.5, omega=-0.77, omega_dot=-7.7e-9,
+        idot=-2.5e-10)
+    svs = [(7, 1200.0, 101.7, 1.0, eph1), (13, -2600.0, 512.2, 0.8, eph2)]
+    n_ms = (30 + 900 + 6) * 20 + 15
+    n = GNSS_SPMS * n_ms
+    z = (0.25 / np.sqrt(2) * (rng.standard_normal(n)
+                              + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    for prn, dopp, chips, amp, eph in svs:
+        bits = np.concatenate([
+            rng.integers(0, 2, 30).astype(np.uint8),
+            P.nav_subframes_encode(eph)[:900],
+            rng.integers(0, 2, 6).astype(np.uint8)])
+        z = z + P.gps_ca_mod(prn, GNSS_FS, n_ms, dopp, chips, nav_bits=bits,
+                             amplitude=amp,
+                             carrier_phase=rng.uniform(0, 2 * np.pi))
+    return z, svs
+
+
+def ephemeris_ok(P, d, eph) -> bool:
+    """tests/test_gnss_nav.py:175-183's checks of one decoded ephemeris."""
+    return (d is not None and d.iodc == eph.iodc and d.iode == eph.iode
+            and d.week == eph.week
+            and abs(d.sqrt_a - eph.sqrt_a) <= 2 ** -19
+            and abs(d.e - eph.e) <= 2 ** -33
+            and abs(d.m0 - eph.m0) <= np.pi * 2 ** -31
+            and abs(d.omega0 - eph.omega0) <= np.pi * 2 ** -31
+            and d.t_oe == eph.t_oe
+            and 25.9e6 < np.linalg.norm(P.eph_sat_pos(d, d.t_oe)) < 27.2e6)
+
+
+def track_phase(P, tk, dev):
+    """[41]: kernel T against its plain version, exact, at the bench's 8
+    satellites × 2000 epochs; gnss_tracking_throughput; then the ~18.7 s
+    capture → ephemeris path on the card, each of its launches held to
+    the plain version over its first 2000 epochs. Returns (max |diff|,
+    {run: T launches}, stats)."""
+    import orion_sdr_tpu_torch.gnss as gnss_mod
+    E = TRACK_EPOCHS
+    z, codes, starts, f0 = track_bench_inputs(P, dev, E)
+    args = (GNSS_FS, E, 7.2, 0.9, 0.12)
+    got = tk.gnss_track(z, codes, starts, f0, *args)
+    t0 = time.perf_counter()
+    ref = tk.track_reference(z, codes, starts, f0, *args)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    same = exact_all(got, ref)
+    err = max_diff(got, ref)
+    k_ms = cuda_ms(lambda: tk.gnss_track(z, codes, starts, f0, *args),
+                   reps=3, warmup=1)
+    z1, c1, s1, f1 = track_bench_inputs(P, dev, TRACK_SHORT)
+    k_short = cuda_ms(lambda: tk.gnss_track(z1, c1, s1, f1, GNSS_FS,
+                                            TRACK_SHORT, 7.2, 0.9, 0.12),
+                      reps=3, warmup=1)
+    per_epoch = (k_ms - k_short) / (E - TRACK_SHORT)
+    bnd = track_bound(z.shape[0], TRACK_SATS, E)
+    msps = TRACK_SATS * GNSS_SPMS / per_epoch / 1e3
+    print(f"  kernel vs plain version at {TRACK_SATS} satellites x {E} "
+          f"epochs: exact {same}; kernel {k_ms:.3f} ms ({TRACK_SHORT} "
+          f"epochs: {k_short:.3f} ms), plain {p_ms:.0f} ms (host clock, the "
+          f"compared run); bound {bnd[0]:.5f} ms ({bnd[1]}; the chain is "
+          f"{E} dependent epochs)")
+    print(f"  gnss_tracking_throughput: {msps:.1f} Msps ({TRACK_SATS} x "
+          f"{GNSS_SPMS} samples an epoch over {per_epoch * 1e3:.2f} us an "
+          f"epoch, the marginal of {E} over {TRACK_SHORT} epochs)")
+    if not same:
+        fail("[41] the tracking kernel disagrees with its plain version")
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    cap, svs = ephemeris_capture(P, rng)
+    cap_s = time.perf_counter() - t0
+    seen = []
+
+    def rec(zz, cc, ss, ff, *a):
+        out = tk.gnss_track(zz, cc, ss, ff, *a)
+        seen.append((zz, cc, ss, ff, a, out))
+        return out
+    gnss_mod.gnss_track = rec
+    try:
+        tk.gnss_track.launches = 0
+        zc = torch.as_tensor(cap, device=dev)
+        t0 = time.perf_counter()
+        frames = [P.gps_decode_ephemeris(zc, GNSS_FS, prn, device=dev)
+                  for prn, *_ in svs]
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        runs = {"41 ephemeris": tk.gnss_track.launches}
+    finally:
+        gnss_mod.gnss_track = tk.gnss_track
+    good = [bool(ephemeris_ok(P, f.ephemeris, sv[4]))
+            for f, sv in zip(frames, svs)]
+    prefix = []
+    for zz, cc, ss, ff, a, out in seen:
+        pre = tk.track_reference(zz, cc, ss, ff, a[0], E, *a[2:])
+        prefix.append(exact_all([o[:, :E] for o in out], pre))
+        err = max(err, max_diff([o[:, :E] for o in out], pre))
+    print(f"  capture -> ephemeris: {cap.shape[0]} samples "
+          f"({cap.shape[0] / GNSS_FS:.2f} s, made in {cap_s:.1f} s), "
+          f"gps_decode_ephemeris on the card for PRNs "
+          f"{[sv[0] for sv in svs]}: every field within tolerance {good} "
+          f"({path_s:.2f} s); {runs['41 ephemeris']} tracking launches of "
+          f"{[int(s[5][0].shape[1]) for s in seen]} epochs, the first {E} "
+          f"of each exact against the plain version: {prefix}")
+    if not all(good):
+        fail("[41] an ephemeris did not come back")
+    if len(prefix) != len(svs) or not all(prefix):
+        fail("[41] a tracking launch of the ephemeris path disagrees with "
+             "the plain version")
+    return err, runs, {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                       "ms_short": k_short, "per_epoch_ms": per_epoch,
+                       "msps": msps, "ephemeris_s": path_s,
+                       "ephemeris_epochs": [int(s[5][0].shape[1])
+                                            for s in seen]}
+
+
+def fsk2_phase(P, dev):
+    """[42]: fsk2_engine_throughput (fsk2_decision at 4 and 64 × 2^18,
+    48 kHz; Msps and the bytes bound); an AX.25 beacon, the stream TNC
+    under two chunkings, RTTY from audio and from IQ FSK, POCSAG pages and
+    AIS reports, all on the card."""
+    from orion_sdr_tpu_torch.demodulate.afsk import fsk2_decision
+    from orion_sdr_tpu_torch.modulate.pocsag import _fsk_iq
+    from orion_sdr_tpu_torch.codec.rtty import baudot_encode, rtty_frame_bits
+    rates = {}
+    n = 1 << FSK_LOG2_N
+    rng = np.random.default_rng(42)
+    for rows in FSK_ROWS:
+        x = torch.as_tensor(rng.standard_normal((rows, n)).astype(
+            np.float32), device=dev)
+        rates[f"{rows}x{n}"] = s5_rate(
+            f"fsk2_engine_throughput ({rows} x 2^{FSK_LOG2_N} at 48 kHz)",
+            lambda: fsk2_decision(x, 48_000.0, 40, device=dev), rows * n,
+            rows * n * 8)
+    fs = 48_000.0
+    frames = [P.Ax25Frame(dest="APRS", src="W1AW-5", digis=("WIDE1-1",),
+                          payload=b"!4237.14N/07120.83W-orion test"),
+              P.Ax25Frame(dest="CQ", src="N0CALL", payload=b"hello packet")]
+    ok = {"ax25": P.ax25_decode(P.ax25_beacon(frames, fs, device=dev), fs,
+                                device=dev) == frames}
+    parts = [P.ax25_beacon([f], fs, device="cpu").numpy() for f in frames]
+    audio = np.concatenate([parts[0], np.zeros(20000, np.float32), parts[1]])
+    for chunk in (7777, len(audio)):
+        tnc = P.Afsk1200Stream(fs, device=dev)
+        got = []
+        for i in range(0, len(audio), chunk):
+            got += tnc.feed(audio[i:i + chunk])
+        ok[f"stream {chunk}"] = got + tnc.flush() == frames
+    msg = "CQ CQ DE W1AW W1AW K 599 #73!"
+    ok["rtty audio"] = P.rtty_decode(P.rtty_mod(msg, 11025.0, device=dev),
+                                     11025.0, device=dev) == msg
+    line = rtty_frame_bits(baudot_encode("RYRYRY DE K1ABC TEST"))
+    sps = 8000.0 / 45.45
+    iq = _fsk_iq(line, 8000.0, sps, 85.0, int(round(len(line) * sps)),
+                 device=dev)
+    ok["rtty iq"] = "DE K1ABC TEST" in P.demodulate.afsk.rtty_decode_fsk(
+        iq, 8000.0, 45.45, device=dev)
+    pages = [P.PocsagPage(address=0x12345, function=3, text="CALL HOME ASAP"),
+             P.PocsagPage(address=0x00FA7, function=0, digits="5551234 88")]
+    ok["pocsag"] = P.pocsag_decode(P.pocsag_mod(pages, 38_400.0, device=dev),
+                                   38_400.0, device=dev) == pages
+    ships = [P.AisPosition(mmsi=211234567, lat=53.5421, lon=9.9845,
+                           sog_kt=12.3, cog_deg=87.5, heading_deg=88),
+             P.AisPosition(mmsi=244000111, lat=-33.8568, lon=151.2153,
+                           sog_kt=0.2, cog_deg=310.0, msg_type=3)]
+    ok["ais"] = P.ais_decode(P.ais_mod(ships, device=dev), 96_000.0,
+                             device=dev) == ships
+    print(f"  every frame, text, page and position back: {ok}")
+    if not all(ok.values()):
+        fail("[42] the 2-FSK family lost a frame, text, page or position")
+    return rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3087,12 +3627,13 @@ def main() -> int:
     from orion_sdr_tpu_torch.fec import bch_device
     from orion_sdr_tpu_torch.frame import chain
     from orion_sdr_tpu_torch.ops import onepole_two_rate, psk31_pll
-    with ThreadPoolExecutor(5) as pool:       # one nvcc per source, together
-        builds = [pool.submit(ldpc_bp.build), pool.submit(viterbi.build),
-                  pool.submit(outer_fec.build), pool.submit(psk31_pll.build),
-                  pool.submit(onepole_two_rate.build)]
-        (built, vit_built, outer_built, pll_built,
-         one_built) = [b.result() for b in builds]
+    from orion_sdr_tpu_torch.ops import dd_pll, gardner, gnss_track
+    with ThreadPoolExecutor(8) as pool:       # one nvcc per source, together
+        builds = [pool.submit(m.build) for m in (
+            ldpc_bp, viterbi, outer_fec, psk31_pll, onepole_two_rate, dd_pll,
+            gardner, gnss_track)]
+        (built, vit_built, outer_built, pll_built, one_built, dd_built,
+         ga_built, tk_built) = [b.result() for b in builds]
     global OUTER
     OUTER = OuterSpy(chain, outer_fec, bch_device)
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
@@ -3317,6 +3858,61 @@ def main() -> int:
     wspr_stats = wspr_phase(P, dev)
     print(f"  [36] took {time.perf_counter() - t_s5:.1f} s")
 
+    t_s5 = time.perf_counter()
+    print(f"[37] DD-PLL kernel vs plain version (exact), every order, "
+          f"{' and '.join(str(r) for r in BURST_ROWS)} x {BURST_SYMS} "
+          f"symbols")
+    for b in (dd_built, ga_built, tk_built):
+        print(f"  built {b.path} in {b.seconds:.2f} s")
+        print_ptxas(b)
+    dd_err, dd_stats = dd_pll_phase(P, dd_pll, dev)
+    print(f"  [37] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[38] Gardner kernel vs plain version (exact): {GARDNER_ROWS} x "
+          f"2^{GARDNER_LOG2_N} samples, sps {BURST_SPS}")
+    ga_err, ga_stats = gardner_phase(P, gardner, dev)
+    print(f"  [38] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[39] burst modem (burst_modem_throughput): {BURST_ROWS} x "
+          f"{BURST_SYMS * BURST_SPS} samples; burst_mod -> burst_demod for "
+          f"every order; digital_mod -> digital_demod at 12 kHz")
+    dd_runs, burst_stats = burst_phase(P, dd_pll, dev)
+    print(f"  [39] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print("[40] GNSS acquisition (gnss_acquisition_throughput): 32 PRNs x "
+          "41 Dopplers x 2048, 4 blocks; gps_acquire on three satellites")
+    acq_stats = acquire_phase(P, dev)
+    print(f"  [40] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[41] tracking kernel vs plain version (exact): {TRACK_SATS} "
+          f"satellites x {TRACK_EPOCHS} epochs; gnss_tracking_throughput; "
+          f"the ~18.7 s capture -> ephemeris path")
+    tk_err, tk_runs, tk_stats = track_phase(P, gnss_track, dev)
+    print(f"  [41] took {time.perf_counter() - t_s5:.1f} s")
+    t_s5 = time.perf_counter()
+    print(f"[42] 2-FSK family (fsk2_engine_throughput): fsk2_decision at "
+          f"{FSK_ROWS} x 2^{FSK_LOG2_N}; AX.25, the stream TNC, RTTY, POCSAG,"
+          f" AIS")
+    fsk_stats = fsk2_phase(P, dev)
+    print(f"  [42] took {time.perf_counter() - t_s5:.1f} s")
+    # the Gardner loop's main path: symbol_sync_gardner on [38]'s kind of
+    # capture, launches counted from 0
+    gardner.gardner.launches = 0
+    bits = np.random.default_rng(7).integers(0, 2, 2 * 4096).astype(np.uint8)
+    zf = P.burst_mod(bits, "qpsk", BURST_SPS, device=dev)
+    syms, _ = P.symbol_sync_gardner(zf, float(BURST_SPS),
+                                    zf.shape[-1] // BURST_SPS - 10, mu0=3.0,
+                                    device=dev)
+    torch.cuda.synchronize()
+    ga_runs = {"38 symbol_sync_gardner": gardner.gardner.launches}
+    mags = syms[200:].abs()
+    print(f"  symbol_sync_gardner on 4096 QPSK symbols: |y| spread "
+          f"{float(mags.std() / mags.mean()):.3f} (bound 0.25); launches by "
+          f"phase: DD-PLL {dd_runs}, Gardner {ga_runs}, tracking {tk_runs}")
+    if not float(mags.std() / mags.mean()) < 0.25 or min(
+            ga_runs.values()) <= 0:
+        fail("[38] symbol_sync_gardner did not lock or launched no kernel")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda",
@@ -3436,12 +4032,59 @@ def main() -> int:
               bound_ms_full=one_stats["bound_full"][0],
               steps_exact_at_full=one_stats["steps_exact_at_full"],
               ms_at_8192=one_stats["ms_at_8192"],
-              plain_ms_at_8192=one_stats["plain_ms_at_8192"])],
+              plain_ms_at_8192=one_stats["plain_ms_at_8192"]),
+        entry("dd_pll", "dd_pll.cu",
+              "orion_sdr_tpu/demodulate/digital.py:191",
+              sum(dd_runs.values()), dd_err,
+              dd_stats[f"4x{BURST_SYMS}"]["ms"],
+              dd_stats[f"4x{BURST_SYMS}"]["plain_ms"],
+              dd_stats[f"4x{BURST_SYMS}"]["bound"], pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scan _dd_pll_kernel "
+                   "(demodulate/digital.py:191-208); latency-bound by design "
+                   "(one row a thread); ms, plain_ms, bound_ms at the "
+                   f"bench's 4x{BURST_SYMS} {BURST_ORDER}",
+              launches_by_phase=dd_runs, shape=f"4x{BURST_SYMS}",
+              chain_steps_per_row=BURST_SYMS,
+              at_64_rows={k: (v[0] if k == "bound" else v) for k, v in
+                          dd_stats[f"64x{BURST_SYMS}"].items()}),
+        entry("gardner", "gardner.cu",
+              "orion_sdr_tpu/demodulate/digital.py:127", sum(ga_runs.values()),
+              ga_err, ga_stats["ms"], ga_stats["plain_ms"], ga_stats["bound"],
+              pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scan _gardner_kernel "
+                   "(demodulate/digital.py:127-161); latency-bound by design "
+                   "(one row a thread, each step's reads set by the last)",
+              launches_by_phase=ga_runs, shape=ga_stats["shape"],
+              chain_steps_per_row=ga_stats["n_out"]),
+        entry("gnss_track", "gnss_track.cu", "orion_sdr_tpu/gnss.py:200",
+              sum(tk_runs.values()), tk_err, tk_stats["ms"],
+              tk_stats["plain_ms"], tk_stats["bound"],
+              pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scan _track_scan (gnss.py:200-254); "
+                   "latency-bound by design (one block a satellite, "
+                   "dependent epochs)",
+              launches_by_phase=tk_runs,
+              shape=f"{TRACK_SATS}x{TRACK_EPOCHS}",
+              chain_steps_per_row=TRACK_EPOCHS,
+              ms_at_100_epochs=tk_stats["ms_short"],
+              ephemeris_epochs=tk_stats["ephemeris_epochs"])],
         "slice5": {"32 pfb_channelizer_throughput": pfb_stats,
                    "33 band_receivers": band_stats,
                    "34 fm_stereo_rds_throughput": stereo_stats,
                    "35 css_dechirp_throughput": css_stats,
-                   "36 wspr_energy_grid_throughput": wspr_stats}}))
+                   "36 wspr_energy_grid_throughput": wspr_stats},
+        "slice5b": {"39 burst_modem_throughput": burst_stats,
+                    "40 gnss_acquisition_throughput": acq_stats,
+                    "41 gnss_tracking_throughput": {
+                        "msps": tk_stats["msps"],
+                        "per_epoch_ms": tk_stats["per_epoch_ms"],
+                        "bound_ms": tk_stats["bound"][0],
+                        "bound_by": tk_stats["bound"][1],
+                        "ephemeris_path_s": tk_stats["ephemeris_s"]},
+                    "42 fsk2_engine_throughput": fsk_stats}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

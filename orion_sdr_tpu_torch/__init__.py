@@ -1,13 +1,14 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-Four slices and part of the fifth so far. The coded COFDM frame link (LDPC or convolutional inner
-code, BCH or RS outer code, block/Forney interleavers, additive or DVB
-scramblers): frame modulation, batch and streaming demodulation. And the
-conformant DVB-T 2K receive chain: ``DvbTFrameMod`` and ``DvbTFrameDemod``
-(GI acquisition, scattered pilots, TPS, K=7 Viterbi, Forney, RS(204,188)),
-the hierarchical link (``DvbTHierFrameMod``/``DvbTHierFrameDemod``), blind
-decode, the super-frame and the stream receivers. And FT8/FT4: CPFSK TX,
-message packing, the batched many-window receive (``ft8_decode_windows``:
+Four slices and most of the fifth so far. The coded COFDM frame link
+(LDPC or convolutional inner code, BCH or RS outer code, block/Forney
+interleavers, additive or DVB scramblers): frame modulation, batch and
+streaming demodulation. And the conformant DVB-T 2K receive chain:
+``DvbTFrameMod`` and ``DvbTFrameDemod`` (GI acquisition, scattered
+pilots, TPS, K=7 Viterbi, Forney, RS(204,188)), the hierarchical link
+(``DvbTHierFrameMod``/``DvbTHierFrameDemod``), blind decode, the
+super-frame and the stream receivers. And FT8/FT4: CPFSK TX, message
+packing, the batched many-window receive (``ft8_decode_windows``:
 waterfall, Costas search, LLRs and one BP launch for every candidate of
 every window, on the card), the stream, multi-frame and multi-signal
 decoders. And the analog modes and PSK31: the DSP layer (parallel-scan
@@ -17,19 +18,28 @@ carrier search, the whole-band decode and the stream decoder. And
 whole-band gateway receive: the streaming channelizer and the polyphase
 filter bank (``dsp/channelizer.py``, ``dsp/pfb.py``) with the band
 receivers on top of them (COFDM, DVB-T, AM, SSB, FM stereo), FM stereo
-with RDS, chirp spread spectrum and WSPR (stack-decoded K=32 code). Five
-hand-written Hopper kernels carry them: LDPC belief propagation
-(``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check rules), the Viterbi
-ACS + traceback (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4),
-the BCH/RS outer decoder (``ops/outer_fec.py``, ``csrc/outer_fec.cu``),
-the PSK31 PLL recurrence (``ops/psk31_pll.py``, ``csrc/psk31_pll.cu``) and
-the two-rate one-pole envelope of the AGC and the CW keyer
-(``ops/onepole_two_rate.py``, ``csrc/onepole_two_rate.cu``). Every
-constructor and entry point that takes host data takes an explicit
-``device``; at the frame layer bytes go in and numpy complex64 IQ comes
-out, as in the JAX package.
+with RDS, chirp spread spectrum and WSPR (stack-decoded K=32 code). And
+the single-carrier burst modem (RRC shaping, polyphase-energy and Gardner
+timing, the decision-directed carrier PLL), GPS L1 C/A acquisition,
+tracking and LNAV decode, and the 2-FSK family (AX.25 over AFSK-1200,
+RTTY, POCSAG, AIS). Eight hand-written Hopper kernels carry them: LDPC
+belief propagation (``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check
+rules), the Viterbi ACS + traceback (``ops/viterbi.py``,
+``csrc/viterbi.cu``, radix 2 and 4), the BCH/RS outer decoder
+(``ops/outer_fec.py``, ``csrc/outer_fec.cu``), the PSK31 PLL recurrence
+(``ops/psk31_pll.py``, ``csrc/psk31_pll.cu``), the two-rate one-pole
+envelope of the AGC and the CW keyer (``ops/onepole_two_rate.py``,
+``csrc/onepole_two_rate.cu``), the burst modem's DD-PLL
+(``ops/dd_pll.py``, ``csrc/dd_pll.cu``) and Gardner loop
+(``ops/gardner.py``, ``csrc/gardner.cu``), and the GPS tracking loops
+(``ops/gnss_track.py``, ``csrc/gnss_track.cu``). Every constructor and
+entry point that takes host data takes an explicit ``device``; at the
+frame layer bytes go in and numpy complex64 IQ comes out, as in the JAX
+package.
 """
 
+from . import constellation
+from .constellation import map_bits, decide, soft_llr, BITS_PER_SYMBOL
 from .frame import (
     CodecCache,
     FramePacket, FrameMetadata, RxError,
@@ -123,3 +133,32 @@ from .fec.sequential import conv_encode_long, stack_decode
 from .codec.wspr import WsprMessage, wspr_pack, wspr_unpack
 from .modulate.wspr import wspr_mod
 from .demodulate.wspr import wspr_demod, wspr_decode_band
+
+# ── slice 5b: the burst modem, GNSS, the 2-FSK family ──────────────────────
+from .modulate.digital import (psk_qam_mod, digital_mod, burst_mod,
+                               burst_preamble, rrc_taps)
+from .demodulate.digital import (psk_qam_demod, digital_demod,
+                                 estimate_cfo_mpsk, fde_equalize,
+                                 burst_demod, symbol_sync_gardner,
+                                 symbol_sync_energy, carrier_sync_dd)
+from .gnss import (GPS_NAV_PREAMBLE, GpsAcquisition, GpsTrack, gps_ca_code,
+                   gps_ca_mod, gps_acquire, gps_track, gps_nav_frame_sync)
+from .gnss_nav import (GpsEphemeris, GpsNavFrame, GpsSubframe,
+                       GpsAlmanac, GpsIono, GpsUtc,
+                       nav_word_encode, nav_word_check,
+                       nav_subframes_encode, nav_subframes_decode,
+                       almanac_page_words, iono_utc_page_words,
+                       eph_sat_pos, alm_sat_pos, klobuchar_delay,
+                       gps_fix, gps_decode_ephemeris)
+from .codec.ais import AisPosition
+from .modulate.ais import ais_mod
+from .demodulate.ais import ais_decode
+from .codec.pocsag import PocsagPage, pocsag_codeword, pocsag_check
+from .modulate.pocsag import pocsag_mod
+from .demodulate.pocsag import pocsag_decode
+from .codec.ax25 import Ax25Frame, ax25_crc, hdlc_encode, hdlc_decode
+from .modulate.afsk import (afsk1200_mod, ax25_beacon, nrzi_encode,
+                            nrzi_decode, AFSK_BAUD, rtty_mod)
+from .demodulate.afsk import (afsk1200_demod, ax25_decode,
+                              rtty_decode, Afsk1200Stream)
+from .codec.rtty import baudot_encode, baudot_decode

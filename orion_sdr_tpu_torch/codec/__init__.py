@@ -1,9 +1,19 @@
 """Channel codecs of the port: the FT8/FT4 Gray maps, CRC-14, LDPC(174,
 91), frame codecs and stream / many-window decoders, PSK31's, the WSPR
-message codec and the RDS block/group codec (counterparts of
-``orion_sdr_tpu/codec/``)."""
+message codec, the RDS block/group codec, AX.25/HDLC, Baudot/RTTY, POCSAG
+and AIS (counterparts of ``orion_sdr_tpu/codec/``)."""
 from .wspr import (WsprMessage, wspr_pack, wspr_unpack, wspr_symbols,
                    wspr_decode_symbols)
 from .rds import (RDS_OFFSETS, RDS_GEN, RDS_SYMBOL_RATE, rds_crc10,
                   rds_block_encode, rds_block_classify, rds_groups_0a,
                   rds_groups_2a, rds_encode_groups, rds_decode_bits, RdsData)
+from .ais import (AisPosition, ais_encode_position, ais_parse,
+                  ais_frames_to_bits, ais_bits_to_positions)
+from .pocsag import (PocsagPage, pocsag_codeword, pocsag_check,
+                     pocsag_encode_batches, pocsag_decode_words,
+                     POCSAG_SYNC, POCSAG_IDLE)
+from .rtty import (BAUDOT_LETTERS, BAUDOT_FIGURES, baudot_encode,
+                   baudot_decode, rtty_frame_bits, rtty_unframe_bits,
+                   RTTY_BAUD, RTTY_MARK_HZ, RTTY_SPACE_HZ)
+from .ax25 import (Ax25Frame, ax25_crc, hdlc_encode, hdlc_decode,
+                   HDLC_FLAG, AX25_CONTROL_UI, AX25_PID_NONE)

@@ -1,5 +1,5 @@
-"""Gray-coded constellations: BPSK/QPSK/QAM-16/64/256 map and max-log soft LLRs
-(counterpart of ``orion_sdr_tpu/constellation.py``).
+"""Gray-coded constellations: BPSK/QPSK/QAM-16/64/256 map, hard decisions
+and max-log soft LLRs (counterpart of ``orion_sdr_tpu/constellation.py``).
 
 Per-axis independent Gray coding, unit average symbol energy
 (axis scale = 1/sqrt(2(M²−1)/3)), bit layout per symbol = BITS/2 I-axis bits
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+ORDERS = ("bpsk", "qpsk", "qam16", "qam64", "qam256")
 
 BITS_PER_SYMBOL = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6, "qam256": 8}
 
@@ -25,6 +27,13 @@ def axis_scale(bits: int) -> float:
     """1/sqrt(average symbol energy) for square QAM."""
     m = 1 << (bits // 2)
     return float(1.0 / np.sqrt(2.0 * (m * m - 1) / 3.0))
+
+
+def _axis_thresholds(bits: int) -> np.ndarray:
+    """M−1 ascending decision midpoints of one QAM axis."""
+    m = 1 << (bits // 2)
+    return ((2 * np.arange(m - 1) - (m - 2)) * axis_scale(bits)).astype(
+        np.float32)
 
 
 def _axis_levels(bits: int) -> np.ndarray:
@@ -91,3 +100,71 @@ def soft_llr(symbols: torch.Tensor, order: str, gain: float = 1.0
 
     llr = torch.cat([axis_llr(z.real), axis_llr(z.imag)], dim=-1)
     return (gain * llr.reshape(z.shape[:-1] + (-1,))).to(torch.float32)
+
+
+def _unpack_msb(idx: torch.Tensor, k: int) -> torch.Tensor:
+    """(...,) int32 → (..., k) uint8, MSB-first."""
+    shifts = torch.arange(k - 1, -1, -1, dtype=torch.int32, device=idx.device)
+    return ((idx[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+def _axis_nat(v: torch.Tensor, thr: np.ndarray) -> torch.Tensor:
+    """Natural level index of each value: the count of thresholds it lies
+    strictly above (a value on a threshold takes the lower level)."""
+    t = torch.as_tensor(thr, device=v.device)
+    return (v[..., None] > t).sum(-1, dtype=torch.int32)
+
+
+def decide(symbols: torch.Tensor, order: str) -> torch.Tensor:
+    """Hard decision: symbols (..., n_syms) → bits (..., n_syms·bps) uint8,
+    the reference deciders' Gray coding. BPSK and QPSK decide by sign
+    (``re < 0`` is bit 1, so ±0 is bit 0); QAM counts the thresholds each
+    axis lies strictly above."""
+    bps = bits_per_symbol(order)
+    z = symbols
+    if order == "bpsk":
+        return (z.real < 0.0).to(torch.uint8)
+    if order == "qpsk":
+        b = torch.stack([z.real < 0.0, z.imag < 0.0], dim=-1)
+        return b.reshape(z.shape[:-1] + (-1,)).to(torch.uint8)
+    k = bps // 2
+    thr = _axis_thresholds(bps)
+
+    def axis_bits(v):
+        nat = _axis_nat(v, thr)
+        return _unpack_msb(nat ^ (nat >> 1), k)
+
+    b = torch.cat([axis_bits(z.real), axis_bits(z.imag)], dim=-1)
+    return b.reshape(z.shape[:-1] + (-1,))
+
+
+def decide_tables(order: str):
+    """The nearest point ``map_bits(decide(y))`` as per-axis tables, for a
+    kernel that decides one symbol at a time: (thresholds (T,) float32,
+    levels (T + 1,) float32, sign). With ``sign`` an axis takes
+    ``levels[1]`` where the value is below 0 and ``levels[0]`` elsewhere
+    (BPSK, whose imaginary part is 0, and QPSK); without it, the level of
+    the count of thresholds the value lies strictly above. The levels are
+    ``map_bits``'s own amplitudes of each decision."""
+    bps = bits_per_symbol(order)
+    if order in ("bpsk", "qpsk"):
+        probe = torch.tensor([0.5, -0.5], dtype=torch.float32)
+        pts = map_bits(decide(torch.complex(probe, probe)[:, None], order),
+                       order)
+        return (np.zeros(1, np.float32),
+                pts.real.reshape(-1).numpy().astype(np.float32), True)
+    thr = _axis_thresholds(bps)
+    k = bps // 2
+    nat = torch.arange(1 << k, dtype=torch.int32)
+    gray = _unpack_msb(nat ^ (nat >> 1), k)
+    levels = map_bits(torch.cat([gray, gray], dim=-1), order).real
+    return thr, levels.reshape(-1).numpy().astype(np.float32), False
+
+
+def constellation_points(order: str) -> np.ndarray:
+    """All 2^bps ideal points indexed by the symbol's packed bit index."""
+    bps = bits_per_symbol(order)
+    n = 1 << bps
+    bits = ((np.arange(n)[:, None] >> np.arange(bps - 1, -1, -1)[None, :])
+            & 1).astype(np.uint8)
+    return map_bits(torch.as_tensor(bits.reshape(-1)), order).numpy()

@@ -20,6 +20,7 @@ from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
 from .waveform.dvb_t import DvbTFrameParams, DvbTLinkParams
 from .codec.psk31 import StreamingViterbi
 from .codec.psk31_stream import Psk31Stream
+from .demodulate.afsk import Afsk1200Stream
 from .demodulate.analog import QuadDemodState, SsbDemodState
 from .dsp.channelizer import Channelizer
 from .dsp.iir import BiquadState, LpDcState
@@ -201,3 +202,16 @@ def channelizer_from_jax(d: dict, device="cuda") -> Channelizer:
     ch._state = _t(d["_state"], device, torch.complex64)
     ch._rem = _t(d["_rem"], device, torch.complex64)
     return ch
+
+
+def afsk1200_stream_from_jax(d: dict, device="cuda") -> Afsk1200Stream:
+    """The port's :class:`Afsk1200Stream` on ``device`` from a JAX package's
+    ``Afsk1200Stream``'s fields (``vars(stream)``): its rate, the buffered
+    audio, the absolute bit index of the buffer's start and the bit index
+    committed so far, so a stream the JAX TNC began continues in the port
+    and gives each frame once."""
+    st = Afsk1200Stream(float(d["fs"]), device=device)
+    st._buf = np.asarray(d["_buf"], np.float32).copy()
+    st._base_bits = int(d["_base_bits"])
+    st._emitted_to = int(d["_emitted_to"])
+    return st

@@ -12,3 +12,10 @@ from .css import css_demod, CssFrame
 from .wspr import wspr_demod, wspr_decode_band
 from .fm_stereo import (fm_stereo_demod, FmStereoAudio,
                         fm_band_demod, FmStation)
+from .digital import (estimate_cfo_mpsk, fde_equalize, burst_demod,
+                      symbol_sync_gardner, symbol_sync_energy,
+                      carrier_sync_dd, psk_qam_demod, digital_demod)
+from .ais import ais_decode, ais_demod_bits
+from .pocsag import pocsag_decode, pocsag_demod_bits
+from .afsk import (afsk1200_demod, ax25_decode, rtty_decode,
+                   Afsk1200Stream, fsk2_decision, rtty_decode_fsk)

@@ -1,0 +1,112 @@
+"""The decision-directed carrier PLL of the burst modem: the Hopper kernel
+``csrc/dd_pll.cu`` beside its plain torch version.
+
+The JAX package runs the per-symbol recurrence as a ``lax.scan``
+(``_dd_pll_kernel``, ``orion_sdr_tpu/demodulate/digital.py:191-208``; no
+Pallas kernel), and its bench ``vmap``s it over channels: derotate by the
+carried phase, decide the nearest constellation point, take the angle
+error, run a proportional-integral loop. In eager torch each step would be
+some thirty launches; the kernel runs one row a thread, every symbol of
+the row in turn, all rows in one launch.
+
+:func:`dd_pll` launches the kernel for a CUDA tensor (built with nvcc at
+first use; a failed build or launch raises) and runs
+:func:`dd_pll_reference` for a CPU tensor; it counts its launches in
+``.launches``. The plain version writes ``e^{−jφ}`` as explicit cos and
+sin and every complex product in real arithmetic, in the kernel's order,
+and both decide through ``constellation.decide_tables``: on the card the
+two agree bit for bit. Against the JAX scan (XLA's cos/sin and fused
+multiply-adds) they agree within float32 rounding, carried by the loop.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
+from ..constellation import decide_tables
+
+_LIB = CudaLib("dd_pll", NVCC_FLAGS_NO_FMA, {
+    "dd_pll": [PTR, INT, I64, PTR, INT, PTR, INT, INT, F32, F32, PTR, PTR]})
+build = _LIB.build
+
+
+def loop_gains(loop_bw: float):
+    """(kp, ki) as float32 values: kp = loop_bw, ki = loop_bw²/4."""
+    return (float(np.float32(loop_bw)),
+            float(np.float32(loop_bw * loop_bw / 4.0)))
+
+
+_TABLES: dict = {}
+
+
+def _tables(order: str, device):
+    """(thresholds, levels, sign) of ``decide_tables`` with the two tables
+    on ``device``, made once a device."""
+    key = (order, str(device))
+    if key not in _TABLES:
+        thr, lv, sign = decide_tables(order)
+        _TABLES[key] = (torch.as_tensor(thr, device=device),
+                        torch.as_tensor(lv, device=device), sign)
+    return _TABLES[key]
+
+
+def _axis_level(v: torch.Tensor, thr, lv, sign: bool) -> torch.Tensor:
+    if sign:
+        return torch.where(v < 0.0, lv[1], lv[0])
+    nat = (v[..., None] > thr).sum(-1)
+    return lv[nat]
+
+
+def dd_pll_reference(z: torch.Tensor, order: str, loop_bw: float
+                     ) -> torch.Tensor:
+    """Plain version: one symbol a loop iteration over the last axis of
+    (rows, n) complex64, in the kernel's real operations and order."""
+    kp, ki = loop_gains(loop_bw)
+    thr, lv, sign = _tables(order, z.device)
+    zr, zi = z.real, z.imag
+    ph = torch.zeros(z.shape[:-1], dtype=torch.float32, device=z.device)
+    f = torch.zeros_like(ph)
+    out = torch.empty_like(z)
+    for k in range(z.shape[-1]):
+        c, s = torch.cos(ph), torch.sin(ph)
+        vr, vi = zr[..., k], zi[..., k]
+        yr = vr * c + vi * s
+        yi = vi * c - vr * s
+        rr = _axis_level(yr, thr, lv, sign)
+        ri = torch.zeros_like(yi) if order == "bpsk" else \
+            _axis_level(yi, thr, lv, sign)
+        pr = yr * rr + yi * ri
+        pi = yi * rr - yr * ri
+        err = torch.atan2(pi, pr)
+        f = f + ki * err
+        ph = (ph + f) + kp * err
+        out[..., k] = torch.complex(yr, yi)
+    return out
+
+
+def dd_pll(z: torch.Tensor, order: str, loop_bw: float) -> torch.Tensor:
+    """(..., n) complex64 symbols → (..., n) complex64 derotated symbols on
+    the same device, each row its own loop from φ = f = 0."""
+    if z.dtype != torch.complex64:
+        raise TypeError(f"symbols must be complex64, got {z.dtype}")
+    if z.device.type == "cpu":
+        return dd_pll_reference(z, order, loop_bw)
+    if z.device.type != "cuda":
+        raise ValueError(f"no DD-PLL kernel for device {z.device}")
+    n = z.shape[-1]
+    rows = int(np.prod(z.shape[:-1], dtype=np.int64))
+    zz = z.reshape(rows, n).contiguous()
+    out = torch.empty_like(zz)
+    if rows and n:
+        kp, ki = loop_gains(loop_bw)
+        thr, lv, sign = _tables(order, z.device)
+        _LIB.launch("dd_pll", z.device, zz.data_ptr(), rows, n,
+                    thr.data_ptr(), thr.numel(), lv.data_ptr(), int(sign),
+                    int(order == "bpsk"), kp, ki, out.data_ptr())
+        dd_pll.launches += 1
+    return out.reshape(z.shape)
+
+
+dd_pll.launches = 0

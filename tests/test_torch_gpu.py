@@ -1091,3 +1091,198 @@ def test_wspr_on_the_card(cuda):
            for m in P.wspr_decode_band(band, device=cuda)}
     assert out == {"K1ABC": ("FN42", 30), "W1AW": ("FN31", 37),
                    "DL2XYZ": ("JO62", 23)}
+
+
+# ── slice 5b: the DD-PLL, Gardner and GNSS tracking kernels ─────────────────
+
+def _ramped_symbols(order, rows, n, seed, cfo=0.013):
+    """Constellation symbols of ``order`` behind a phase offset and a
+    ramp (rows, n), with light noise: φ grows to hundreds of radians on
+    the long rows, so cosf/sinf take large arguments."""
+    from orion_sdr_tpu_torch.constellation import bits_per_symbol
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(rng.integers(0, 2, (
+        max(rows, 1), n * bits_per_symbol(order))).astype(np.uint8))
+    s = P.map_bits(bits, order).numpy()[:rows]
+    k = np.arange(n)
+    z = s * np.exp(1j * (rng.uniform(0, 6, (rows, 1)) + cfo * k)) + 0.02 * (
+        rng.standard_normal((rows, n)) + 1j * rng.standard_normal((rows, n)))
+    return z.astype(np.complex64)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1024), (33, 200), (5, 0),
+                                   (0, 7)])
+@pytest.mark.parametrize("order", ["bpsk", "qpsk", "qam16", "qam64",
+                                   "qam256"])
+def test_dd_pll_kernel_is_exact(cuda, order, shape):
+    from orion_sdr_tpu_torch.ops import dd_pll as K
+    z = torch.as_tensor(_ramped_symbols(order, *shape, seed=shape[0]),
+                        device=cuda)
+    before = K.dd_pll.launches
+    got = K.dd_pll(z, order, 0.03)
+    ref = K.dd_pll_reference(z, order, 0.03)
+    torch.cuda.synchronize()
+    assert K.dd_pll.launches == before + (1 if z.numel() else 0)
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mu0,n_out", [(3.0, 120), (-2.5, 120),
+                                       (1.0, 160)])
+def test_gardner_kernel_is_exact_at_the_edges(cuda, mu0, n_out):
+    """A start before the capture (the interpolator extrapolates from
+    samples 0 and 1) and more symbols than the capture holds (the index
+    clips at n − 2 and extrapolates past the end)."""
+    from orion_sdr_tpu_torch.ops import gardner as K
+    bits = np.random.default_rng(7).integers(0, 2, (3, 2 * 150)).astype(
+        np.uint8)
+    z = P.burst_mod(bits, "qpsk", 8, device=cuda)[:, :1000]
+    before = K.gardner.launches
+    s, pos = K.gardner(z, 8.0, n_out, 0.02, mu0)
+    zn = K.normalise(z.reshape(3, -1)).contiguous()
+    rs, rpos = K.gardner_reference(zn, 8.0, n_out, 0.02, mu0)
+    torch.cuda.synchronize()
+    assert K.gardner.launches == before + 1
+    assert torch.equal(s, rs) and torch.equal(pos, rpos)
+    if n_out == 160:
+        assert float(pos.min()) > 1000       # it ran off the end
+
+
+def test_gardner_kernel_takes_empty_batches(cuda):
+    from orion_sdr_tpu_torch.ops import gardner as K
+    before = K.gardner.launches
+    s, pos = K.gardner(torch.zeros((0, 64), dtype=torch.complex64,
+                                   device=cuda), 8.0, 5)
+    assert tuple(s.shape) == (0, 5) and tuple(pos.shape) == (0,)
+    s, pos = K.gardner(torch.zeros((4, 0), dtype=torch.complex64,
+                                   device=cuda), 8.0, 0)
+    assert tuple(s.shape) == (4, 0) and float(pos[0]) == 8.0
+    assert K.gardner.launches == before
+
+
+def _track_case(device):
+    """PRN 5 at 615 samples, PRN 6 with its epoch at sample 0 (its early
+    slice starts at −1 and wraps, as lax.dynamic_slice's does), PRN 7
+    absent; 90 epochs over a 70 ms capture, so every satellite runs past
+    the end, where the slices clamp at n − spms."""
+    from orion_sdr_tpu_torch.gnss import _ca_pm_sampled
+    fs = 2.048e6
+    rng = np.random.default_rng(3)
+    nav = rng.integers(0, 2, 6).astype(np.uint8)
+    z = P.gps_ca_mod(5, fs, 70, 1840.0, 300.4, nav_bits=nav) \
+        + P.gps_ca_mod(6, fs, 70, 2500.0, 0.0, amplitude=0.8)
+    z = (z + 0.3 * (rng.standard_normal(len(z))
+                    + 1j * rng.standard_normal(len(z)))).astype(np.complex64)
+    codes = np.stack([_ca_pm_sampled(p, fs) for p in (5, 6, 7)])
+    return (torch.as_tensor(z, device=device), torch.as_tensor(
+        codes, device=device), torch.tensor([615, 0, 1000], dtype=torch.int32,
+                                            device=device),
+            torch.tensor([1900.0, 2450.0, -300.0], device=device), fs)
+
+
+def test_gnss_track_kernel_is_exact_at_the_edges(cuda):
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    z, codes, starts, f0, fs = _track_case(cuda)
+    before = K.gnss_track.launches
+    got = K.gnss_track(z, codes, starts, f0, fs, 90, 7.2, 0.9, 0.12)
+    ref = K.track_reference(z, codes, starts, f0, fs, 90, 7.2, 0.9, 0.12)
+    torch.cuda.synchronize()
+    assert K.gnss_track.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[2][:, -1].min()) > z.shape[0]
+
+
+def test_gnss_track_kernel_takes_empty_batches(cuda):
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    z, codes, starts, f0, fs = _track_case(cuda)
+    before = K.gnss_track.launches
+    out = K.gnss_track(z, codes[:0], starts[:0], f0[:0], fs, 5, 7.2, 0.9,
+                       0.12)
+    assert tuple(out[0].shape) == (0, 5)
+    out = K.gnss_track(z, codes, starts, f0, fs, 0, 7.2, 0.9, 0.12)
+    assert tuple(out[2].shape) == (3, 0)
+    assert K.gnss_track.launches == before
+
+
+def test_burst_demod_runs_through_the_dd_pll_kernel(cuda):
+    """tests/test_digital.py's burst on the card: every bit back, one
+    DD-PLL launch, and the payload symbols equal the CPU path's within
+    1e-5 (the matched filter and normalisation on the card)."""
+    from orion_sdr_tpu_torch.dsp.osc import rotate as prot
+    from orion_sdr_tpu_torch.ops import dd_pll as K
+    sps, pre = 8, P.burst_preamble(32)
+    bits = np.random.default_rng(0).integers(0, 2, 1024).astype(np.uint8)
+    iq = P.burst_mod(bits, "qam16", sps, preamble_syms=pre, device="cpu")
+    z = torch.cat([torch.zeros(37, dtype=torch.complex64), iq,
+                   torch.zeros(50, dtype=torch.complex64)])
+    z = prot(z, 0.0021 * sps, float(sps))[0] * np.exp(1j * 1.1)
+    z = (z + torch.as_tensor(_noise_iq(z.shape[0], 1, 0.02))).to(
+        torch.complex64).numpy()
+    before = K.dd_pll.launches
+    got, payload = P.burst_demod(z, "qam16", sps, pre, device=cuda)
+    torch.cuda.synchronize()
+    assert K.dd_pll.launches == before + 1
+    assert np.array_equal(got.cpu().numpy()[:1024], bits)
+    _, ref = P.burst_demod(z, "qam16", sps, pre, device="cpu")
+    _close_on_card(payload, ref)
+
+
+def test_symbol_sync_gardner_runs_through_the_kernel(cuda):
+    from orion_sdr_tpu_torch.ops import gardner as K
+    bits = np.random.default_rng(1).integers(0, 2, 2048).astype(np.uint8)
+    zf = P.burst_mod(bits, "qpsk", 8, device=cuda)
+    before = K.gardner.launches
+    syms, _ = P.symbol_sync_gardner(zf, 8.0, zf.shape[-1] // 8 - 10,
+                                    mu0=3.0, device=cuda)
+    torch.cuda.synchronize()
+    assert K.gardner.launches == before + 1
+    mags = syms[200:].abs()
+    assert float(mags.std()) < 0.25 * float(mags.mean())
+
+
+def test_gps_track_runs_through_the_kernel(cuda):
+    """tests/test_gnss.py's tracking case on the card: one kernel launch,
+    the nav bits sent, and the same bits and epoch positions as the CPU
+    path."""
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    fs = 2.048e6
+    rng = np.random.default_rng(3)
+    nav = rng.integers(0, 2, 40).astype(np.uint8)
+    z = P.gps_ca_mod(5, fs, len(nav) * 20 + 30, 1840.0, 300.4, nav_bits=nav)
+    z = (z + 0.7 / np.sqrt(2) * (rng.standard_normal(len(z))
+                                 + 1j * rng.standard_normal(len(z)))
+         ).astype(np.complex64)
+    acq = P.gps_acquire(z, fs, prns=[5], device=cuda)
+    assert acq and acq[0].prn == 5
+    assert [a[:3] for a in acq] == [
+        a[:3] for a in P.gps_acquire(z, fs, prns=[5], device="cpu")]
+    args = (z, fs, 5, acq[0].doppler_hz + 150.0, acq[0].code_phase_samples)
+    before = K.gnss_track.launches
+    tr = P.gps_track(*args, device=cuda)
+    assert K.gnss_track.launches == before + 1
+    ref = P.gps_track(*args, device="cpu")
+    assert np.array_equal(tr.nav_bits, ref.nav_bits)
+    assert np.abs(tr.code_phase - ref.code_phase).max() <= 1e-3
+    core = tr.nav_bits[1:-1]
+    s = "".join(map(str, nav.tolist()))
+    assert ("".join(map(str, core.tolist())) in s
+            or "".join(map(str, (1 - core).tolist())) in s)
+
+
+def test_fsk2_family_on_the_card(cuda):
+    """The decision waveform on the card against the CPU (1e-5 of its
+    peak) and an AX.25 beacon, POCSAG pages and AIS reports decoded on
+    the card."""
+    x = _noise_iq(1 << 14, 9).real.reshape(2, -1).copy()
+    _close_on_card(P.demodulate.fsk2_decision(x, 48_000.0, 40, device=cuda),
+                   P.demodulate.fsk2_decision(x, 48_000.0, 40, device="cpu"))
+    f = P.Ax25Frame(dest="APRS", src="K1ABC-9", payload=b">on the card")
+    audio = P.ax25_beacon([f], 48_000.0, device=cuda)
+    assert P.ax25_decode(audio, 48_000.0, device=cuda) == [f]
+    pages = [P.PocsagPage(address=0x12345, function=3, text="CARD PAGE")]
+    iq = P.pocsag_mod(pages, 38_400.0, device=cuda)
+    assert P.pocsag_decode(iq, 38_400.0, device=cuda) == pages
+    ship = [P.AisPosition(mmsi=211234567, lat=53.5421, lon=9.9845,
+                          sog_kt=12.3, cog_deg=87.5, heading_deg=88)]
+    iq = P.ais_mod(ship, device=cuda)
+    assert P.ais_decode(iq, 96_000.0, device=cuda) == ship
