@@ -250,7 +250,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    symbols with its launches counted from 0.
 39. The burst modem (burst_modem_throughput, bench.py:851-874): the bench's
    body (RRC matched filter, energy timing, the batched DD-PLL) at 4 and
-   64 x 16384 random-normal samples, Msps beside the bytes bound;
+   64 x 16384 random-normal samples, Msps beside the bytes bound and the
+   card's busy share under torch.profiler;
    burst_mod -> burst_demod for BPSK to 256-QAM under
    tests/test_digital.py:142-169's impairments (37-sample delay, 0.21 %
    CFO, 1.1 rad, ~34 dB), every bit back; digital_mod -> digital_demod
@@ -258,7 +259,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    for each run.
 40. GNSS acquisition (gnss_acquisition_throughput, bench.py:833-849):
    _acquire_grid at 32 PRNs x 41 Dopplers x 2048 samples, 4 blocks, M
-   cells/s beside its bound; gps_acquire on tests/test_gnss.py:51-80's
+   cells/s beside its bound and the busy share; gps_acquire on tests/test_gnss.py:51-80's
    three satellites: each at its Doppler (250 Hz) and code phase (1.5
    samples).
 41. The tracking kernel against its plain version, exact (prompts,
@@ -271,7 +272,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    the plain version (run from the same start for 2000 epochs), exact.
 42. The 2-FSK family (fsk2_engine_throughput, bench.py:815-831):
    fsk2_decision at 4 and 64 x 2^18 samples at 48 kHz, Msps beside the
-   bytes bound; an AX.25 beacon, Afsk1200Stream under two chunkings, RTTY
+   bytes bound and the busy share; an AX.25 beacon, Afsk1200Stream under two chunkings, RTTY
    from audio and from IQ FSK, POCSAG pages and AIS reports, each back.
 43. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
@@ -3146,6 +3147,19 @@ def wspr_phase(P, dev):
 
 # ── slice 5b (phases 37-42) ─────────────────────────────────────────────────
 
+def with_busy(rate: dict, fn) -> dict:
+    """``rate`` with the card's busy share of one run of ``fn`` under
+    torch.profiler, printed."""
+    prof_ms, busy, top = busy_share(fn)
+    print(f"    under torch.profiler: {prof_ms:.3f} ms, card busy "
+          f"{busy if busy is None else round(busy, 3)} ms"
+          + (f" ({busy / prof_ms:.1%})" if busy else "") + "; largest: "
+          + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    return {**rate, "profiled_ms": prof_ms, "busy_ms": busy,
+            "busy_share": busy / prof_ms if busy else None,
+            "top_kernels_ms": dict(top[:4])}
+
+
 def exact_all(got, ref) -> bool:
     """Every tensor of ``got`` equal to its counterpart in ``ref``."""
     return all(torch.equal(g, r) for g, r in zip(got, ref))
@@ -3280,9 +3294,10 @@ def burst_phase(P, dd, dev):
                     f"{BURST_SPS}, {BURST_ORDER})",
                     lambda: burst_body(P, dd, re, im, taps), rows * n,
                     rows * n * 8 + rows * BURST_SYMS * 8)
+        rates[f"{rows}x{n}"] = with_busy(
+            r, lambda: burst_body(P, dd, re, im, taps))
         torch.cuda.synchronize()
         runs[f"39 body {rows}"] = dd.dd_pll.launches
-        rates[f"{rows}x{n}"] = r
     pre = P.burst_preamble(32)
     lost = {}
     dd.dd_pll.launches = 0
@@ -3363,13 +3378,14 @@ def acquire_phase(P, dev):
     ops = (dopp.shape[0] * 4 * GNSS_SPMS * (8 + 5 * 11)
            + planes * GNSS_SPMS * (6 + 5 * 11 + 3))
     bnd = bound_ms(n * 8 + codes.numel() * 4 + cells * 4, ops)
-    rate = {"mcells_per_s": cells / med / 1e3, "median_ms": med,
-            "runs_ms": runs, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "cells": cells}
     print(f"  gnss_acquisition_throughput: {cells / med / 1e3:.1f} M cells/s "
           f"(32 x 41 x {GNSS_SPMS}, 4 blocks; median of {S5_RUNS} runs "
           f"{med:.4f} ms; runs {[round(r, 4) for r in runs]}); bound "
           f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / med:.2%} of it")
+    rate = with_busy({"mcells_per_s": cells / med / 1e3, "median_ms": med,
+                      "runs_ms": runs, "bound_ms": bnd[0],
+                      "bound_by": bnd[1], "cells": cells},
+                     lambda: _acquire_grid(z, codes, dopp, GNSS_FS, 4))
     cap, svs = multi_sv_capture(P, 8, rng)
     hits = {h.prn: h for h in P.gps_acquire(cap, GNSS_FS, device=dev)}
     ok = set(hits) == {prn for prn, *_ in svs}
@@ -3561,10 +3577,11 @@ def fsk2_phase(P, dev):
     for rows in FSK_ROWS:
         x = torch.as_tensor(rng.standard_normal((rows, n)).astype(
             np.float32), device=dev)
-        rates[f"{rows}x{n}"] = s5_rate(
+        rates[f"{rows}x{n}"] = with_busy(s5_rate(
             f"fsk2_engine_throughput ({rows} x 2^{FSK_LOG2_N} at 48 kHz)",
             lambda: fsk2_decision(x, 48_000.0, 40, device=dev), rows * n,
-            rows * n * 8)
+            rows * n * 8), lambda: fsk2_decision(x, 48_000.0, 40,
+                                                 device=dev))
     fs = 48_000.0
     frames = [P.Ax25Frame(dest="APRS", src="W1AW-5", digis=("WIDE1-1",),
                           payload=b"!4237.14N/07120.83W-orion test"),
