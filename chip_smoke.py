@@ -277,7 +277,44 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    fsk2_decision at 4 and 64 x 2^18 samples at 48 kHz, Msps beside the
    bytes bound and the busy share; an AX.25 beacon, Afsk1200Stream under two chunkings, RTTY
    from audio and from IQ FSK, POCSAG pages and AIS reports, each back.
-43. Prints the kernels' JSON line (each kernel's main-path launches, error
+43. Capture I/O and the channel simulator (slice 6a): a 2^22-sample capture
+   through the WAV (within 16-bit quantisation) and .npz (exact) formats;
+   the seven impairments (CFO, phase noise, I/Q imbalance, multipath,
+   fading taps + fading, Watterson) at 64 x 2^20 on the card, rows 0 and
+   63 against the CPU path on the same numpy draws (1e-5 of the peak),
+   each one's Msps beside its bytes bound and busy share; then [4]'s 128
+   frames at MCS 0 behind an echo inside the CP and a 0.5 Hz residual CFO
+   into decode_batch, [8]'s 32 QPSK r1/2 frames behind
+   tests/test_channel.py:226's -6 dB echo at 10 dB, and 64 FT8 windows
+   each through its own Watterson "moderate" channel
+   (tests/test_channel.py:203): every payload and message back, and every
+   BP and radix-2 Viterbi launch recorded and held to its plain version on
+   its own inputs, exact.
+44. Morse: a 14 s 48 kHz CW band of 16 stations (MorseEncoder with 10 %
+   jitter at 12-35 wpm, tones 600 Hz apart from 1 kHz, levels over 20 dB,
+   AWGN) keyed by cw_mod on the card, each two-rate one-pole launch held to
+   the plain version at every step; morse_decode_band(max_carriers=16):
+   every text and each wpm within 15 %; the envelope filter's route (FFT
+   overlap-save above 1 025 taps) and Msps beside the bytes bound and
+   the busy share.
+45. Band monitor: band_decode on a 2.4 Msps capture of 2^22 samples (AM,
+   FM, POCSAG and SSB stations): every label, the AM and FM tones and the
+   SSB tone spacing within 10 Hz, every page; Msps beside the bytes bound
+   and the busy share; then the narrow modes at the JAX tests' widths (CW
+   at 250 kHz, RTTY at 256 kHz, PSK31 beside AM and POCSAG at 500 kHz):
+   labels and texts. Every PSK31 PLL launch and the CW capture's two-rate
+   one-pole launch held to the plain version.
+46. ADS-B: 100 DF17 frames from 20 aircraft at 2 Msps (2^21 samples,
+   amplitudes 0.3-1.0, AWGN 0.05) through adsb_decode_capture
+   (max_candidates 1024): every message with its fields, each callsign,
+   each aircraft's position within 5e-3 degrees; Msps, bound, busy share.
+47. SSTV: tests/test_sstv.py's 320 x 256 picture through sstv_mod and
+   sstv_demod at 11 025 Hz and 48 kHz: VIS 44 and PSNR at least 35 dB at
+   both; Msps of sstv_demod, bound, busy share.
+   Every capture of [43]-[47] follows a numpy recipe (the s6_* functions);
+   tools/slice6a_jax_fullwidth.py decodes the same captures with the JAX
+   package on the CPU.
+48. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -296,9 +333,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    where the plain loop runs, and its 64 x 2^20 time and bound are under
    ms_full and bound_ms_full; for the DD-PLL, Gardner and tracking
    kernels of slice 5b the same, with their launches by phase: [39]'s
-   runs, symbol_sync_gardner, [41]'s ephemeris path), a "slice5" object
-   with [32]-[36]'s rates, bounds and readings, and a "slice5b" object
-   with [39]-[42]'s; the card's name and power limit, then the
+   runs, symbol_sync_gardner, [41]'s ephemeris path; [43]-[45] add to
+   the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase), a
+   "slice5" object with [32]-[36]'s rates, bounds and readings, a
+   "slice5b" object with [39]-[42]'s and a "slice6a" object with
+   [43]-[47]'s; the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
@@ -326,6 +365,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -410,6 +450,30 @@ GARDNER_ROWS, GARDNER_LOG2_N = 64, 17
 GNSS_FS, GNSS_SPMS = 2.048e6, 2048
 TRACK_SATS, TRACK_EPOCHS, TRACK_SHORT = 8, 2000, 100
 FSK_LOG2_N, FSK_ROWS = 18, (4, 64)
+# slice 6a (phases 43-47): the capture-to-text receivers. [43] a 2^22-sample
+# capture through the file formats, the seven impairments at 64 x 2^20
+# (fs 1 MHz), three links through the channel: [4]'s 128 COFDM frames at
+# MCS 0 behind an echo inside the CP and a 0.5 Hz residual CFO (decode_batch
+# takes aligned, CFO-corrected bodies: 1 Hz at 1 rad already costs every
+# frame in both packages), [8]'s 32 QPSK
+# r1/2 DVB-T frames behind tests/test_channel.py:226's -6 dB echo at 10 dB,
+# 64 FT8 windows through Watterson "moderate"; [44] a 14 s 48 kHz CW band of
+# 16 stations; [45] a 2.4 Msps band of AM, FM, POCSAG and SSB stations and
+# the narrow modes at the JAX tests' widths; [46] 100 DF17 frames from 20
+# aircraft at 2 Msps; [47] a Martin M1 picture at 11 025 Hz and 48 kHz.
+# The recipes (s6_* below) are numpy only: the JAX package decodes the same
+# captures on the CPU (PERF.md, PR 11)
+S6_SEED = 611
+CH_FS, CH_ROWS, CH_LOG2_N, IO_LOG2_N = 1e6, 64, 20, 22
+CH_ECHO = ([0, 4], [1.0, 0.35 * np.exp(0.7j)])      # inside [4]'s 64-sample CP
+CH_CFO_HZ, CH_PHASE0 = 0.5, 0.3
+DVB_ECHO = ([0, 32], [1.0, 10 ** (-6 / 20) * np.exp(1.3j)])
+DVB_ECHO_SNR_DB = 10.0
+FT_FADED, FT_CARRIER = 64, 1000.0
+MORSE_FS, MORSE_N, MORSE_SIGS, MORSE_NOISE = 48_000.0, 672_000, 16, 0.05
+BAND_FS, BAND_LOG2_N, BAND_NOISE = 2.4e6, 22, 0.004
+ADSB_FS, ADSB_LOG2_N, ADSB_PLANES, ADSB_NOISE = 2e6, 21, 20, 0.05
+SSTV_RATES = (11025.0, 48000.0)
 
 
 def fail(msg: str):
@@ -3182,13 +3246,13 @@ def max_diff(got, ref) -> float:
 
 def recorder(real):
     """(``real`` wrapped, the list it fills): each call passes through, and
-    its arguments and output are kept. The wrapper's own launch count is
-    untouched."""
+    its arguments (keywords after the positional ones, in the order given)
+    and output are kept. The wrapper's own launch count is untouched."""
     seen = []
 
-    def rec(*args):
-        out = real(*args)
-        seen.append((args, out))
+    def rec(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((args + tuple(kw.values()), out))
         return out
     return rec, seen
 
@@ -3732,6 +3796,603 @@ def fsk2_phase(P, dev):
     return rates
 
 
+# ── slice 6a (phases 43-47) ─────────────────────────────────────────────────
+
+MORSE_CALLS = ("W1AW", "K2ABC", "N3XYZ", "VE3RX", "DL1ABC", "G4XYZ",
+               "JA1NUT", "VK2DX", "F5ABC", "I2XYZ", "EA3QRP", "OH2BH",
+               "PY2KQ", "ZL1AB", "UA3XY", "SM5ABC")
+
+
+def s6_morse_plan():
+    """[44]'s stations: [(text, wpm, tone Hz, amplitude, start sample)]:
+    12-35 wpm, tones 600 Hz apart from 1 kHz, levels spread over 20 dB in
+    a shuffled order, starts inside the first second."""
+    rng = np.random.default_rng(S6_SEED + 44)
+    levels = rng.permutation(MORSE_SIGS) * (20.0 / (MORSE_SIGS - 1))
+    plan = []
+    for k, call in enumerate(MORSE_CALLS):
+        wpm = 12.0 + 23.0 * k / (MORSE_SIGS - 1)
+        text = (f"CQ {call}" + (" TEST" if wpm >= 18 else "")
+                + (" 599 K" if wpm >= 26 else ""))
+        plan.append((text, wpm, 1000.0 + 600.0 * k,
+                     float(10 ** (-levels[k] / 20)),
+                     int(rng.integers(0, MORSE_FS))))
+    return plan
+
+
+def s6_adsb_plan():
+    """[46]: 20 aircraft, each an identification, an even and an odd
+    position, a velocity and a repeat of its identification, in a shuffled
+    order on 150 us slots (a frame is 120 us) → ([(encoder, args)],
+    offsets s, amplitudes, {icao: (callsign, lat, lon)})."""
+    rng = np.random.default_rng(S6_SEED + 46)
+    msgs, truth = [], {}
+    for k in range(ADSB_PLANES):
+        icao = int(rng.integers(0x100000, 0x1000000))
+        cs = f"ORN{k:03d}"
+        lat, lon = float(rng.uniform(-60, 60)), float(rng.uniform(-179, 179))
+        alt = 25 * int(rng.integers(40, 1600))
+        gs, trk = float(rng.uniform(100, 600)), float(rng.uniform(0, 360))
+        truth[icao] = (cs, lat, lon)
+        msgs += [("adsb_encode_identification", (icao, cs)),
+                 ("adsb_encode_position", (icao, lat, lon, alt, 0)),
+                 ("adsb_encode_position", (icao, lat, lon, alt, 1)),
+                 ("adsb_encode_velocity", (icao, gs, trk)),
+                 ("adsb_encode_identification", (icao, cs))]
+    order = rng.permutation(len(msgs))
+    slot = 150e-6
+    n_slots = int(((1 << ADSB_LOG2_N) / ADSB_FS - 200e-6) / slot)
+    offsets = np.sort(rng.choice(n_slots, len(msgs), replace=False)) \
+        * slot + 50e-6
+    amps = rng.uniform(0.3, 1.0, len(msgs))
+    return [msgs[i] for i in order], offsets, amps, truth
+
+
+def s6_adsb_check(msgs, frames, decode_frame, truth):
+    """[46]'s checks on a decode's messages: (every sent message back, its
+    fields as sent, each aircraft's positions resolved and each within
+    5e-3 degrees) → (ok, {check: value})."""
+    def key(m):
+        return (m.icao, m.type_code, m.callsign, m.altitude_ft, m.cpr,
+                m.ground_speed_kt, m.track_deg)
+    sent = sorted(key(decode_frame(f)) for f in frames)
+    got = sorted(key(m) for m in msgs)
+    pos_err = max((max(abs(m.position[0] - truth[m.icao][1]),
+                       abs(m.position[1] - truth[m.icao][2]))
+                   for m in msgs if m.position is not None), default=np.inf)
+    resolved = {m.icao for m in msgs if m.position is not None}
+    calls = all(m.callsign == truth[m.icao][0] for m in msgs
+                if m.callsign is not None)
+    out = {"messages": len(msgs), "sent": len(frames),
+           "fields_as_sent": got == sent, "callsigns": calls,
+           "aircraft_resolved": len(resolved), "max_position_err_deg":
+           pos_err}
+    return (got == sent and calls and len(resolved) == len(truth)
+            and pos_err <= 5e-3), out
+
+
+BAND_STATIONS = {-800: "am", -300: "fm", 250: "fsk", 700: "ssb"}   # kHz
+BAND_PAGE = "ORION BAND MONITOR"
+
+
+def s6_tone(audio, fs: float, guard: int = 2000):
+    """The strongest tone (Hz) of numpy ``audio`` past ``guard`` samples,
+    and the spectrum it was read from (tests/test_classify.py's reading)."""
+    a = np.asarray(audio)[guard:]
+    spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+    f = np.fft.rfftfreq(len(a), 1 / fs)
+    return float(f[np.argmax(spec[5:]) + 5]), f, spec
+
+
+def s6_band_check(entries, to_np):
+    """[45]'s checks on band_decode's entries (audio through ``to_np``):
+    each station found within 20 kHz of its centre with its label and no
+    other segment, the AM and FM tones within 10 Hz, the SSB tones' spacing
+    within 10 Hz of 1100 Hz, every page text (the pages run past the
+    capture's end: the last one may come back cut) → (ok, {check:
+    value})."""
+    got = {}
+    for e in entries:
+        c = e.segment.center_hz / 1e3
+        got[next((k for k in BAND_STATIONS if abs(k - c) < 20), round(c))] = e
+    labels = {k: e.signal.label for k, e in got.items()}
+    what = {"labels": labels}
+    if labels != BAND_STATIONS:
+        return False, what
+    am, fm, ssb, pg = (got[k] for k in (-800, -300, 700, 250))
+    what["am_hz"] = s6_tone(to_np(am.audio), am.fs_audio)[0]
+    what["fm_hz"] = s6_tone(to_np(fm.audio), fm.fs_audio)[0]
+    _, f, spec = s6_tone(to_np(ssb.audio), ssb.fs_audio)
+    p1 = int(np.argmax(spec))
+    spec[max(p1 - 5, 0):p1 + 6] = 0.0
+    what["ssb_spacing_hz"] = abs(float(f[int(np.argmax(spec))] - f[p1]))
+    what["pages"] = pg.text
+    pages = (pg.text or "").split(" / ")
+    ok = (abs(what["am_hz"] - 800) < 10 and abs(what["fm_hz"] - 1000) < 10
+          and abs(what["ssb_spacing_hz"] - 1100) < 10 and len(pages) >= 3
+          and set(pages[:-1]) == {BAND_PAGE} and pages[-1]
+          and BAND_PAGE.startswith(pages[-1]))
+    return ok, what
+
+
+def s6_sstv_image():
+    """tests/test_sstv.py's 320 x 256 test picture."""
+    img = np.zeros((256, 320, 3), np.uint8)
+    img[:, :, 0] = np.linspace(0, 255, 320)[None, :]
+    img[:, :, 1] = np.linspace(0, 255, 256)[:, None]
+    img[:128, :, 2] = 200
+    return img
+
+
+def s6_psnr(got, want) -> float:
+    """tests/test_sstv.py::_psnr."""
+    err = np.abs(got.astype(float) - want.astype(float))[3:-3, 6:-6]
+    return float(20 * np.log10(255 / np.sqrt(np.mean(err ** 2))))
+
+
+@contextlib.contextmanager
+def recording_kernel(module, attr, counters=("launches",)):
+    """The kernel wrapper ``module.attr`` in its own module (callers that
+    import it inside a function read it there) replaced by its
+    ``recorder`` for the block; yields the list. The wrapper counts its
+    launches through that name, so the launches counted on the recorder
+    meanwhile are added to the wrapper's ``counters`` after the block."""
+    real = getattr(module, attr)
+    rec, seen = recorder(real)
+    for c in counters:
+        setattr(rec, c, 0)
+    setattr(module, attr, rec)
+    try:
+        yield seen
+    finally:
+        setattr(module, attr, real)
+        for c in counters:
+            setattr(real, c, getattr(real, c) + getattr(rec, c))
+
+
+def host_noise(rng, shape, scale):
+    """Complex AWGN of ``scale`` a component, drawn on the host (the JAX
+    reference check draws the same)."""
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            * scale).astype(np.complex64)
+
+
+def s6_channel_cases(P):
+    """[43]'s seven impairments, each ``fn(x, device)`` on (..., n) IQ at
+    CH_FS with its own numpy draws."""
+    return {
+        "cfo_apply": lambda x, d: P.cfo_apply(x, 1234.5, CH_FS, 0.3,
+                                              device=d),
+        "phase_noise_apply": lambda x, d: P.phase_noise_apply(
+            np.random.default_rng(S6_SEED + 1), x, 100.0, CH_FS, device=d),
+        "iq_imbalance_apply": lambda x, d: P.iq_imbalance_apply(
+            x, 1.0, 5.0, device=d),
+        "multipath_apply": lambda x, d: P.multipath_apply(
+            x, [0, 4, 17], [1.0, 0.35 * np.exp(0.7j), 0.1j], device=d),
+        "fading_taps+fading_apply": lambda x, d: P.fading_apply(
+            x, CH_FS, P.fading_taps(np.random.default_rng(S6_SEED + 3), 80,
+                                    64.0, 5.0, "jakes", n_paths=2),
+            64.0, [0, 9], [0.0, -3.0], device=d),
+        "watterson_apply": lambda x, d: P.watterson_apply(
+            np.random.default_rng(S6_SEED + 2), x, CH_FS, 1e-3, 0.5,
+            device=d),
+    }
+
+
+def io_phase(P, dev):
+    """[43] a 2^22-sample capture (written from the card) through the WAV
+    and .npz formats on the host: → {format: seconds}."""
+    rng = np.random.default_rng(S6_SEED + 43)
+    n = 1 << IO_LOG2_N
+    z = host_noise(rng, n, 0.3)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        P.write_iq_wav(f"{d}/c.wav", torch.as_tensor(z, device=dev), CH_FS)
+        back, fs = P.read_iq_wav(f"{d}/c.wav")
+        out["wav_s"] = time.perf_counter() - t0
+        scale = np.vdot(back, z).real / np.vdot(back, back).real
+        wav_err = float(np.max(np.abs(back * scale - z)))
+        t0 = time.perf_counter()
+        P.write_iq_npy(f"{d}/c.npz", z, CH_FS)
+        z2, fs2 = P.read_iq_npy(f"{d}/c.npz")
+        out["npz_s"] = time.perf_counter() - t0
+    print(f"  capture I/O, {n} samples: WAV {out['wav_s']:.3f} s (16-bit "
+          f"error {wav_err:.2e} after the scale fit, tolerance 2e-3), .npz "
+          f"{out['npz_s']:.3f} s (exact {np.array_equal(z2, z)})")
+    if not (fs == fs2 == CH_FS and back.shape == z.shape and wav_err < 2e-3
+            and np.array_equal(z2, z)):
+        fail("[43] a capture did not come back through its file format")
+    return {**out, "samples": n, "wav_err": wav_err}
+
+
+def impairment_phase(P, dev):
+    """[43] the seven impairments at CH_ROWS x 2^CH_LOG2_N on the card:
+    rows 0 and CH_ROWS-1 against the CPU path on the same draws (1e-5 of
+    the peak), each one's rate beside its bytes bound and busy share."""
+    n = 1 << CH_LOG2_N
+    gen = torch.Generator(device=dev).manual_seed(S6_SEED)
+    x = torch.randn((CH_ROWS, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    rows = [0, CH_ROWS - 1]
+    x_cpu = x[rows].cpu()
+    rates, errs = {}, {}
+    for name, fn in s6_channel_cases(P).items():
+        y = fn(x, dev)
+        ref = fn(x_cpu, "cpu")
+        errs[name] = float((y[rows].cpu() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        del y
+        rates[name] = with_busy(s5_rate(
+            f"{name} ({CH_ROWS} x 2^{CH_LOG2_N}; rows {rows} vs the CPU "
+            f"{errs[name]:.2e} of the peak)", lambda: fn(x, dev),
+            CH_ROWS * n, CH_ROWS * n * 16), lambda: fn(x, dev))
+        rates[name]["rel_err_vs_cpu"] = errs[name]
+    if not all(e <= 1e-5 for e in errs.values()):
+        fail(f"[43] an impairment on the card parts from the CPU path: "
+             f"{errs}")
+    return rates
+
+
+def cofdm_echo(P, ldpc_bp, dev):
+    """[43] [4]'s 128 x 1500 B frames at MCS 0 behind an echo inside the
+    CP and a residual CFO (CH_CFO_HZ at CH_PHASE0 rad), AWGN at 0.02 x
+    signal power, into decode_batch; every BP launch held to the plain
+    version."""
+    rng = np.random.default_rng(S6_SEED + 431)
+    cfg, pre, table = link(P)
+    mod = P.OfdmFrameMod(cfg, table, pre, device=dev)
+    frames = [(P.FrameMetadata(sequence_num=2000 + i, mcs_index=0,
+                               flags=i % 256),
+               rng.integers(0, 256, PAYLOAD_BYTES).astype(np.uint8),
+               int(rng.integers(0, 2**32))) for i in range(N_FRAMES)]
+    bodies = [mod.modulate_frame(P.FramePacket(m, d), s)[pre.total_len():]
+              for m, d, s in frames]
+    batch = np.zeros((len(bodies), max(map(len, bodies))), np.complex64)
+    for i, b in enumerate(bodies):
+        batch[i, :len(b)] = b
+    y = P.cfo_apply(P.multipath_apply(batch, *CH_ECHO, device=dev),
+                    CH_CFO_HZ, 1e6, CH_PHASE0, device=dev)
+    sig = y.abs().pow(2).mean(dim=1, keepdim=True).cpu().numpy()
+    y = y + torch.as_tensor(host_noise(rng, y.shape, 1.0) * np.sqrt(
+        sig * 0.02 / 2).astype(np.float32), device=dev)
+    demod = P.OfdmFrameDemod(cfg, table, device=dev)
+    ldpc_bp.bp_decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    with recording_kernel(ldpc_bp, "bp_decode_kernel",
+                          ("launches", "launches_edge")) as seen:
+        out = demod.decode_batch(y)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = ldpc_bp.bp_decode_kernel.launches
+    good = sum(isinstance(o, P.FramePacket) and np.array_equal(o.payload, d)
+               and o.metadata == m for o, (m, d, _) in zip(out, frames))
+    exact, err = held_to_plain(seen, ldpc_bp.bp_decode_reference)
+    print(f"  COFDM behind the echo and {CH_CFO_HZ} Hz: {good}/{N_FRAMES} "
+          f"payloads in {dt:.4f} s (first run), {n} BP launches "
+          f"{[tuple(a[1].shape) for a, _ in seen]}, each against the plain "
+          f"version: exact {exact} (max |diff| {err:g})")
+    if good != N_FRAMES or n <= 0 or n != len(seen) or not exact:
+        fail("[43] the COFDM link through the channel")
+    return n, err, {"frames_back": good, "first_run_s": dt}
+
+
+def dvbt_echo(P, viterbi, dev):
+    """[43] [8]'s 32 QPSK r1/2 frames behind tests/test_channel.py:226's
+    -6 dB echo at delay 32, DVB_ECHO_SNR_DB, into decode_batch; every
+    radix-2 launch held to the plain version."""
+    rng = np.random.default_rng(S6_SEED + 432)
+    base = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"))
+    n_bytes = dvb_t_full_payload(P, base)
+    frames = [(P.DvbTFrameParams(base.link, i % 4, (17 * i) & 0xFF),
+               rng.integers(0, 256, n_bytes).astype(np.uint8))
+              for i in range(DVB_FRAMES)]
+    mods = [P.DvbTFrameMod(p, device=dev).modulate(d) for p, d in frames]
+    batch = torch.as_tensor(np.stack([m.iq for m in mods]), device=dev)
+    sig = float(batch.abs().pow(2).mean())
+    y = P.multipath_apply(batch, *DVB_ECHO, device=dev)
+    y = y + torch.as_tensor(host_noise(rng, tuple(y.shape), np.sqrt(
+        sig / 10 ** (DVB_ECHO_SNR_DB / 10) / 2)), device=dev)
+    demod = P.DvbTFrameDemod(base, device=dev)
+    zero_vit(viterbi)
+    t0 = time.perf_counter()
+    with recording_kernel(viterbi, "viterbi_chunks_kernel",
+                          ("launches", "launches_radix4")) as seen:
+        out = demod.decode_batch(y, mods[0].n_symbols, n_bytes)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = read_vit(viterbi)
+    good = sum(np.array_equal(o.payload, d) and o.tps == p.tps_word()
+               for o, (p, d) in zip(out, frames))
+    exact, err = held_to_plain(seen, lambda c0, c1, pm0, code:
+                               viterbi.viterbi_chunks_reference(
+                                   c0, c1, pm0, code, 2))
+    print(f"  DVB-T behind the -6 dB echo at {DVB_ECHO_SNR_DB:g} dB: "
+          f"{good}/{DVB_FRAMES} payloads and TPS words in {dt:.4f} s (first "
+          f"run), Viterbi launches radix 2 {n[0]}, radix 4 {n[1]} "
+          f"{[tuple(a[0].shape) for a, _ in seen]}, each against the plain "
+          f"version: exact {exact} (max |diff| {err:g})")
+    if good != DVB_FRAMES or n[0] <= 0 or n[1] or n[0] != len(seen) \
+            or not exact:
+        fail("[43] the DVB-T link through the channel")
+    return n, err, {"frames_back": good, "first_run_s": dt}
+
+
+def ft8_faded(P, ldpc_bp, dev):
+    """[43] 64 FT8 windows, each frame through its own Watterson
+    "moderate" channel (1 ms, 0.5 Hz) and AWGN at half the faded power
+    (tests/test_channel.py:203), decoded by ft8_decode_windows; every BP
+    launch held to the plain version."""
+    ht = P.CallsignHashTable()
+    msgs = ft_messages(P, FT_FADED)
+    n = FT_WIN["ft8"]
+    x = torch.zeros((FT_FADED, n), dtype=torch.complex64, device=dev)
+    for w, msg in enumerate(msgs):
+        frame = P.ft8_mod(P.ft8_encode(P.pack77(msg, ht), device=dev), FT_FS,
+                          FT_CARRIER, device=dev)
+        r = np.random.default_rng(S6_SEED + 4300 + w)
+        win = torch.zeros(n, dtype=torch.complex64, device=dev)
+        win[:frame.shape[0]] = frame
+        y = P.watterson_apply(r, win, FT_FS, 1e-3, 0.5, device=dev)
+        sig = float(y[:frame.shape[0]].abs().pow(2).mean())
+        x[w] = y + torch.as_tensor(P.awgn(r, n, np.sqrt(sig * 0.5)),
+                                   device=dev)
+    ldpc_bp.bp_decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    with recording_kernel(ldpc_bp, "bp_decode_kernel",
+                          ("launches", "launches_edge")) as seen:
+        out = P.ft8_decode_windows(x, FT_FS, FT_BASE, FT_MAX, device=dev)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_bp = ldpc_bp.bp_decode_kernel.launches
+    back = [w for w, (o, m) in enumerate(zip(out, msgs))
+            if o is not None and o.message == m]
+    wrong = sum(o is not None and o.message != m
+                for o, m in zip(out, msgs))
+    exact, err = held_to_plain(seen, ldpc_bp.bp_decode_reference)
+    print(f"  FT8 through Watterson moderate: {len(back)}/{FT_FADED} messages "
+          f"back (tests/test_channel.py:203 asserts every frame back), "
+          f"{wrong} wrong, in {dt:.4f} s (first run); {n_bp} BP "
+          f"launches {[tuple(a[1].shape) for a, _ in seen]}, each against "
+          f"the plain version: exact {exact}")
+    if len(back) != FT_FADED or n_bp != len(seen) or not exact:
+        fail("[43] the FT8 windows through Watterson")
+    return n_bp, err, {"messages_back": len(back), "windows": FT_FADED,
+                       "first_run_s": dt}
+
+
+def channel_phase(P, ldpc_bp, viterbi, dev):
+    """[43]: → (BP launches, radix launches, max |kernel - plain| BP and
+    Viterbi, readings)."""
+    io = io_phase(P, dev)
+    rates = impairment_phase(P, dev)
+    bp_a, bp_err_a, cofdm = cofdm_echo(P, ldpc_bp, dev)
+    vit, vit_err, dvbt = dvbt_echo(P, viterbi, dev)
+    bp_b, bp_err_b, ft8 = ft8_faded(P, ldpc_bp, dev)
+    return (bp_a + bp_b, vit, max(bp_err_a, bp_err_b), vit_err,
+            {"io": io, "impairments": rates, "cofdm_echo": cofdm,
+             "dvb_t_echo": dvbt, "ft8_watterson": ft8})
+
+
+def keyed(P, one, dev, stations, fs, n, noise, seed):
+    """Stations [(text, wpm, tone, amp, start)] keyed by MorseEncoder with
+    10 % jitter and cw_mod on the card, in AWGN of ``noise`` rms: → (the
+    capture on the card, its kernel B launches, each held to the plain
+    version at every step)."""
+    from orion_sdr_tpu_torch.modulate import analog as analog_mod
+    rng = np.random.default_rng(seed)
+    buf = torch.as_tensor(host_noise(rng, n, noise / np.sqrt(2)), device=dev)
+    one.onepole_two_rate.launches = 0
+    with recording(analog_mod, "onepole_two_rate") as seen:
+        for text, wpm, tone, amp, start in stations:
+            env = P.MorseEncoder(fs, wpm).with_jitter(10.0).encode_text(text)
+            if start + len(env) > n:
+                fail(f"{text!r} at {wpm} wpm does not fit the capture")
+            iq = P.cw_mod(env, fs, tone, device=dev)[0]
+            buf[start:start + iq.shape[0]] += amp * iq
+        torch.cuda.synchronize()
+    launches = one.onepole_two_rate.launches
+    exact = [onepole_steps_exact(one, *args, *out) for args, out in seen]
+    if launches != len(stations) or len(seen) != launches or not all(exact):
+        fail(f"cw_mod's two-rate one-pole launches: {launches} for "
+             f"{len(stations)} stations, each exact at every step: {exact}")
+    return buf, launches
+
+
+def morse_phase(P, one, dev):
+    """[44] a CW skimmer band: → (kernel B launches, readings)."""
+    from orion_sdr_tpu_torch.dsp import fir
+    plan = s6_morse_plan()
+    buf, launches = keyed(P, one, dev, plan, MORSE_FS, MORSE_N, MORSE_NOISE,
+                          S6_SEED + 440)
+    nt = fir.kaiser_num_taps(100.0 / MORSE_FS, 60.0)
+    route = ("FFT overlap-save" if nt >= fir._FFT_MIN_TAPS
+             else "conv1d")
+
+    def run():
+        return P.morse_decode_band(buf, MORSE_FS, 500.0, 10_500.0,
+                                   max_carriers=MORSE_SIGS, device=dev)
+    got = run()
+    by_tone = {round(r.tone_hz / 100.0): r for r in got}
+    bad = []
+    for text, wpm, tone, _, _ in plan:
+        r = by_tone.get(round(tone / 100.0))
+        if r is None or r.text != text or abs(r.wpm - wpm) / wpm >= 0.15:
+            bad.append((text, wpm, r and (r.text, round(r.wpm, 2))))
+    print(f"  {len(got)} of {MORSE_SIGS} stations decoded, every text and wpm "
+          f"(within 15 %) back: {not bad} {bad}; {MORSE_SIGS} kernel B "
+          f"launches (cw_mod), each exact at every step; the envelope "
+          f"filter has {nt} taps: {route} (_FFT_MIN_TAPS "
+          f"{fir._FFT_MIN_TAPS})")
+    if bad or len(got) != MORSE_SIGS:
+        fail("[44] the CW skimmer lost a station")
+    rate = with_busy(s5_rate(
+        f"morse_decode_band ({MORSE_N} samples at 48 kHz, {MORSE_SIGS} "
+        f"carriers)", run, MORSE_N, MORSE_N * 8), run)
+    return launches, {**rate, "fir_taps": nt, "fir_route": route,
+                      "stations": MORSE_SIGS}
+
+
+def placed(P, z, c, fs, n, g=1.0):
+    """``z`` cut or zero-padded to n samples and mixed to ``c`` Hz by a
+    phasor formed in float64 (a float32 phase ramp over millions of samples
+    would carry an ulp of a radian)."""
+    z = z.to(torch.complex64)[:n]
+    z = torch.nn.functional.pad(z, (0, n - z.shape[0]))
+    k = torch.arange(n, dtype=torch.float64, device=z.device)
+    turn = torch.remainder(k * (c / fs), 1.0)
+    ph = torch.polar(torch.ones_like(turn), 2 * np.pi * turn)
+    return (g * (z.to(torch.complex128) * ph)).to(torch.complex64)
+
+
+def band_monitor(P, dev):
+    """[45] the 2.4 Msps band (AM, FM, POCSAG, SSB): → readings."""
+    fs, n = BAND_FS, 1 << BAND_LOG2_N
+    rng = np.random.default_rng(S6_SEED + 45)
+    t = np.arange(n) / fs
+    am = P.am_mod((0.6 * np.sin(2 * np.pi * 800 * t)).astype(np.float32),
+                  fs, device=dev)[0]
+    fm = P.fm_mod((0.5 * np.sin(2 * np.pi * 1000 * t)).astype(np.float32),
+                  fs, 5000.0, device=dev)[0]
+    pg = P.pocsag_mod([P.PocsagPage(address=0x1234, function=3,
+                                    text=BAND_PAGE)] * 5, fs, device=dev)
+    ssb = P.ssb_mod((0.5 * np.sin(2 * np.pi * 800 * t) + 0.4 * np.sin(
+        2 * np.pi * 1900 * t)).astype(np.float32), fs, 2800.0, 1500.0,
+        device=dev)[0]
+    wide = (placed(P, am, -800e3, fs, n) + placed(P, fm, -300e3, fs, n)
+            + placed(P, pg, 250e3, fs, n, 0.7) + placed(P, ssb, 700e3, fs, n)
+            + torch.as_tensor(host_noise(rng, n, BAND_NOISE), device=dev))
+
+    def run():
+        return P.band_decode(wide, fs, device=dev)
+    ok, what = s6_band_check(run(), lambda a: a.cpu().numpy())
+    print(f"  2.4 Msps band, {n} samples: {what}")
+    if not ok:
+        fail("[45] the band monitor mislabelled or lost a station")
+    return {**with_busy(s5_rate(f"band_decode ({n} samples at 2.4 Msps, four "
+                                f"stations)", run, n, n * 8, runs=3), run),
+            **what}
+
+
+def band_narrow(P, one, dev):
+    """[45] the narrow modes at the JAX tests' widths: CW at 250 kHz
+    (tests/test_classify.py:230), RTTY at 256 kHz (:175), PSK31 beside AM
+    and POCSAG in a 500 kHz dispatch capture (:93, 2^22 samples: the
+    PSK31 text takes 7.9 s):
+    → (kernel B launches, {capture: [(centre kHz, label, text)]})."""
+    from orion_sdr_tpu_torch.codec.rtty import baudot_encode, rtty_frame_bits
+    rng = np.random.default_rng(S6_SEED + 451)
+    out = {}
+    fs, n = 250_000.0, 1 << 20
+    cw, launches = keyed(P, one, dev, [("CQ TEST K", 30.0, 0.0, 1.0, 0)],
+                         fs, n, 0.0, S6_SEED + 452)
+    z = placed(P, cw, 80e3, fs, n) + torch.as_tensor(
+        host_noise(rng, n, 0.01), device=dev)
+    out["cw 250 kHz"] = [(round(e.segment.center_hz / 1e3), e.signal.label,
+                          e.text) for e in P.band_decode(z, fs, device=dev)]
+    fsr = 8000.0
+    line = rtty_frame_bits(baudot_encode("CQ DE ORION SDR 599"))
+    sps = fsr / 45.45
+    k = np.minimum((np.arange(int(len(line) * sps)) / sps).astype(int),
+                   len(line) - 1)
+    iq = np.exp(1j * np.cumsum(2 * np.pi * np.where(line[k] == 1, -85.0,
+                                                     85.0) / fsr)
+                ).astype(np.complex64)
+    wide = P.band_compose(iq[None], [60e3], 256_000.0, fsr, device=dev)
+    wide = wide + torch.as_tensor(host_noise(rng, wide.shape[0], 0.003),
+                                  device=dev)
+    out["rtty 256 kHz"] = [(round(e.segment.center_hz / 1e3),
+                            e.signal.label, e.text)
+                           for e in P.band_decode(wide, 256_000.0,
+                                                  device=dev)]
+    fs, n = 500_000.0, 1 << 22           # the PSK31 text takes 7.9 s
+    t = np.arange(n) / fs
+    am = P.am_mod((0.6 * np.sin(2 * np.pi * 800 * t)).astype(np.float32),
+                  fs, device=dev)[0]
+    pg = P.pocsag_mod([P.PocsagPage(address=0x123, function=3,
+                                    text="PAGE ME NOW")] * 60, fs, device=dev)
+    psk = P.bpsk31_mod_text("ORION PSK31 DISPATCH", fs, device=dev)
+    band = (placed(P, am, -150e3, fs, n) + placed(P, pg, 100e3, fs, n, 0.8)
+            + placed(P, psk, 30e3, fs, n, 0.5)
+            + torch.as_tensor(host_noise(rng, n, 0.004), device=dev))
+    out["dispatch 500 kHz"] = [(round(e.segment.center_hz / 1e3),
+                                e.signal.label, e.text)
+                               for e in P.band_decode(band, fs, device=dev)]
+    print(f"  narrow modes: {out}")
+    d = {c: (label, text) for c, label, text in out["dispatch 500 kHz"]}
+    if (out["cw 250 kHz"] != [(80, "cw", "CQ TEST K")]
+            or out["rtty 256 kHz"] != [(60, "fsk", "CQ DE ORION SDR 599")]
+            or {c: v[0] for c, v in d.items()}
+            != {-150: "am", 100: "fsk", 30: "psk31"}
+            or set((d[100][1] or "").split(" / ")) != {"PAGE ME NOW"}
+            or "ORION PSK31 DISPATCH" not in (d[30][1] or "")):
+        fail("[45] a narrow mode was mislabelled or lost")
+    return launches, out
+
+
+def band_phase6(P, one, pll, dev):
+    """[45]: → (PSK31 PLL launches, kernel B launches, readings); every
+    PLL launch held to the plain version."""
+    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
+    pll.psk31_pll.launches = 0
+    with recording(psk31_mod, "psk31_pll") as seen:
+        rate = band_monitor(P, dev)
+        one_n, narrow = band_narrow(P, one, dev)
+        torch.cuda.synchronize()
+    n = pll.psk31_pll.launches
+    exact, err = held_to_plain(seen, pll.psk31_pll_reference)
+    print(f"  PSK31 PLL launches {n} {[tuple(a[0].shape) for a, _ in seen]}, "
+          f"each against the plain version: exact {exact}")
+    if n <= 0 or n != len(seen) or not exact:
+        fail("[45] a PSK31 PLL launch differs from its plain version")
+    return n, err, one_n, {**rate, "narrow": narrow}
+
+
+def adsb_phase(P, dev):
+    """[46] 100 DF17 frames from 20 aircraft at 2 Msps: → readings."""
+    from orion_sdr_tpu_torch.codec import adsb as A
+    msgs, offsets, amps, truth = s6_adsb_plan()
+    frames = [getattr(A, enc)(*args) for enc, args in msgs]
+    n = 1 << ADSB_LOG2_N
+    rng = np.random.default_rng(S6_SEED + 460)
+    iq = P.adsb_mod(frames, ADSB_FS, offsets_s=offsets, amplitudes=amps,
+                    total_s=n / ADSB_FS, device=dev) + torch.as_tensor(
+        host_noise(rng, n, ADSB_NOISE), device=dev)
+
+    def run():
+        return P.adsb_decode_capture(iq, ADSB_FS, max_candidates=1024,
+                                     device=dev)
+    ok, what = s6_adsb_check(run(), frames, A.adsb_decode_frame, truth)
+    print(f"  {what}")
+    if not ok:
+        fail("[46] the ADS-B receiver lost or garbled a message")
+    return {**with_busy(s5_rate(f"adsb_decode_capture ({n} samples at 2 "
+                                f"Msps)", run, n, n * 8), run), **what}
+
+
+def sstv_phase(P, dev):
+    """[47] a Martin M1 picture through sstv_mod and sstv_demod at 11 025
+    Hz and 48 kHz: → readings."""
+    img = s6_sstv_image()
+    out = {}
+    for fs in SSTV_RATES:
+        audio = P.sstv_mod(img, fs, device=dev)
+
+        def run():
+            return P.sstv_demod(audio, fs, device=dev)
+        got = run()
+        psnr = s6_psnr(got.image, img)
+        print(f"  {fs:g} Hz: {audio.shape[0]} samples, VIS {got.vis}, PSNR "
+              f"{psnr:.2f} dB (at least 35)")
+        if got.vis != 44 or not psnr >= 35.0:
+            fail(f"[47] the SSTV picture at {fs:g} Hz")
+        out[f"{fs:g}"] = {**with_busy(s5_rate(
+            f"sstv_demod ({audio.shape[0]} samples at {fs:g} Hz)", run,
+            audio.shape[0], audio.shape[0] * 4, runs=3), run),
+            "psnr_db": psnr, "vis": got.vis}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -4029,6 +4690,48 @@ def main() -> int:
     print(f"  launches by phase: DD-PLL {dd_runs}, Gardner {ga_runs}, "
           f"tracking {tk_runs}")
 
+    t_s6 = time.perf_counter()
+    print(f"[43] capture I/O (2^{IO_LOG2_N} samples) and the channel "
+          f"simulator: the seven impairments at {CH_ROWS} x 2^{CH_LOG2_N}; "
+          f"COFDM, DVB-T and FT8 links through the channel")
+    bp43, vit_runs["43"], bp43_err, vit43_err, ch_stats = channel_phase(
+        P, ldpc_bp, viterbi, dev)
+    bp_runs["43"] = bp43
+    max_err = max(max_err, bp43_err)
+    vit_err = max(vit_err, vit43_err)
+    print(f"  [43] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6 = time.perf_counter()
+    print(f"[44] Morse: a {MORSE_N / MORSE_FS:g} s {MORSE_FS / 1e3:g} kHz CW "
+          f"band of {MORSE_SIGS} stations through morse_decode_band")
+    one_runs = {"31": one_stats["launches"]}
+    one_runs["44"], morse_stats = morse_phase(P, onepole_two_rate, dev)
+    print(f"  [44] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6 = time.perf_counter()
+    print(f"[45] band monitor: band_survey + band_decode on a "
+          f"{BAND_FS / 1e6:g} Msps capture of 2^{BAND_LOG2_N} samples; CW, "
+          f"RTTY and PSK31 at the JAX tests' widths")
+    pll_runs["45"], pll45_err, one_runs["45"], band6_stats = band_phase6(
+        P, onepole_two_rate, psk31_pll, dev)
+    print(f"  [45] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6 = time.perf_counter()
+    print(f"[46] ADS-B: {ADSB_PLANES * 5} DF17 frames from {ADSB_PLANES} "
+          f"aircraft at {ADSB_FS / 1e6:g} Msps, 2^{ADSB_LOG2_N} samples")
+    adsb_stats = adsb_phase(P, dev)
+    print(f"  [46] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6 = time.perf_counter()
+    print(f"[47] SSTV: a 320 x 256 Martin M1 picture at "
+          f"{' and '.join(f'{f:g}' for f in SSTV_RATES)} Hz")
+    sstv_stats = sstv_phase(P, dev)
+    print(f"  [47] took {time.perf_counter() - t_s6:.1f} s")
+    default = [p for p in vit_runs if p != FORCED]
+    by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
+                for k, radix in enumerate((2, 4))}
+    if any(by_phase[4][p] for p in default):
+        fail("a default path launched the radix-4 Viterbi kernel")
+    print(f"  slice 6a launches: BP {bp43} ([43]), Viterbi radix 2 "
+          f"{by_phase[2]['43']} ([43]), two-rate one-pole {one_runs}, PSK31 "
+          f"PLL {pll_runs['45']} ([45]), each held to its plain version")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda",
@@ -4110,7 +4813,8 @@ def main() -> int:
         entry("psk31_pll", "psk31_pll.cu",
               "orion_sdr_tpu/demodulate/psk31.py:65",
               sum(pll_runs.values()),
-              max(v["max_abs_err"] for v in pll_stats.values()),
+              max([v["max_abs_err"] for v in pll_stats.values()]
+                  + [pll45_err]),
               pll_stats["bpsk"]["ms"], pll_stats["bpsk"]["plain_ms"],
               pll_stats["bpsk"]["bound"], pallas_counterpart=None,
               note="no Pallas kernel in the JAX package computes this: it "
@@ -4124,7 +4828,7 @@ def main() -> int:
               psk31_roundtrip=psk_stats, fm_demod_chain=fm_stats,
               viterbi_decode_torch_loop_ms=vit_psk_ms),
         entry("onepole_two_rate", "onepole_two_rate.cu",
-              "orion_sdr_tpu/dsp/agc.py:59", one_stats["launches"],
+              "orion_sdr_tpu/dsp/agc.py:59", sum(one_runs.values()),
               one_stats["max_abs_err"], one_stats["ms"],
               one_stats["plain_ms"], one_stats["bound"],
               pallas_counterpart=None,
@@ -4139,7 +4843,7 @@ def main() -> int:
                    f"{ONEPOLE_ROWS}x2^{ONEPOLE_LOG2_N} under ms_full and "
                    "bound_ms_full, its launches held to the plain version "
                    "step by step (steps_exact_at_full)",
-              launches_by_phase={"31": one_stats["launches"]},
+              launches_by_phase=one_runs,
               shape=f"{ONEPOLE_ROWS}x{ONEPOLE_CMP}",
               shape_full=f"{ONEPOLE_ROWS}x{1 << ONEPOLE_LOG2_N}",
               chain_steps_per_row=ONEPOLE_CMP,
@@ -4201,7 +4905,10 @@ def main() -> int:
                         / TRACK_EPOCHS,
                         "bound_by": tk_stats["bound"][1],
                         "ephemeris_path_s": tk_stats["ephemeris_s"]},
-                    "42 fsk2_engine_throughput": fsk_stats}}))
+                    "42 fsk2_engine_throughput": fsk_stats},
+        "slice6a": {"43 channel": ch_stats, "44 morse_skimmer": morse_stats,
+                    "45 band_monitor": band6_stats, "46 adsb": adsb_stats,
+                    "47 sstv": sstv_stats}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -22,7 +22,10 @@ with RDS, chirp spread spectrum and WSPR (stack-decoded K=32 code). And
 the single-carrier burst modem (RRC shaping, polyphase-energy and Gardner
 timing, the decision-directed carrier PLL), GPS L1 C/A acquisition,
 tracking and LNAV decode, and the 2-FSK family (AX.25 over AFSK-1200,
-RTTY, POCSAG, AIS). Eight hand-written Hopper kernels carry them: LDPC
+RTTY, POCSAG, AIS). And the capture-to-text receivers: capture file I/O,
+the channel simulator (CFO, phase noise, I/Q imbalance, static and fading
+multipath, Watterson), the Morse encoder and CW skimmer, blind
+classification with the band survey and band decode, ADS-B and SSTV. Eight hand-written Hopper kernels carry them: LDPC
 belief propagation (``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check
 rules), the Viterbi ACS + traceback (``ops/viterbi.py``,
 ``csrc/viterbi.cu``, radix 2 and 4), the BCH/RS outer decoder
@@ -162,3 +165,23 @@ from .modulate.afsk import (afsk1200_mod, ax25_beacon, nrzi_encode,
 from .demodulate.afsk import (afsk1200_demod, ax25_decode,
                               rtty_decode, Afsk1200Stream)
 from .codec.rtty import baudot_encode, baudot_decode
+
+# ── slice 6a: capture I/O, the channel simulator, Morse, classification and
+# band decode, ADS-B, SSTV ───────────────────────────────────────────────────
+from . import io
+from .io import (write_iq_wav, read_iq_wav, write_audio_wav, read_audio_wav,
+                 write_iq_npy, read_iq_npy)
+from .channel import (cfo_apply, phase_noise_apply, iq_imbalance_apply,
+                      multipath_apply, fading_taps, fading_apply,
+                      watterson_apply)
+from .codec.morse import (MorseEncoder, MorseBandResult, morse_decode,
+                          morse_decode_band)
+from .classify import (classify_signal, band_survey, band_decode,
+                       SignalClass, SurveyEntry, BandDecodeEntry)
+from .codec.adsb import (AdsbMessage, adsb_crc24, adsb_decode_frame,
+                         adsb_encode_identification, adsb_encode_position,
+                         adsb_encode_velocity, cpr_encode, cpr_decode_global)
+from .modulate.adsb import adsb_mod
+from .demodulate.adsb import adsb_decode_capture
+from .modulate.sstv import sstv_mod
+from .demodulate.sstv import sstv_demod, SstvImage

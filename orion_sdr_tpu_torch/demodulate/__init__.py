@@ -19,3 +19,5 @@ from .ais import ais_decode, ais_demod_bits
 from .pocsag import pocsag_decode, pocsag_demod_bits
 from .afsk import (afsk1200_demod, ax25_decode, rtty_decode,
                    Afsk1200Stream, fsk2_decision, rtty_decode_fsk)
+from .adsb import adsb_decode_capture
+from .sstv import sstv_demod, SstvImage

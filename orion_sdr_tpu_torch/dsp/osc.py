@@ -73,12 +73,14 @@ def rotate(x: torch.Tensor, freq_hz, fs: float, phase0=0.0):
 def rotate_host(x: torch.Tensor, freq_hz, fs: float, phase0: float = 0.0):
     """:func:`rotate` with the step ``w = 2π·freq_hz/fs`` formed in float32,
     as the JAX package's ``rotate_host`` forms it from a float32
-    frequency."""
+    frequency; its jitted program fuses p0 + w·k into one multiply-add, so
+    the phase is formed in float64 and rounded once."""
     w = np.float32(TAU) * np.float32(freq_hz) / np.float32(fs)
     n = x.shape[-1]
     p0 = np.float32(phase0)
-    k = torch.arange(1, n + 1, dtype=torch.float32, device=x.device)
-    y = (x * _phasor(float(p0) + float(w) * k)).to(torch.complex64)
+    k = torch.arange(1, n + 1, dtype=torch.float64, device=x.device)
+    ph = (float(p0) + float(w) * k).to(torch.float32)
+    y = (x * _phasor(ph)).to(torch.complex64)
     return y, float(np.remainder(p0 + np.float32(w * n), np.float32(TAU)))
 
 

@@ -14,3 +14,5 @@ from .pocsag import pocsag_mod, POCSAG_PREAMBLE_BITS
 from .afsk import (afsk1200_mod, rtty_mod, fsk2_tones, ax25_beacon,
                    nrzi_encode, nrzi_decode, AFSK_BAUD, AFSK_MARK_HZ,
                    AFSK_SPACE_HZ)
+from .adsb import adsb_mod, adsb_frame_chips, ADSB_CHIP_RATE
+from .sstv import sstv_mod, MARTIN_M1

@@ -1,10 +1,11 @@
-"""Host BCH and Reed–Solomon encoders/decoders from the repository's native
-C++ source (``orion_sdr_tpu/native/orion_native.cpp``: batch LFSR encode,
+"""Host BCH and Reed–Solomon encoders/decoders from the port's native C++
+source (``orion_native.cpp`` beside this file: batch LFSR encode,
 Berlekamp–Massey + Chien (+ Forney for RS) decode), built with g++ at first
 use into the port's build directory and bound with ctypes.
 
-The source file is shared with the JAX package and compiled from its path;
-nothing of that package is imported.
+The source is the port's own copy of the JAX package's ``native/
+orion_native.cpp``, kept byte for byte equal to it (a test holds the two
+together); nothing of that package is read or imported.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import numpy as np
 
 from ..buildlib import build_shared
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "orion_sdr_tpu", "native", "orion_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "orion_native.cpp")
 
 _lib = None
 

@@ -19,8 +19,10 @@ a caller's TF32 switches; and slice 5a on the card against the CPU path
 (the channelizer on both FIR routes and under two chunkings, the PFB,
 band_compose, AM/SSB band audio, the FM stereo program and RDS, the CSS
 dechirp and WSPR energy grid) with the band receivers' BP and Viterbi
-launches, and the CSS and WSPR receivers on the card. They skip without a
-CUDA card.
+launches, and the CSS and WSPR receivers on the card; and slice 6a (each
+channel impairment, the SSTV discriminator and the ADS-B score on the card
+against the CPU, SSTV, ADS-B, Morse and the band decode on the card, the
+top-level names). They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -1286,3 +1288,135 @@ def test_fsk2_family_on_the_card(cuda):
                           sog_kt=12.3, cog_deg=87.5, heading_deg=88)]
     iq = P.ais_mod(ship, device=cuda)
     assert P.ais_decode(iq, 96_000.0, device=cuda) == ship
+
+
+# ── slice 6a: the channel simulator, SSTV, ADS-B, Morse, band decode ────────
+
+_CHANNEL_CASES = {
+    "cfo": lambda x, d: P.cfo_apply(x, -1234.5, 48e3, 0.3, device=d),
+    "phase_noise": lambda x, d: P.phase_noise_apply(
+        np.random.default_rng(3), x, 20.0, 48e3, device=d),
+    "iq_imbalance": lambda x, d: P.iq_imbalance_apply(x, 1.0, 5.0, device=d),
+    "multipath": lambda x, d: P.multipath_apply(
+        x, [0, 7, 300], [1.0, 0.5j, 0.2 - 0.1j], device=d),
+    "fading": lambda x, d: P.fading_apply(
+        x, 48e3, P.fading_taps(np.random.default_rng(7), 64, 16.0, 2.0,
+                               n_paths=2), 16.0, [0, 11], [0.0, -3.0],
+        device=d),
+    "watterson": lambda x, d: P.watterson_apply(
+        np.random.default_rng(21), x, 48e3, 2e-3, 1.0, device=d),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CHANNEL_CASES))
+def test_channel_impairment_on_the_card_matches_the_cpu(cuda, name):
+    """(4, 2^16) IQ through each impairment (the same numpy draws): the
+    card within 1e-5 of the CPU's peak."""
+    x = _noise_iq(4 << 16, 31).reshape(4, -1)
+    fn = _CHANNEL_CASES[name]
+    got = fn(x, cuda)
+    assert got.device.type == torch.device(cuda).type
+    assert got.dtype == torch.complex64
+    _close_on_card(got, fn(x, "cpu"))
+
+
+def test_sstv_on_the_card(cuda):
+    """The discriminator on the card against the CPU (1e-5 of its peak),
+    and a Martin M1 picture modulated and decoded on the card: VIS 44 and
+    PSNR above 35 dB."""
+    from orion_sdr_tpu_torch.demodulate.sstv import _instantaneous_freq
+    rng = np.random.default_rng(2)
+    audio = rng.standard_normal((2, 1 << 16)).astype(np.float32)
+    for fs in (11025.0, 48000.0):
+        _close_on_card(_instantaneous_freq(torch.as_tensor(audio, device=cuda),
+                                           fs),
+                       _instantaneous_freq(torch.as_tensor(audio), fs))
+    img = np.zeros((256, 320, 3), np.uint8)
+    img[:, :, 0] = np.linspace(0, 255, 320)[None, :]
+    img[:, :, 1] = np.linspace(0, 255, 256)[:, None]
+    img[:128, :, 2] = 200
+    out = P.sstv_demod(P.sstv_mod(img, 11025.0, device=cuda), 11025.0,
+                       device=cuda)
+    err = np.abs(out.image.astype(float) - img.astype(float))[3:-3, 6:-6]
+    assert out.vis == 44
+    assert 20 * np.log10(255 / np.sqrt(np.mean(err ** 2))) > 35.0
+
+
+def test_adsb_on_the_card(cuda):
+    """The preamble score on the card against the CPU (1e-5), and a busy
+    sky decoded on the card with the CPU path's messages."""
+    from orion_sdr_tpu_torch.demodulate.adsb import _envelope_and_score
+    frames = [P.adsb_encode_identification(0x4840D6, "KLM1023"),
+              P.adsb_encode_position(0x4840D6, 52.2572, 3.91937, 38000, 0),
+              P.adsb_encode_position(0x4840D6, 52.2572, 3.91937, 38000, 1),
+              P.adsb_encode_velocity(0x4840D6, 450.0, 245.0)]
+    iq = P.adsb_mod(frames, 8e6, amplitudes=[1.0, 0.8, 0.8, 0.5],
+                    device="cpu").numpy() + 0.05 * _noise_iq(
+        int(round((3 * 200e-6 + 220e-6) * 8e6)), 4)
+    for m in (1, 4):
+        for got, ref in zip(_envelope_and_score(torch.as_tensor(
+                iq, device=cuda), m), _envelope_and_score(
+                torch.as_tensor(iq), m)):
+            _close_on_card(got, ref)
+    got = P.adsb_decode_capture(iq, 8e6, device=cuda)
+    assert len(got) == 4 and got == P.adsb_decode_capture(iq, 8e6,
+                                                          device="cpu")
+    assert got[2].position is not None
+
+
+def test_morse_band_decode_on_the_card(cuda):
+    """Three keyed signals through cw_mod on the card (the two-rate
+    one-pole kernel) decoded on the card: every text back."""
+    fs, n = 8000.0, 8000 * 12
+    buf = 0.02 * _noise_iq(n, 5)
+    for text, wpm, tone, amp in (("CQ DX", 15.0, 500.0, 1.0),
+                                 ("HELLO WORLD", 28.0, 900.0, 0.3),
+                                 ("73 GL", 35.0, 1300.0, 0.1)):
+        env = P.MorseEncoder(fs, wpm).with_jitter(10.0).encode_text(text)
+        iq = P.cw_mod(env, fs, tone, device=cuda)[0].cpu().numpy()
+        buf[4000:4000 + len(iq)] += amp * iq[:n - 4000]
+    got = P.morse_decode_band(buf, fs, 400.0, 1500.0, device=cuda)
+    assert sorted(r.text for r in got) == ["73 GL", "CQ DX", "HELLO WORLD"]
+
+
+def test_band_decode_on_the_card(cuda):
+    """AM and POCSAG in one 500 kHz capture, classified and decoded on the
+    card: the labels, the page text and the AM tone; a torch error inside
+    a receiver is not swallowed."""
+    from orion_sdr_tpu_torch.dsp.osc import rotate as prot
+    fs, n = 500_000.0, 1 << 19
+    t = np.arange(n) / fs
+    am = P.am_mod((0.6 * np.sin(2 * np.pi * 800 * t)).astype(np.float32),
+                  fs, device="cpu")[0]
+    pg = P.pocsag_mod([P.PocsagPage(address=0x123, function=3,
+                                    text="PAGE ME NOW")] * 4, fs,
+                      device="cpu")[:n]
+    pg = torch.nn.functional.pad(pg, (0, n - pg.shape[0]))
+    band = prot(am, -150e3, fs)[0] + 0.8 * prot(pg, 100e3, fs)[0]
+    band = band + torch.as_tensor(_noise_iq(n, 0, 0.004))
+    got = P.band_decode(band, fs, device=cuda)
+    assert [e.signal.label for e in got] == ["am", "fsk"]
+    assert got[1].text == "PAGE ME NOW"
+    audio = got[0].audio.cpu().numpy()[2000:]
+    f = np.fft.rfftfreq(len(audio), 1 / got[0].fs_audio)
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    assert abs(f[np.argmax(spec[5:]) + 5] - 800.0) < 10.0
+
+
+def test_top_level_has_the_slice_6a_names(cuda):
+    """The port's top level on the card machine carries every name the
+    JAX package's ``__init__`` exports from the modules of slice 6a (read
+    from its source, not imported)."""
+    import ast
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "orion_sdr_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    mods = ("io", "channel", "classify", "codec.morse", "codec.adsb",
+            "modulate.adsb", "demodulate.adsb", "modulate.sstv",
+            "demodulate.sstv")
+    names = [a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) and node.level == 1
+             and node.module in mods for a in node.names]
+    assert len(names) == 36 and hasattr(P, "io")
+    assert [n for n in names if not hasattr(P, n)] == []
