@@ -314,7 +314,41 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    Every capture of [43]-[47] follows a numpy recipe (the s6_* functions);
    tools/slice6a_jax_fullwidth.py decodes the same captures with the JAX
    package on the CPU.
-48. Prints the kernels' JSON line (each kernel's main-path launches, error
+48. The generic OFDM receive and OTFS (slice 6b) on the 2K grid of
+   dvb_t_config("1/4", 7.61e6) (n_fft 2048, cp 512), QPSK and 16-QAM, 64
+   rows x 68 symbols behind a known training symbol: ofdm_mod with the
+   plan's pilots passed as pilot_bins/pilot_values, multipath_apply (taps
+   0, 5, 17), then ofdm_demod with the training-symbol estimate
+   (channel_estimate_training, ZF), mmse_equalize, and pilot_interp on
+   dvb_t_scattered_config's plan; otfs_mod/otfs_demod at n_doppler 16 (64
+   symbols, 4 OTFS frames a row) with LMMSE through the same echo and
+   through watterson_apply (a per-symbol estimate from a probe of known
+   symbols through the same draws). Every bit back on the noiseless echo;
+   on copies at 20 dB rows 0 and 63 against the CPU path (hard bits
+   equal, soft symbols within 1e-4 of the peak, build_ofdm_rx_frame's EVM
+   within 0.1 dB); Msps of each receive beside its bytes bound and busy
+   share. The path launches none of our kernels (checked).
+49. The Block classes (slice 6b): 60 s of BPSK31 and QPSK31 text at 8 kHz
+   through Bpsk31Mod/Bpsk31Demod/Bpsk31Decider and Qpsk31Demod.flush in
+   4 096-sample process() calls (the text back, one PLL launch a call,
+   each held to the plain version); 10 s of Morse through CwKeyedMod at
+   48 kHz in 1 s calls (each kernel B launch held at every step);
+   Ft8Codec.decode_soft on 256 noisy codewords, one call and one BP launch
+   each (every payload back, each launch held); the analog and digital
+   blocks on 2^20 samples in 2^16-sample calls against one call on the
+   whole (Msps); OfdmMod/OfdmDemod on [48]'s grid under both equalizers
+   (every bit back).
+50. Checkpoint/resume (slice 6b): [5]'s four COFDM frames in
+   OfdmFrameStreamDemod, three full 2K QPSK r1/2 frames in
+   DvbTFrameStreamDemod, two hierarchical frames, a QPSK31 Psk31Stream,
+   an FT8 frame in Ft8StreamDecoder and [33]'s three links in
+   OfdmFrameBandStreamDemod, each cut mid-frame, saved with
+   save_checkpoint, loaded into a fresh receiver on the card and fed the
+   rest: the outputs equal the uninterrupted run's; the file size, save
+   and load times; every BP, radix-2 and PLL launch held to the plain
+   version. Then the QPSK31 stream checkpointed on the card and finished
+   on the CPU, with the same text.
+51. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -336,8 +370,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    runs, symbol_sync_gardner, [41]'s ephemeris path; [43]-[45] add to
    the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase), a
    "slice5" object with [32]-[36]'s rates, bounds and readings, a
-   "slice5b" object with [39]-[42]'s and a "slice6a" object with
-   [43]-[47]'s; the card's name and power limit, then the
+   "slice5b" object with [39]-[42]'s, a "slice6a" object with
+   [43]-[47]'s and a "slice6b" object with [48]-[50]'s ([49] and [50] add
+   to the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase);
+   the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
    it.
@@ -363,6 +399,7 @@ bound.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -474,6 +511,26 @@ MORSE_FS, MORSE_N, MORSE_SIGS, MORSE_NOISE = 48_000.0, 672_000, 16, 0.05
 BAND_FS, BAND_LOG2_N, BAND_NOISE = 2.4e6, 22, 0.004
 ADSB_FS, ADSB_LOG2_N, ADSB_PLANES, ADSB_NOISE = 2e6, 21, 20, 0.05
 SSTV_RATES = (11025.0, 48000.0)
+# slice 6b (phases 48-50): [48] the generic OFDM receive and OTFS on the 2K
+# grid of dvb_t_config("1/4", 7.61e6) (n_fft 2048, cp 512), QPSK and 16-QAM,
+# 64 rows x 68 symbols (OTFS 64 symbols: 4 frames at n_doppler 16) behind a
+# known training symbol, through three echo taps inside the guard and
+# within the scattered pilots' safe backoff (85 samples), and through
+# Watterson (183 samples apart, inside the guard); [49] the Block classes
+# at session lengths (60 s of PSK31 at 8 kHz, 10 s of CW at 48 kHz, 256
+# FT8 codewords, 2^20 samples of the analog and digital blocks); [50] six
+# streams checkpointed mid-frame and resumed in a fresh receiver
+S6B_SEED, S6B_RUNS = 612, 5
+OFDM_BW, OFDM_ROWS, OFDM_SYMS = 7.61e6, 64, 68
+OTFS_DOPPLER, OTFS_SYMS = 16, 64
+OFDM_ECHO = ([0, 5, 17], [1.0, 0.3 * np.exp(0.7j), 0.15 * np.exp(-1.9j)])
+OFDM_SNR_DB = 20.0
+WATTERSON = (20e-6, 10.0)         # path delay s, Doppler spread Hz
+BLOCK_PSK_S, BLOCK_PSK_CHUNK, BLOCK_PSK_BUSY_CALLS = 60.0, 4096, 16
+BLOCK_CW_S, BLOCK_CW_FS, BLOCK_CW_CHUNK = 10.0, 48_000.0, 48_000
+BLOCK_FT8_ROWS, BLOCK_FT8_SIGMA = 256, 0.55
+BLOCK_LOG2_N, BLOCK_LOG2_CHUNK = 20, 16
+CKPT_DVB_FRAMES = 3
 
 
 def fail(msg: str):
@@ -4393,6 +4450,704 @@ def sstv_phase(P, dev):
     return out
 
 
+# ── [48] the generic OFDM receive and OTFS ───────────────────────────────────
+
+
+def s6b_grid(P, order):
+    """[48]'s two configs of ``order``: dvb_t_config("1/4", 7.61e6) (the 2K
+    grid, n_fft 2048, cp 512, continual pilots) and the scattered-pilot
+    dvb_t_scattered_config (its phase-0 plan)."""
+    from dataclasses import replace
+    return (replace(P.dvb_t_config("1/4", OFDM_BW), constellation=order),
+            replace(P.dvb_t_scattered_config("1/4", OFDM_BW),
+                    constellation=order))
+
+
+def s6b_known(P, n_fft):
+    from orion_sdr_tpu_torch.sync.ofdm_sync import \
+        training_symbol_freq_pattern
+    return training_symbol_freq_pattern(n_fft).astype(np.complex64)
+
+
+def s6b_capture(P, cfg, rows, n_sym, dev, seed, otfs=False):
+    """(bits (rows, n_sym·bps) uint8 on ``dev``, IQ (rows, (1 + n_sym)·sps):
+    a known training symbol, then ``n_sym`` symbols by ofdm_mod with the
+    plan's pilots passed as ``pilot_bins``/``pilot_values``, or by
+    otfs_mod at n_doppler OTFS_DOPPLER)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(0, 2, (rows, n_sym * cfg.bits_per_ofdm_symbol()),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    g = cfg.grid()
+    if otfs:
+        iq, _ = P.otfs_mod(cfg, bits, OTFS_DOPPLER)
+    else:
+        iq, _ = P.ofdm_mod(cfg, bits, pilot_bins=g.pilot_bins,
+                           pilot_values=g.pilot_values)
+    known = torch.as_tensor(s6b_known(P, g.n_fft), device=dev)
+    train = P.multicarrier.ofdm_assemble(known[None, :], g.cp_len)
+    return bits, torch.cat([train.expand(rows, -1), iq], dim=-1)
+
+
+def s6b_noise(x, snr_db, seed):
+    """``x`` plus complex AWGN at ``snr_db`` below its mean power (drawn on
+    its device from ``seed``); → (noisy, per-sample noise power)."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    p = float(x.abs().pow(2).mean()) / 10 ** (snr_db / 10)
+    n = torch.randn(x.shape, generator=gen, device=x.device,
+                    dtype=torch.complex64)          # unit complex variance
+    return x + n * np.float32(np.sqrt(p)), p
+
+
+def s6b_receivers(P, cfg, cfg_s, nv):
+    """[48]'s receive paths on a capture whose symbol 0 is the known
+    training symbol: name → fn(rx) → soft symbols (rows, n_sym, n_data)."""
+    g, gs = cfg.grid(), cfg_s.grid()
+    n_fft, cp = g.n_fft, g.cp_len
+    sps = n_fft + cp
+    known = s6b_known(P, n_fft)
+
+    def est(rx):
+        f0 = P.multicarrier.symbol_fft(rx[..., :sps], n_fft, cp,
+                                       n_symbols=1)[..., 0, :]
+        return P.channel_estimate_training(f0, known)[..., None, :]
+
+    def zf(rx):
+        return P.ofdm_demod(cfg, rx[..., sps:], estimate=est(rx))[0]
+
+    def mmse(rx):
+        freq = P.multicarrier.symbol_fft(rx[..., sps:], n_fft, cp)
+        return P.multicarrier.grid_extract(
+            g, P.mmse_equalize(freq, est(rx), nv))
+
+    def pilots(rx):
+        freq = P.multicarrier.symbol_fft(rx[..., sps:], n_fft, cp)
+        h = P.channel_estimate_pilots(freq, gs.pilot_bins, gs.pilot_values,
+                                      n_fft)
+        return P.multicarrier.grid_extract(gs, P.zf_equalize(freq, h))
+
+    def otfs(rx, h=None):
+        return P.otfs_demod(cfg, rx[..., sps:], OTFS_DOPPLER,
+                            estimate=est(rx) if h is None else h,
+                            noise_var=nv)[0]
+    return {"ofdm_demod ZF (training symbol)": zf,
+            "mmse_equalize (training symbol)": mmse,
+            "pilot_interp (dvb_t_scattered_config)": pilots,
+            "otfs_demod LMMSE (echo)": otfs}, otfs
+
+
+def s6b_vs_cpu(P, cfg, fn, rx, soft, rows):
+    """Rows ``rows`` of the card's ``soft`` against ``fn`` run on the CPU
+    on the same rows of ``rx``: (max |soft diff| / peak, hard bits equal,
+    |EVM card − EVM CPU| in dB of row rows[0])."""
+    ref = fn(rx[rows].cpu())
+    got = soft[rows].cpu()
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    hard = P.ofdm_decide(cfg, got)
+    same = torch.equal(hard, P.ofdm_decide(cfg, ref))
+    evm = [P.build_ofdm_rx_frame(cfg, s[0], h[0]).evm_db
+           for s, h in ((got, hard), (ref, P.ofdm_decide(cfg, ref)))]
+    return err, same, abs(evm[0] - evm[1]), evm[0]
+
+
+def ofdm_rx_phase(P, dev):
+    """[48] the generic OFDM receive and OTFS on the 2K grid: → readings.
+    Every receive returns every bit on the noiseless echo; on the noisy
+    captures rows 0 and OFDM_ROWS-1 match the CPU path (hard bits equal,
+    soft symbols within 1e-4 of the peak, EVM within 0.1 dB)."""
+    rows, out, bad = [0, OFDM_ROWS - 1], {}, []
+    for k, order in enumerate(("qpsk", "qam16")):
+        cfg, cfg_s = s6b_grid(P, order)
+        seed = S6B_SEED + 480 + 10 * k
+        caps = {"ofdm": s6b_capture(P, cfg, OFDM_ROWS, OFDM_SYMS, dev, seed),
+                "scattered": s6b_capture(P, cfg_s, OFDM_ROWS, OFDM_SYMS, dev,
+                                         seed + 1),
+                "otfs": s6b_capture(P, cfg, OFDM_ROWS, OTFS_SYMS, dev,
+                                    seed + 2, otfs=True)}
+        echo = {name: P.multipath_apply(iq, *OFDM_ECHO, device=dev)
+                for name, (_, iq) in caps.items()}
+        noisy, p = {}, {}
+        for i, (name, x) in enumerate(echo.items()):
+            noisy[name], p[name] = s6b_noise(x, OFDM_SNR_DB, seed + 5 + i)
+        nv = cfg.carrier_plan.n_fft * p["ofdm"]   # per-bin noise variance
+        recv, otfs = s6b_receivers(P, cfg, cfg_s, nv)
+        which = {"ofdm_demod ZF (training symbol)": "ofdm",
+                 "mmse_equalize (training symbol)": "ofdm",
+                 "pilot_interp (dvb_t_scattered_config)": "scattered",
+                 "otfs_demod LMMSE (echo)": "otfs"}
+        for name, fn in recv.items():
+            bits = caps[which[name]][0]
+            cfg_n = cfg_s if which[name] == "scattered" else cfg
+            clean = P.ofdm_decide(cfg_n, fn(echo[which[name]]))
+            wrong = int((clean != bits).sum())
+            x = noisy[which[name]]
+            soft = fn(x)
+            err, same, d_evm, evm = s6b_vs_cpu(P, cfg_n, fn, x, soft, rows)
+            n = x.shape[-1] * OFDM_ROWS
+            rate = with_busy(s5_rate(
+                f"{order} {name}: {OFDM_ROWS} x {x.shape[-1]}", lambda:
+                fn(x), n, n * 8 + soft.numel() * 8, runs=S6B_RUNS),
+                lambda: fn(x))
+            print(f"    noiseless echo: {wrong} of {bits.numel()} bits "
+                  f"wrong; at {OFDM_SNR_DB:g} dB rows {rows} vs the CPU: "
+                  f"soft {err:.2e} of the peak, hard equal {same}, EVM "
+                  f"{evm:.2f} dB (card - CPU {d_evm:.4f} dB)")
+            out[f"{order} {name}"] = {**rate, "bits_wrong_noiseless": wrong,
+                                      "rel_err_vs_cpu": err, "evm_db": evm,
+                                      "evm_diff_db": d_evm}
+            if wrong or not same or err > 1e-4 or d_evm > 0.1:
+                bad.append(f"{order} {name}")
+        # Watterson: a per-symbol estimate from a probe of known training
+        # symbols through the same draws (the channel is one realisation
+        # for every row and depends only on the seed and the length)
+        bits, iq = caps["otfs"]
+        n_sym = 1 + OTFS_SYMS
+        g = cfg.grid()
+        known = torch.as_tensor(s6b_known(P, g.n_fft), device=dev)
+        probe = P.multicarrier.ofdm_assemble(
+            known.expand(n_sym, -1)[None], g.cp_len)
+        ws = S6B_SEED + 490 + k
+
+        def watt(x):
+            return P.watterson_apply(np.random.default_rng(ws), x, cfg.fs,
+                                     *WATTERSON, device=dev)
+        h = (P.multicarrier.symbol_fft(watt(probe), g.n_fft, g.cp_len)
+             / known)[..., 1:, :]
+        xw = watt(iq)
+        clean = int((P.ofdm_decide(cfg, otfs(xw, h)) != bits).sum())
+        xn, _ = s6b_noise(xw, OFDM_SNR_DB, ws + 7)
+
+        def fn_w(x):
+            return otfs(x, h.to(x.device))
+        soft = fn_w(xn)
+        err, same, d_evm, evm = s6b_vs_cpu(P, cfg, fn_w, xn, soft, rows)
+        noisy_wrong = int((P.ofdm_decide(cfg, soft) != bits).sum())
+        n = xn.shape[-1] * OFDM_ROWS
+        rate = with_busy(s5_rate(
+            f"{order} otfs_demod LMMSE (Watterson {WATTERSON[0] * 1e6:g} us, "
+            f"{WATTERSON[1]:g} Hz)", lambda: fn_w(xn), n,
+            n * 8 + soft.numel() * 8 + h.numel() * 8, runs=S6B_RUNS),
+            lambda: fn_w(xn))
+        print(f"    Watterson noiseless {clean}, at {OFDM_SNR_DB:g} dB "
+              f"{noisy_wrong} of {bits.numel()} bits wrong; rows {rows} vs "
+              f"the CPU: soft {err:.2e} of the peak, hard equal {same}, EVM "
+              f"{evm:.2f} dB (card - CPU {d_evm:.4f} dB)")
+        out[f"{order} otfs_demod LMMSE (Watterson)"] = {
+            **rate, "bits_wrong_noiseless": clean,
+            "bits_wrong_noisy": noisy_wrong, "rel_err_vs_cpu": err,
+            "evm_db": evm, "evm_diff_db": d_evm}
+        if not same or err > 1e-4 or d_evm > 0.1:
+            bad.append(f"{order} otfs Watterson")
+        del caps, echo, noisy
+    if bad:
+        fail(f"[48] receive paths off: {bad}")
+    return out
+
+
+# ── [49] the Block classes ───────────────────────────────────────────────────
+
+
+def s6b_psk_text(P, seconds: float, fs: float) -> str:
+    """Text whose BPSK31 transmission (varicode, 32-bit pre/postamble)
+    takes ``seconds`` at ``fs``."""
+    from orion_sdr_tpu_torch.codec.varicode import encode_text
+    words = ("ORION SDR BLOCK SESSION, THE QUICK BROWN FOX JUMPS OVER THE "
+             "LAZY DOG 0123456789.").split()
+    text, i = words[0], 1
+    sps = P.modulate.psk31.psk31_sps(fs)
+    while len(encode_text(text, 32, 32)) * sps < seconds * fs:
+        text += " " + words[i % len(words)]
+        i += 1
+    return text
+
+
+def s6b_rate(label, fn, n, unit, n_bytes, busy_fn=None):
+    """Host ms of ``fn`` (median of S6B_RUNS runs after a warm-up, work
+    ending in torch.cuda.synchronize()), ``n`` over it in ``unit`` (Msps
+    for samples, calls/s or frames/s), the bytes bound and the card's busy
+    share under torch.profiler (of ``busy_fn``, a shorter run of the same
+    calls, where the whole run holds too many launches to profile within
+    the smoke's time); printed and returned."""
+    med, all_ms = median_ms(fn, S6B_RUNS)
+    scale = 1e3 / (1e6 if unit == "Msps" else 1.0)
+    bnd = bound_ms(n_bytes, 0)[0]
+    print(f"  {label}: {n / med * scale:.4g} {unit} (median of {S6B_RUNS} "
+          f"runs {med:.4f} ms; runs {[round(r, 4) for r in all_ms]}); bytes "
+          f"bound {bnd:.5f} ms, {bnd / med:.2%} of it")
+    return with_busy({"rate": n / med * scale, "unit": unit,
+                      "median_ms": med, "runs_ms": all_ms, "bound_ms": bnd,
+                      "bound_by": "bytes"}, busy_fn or fn)
+
+
+def s6b_chunks(x, n):
+    return [np.ascontiguousarray(x[i:i + n]) for i in range(0, len(x), n)]
+
+
+def psk31_blocks(P, pll, dev):
+    """[49] BPSK31 and QPSK31 sessions through the blocks in 4096-sample
+    process() calls: → (PLL launches, max |kernel − plain|, readings)."""
+    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
+    fs = 8000.0
+    text = s6b_psk_text(P, BLOCK_PSK_S, fs)
+    out = {}
+    pll.psk31_pll.launches = 0
+    with recording(psk31_mod, "psk31_pll") as seen:
+        for mode in ("bpsk", "qpsk"):
+            mod = (P.Bpsk31Mod if mode == "bpsk" else P.Qpsk31Mod)(
+                fs, 1000.0, device=dev)
+            iq = mod.modulate_text(text)
+            parts = s6b_chunks(iq, BLOCK_PSK_CHUNK)
+
+            def run(mode=mode, parts=parts):
+                if mode == "bpsk":
+                    d = P.Bpsk31Demod(fs, 1000.0, device=dev)
+                    soft = np.concatenate([d.process(c) for c in parts])
+                    bits = P.Bpsk31Decider(device=dev).process(soft)
+                else:
+                    d = P.Qpsk31Demod(fs, 1000.0, device=dev)
+                    for c in parts:
+                        d.process(c)
+                    bits = d.flush()
+                return P.VaricodeDecoder().push_bits(bits)
+            n0 = len(seen)
+            got = run()
+            torch.cuda.synchronize()
+            calls = len(seen) - n0
+            print(f"  {mode.upper()}31 {len(iq) / fs:.1f} s ({len(iq)} "
+                  f"samples) in {len(parts)} process() calls: text back "
+                  f"{text in got}, {calls} PLL launches")
+            if text not in got or calls != len(parts):
+                fail(f"[49] {mode.upper()}31 through the blocks")
+            out[mode] = {"seconds_of_signal": len(iq) / fs,
+                         "calls": len(parts), "run": run,
+                         "busy_run": lambda run=run, parts=parts: run(
+                             parts=parts[:BLOCK_PSK_BUSY_CALLS])}
+    n = pll.psk31_pll.launches
+    exact, err = held_to_plain(seen, pll.psk31_pll_reference)
+    print(f"  PSK31 PLL launches {n}, each against the plain version: exact "
+          f"{exact} (max |diff| {err:g})")
+    if n != len(seen) or not exact:
+        fail("[49] a PSK31 PLL launch differs from its plain version")
+    for mode, o in out.items():             # timed apart from the counted run
+        n_s = int(o["seconds_of_signal"] * fs)
+        out[mode] = {**s6b_rate(
+            f"{mode.upper()}31 session ({n_s} samples, {o['calls']} calls"
+            f"{' and flush' if mode == 'qpsk' else ''}; busy share over "
+            f"its first {BLOCK_PSK_BUSY_CALLS} calls)", o.pop("run"), n_s,
+            "Msps", n_s * 8, busy_fn=o.pop("busy_run")), **o,
+            "busy_share_calls": BLOCK_PSK_BUSY_CALLS}
+    return n, err, out
+
+
+def cw_block(P, one, dev):
+    """[49] 10 s of Morse keyed by CwKeyedMod at 48 kHz in 1 s calls, each
+    two-rate one-pole launch held to the plain version at every step:
+    → (launches, readings)."""
+    from orion_sdr_tpu_torch.modulate import analog as analog_mod
+    n = int(BLOCK_CW_S * BLOCK_CW_FS)
+    key = P.MorseEncoder(BLOCK_CW_FS, 20.0).encode_text(
+        "CQ CQ DE ORION SDR BLOCKS K " * 4)[:n]
+    key = np.ascontiguousarray(np.pad(key, (0, n - len(key))), np.float32)
+    parts = s6b_chunks(key, BLOCK_CW_CHUNK)
+
+    def run():
+        blk = P.CwKeyedMod(BLOCK_CW_FS, 700.0, device=dev)
+        return np.concatenate([blk.process(c) for c in parts])
+    one.onepole_two_rate.launches = 0
+    with recording(analog_mod, "onepole_two_rate") as seen:
+        iq = run()
+        torch.cuda.synchronize()
+    launches = one.onepole_two_rate.launches
+    exact = [onepole_steps_exact(one, *args, *o) for args, o in seen]
+    mag = np.abs(iq)
+    on = mag[(np.convolve(key, np.ones(961), "same") > 960.5)]
+    off = mag[(np.convolve(key, np.ones(961), "same") < 0.5)]
+    print(f"  CwKeyedMod: {n} samples in {n // BLOCK_CW_CHUNK} calls, "
+          f"{launches} kernel B launches, each exact at every step "
+          f"{all(exact)}; |iq| key down {on.min():.4f}-{on.max():.4f}, key up "
+          f"max {off.max():.2e}")
+    if (launches != n // BLOCK_CW_CHUNK or len(seen) != launches
+            or not all(exact) or on.min() < 0.9 or off.max() > 0.1):
+        fail("[49] CwKeyedMod")
+    return launches, {**s6b_rate(f"CwKeyedMod ({n} samples, {launches} "
+                                 f"calls)", run, n, "Msps", n * 12),
+                      "samples": n, "calls": launches}
+
+
+def ft8_codec_block(P, ldpc_bp, dev):
+    """[49] Ft8Codec.decode_soft on BLOCK_FT8_ROWS noisy codewords, one
+    call each: → (BP launches, max |kernel − plain|, readings)."""
+    from orion_sdr_tpu_torch.codec.ft8 import _payload_to_codeword_bits
+    rng = np.random.default_rng(S6B_SEED + 49)
+    ht = P.CallsignHashTable()
+    payloads = [bytes(np.asarray(P.pack77(m, ht), np.uint8))
+                for m in ft_messages(P, BLOCK_FT8_ROWS)]
+    codec = P.Ft8Codec(device=dev)
+    llrs = []
+    for p in payloads:
+        cw = _payload_to_codeword_bits(np.frombuffer(p, np.uint8), dev)
+        y = (1.0 - 2.0 * cw) + BLOCK_FT8_SIGMA * rng.standard_normal(174)
+        llrs.append((2.0 * y / BLOCK_FT8_SIGMA ** 2).astype(np.float32))
+    def run():
+        return [codec.decode_soft(x) for x in llrs]
+    ldpc_bp.bp_decode_kernel.launches = 0
+    with recording_kernel(ldpc_bp, "bp_decode_kernel",
+                          ("launches", "launches_edge")) as seen:
+        got = run()
+        torch.cuda.synchronize()
+    n = ldpc_bp.bp_decode_kernel.launches
+    back = sum(g == p for g, p in zip(got, payloads))
+    exact, err = held_to_plain(seen, ldpc_bp.bp_decode_reference)
+    print(f"  Ft8Codec.decode_soft: {back}/{BLOCK_FT8_ROWS} payloads back "
+          f"(sigma {BLOCK_FT8_SIGMA}), {n} BP launches, each against the "
+          f"plain version: exact {exact}")
+    if back != BLOCK_FT8_ROWS or n != BLOCK_FT8_ROWS or len(seen) != n \
+            or not exact:
+        fail("[49] Ft8Codec.decode_soft")
+    return n, err, {**s6b_rate(f"Ft8Codec.decode_soft ({BLOCK_FT8_ROWS} "
+                               f"calls)", run, BLOCK_FT8_ROWS, "calls/s",
+                               BLOCK_FT8_ROWS * (174 * 4 + 10)),
+                    "payloads_back": back}
+
+
+def stream_blocks(P, dev):
+    """[49] analog and digital blocks: 2^BLOCK_LOG2_N samples in calls of
+    2^BLOCK_LOG2_CHUNK samples (the digital modulators: 65 520 bits, a
+    whole number of symbols of every order) against one call on the whole:
+    the modulators and the digital demodulators exact, the analog
+    demodulators within 1e-5 of the peak (their filter states cross the
+    seams); Msps of the chunked run."""
+    fs = 48_000.0
+    n = 1 << BLOCK_LOG2_N
+    rng = np.random.default_rng(S6B_SEED + 491)
+    k = np.arange(n)
+    iq = (np.exp(2j * np.pi * 1300.0 * k / fs) * (1 + 0.3 * np.sin(
+        2 * np.pi * 400.0 * k / fs)) + 0.05 * (rng.standard_normal(n) + 1j
+                                               * rng.standard_normal(n))
+          ).astype(np.complex64)
+    audio = (0.5 * np.sin(2 * np.pi * 700.0 * k / fs)).astype(np.float32)
+    bits = rng.integers(0, 2, n - n % 24).astype(np.uint8)
+    chunk = 1 << BLOCK_LOG2_CHUNK
+    cases = {
+        "FmQuadratureDemod": (lambda: P.FmQuadratureDemod(
+            fs, 5000.0, 3000.0, device=dev), iq, chunk, 1e-5),
+        "PmQuadratureDemod": (lambda: P.PmQuadratureDemod(
+            fs, 1.0, 3000.0, device=dev), iq, chunk, 1e-5),
+        "AmEnvelopeDemod": (lambda: P.AmEnvelopeDemod(
+            fs, 3000.0, device=dev), iq, chunk, 1e-5),
+        "AmEnvelopeDemod abs_approx": (lambda: P.AmEnvelopeDemod(
+            fs, 3000.0, True, device=dev), iq, chunk, 1e-5),
+        "CwEnvelopeDemod": (lambda: P.CwEnvelopeDemod(
+            fs, 1300.0, 200.0, device=dev), iq, chunk, 1e-5),
+        "AmDsbMod": (lambda: P.AmDsbMod(fs, 0.0, 1.0, 0.8, device=dev),
+                     audio, chunk, None),
+        "PmDirectPhaseMod": (lambda: P.PmDirectPhaseMod(fs, 1.0,
+                                                        device=dev),
+                             audio, chunk, None),
+    }
+    for name, order in (("Bpsk", None), ("Qpsk", None), ("Qam", 16),
+                        ("Qam", 64), ("Qam", 256)):
+        label = f"{name}{order or ''}"
+
+        def mk(o=order, nm=name):
+            return getattr(P, nm + "Mod")(*((o,) if o else ()), fs,
+                                          device=dev)
+
+        def dm(o=order, nm=name):
+            return getattr(P, nm + "Demod")(*((o,) if o else ()),
+                                            device=dev)
+        cases[label + "Mod"] = (mk, bits, 65_520, None)
+        cases[label + "Demod"] = (dm, mk().process(bits), chunk, None)
+    out, bad = {}, []
+    for name, (make, x, size, tol) in cases.items():
+        parts = s6b_chunks(x, size)
+
+        def chunked():
+            b = make()
+            return np.concatenate([b.process(c) for c in parts])
+        whole = make().process(x)
+        got = chunked()
+        err = float(np.abs(got.astype(np.complex128) - whole).max())
+        ok = (np.array_equal(got, whole) if tol is None
+              else err <= tol * float(np.abs(whole).max()))
+        rate = with_busy(s5_rate(
+            f"{name} ({len(x)} samples in {len(parts)} calls; equal to one "
+            f"call: {ok}, max |diff| {err:.2e})", chunked, len(x),
+            x.nbytes + got.nbytes, runs=S6B_RUNS), chunked)
+        out[name] = {**rate, "max_diff_vs_one_call": err}
+        if not ok:
+            bad.append(name)
+    if bad:
+        fail(f"[49] chunked blocks part from one call: {bad}")
+    return out
+
+
+def ofdm_blocks(P, dev):
+    """[49] OfdmMod/OfdmDemod on [48]'s grid (one row of OFDM_SYMS
+    symbols behind [48]'s echo) under both equalizers: every bit back."""
+    out = {}
+    for order in ("qpsk", "qam16"):
+        cfg, cfg_s = s6b_grid(P, order)
+        for eq, c in (("training_symbol", cfg), ("pilot_interp", cfg_s)):
+            bits = np.random.default_rng(S6B_SEED + 492).integers(
+                0, 2, OFDM_SYMS * c.bits_per_ofdm_symbol()).astype(np.uint8)
+            g = c.grid()
+            sps = g.n_fft + g.cp_len
+            known = s6b_known(P, g.n_fft)
+            train = P.multicarrier.ofdm_assemble(
+                torch.as_tensor(known[None, :], device=dev), g.cp_len)
+            t0 = time.perf_counter()
+            iq = P.OfdmMod(c, device=dev).process(bits)
+            rx = P.multipath_apply(torch.cat([train, torch.as_tensor(
+                iq, device=dev)]), *OFDM_ECHO, device=dev)
+            d = P.OfdmDemod(c, eq, device=dev)
+            if eq == "training_symbol":
+                f0 = P.multicarrier.symbol_fft(rx[:sps], g.n_fft, g.cp_len,
+                                               n_symbols=1)[0]
+                d.estimate_channel(f0.cpu().numpy(), known)
+            x = rx[sps:].cpu().numpy()
+            got = d.process(x)
+            dt = time.perf_counter() - t0
+            wrong = int((got[:len(bits)] != bits).sum())
+            print(f"  OfdmMod/OfdmDemod {order} {eq}: {wrong} of {len(bits)} "
+                  f"bits wrong, {dt:.3f} s (first run)")
+            if wrong:
+                fail(f"[49] OfdmMod/OfdmDemod {order} {eq}")
+            out[f"{order} {eq}"] = {**s6b_rate(
+                f"OfdmDemod {order} {eq} ({len(x)} samples a call)",
+                lambda d=d, x=x: d.process(x), len(x), "Msps",
+                x.nbytes + len(bits)), "bits": len(bits),
+                "first_run_s": dt}
+    return out
+
+
+def blocks_phase(P, ldpc_bp, pll, one, dev):
+    """[49]: → ({kernel: launches}, {kernel: max |kernel − plain|},
+    readings)."""
+    n_pll, pll_err, psk = psk31_blocks(P, pll, dev)
+    n_one, cw = cw_block(P, one, dev)
+    n_bp, bp_err, ft8 = ft8_codec_block(P, ldpc_bp, dev)
+    streams_ = stream_blocks(P, dev)
+    ofdm = ofdm_blocks(P, dev)
+    return ({"bp": n_bp, "pll": n_pll, "one": n_one},
+            {"bp": bp_err, "pll": pll_err},
+            {"psk31": psk, "cw": cw, "ft8_codec": ft8, "chunked": streams_,
+             "ofdm": ofdm})
+
+
+# ── [50] checkpoint / resume ─────────────────────────────────────────────────
+
+
+def resumed(P, make, parts, cut, run, tmp, make_after=None):
+    """Feeds ``parts`` to one receiver uninterrupted, and to another up to
+    part ``cut`` (cut inside a frame), saved with save_checkpoint, loaded
+    into a fresh ``make_after()`` (``make()`` by default) and fed the
+    rest. ``run(rx, parts, final)`` feeds and returns the outputs (with the
+    flush when ``final``). → (uninterrupted, cut + resumed, bytes, save s,
+    load s, the cut receiver, the file)."""
+    whole = run(make(), parts, True)
+    a = make()
+    first = run(a, parts[:cut], False)
+    path = os.path.join(tmp, "ckpt.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P.save_checkpoint(path, a)
+    t_save = time.perf_counter() - t0
+    fresh = (make_after or make)()
+    t0 = time.perf_counter()
+    b = P.load_checkpoint(path, fresh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    return (whole, first + run(b, parts[cut:], True),
+            os.path.getsize(path), t_save, t_load, a, path)
+
+
+def feed_list(rx, parts, final):
+    out = []
+    for c in parts:
+        out += rx.feed(c)
+    return out + (rx.flush() if final else [])
+
+
+def feed_text(rx, parts, final):
+    return "".join(rx.feed(c) for c in parts) + (rx.flush() if final
+                                                  else "")
+
+
+def feed_only(rx, parts, final):
+    """FT8's stream decoder: its flush decodes the held buffer again."""
+    return feed_list(rx, parts, False)
+
+
+def feed_band(rx, parts, final):
+    got = {}
+    for c in parts:
+        for ch, res in rx.feed(c).items():
+            got.setdefault(ch, []).extend(res)
+    if final:
+        for ch, res in rx.flush().items():
+            got.setdefault(ch, []).extend(res)
+    return [(ch, r) for ch in sorted(got) for r in got[ch]]
+
+
+def frame_key(P, r):
+    """What a stream result says: the payload bytes of a frame (HP and LP
+    for a hierarchical one), the message of an FT8 decode, else the error's
+    kind."""
+    if type(r) is tuple:                  # (channel, result) of a band
+        return (r[0], frame_key(P, r[1]))
+    if isinstance(r, P.RxFrame):
+        return ("cofdm", r.packet.payload.tobytes())
+    if isinstance(r, P.DvbTHierRxFrame):
+        return ("hier", r.hp_payload.tobytes(),
+                None if r.lp_payload is None else r.lp_payload.tobytes())
+    if isinstance(r, P.DvbTRxFrame):
+        return ("dvbt", r.payload.tobytes())
+    if isinstance(r, P.Ft8DecodeResult):
+        return ("ft8", repr(r.message))
+    return ("error", repr(r))
+
+
+def checkpoint_phase(P, ldpc_bp, viterbi, pll, dev):
+    """[50] six streams cut mid-frame, checkpointed to a file and resumed
+    in a fresh receiver on the card, and a QPSK31 stream moved from the
+    card to the CPU: → ({kernel: launches}, {kernel: max |kernel −
+    plain|}, readings)."""
+    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
+    rng = np.random.default_rng(S6B_SEED + 50)
+    cfg, pre, table = link(P)
+    cases = {}
+    buf, payloads = stream_capture(P, dev, rng)        # [5]'s recipe
+    cases["OfdmFrameStreamDemod ([5]'s 4 frames)"] = (
+        lambda: P.OfdmFrameStreamDemod(cfg, table, pre, device=dev),
+        s6b_chunks(buf, 20_000), feed_list, len(payloads))
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"), 0, 5)
+    n_bytes = dvb_t_full_payload(P, params)
+    mod = P.DvbTFrameMod(params, device=dev)
+    parts = []
+    for _ in range(CKPT_DVB_FRAMES):
+        parts.append(np.zeros(int(rng.integers(0, 2000)), np.complex64))
+        parts.append(mod.modulate(rng.integers(0, 256, n_bytes).astype(
+            np.uint8)).iq)
+    dbuf = add_noise(np.concatenate(parts + [np.zeros(3000, np.complex64)]),
+                     10.0, rng)
+    cases["DvbTFrameStreamDemod (QPSK r1/2)"] = (
+        lambda: P.DvbTFrameStreamDemod(params, 68, n_bytes, device=dev),
+        s6b_chunks(dbuf, STREAM_CHUNK), feed_list, CKPT_DVB_FRAMES)
+    hlink, (n_hp, n_lp) = full_hier_payloads(P)
+    hparams = P.DvbTHierFrameParams(hlink)
+    hmod = P.DvbTHierFrameMod(hparams, device=dev)
+    hbuf = np.concatenate(
+        [np.zeros(500, np.complex64)]
+        + [hmod.modulate(rng.integers(0, 256, n_hp).astype(np.uint8),
+                         rng.integers(0, 256, n_lp).astype(np.uint8)).iq
+           for _ in range(2)] + [np.zeros(300, np.complex64)])
+    cases["DvbTHierFrameStreamDemod"] = (
+        lambda: P.DvbTHierFrameStreamDemod(hparams, 68, n_hp, n_lp,
+                                           device=dev),
+        s6b_chunks(hbuf, STREAM_CHUNK), feed_list, 2)
+    text = "CHECKPOINT ON THE CARD, RESUMED IN A FRESH RECEIVER"
+    qiq = P.qpsk31_mod_text(text, 8000.0, 1000.0, device=dev).cpu().numpy()
+    cases["Psk31Stream QPSK"] = (
+        lambda: P.Psk31Stream.new_qpsk(8000.0, 1000.0, device=dev),
+        s6b_chunks(qiq, 3001), feed_text, text)
+    ht = P.CallsignHashTable()
+    msg = P.Ft8Standard("CQ", "W1AW", "FN31")
+    fiq = P.ft8_mod(P.ft8_encode(P.pack77(msg, ht), device=dev), FT_FS,
+                    1012.5, device=dev)
+    fbuf = np.concatenate([fiq.cpu().numpy(), np.zeros(28_320,
+                                                       np.complex64)])
+    fbuf = fbuf + host_noise(rng, len(fbuf), 0.05)
+    cases["Ft8StreamDecoder"] = (
+        lambda: P.Ft8StreamDecoder.new_ft8(FT_FS, 950.0, 1150.0, device=dev),
+        s6b_chunks(fbuf, 30_000), feed_only, 1)
+    bpay = [rng.integers(0, 256, 120).astype(np.uint8) for _ in range(3)]
+    bmod = P.OfdmFrameMod(cfg, table, pre, device=dev)
+    frames = [bmod.modulate_frame(P.FramePacket(P.FrameMetadata(i, 1), p), i)
+              for i, p in enumerate(bpay)]
+    centers = [-2.1e6, 0.3e6, 1.5e6]
+    wide = wideband([f / 8.0 for f in frames], centers,
+                    [3000 + 9000 * i for i in range(3)], 120_000, 8e6, 8,
+                    rng, 0.001)
+    cases["OfdmFrameBandStreamDemod ([33]'s 3 links)"] = (
+        lambda: P.OfdmFrameBandStreamDemod(cfg, table, pre, centers, 8e6,
+                                           device=dev),
+        s6b_chunks(wide, 37_003), feed_band, 3)
+    out, bad = {}, []
+    ldpc_bp.bp_decode_kernel.launches = 0
+    zero_vit(viterbi)
+    pll.psk31_pll.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, \
+            recording_kernel(ldpc_bp, "bp_decode_kernel",
+                             ("launches", "launches_edge")) as seen_bp, \
+            recording_kernel(viterbi, "viterbi_chunks_kernel",
+                             ("launches", "launches_radix4")) as seen_vit, \
+            recording(psk31_mod, "psk31_pll") as seen_pll:
+        for name, (make, parts, run, want) in cases.items():
+            cut = len(parts) // 2
+            t0 = time.perf_counter()
+            whole, got, size, t_save, t_load, cut_rx, path = resumed(
+                P, make, parts, cut, run, tmp)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if isinstance(want, str):
+                same, n_ok = whole == got, int(want in got)
+                ok = same and want in whole
+            else:
+                kw, kg = ([frame_key(P, r) for r in x] for x in (whole, got))
+                n_ok = sum(k[0] != "error" for k in kg)
+                same = kw == kg
+                ok = same and sum(k[0] != "error" for k in kw) == want
+            print(f"  {name}: cut at part {cut} of {len(parts)}; resumed "
+                  f"output equal to the uninterrupted run {same}, "
+                  f"{n_ok} frames/texts back; checkpoint {size} bytes, save "
+                  f"{t_save * 1e3:.2f} ms, load {t_load * 1e3:.2f} ms "
+                  f"({dt:.2f} s for both runs)")
+            fresh = make()
+            out[name] = {
+                "equal": same, "back": n_ok, "bytes": size,
+                "first_save_ms": t_save * 1e3, "first_load_ms": t_load * 1e3,
+                "save": s6b_rate(f"save_checkpoint ({size} bytes)",
+                                 lambda: P.save_checkpoint(path, cut_rx), 1,
+                                 "calls/s", size),
+                "load": s6b_rate(f"load_checkpoint ({size} bytes)",
+                                 lambda: P.load_checkpoint(path, fresh), 1,
+                                 "calls/s", size)}
+            if not ok:
+                bad.append(name)
+        torch.cuda.synchronize()
+    n_bp = ldpc_bp.bp_decode_kernel.launches
+    n_vit = read_vit(viterbi)
+    n_pll = pll.psk31_pll.launches
+    bp_exact, bp_err = held_to_plain(seen_bp, ldpc_bp.bp_decode_reference)
+    vit_exact, vit_err = held_to_plain(
+        seen_vit, lambda c0, c1, pm0, code:
+        viterbi.viterbi_chunks_reference(c0, c1, pm0, code, 2))
+    pll_exact, pll_err = held_to_plain(seen_pll, pll.psk31_pll_reference)
+    print(f"  [50] launches: BP {n_bp}, Viterbi radix 2 {n_vit[0]} radix 4 "
+          f"{n_vit[1]}, PSK31 PLL {n_pll}; each against its plain version: "
+          f"exact {bp_exact}, {vit_exact}, {pll_exact}")
+    if (bad or n_bp <= 0 or n_vit[0] <= 0 or n_vit[1] or n_pll <= 0
+            or (n_bp, n_vit[0], n_pll)
+            != (len(seen_bp), len(seen_vit), len(seen_pll))
+            or not (bp_exact and vit_exact and pll_exact)):
+        fail(f"[50] checkpoint/resume: {bad}")
+    # the cross-device case: checkpointed on the card, finished on the CPU
+    make, parts, run, want = cases["Psk31Stream QPSK"]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, got, size, t_save, t_load, _, _ = resumed(
+            P, make, parts, len(parts) // 2, run, tmp,
+            make_after=lambda: P.Psk31Stream.new_qpsk(8000.0, 1000.0,
+                                                      device="cpu"))
+    print(f"  Psk31Stream QPSK checkpointed on the card, finished on the "
+          f"CPU: text equal {got == whole} ({size} bytes, save "
+          f"{t_save * 1e3:.2f} ms, load {t_load * 1e3:.2f} ms)")
+    if got != whole or want not in got:
+        fail("[50] the card-to-CPU resume")
+    out["Psk31Stream QPSK card -> CPU"] = {"equal": True, "bytes": size}
+    return ({"bp": n_bp, "vit": n_vit, "pll": n_pll},
+            {"bp": bp_err, "vit": vit_err, "pll": pll_err}, out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -4723,14 +5478,72 @@ def main() -> int:
           f"{' and '.join(f'{f:g}' for f in SSTV_RATES)} Hz")
     sstv_stats = sstv_phase(P, dev)
     print(f"  [47] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6b = t_s6 = time.perf_counter()
+    print(f"[48] generic OFDM receive and OTFS on dvb_t_config(\"1/4\", "
+          f"{OFDM_BW:g}) (n_fft 2048, cp 512), QPSK and 16-QAM, "
+          f"{OFDM_ROWS} x {OFDM_SYMS} symbols (OTFS {OTFS_SYMS}, n_doppler "
+          f"{OTFS_DOPPLER}): echo {OFDM_ECHO[0]}, {OFDM_SNR_DB:g} dB, "
+          f"Watterson")
+    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
+    ldpc_bp.bp_decode_kernel.launches = 0
+    zero_vit(viterbi)
+    psk31_pll.psk31_pll.launches = 0
+    onepole_two_rate.onepole_two_rate.launches = 0
+    with recording_kernel(ldpc_bp, "bp_decode_kernel",
+                          ("launches", "launches_edge")) as seen_bp, \
+            recording_kernel(viterbi, "viterbi_chunks_kernel",
+                             ("launches", "launches_radix4")) as seen_vit, \
+            recording(psk31_mod, "psk31_pll") as seen_pll:
+        ofdm48_stats = ofdm_rx_phase(P, dev)
+        torch.cuda.synchronize()
+    n48 = (ldpc_bp.bp_decode_kernel.launches, read_vit(viterbi),
+           psk31_pll.psk31_pll.launches,
+           onepole_two_rate.onepole_two_rate.launches)
+    print(f"  [48] launches of BP, Viterbi (radix 2, 4), the PSK31 PLL and "
+          f"kernel B: {n48} (the path is torch.fft and elementwise work); "
+          f"{time.perf_counter() - t_s6:.1f} s")
+    if (n48[0] or any(n48[1]) or n48[2] or n48[3] or seen_bp or seen_vit
+            or seen_pll):
+        fail("[48] launched a kernel its path should not reach")
+    t_s6 = time.perf_counter()
+    print(f"[49] the Block classes: {BLOCK_PSK_S:g} s of BPSK31 and QPSK31 "
+          f"in {BLOCK_PSK_CHUNK}-sample calls, {BLOCK_CW_S:g} s of CW at "
+          f"{BLOCK_CW_FS / 1e3:g} kHz, Ft8Codec on {BLOCK_FT8_ROWS} "
+          f"codewords, 2^{BLOCK_LOG2_N} samples of the analog and digital "
+          f"blocks in 2^{BLOCK_LOG2_CHUNK}-sample calls, OfdmMod/OfdmDemod")
+    n49, err49, blocks49_stats = blocks_phase(P, ldpc_bp, psk31_pll,
+                                              onepole_two_rate, dev)
+    bp_runs["49"], pll_runs["49"], one_runs["49"] = (n49["bp"], n49["pll"],
+                                                     n49["one"])
+    max_err = max(max_err, err49["bp"])
+    print(f"  [49] took {time.perf_counter() - t_s6:.1f} s")
+    t_s6 = time.perf_counter()
+    print("[50] checkpoint/resume: six streams cut mid-frame, saved, loaded "
+          "into a fresh receiver on the card; a QPSK31 stream from the card "
+          "to the CPU")
+    n50, err50, ckpt50_stats = checkpoint_phase(P, ldpc_bp, viterbi,
+                                                psk31_pll, dev)
+    bp_runs["50"], vit_runs["50"], pll_runs["50"] = (n50["bp"], n50["vit"],
+                                                     n50["pll"])
+    max_err = max(max_err, err50["bp"])
+    vit_err = max(vit_err, err50["vit"])
+    pll6b_err = max(err49["pll"], err50["pll"])
+    print(f"  [50] took {time.perf_counter() - t_s6:.1f} s; [48]-[50] "
+          f"{time.perf_counter() - t_s6b:.1f} s")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
     if any(by_phase[4][p] for p in default):
         fail("a default path launched the radix-4 Viterbi kernel")
     print(f"  slice 6a launches: BP {bp43} ([43]), Viterbi radix 2 "
-          f"{by_phase[2]['43']} ([43]), two-rate one-pole {one_runs}, PSK31 "
+          f"{by_phase[2]['43']} ([43]), two-rate one-pole "
+          f"{ {p: one_runs[p] for p in ('44', '45')} }, PSK31 "
           f"PLL {pll_runs['45']} ([45]), each held to its plain version")
+    print(f"  slice 6b launches: BP {bp_runs['49']} ([49]) + "
+          f"{bp_runs['50']} ([50]), Viterbi radix 2 {by_phase[2]['50']} "
+          f"([50]), PSK31 PLL {pll_runs['49']} ([49]) + {pll_runs['50']} "
+          f"([50]), two-rate one-pole {one_runs['49']} ([49]), each held to "
+          f"its plain version; [48] none")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -4814,7 +5627,7 @@ def main() -> int:
               "orion_sdr_tpu/demodulate/psk31.py:65",
               sum(pll_runs.values()),
               max([v["max_abs_err"] for v in pll_stats.values()]
-                  + [pll45_err]),
+                  + [pll45_err, pll6b_err]),
               pll_stats["bpsk"]["ms"], pll_stats["bpsk"]["plain_ms"],
               pll_stats["bpsk"]["bound"], pallas_counterpart=None,
               note="no Pallas kernel in the JAX package computes this: it "
@@ -4908,7 +5721,10 @@ def main() -> int:
                     "42 fsk2_engine_throughput": fsk_stats},
         "slice6a": {"43 channel": ch_stats, "44 morse_skimmer": morse_stats,
                     "45 band_monitor": band6_stats, "46 adsb": adsb_stats,
-                    "47 sstv": sstv_stats}}))
+                    "47 sstv": sstv_stats},
+        "slice6b": {"48 ofdm_otfs_receive": ofdm48_stats,
+                    "49 blocks": blocks49_stats,
+                    "50 checkpoint_resume": ckpt50_stats}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

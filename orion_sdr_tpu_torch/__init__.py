@@ -1,6 +1,7 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-Four slices and most of the fifth so far. The coded COFDM frame link
+Everything the JAX package does on one device; its multi-device layer
+(``parallel``) is still to come. The coded COFDM frame link
 (LDPC or convolutional inner code, BCH or RS outer code, block/Forney
 interleavers, additive or DVB scramblers): frame modulation, batch and
 streaming demodulation. And the conformant DVB-T 2K receive chain:
@@ -25,10 +26,14 @@ tracking and LNAV decode, and the 2-FSK family (AX.25 over AFSK-1200,
 RTTY, POCSAG, AIS). And the capture-to-text receivers: capture file I/O,
 the channel simulator (CFO, phase noise, I/Q imbalance, static and fading
 multipath, Watterson), the Morse encoder and CW skimmer, blind
-classification with the band survey and band decode, ADS-B and SSTV. Eight hand-written Hopper kernels carry them: LDPC
-belief propagation (``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check
-rules), the Viterbi ACS + traceback (``ops/viterbi.py``,
-``csrc/viterbi.cu``, radix 2 and 4), the BCH/RS outer decoder
+classification with the band survey and band decode, ADS-B and SSTV.
+And the generic OFDM receive with OTFS, the drop-in Block classes
+(``blocks.py``), checkpoint/resume of the streaming receivers
+(``checkpoint.py``) and the JAX package's flat namespace. Eight
+hand-written Hopper kernels carry them: LDPC belief propagation
+(``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check rules), the Viterbi
+ACS + traceback (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4),
+the BCH/RS outer decoder
 (``ops/outer_fec.py``, ``csrc/outer_fec.cu``), the PSK31 PLL recurrence
 (``ops/psk31_pll.py``, ``csrc/psk31_pll.cu``), the two-rate one-pole
 envelope of the AGC and the CW keyer (``ops/onepole_two_rate.py``,
@@ -36,9 +41,9 @@ envelope of the AGC and the CW keyer (``ops/onepole_two_rate.py``,
 (``ops/dd_pll.py``, ``csrc/dd_pll.cu``) and Gardner loop
 (``ops/gardner.py``, ``csrc/gardner.cu``), and the GPS tracking loops
 (``ops/gnss_track.py``, ``csrc/gnss_track.cu``). Every constructor and
-entry point that takes host data takes an explicit ``device``; at the
-frame layer bytes go in and numpy complex64 IQ comes out, as in the JAX
-package.
+entry point that takes host data takes ``device`` (default "cuda"; "cpu"
+runs the kernels' plain versions); at the frame layer bytes go in and
+numpy complex64 IQ comes out, as in the JAX package.
 """
 
 from . import constellation
@@ -63,14 +68,26 @@ from .frame import (
     soft_demap, decode_frame_body, OfdmFrameDemod, OfdmFrameStreamDemod,
     RxFrame, OfdmFrameBandStreamDemod,
 )
-from .multicarrier import CarrierPlan, CarrierGrid
-from .ofdm import OfdmConfig
-from .sync.ofdm_sync import OfdmPreamble, TrainingSymbol
+from . import multicarrier
+from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass
+from . import ofdm as ofdm_mod_api
+from .ofdm import (
+    OfdmConfig, ofdm_mod, ofdm_demod, ofdm_decide, ofdm_soft_demod,
+    zf_equalize, channel_estimate_training, channel_estimate_pilots,
+    channel_estimate_denoise, cpe_correct, cpe_raw_phases, cpe_unwrap,
+    dft_precode, dft_deprecode, mmse_equalize,
+    OfdmRxFrame, build_ofdm_rx_frame,
+)
+from . import otfs
+from .otfs import isfft, sfft, otfs_mod, otfs_demod, otfs_num_symbols
+from .sync.ofdm_sync import (OfdmPreamble, TrainingSymbol, ofdm_sync,
+                             generate_ofdm_preamble)
 from .waveform import (DvbTLinkParams, DvbTFrameParams, DvbTSuperFrameParams,
                        DvbTHierLinkParams, DvbTHierFrameParams, TpsWord,
-                       dvb_t_mcs_table, energy_disperse)
+                       dvb_t_mcs_table, energy_disperse, dvb_t_config,
+                       dvb_t_scattered_config, DVB_T_MAX_RX_WINDOW_BACKOFF)
 from .modulate import (DvbTFrame, DvbTFrameMod, DvbTHierFrameMod,
-                       DvbTSuperFrame, DvbTSuperFrameMod)
+                       DvbTSuperFrame, DvbTSuperFrameMod, tx_lowpass_for_2k)
 from .demodulate import (DvbTFrameDemod, DvbTRxError, DvbTRxFrame,
                          DvbTHierFrameDemod, DvbTHierRxFrame,
                          dvb_t_blind_decode, DvbTBlindFrame,
@@ -105,7 +122,8 @@ from . import util
 from .util import (rms, hann, tone, gen_complex_tone, snr_db_at,
                    power_spectrum, nb_spectrum_snr_db, wb_spectrum_snr_db,
                    spectrum_bw_hz, SIGNAL_THRESHOLD, PSK31_BW_HZ, awgn,
-                   atan2_approx, spectrum_scan, SpectrumSegment)
+                   atan2_approx, spectrum_scan, SpectrumSegment, measure,
+                   trace)
 from .modulate.analog import cw_mod, am_mod, ssb_mod, fm_mod, pm_mod
 from .demodulate.analog import (cw_demod, cw_envelope_multi, am_demod,
                                 ssb_demod, fm_demod, pm_demod,
@@ -185,3 +203,50 @@ from .modulate.adsb import adsb_mod
 from .demodulate.adsb import adsb_decode_capture
 from .modulate.sstv import sstv_mod
 from .demodulate.sstv import sstv_demod, SstvImage
+
+# ── slice 6b: the drop-in Block classes, checkpoint/resume, the NB helpers ──
+from . import blocks
+from .blocks import (
+    CwKeyedMod, CwEnvelopeDemod, AmDsbMod, AmEnvelopeDemod,
+    SsbPhasingMod, SsbProductDemod, FmPhaseAccumMod, FmQuadratureDemod,
+    PmDirectPhaseMod, PmQuadratureDemod,
+    BpskMod, BpskDemod, QpskMod, QpskDemod, QamMod, QamDemod,
+    Ft8Mod, Ft8Demod, Ft8Codec, Ft4Mod, Ft4Demod, Ft4Codec,
+    Bpsk31Mod, Bpsk31Demod, Bpsk31Decider, Qpsk31Mod, Qpsk31Demod,
+    OfdmMod, OfdmDemod,
+)
+from . import checkpoint
+from .checkpoint import (save_checkpoint, load_checkpoint, state_dict,
+                         load_state_dict)
+
+# the reference's NB/bandwidth helper names
+from .waveform.dvb_t import (
+    dvb_t_fs_for_bandwidth as nb_bandwidth_fs,
+    dvb_t_occupied_bw as nb_bandwidth_occupied_hz,
+    guard_cp_len_2k as dvb_t_cp_len,
+)
+
+
+def dvb_t_max_rx_window_backoff() -> int:
+    """The largest RX window backoff the 2K scattered pilots carry."""
+    return DVB_T_MAX_RX_WINDOW_BACKOFF
+
+
+def dvb_t_tx_lowpass_suggested_taps(stopband_db: float) -> int:
+    """Taps of a TX lowpass centred in the 2K null band at
+    ``stopband_db``."""
+    from .waveform.dvb_t import DVB_T_N_FFT, DVB_T_KMAX
+    return TxLowpass.taps_for_null_band(DVB_T_N_FFT, DVB_T_KMAX // 2,
+                                        stopband_db)
+
+
+def dvb_t_tx_lowpass_group_delay(num_taps: int) -> int:
+    return (num_taps - 1) // 2
+
+
+def dvb_t_tx_lowpass_fits_guard(num_taps: int, cp_len: int, roll_off: int,
+                                backoff: int) -> bool:
+    """Whether the TX lowpass's group delay plus the window roll-off fits
+    the guard left by the RX window backoff."""
+    gd = dvb_t_tx_lowpass_group_delay(num_taps)
+    return roll_off + gd <= min(cp_len - backoff, backoff)

@@ -25,6 +25,7 @@ from .demodulate.analog import QuadDemodState, SsbDemodState
 from .dsp.channelizer import Channelizer
 from .dsp.iir import BiquadState, LpDcState
 from .modulate.analog import CwState, FmState, SsbState
+from . import blocks as _blocks
 
 
 def ldpc_graph_from_fields(d: dict) -> LdpcGraph:
@@ -215,3 +216,89 @@ def afsk1200_stream_from_jax(d: dict, device="cuda") -> Afsk1200Stream:
     st._base_bits = int(d["_base_bits"])
     st._emitted_to = int(d["_emitted_to"])
     return st
+
+
+# ── the drop-in blocks (``blocks.py``) ──────────────────────────────────────
+
+
+def _psk31_demod(block, d: dict) -> None:
+    block._leftover = np.asarray(d["_leftover"], np.complex64).copy()
+    block._n_mixed = int(d["_n_mixed"])
+    block._prev_sym = complex(np.asarray(d["_prev_sym"]).reshape(()))
+    block._phase_acc = float(np.asarray(d["_phase_acc"]).reshape(()))
+
+
+def bpsk31_demod_from_jax(d: dict, device="cuda") -> "_blocks.Bpsk31Demod":
+    """The port's :class:`~orion_sdr_tpu_torch.blocks.Bpsk31Demod` on
+    ``device`` from a JAX ``Bpsk31Demod``'s fields (``vars(block)``): the
+    leftover samples, the samples mixed so far (the down-mix phase), the
+    previous symbol and the phase accumulator of the PLL."""
+    b = _blocks.Bpsk31Demod(float(d["fs"]), float(d["rf_hz"]),
+                            float(d["gain"]), device=device)
+    _psk31_demod(b, d)
+    return b
+
+
+def qpsk31_demod_from_jax(d: dict, device="cuda") -> "_blocks.Qpsk31Demod":
+    """:func:`bpsk31_demod_from_jax` for ``Qpsk31Demod``, with the
+    differential pairs buffered for ``flush``'s Viterbi."""
+    b = _blocks.Qpsk31Demod(float(d["fs"]), float(d["rf_hz"]),
+                            float(d["gain"]), device=device)
+    _psk31_demod(b, d)
+    b._pairs = [np.asarray(p, np.float32).copy() for p in d["_pairs"]]
+    return b
+
+
+def _or_none(conv, state, device):
+    return None if state is None else conv(state, device)
+
+
+def fm_quadrature_demod_from_jax(d: dict, device="cuda"
+                                 ) -> "_blocks.FmQuadratureDemod":
+    """The port's ``FmQuadratureDemod`` from a JAX one's fields, its
+    ``QuadDemodState`` (previous sample, LP cascade, translate phase)
+    carried over."""
+    b = _blocks.FmQuadratureDemod(float(d["fs"]), float(d["dev_hz"]),
+                                  float(d["audio_bw_hz"]), device=device)
+    b._state = _or_none(quad_demod_state_from_fields, d["_state"], device)
+    return b
+
+
+def pm_quadrature_demod_from_jax(d: dict, device="cuda"
+                                 ) -> "_blocks.PmQuadratureDemod":
+    """The port's ``PmQuadratureDemod`` from a JAX one's fields."""
+    b = _blocks.PmQuadratureDemod(float(d["fs"]), float(d["k"]),
+                                  float(d["audio_bw_hz"]), device=device)
+    b._state = _or_none(quad_demod_state_from_fields, d["_state"], device)
+    return b
+
+
+def ssb_product_demod_from_jax(d: dict, device="cuda"
+                               ) -> "_blocks.SsbProductDemod":
+    """The port's ``SsbProductDemod`` from a JAX one's fields, its
+    ``SsbDemodState`` (LP + DC filter, BFO phase) carried over."""
+    b = _blocks.SsbProductDemod(float(d["fs"]), float(d["bfo_hz"]),
+                                float(d["audio_bw_hz"]), device=device)
+    b._state = _or_none(ssb_demod_state_from_fields, d["_state"], device)
+    return b
+
+
+def am_envelope_demod_from_jax(d: dict, device="cuda"
+                               ) -> "_blocks.AmEnvelopeDemod":
+    """The port's ``AmEnvelopeDemod`` from a JAX one's fields, its LP + DC
+    ``LpDcState`` carried over."""
+    b = _blocks.AmEnvelopeDemod(float(d["fs"]), float(d["audio_bw_hz"]),
+                                d["method"] == "abs_approx", device=device)
+    b._state = _or_none(lp_dc_state_from_fields, d["_state"], device)
+    return b
+
+
+def cw_envelope_demod_from_jax(d: dict, device="cuda"
+                               ) -> "_blocks.CwEnvelopeDemod":
+    """The port's ``CwEnvelopeDemod`` from a JAX one's fields: the gain and
+    the envelope lowpass's carried output."""
+    b = _blocks.CwEnvelopeDemod(float(d["fs"]), float(d["tone_hz"]),
+                                float(d["env_bw_hz"]), device=device)
+    b.gain = float(d["gain"])
+    b._y = _t(d["_y"], device, torch.float32)
+    return b

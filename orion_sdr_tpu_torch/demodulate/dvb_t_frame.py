@@ -134,7 +134,8 @@ class DvbTFrameDemod:
     captures."""
 
     def __init__(self, params: DvbTFrameParams, integer_cfo: bool = False,
-                 rx_window_backoff: int = 0, *, device) -> None:
+                 rx_window_backoff: int = 0, *,
+                 device="cuda") -> None:
         self.params = params
         self.integer_cfo = integer_cfo
         self.rx_window_backoff = rx_window_backoff
@@ -319,7 +320,7 @@ def _blind_stream(llrs: torch.Tensor, inner, capacity: int):
 
 
 def dvb_t_blind_decode(iq, max_symbols: int = 272, *,
-                       device) -> DvbTBlindFrame:
+                       device="cuda") -> DvbTBlindFrame:
     """Fully blind DVB-T 2K receive on ``device``: try all four guard
     intervals on the GI metric, align the TPS block by its sync word,
     configure the FEC chain from the decoded TPS (hierarchy included), and
@@ -429,7 +430,8 @@ class DvbTHierFrameDemod:
     their own RS + Forney + K=7 chains."""
 
     def __init__(self, params: DvbTHierFrameParams,
-                 rx_window_backoff: int = 0, *, device) -> None:
+                 rx_window_backoff: int = 0, *,
+                 device="cuda") -> None:
         self.params = params
         self.rx_window_backoff = rx_window_backoff
         self.device = torch.device(device)

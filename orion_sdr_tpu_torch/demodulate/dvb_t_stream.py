@@ -38,7 +38,7 @@ class DvbTFrameStreamDemod:
     ``device``."""
 
     def __init__(self, params: DvbTFrameParams, n_symbols: int,
-                 payload_len: int, *, device) -> None:
+                 payload_len: int, *, device="cuda") -> None:
         self._setup(DvbTFrameDemod(params, device=device), params, n_symbols)
         self.payload_len = payload_len
 
@@ -136,7 +136,7 @@ class DvbTHierFrameStreamDemod(DvbTFrameStreamDemod):
 
     def __init__(self, params: DvbTHierFrameParams, n_symbols: int,
                  hp_payload_len: int, lp_payload_len: int, *,
-                 device) -> None:
+                 device="cuda") -> None:
         params.link.validate()
         self._setup(DvbTHierFrameDemod(params, device=device), params,
                     n_symbols)

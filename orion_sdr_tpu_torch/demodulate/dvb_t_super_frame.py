@@ -53,7 +53,8 @@ class DvbTSuperFrameDemod:
     """Super-frame demodulator on ``device``."""
 
     def __init__(self, params: DvbTSuperFrameParams, integer_cfo: bool = False,
-                 rx_window_backoff: int = 0, *, device) -> None:
+                 rx_window_backoff: int = 0, *,
+                 device="cuda") -> None:
         self.params = params
         self.integer_cfo = integer_cfo
         self.rx_window_backoff = rx_window_backoff

@@ -31,6 +31,21 @@ QPSK31_LOOP_GAIN = 0.05
 _H: dict = {}
 
 
+def hard_decide_dbpsk(d_re: torch.Tensor) -> torch.Tensor:
+    """±1.0 by the sign of the differential real component."""
+    return torch.where(d_re >= 0.0, 1.0, -1.0).to(torch.float32)
+
+
+def hard_decide_dqpsk(d_re: torch.Tensor, d_im: torch.Tensor):
+    """The nearest unit-axis phasor, (±1, 0) or (0, ±1), as (re, im)."""
+    re_wins = d_re.abs() >= d_im.abs()
+    one = torch.ones_like(d_re, dtype=torch.float32)
+    zero = torch.zeros_like(one)
+    dec_re = torch.where(re_wins, torch.where(d_re >= 0.0, one, -one), zero)
+    dec_im = torch.where(re_wins, zero, torch.where(d_im >= 0.0, one, -one))
+    return dec_re, dec_im
+
+
 def _hann(sps: int, device) -> torch.Tensor:
     key = (sps, torch.device(device))
     h = _H.get(key)

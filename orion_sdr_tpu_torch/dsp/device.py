@@ -29,6 +29,14 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
         x.to(device)
 
 
+def on_device(x, device=None, dtype=None) -> torch.Tensor:
+    """:func:`to_device` where ``device`` None keeps a tensor on its own
+    device and sends host data to the card ("cuda")."""
+    if device is None:
+        device = x.device if isinstance(x, torch.Tensor) else "cuda"
+    return to_device(x, device, dtype)
+
+
 @contextmanager
 def full_f32():
     """Float32 matmuls and convolutions at full float32 precision inside

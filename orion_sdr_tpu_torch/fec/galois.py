@@ -44,6 +44,18 @@ def gf_mul(a, b):
     return np.where((a == 0) | (b == 0), 0, out).astype(np.uint8)
 
 
+def gf_inv(a):
+    """Multiplicative inverse in GF(2^8) (0 has none: its entry is
+    meaningless)."""
+    a = np.asarray(a, np.uint8)
+    return GF_EXP[255 - GF_LOG[a].astype(np.int32)].astype(np.uint8)
+
+
+def gf_pow_alpha(e):
+    """α^e for integer exponents (arrays too)."""
+    return GF_EXP[np.asarray(e) % 255].astype(np.uint8)
+
+
 def _poly_mul(a, b):
     out = np.zeros(len(a) + len(b) - 1, np.uint8)
     for i, ai in enumerate(a):
@@ -103,6 +115,17 @@ class Bch:
         out = native.bch_encode_batch(self.n, self.k, self.t,
                                       msg.reshape(-1, self.k))
         return out.reshape(lead + (self.n,))
+
+    def decode(self, received) -> np.ndarray:
+        """Correct up to t bit errors in each codeword of (..., n) bits →
+        (..., k); raises BchError if any codeword is uncorrectable."""
+        r = np.asarray(received, np.uint8) & 1
+        if r.shape[-1] != self.n:
+            raise BchError(f"codeword length {r.shape[-1]} != n={self.n}")
+        msg, ok = self.decode_batch(r.reshape(-1, self.n))
+        if not np.all(ok):
+            raise BchError("uncorrectable codeword")
+        return msg.reshape(r.shape[:-1] + (self.k,))
 
     def decode_batch(self, received_bits):
         """(B, n) bits → ((B, k), ok flags); failed rows hold the systematic

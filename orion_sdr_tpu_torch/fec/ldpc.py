@@ -169,3 +169,16 @@ def ldpc_decode(name: str, llr: torch.Tensor, max_iter: int = 50,
                 rule: str = "sum_product", alpha: float = 0.75):
     """Belief-propagation decode of a named code; see :func:`bp_decode`."""
     return bp_decode(ldpc_graph(name), llr, max_iter, rule, alpha)
+
+
+def ldpc_syndrome_weight(name: str, hard) -> torch.Tensor:
+    """Unsatisfied parity checks of hard bits (..., N) of a named code →
+    (...,) int32 counts, on the bits' device (host data: the card)."""
+    from ..dsp.device import on_device
+    g = ldpc_graph(name)
+    h = on_device(hard).to(torch.int32) & 1
+    hp = torch.cat([h, h.new_zeros(h.shape[:-1] + (1,))], dim=-1)
+    cb = torch.as_tensor(g.check_bits, dtype=torch.int64, device=h.device)
+    mask = torch.as_tensor(g.check_mask, device=h.device)
+    x = torch.where(mask, hp[..., cb], 0).sum(-1) & 1
+    return x.sum(-1).to(torch.int32)

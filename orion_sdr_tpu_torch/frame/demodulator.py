@@ -154,10 +154,12 @@ def _as_iq(iq, device) -> torch.Tensor:
 
 class OfdmFrameDemod:
     """Demod at a KNOWN start (iq[0] = first post-preamble sample), flat
-    channel; decoding runs on ``device``."""
+    channel; decoding runs on ``device``. ``cache`` is accepted for the JAX
+    package's signature and does nothing (the port's ``CodecCache`` is
+    inert: codes memoize process-wide)."""
 
-    def __init__(self, cfg: OfdmConfig, mcs_table: McsTable, *,
-                 device) -> None:
+    def __init__(self, cfg: OfdmConfig, mcs_table: McsTable, cache=None, *,
+                 device="cuda") -> None:
         self.cfg = cfg
         self.mcs_table = mcs_table
         self.device = torch.device(device)
@@ -255,7 +257,8 @@ class RxFrame:
 
 class OfdmFrameStreamDemod:
     """Streaming receiver: feed IQ, poll frames/errors. The buffer lives on
-    ``device``.
+    ``device``; ``cache`` is accepted for the JAX package's signature and
+    does nothing (the port's ``CodecCache`` is inert).
 
     Per attempt: the earliest preamble scoring ≥ threshold → total-CFO
     derotate → training-symbol channel estimate → decode → drain; an
@@ -266,8 +269,8 @@ class OfdmFrameStreamDemod:
     """
 
     def __init__(self, cfg: OfdmConfig, mcs_table: McsTable,
-                 preamble: OfdmPreamble, score_threshold: float = 0.5, *,
-                 device) -> None:
+                 preamble: OfdmPreamble, score_threshold: float = 0.5,
+                 cache=None, *, device="cuda") -> None:
         self.cfg = cfg
         self.mcs_table = mcs_table
         self.preamble = preamble

@@ -62,10 +62,14 @@ def _map_bits(cfg: OfdmConfig, constellation: str, bits: torch.Tensor
 
 class OfdmFrameMod:
     """Frame modulator over a config, MCS table and acquisition preamble;
-    coding and modulation run on ``device``."""
+    coding and modulation run on ``device``. ``cache`` is accepted for the
+    JAX package's signature and does nothing: codes and tables memoize
+    process-wide here (:class:`~orion_sdr_tpu_torch.frame.CodecCache` is
+    inert)."""
 
     def __init__(self, cfg: OfdmConfig, mcs_table: McsTable,
-                 preamble: OfdmPreamble, *, device) -> None:
+                 preamble: OfdmPreamble, cache=None, *,
+                 device="cuda") -> None:
         self.cfg = cfg
         self.mcs_table = mcs_table
         self.preamble = preamble

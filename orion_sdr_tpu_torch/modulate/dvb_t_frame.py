@@ -72,7 +72,8 @@ class DvbTFrameMod:
     masks the whole frame."""
 
     def __init__(self, params: DvbTFrameParams, window_roll_off: int = 0,
-                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
+                 tx_lowpass: Optional[TxLowpass] = None, *,
+                 device="cuda") -> None:
         self.params = params
         self.window_roll_off = window_roll_off
         self.tx_lowpass = tx_lowpass
@@ -166,7 +167,8 @@ class DvbTHierFrameMod:
     code."""
 
     def __init__(self, params: DvbTHierFrameParams, window_roll_off: int = 0,
-                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
+                 tx_lowpass: Optional[TxLowpass] = None, *,
+                 device="cuda") -> None:
         self.params = params
         self.window_roll_off = window_roll_off
         self.tx_lowpass = tx_lowpass

@@ -34,7 +34,8 @@ class DvbTSuperFrameMod:
     """Super-frame modulator on ``device``."""
 
     def __init__(self, params: DvbTSuperFrameParams, window_roll_off: int = 0,
-                 tx_lowpass: Optional[TxLowpass] = None, *, device) -> None:
+                 tx_lowpass: Optional[TxLowpass] = None, *,
+                 device="cuda") -> None:
         self.params = params
         self.window_roll_off = window_roll_off
         self.tx_lowpass = tx_lowpass

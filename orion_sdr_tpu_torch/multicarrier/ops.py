@@ -105,3 +105,10 @@ def symbol_fft(time_stream: torch.Tensor, n_fft: int, cp_len: int,
     x = x.reshape(x.shape[:-1] + (n_symbols, sym_len))
     start = cp_len - backoff
     return torch.fft.fft(x[..., start:start + n_fft], dim=-1).to(torch.complex64)
+
+
+def max_pilot_safe_backoff(n_fft: int, pilot_spacing: int) -> int:
+    """The largest RX window backoff, n_fft/(2·spacing), below which
+    interpolating between pilots ``pilot_spacing`` bins apart does not
+    alias the backoff's phase slope."""
+    return n_fft // (2 * max(pilot_spacing, 1))

@@ -77,6 +77,19 @@ class CarrierPlan:
                     f"carrier index {idx} assigned more than one role")
             seen.add(idx)
 
+    def validate_edge_guard(self, edge_guard: int) -> None:
+        """:meth:`validate`, and no carrier within ``edge_guard`` carriers
+        of either end of the FFT's index range."""
+        self.validate()
+        lo, hi = self.index_bounds()
+        g = int(edge_guard)
+        for idx in list(self.data_carriers) + \
+                [i for i, _ in self.pilot_carriers]:
+            if idx < lo + g or idx > hi - g:
+                raise CarrierPlanError(
+                    f"carrier index {idx} intrudes into the {edge_guard}-"
+                    "carrier edge guard")
+
 
 class CarrierGrid:
     """Signed-index → FFT-bin resolution, done once; raises CarrierPlanError

@@ -1,8 +1,13 @@
-"""OFDM waveform: config, whole-frame modulation (TX lowpass and DFT-s-OFDM
-transform precoding included), ZF equalization, channel estimate denoising,
-pilot interpolation and common-phase-error tracking (counterpart of the
-parts of ``orion_sdr_tpu/ofdm.py`` that the coded frame link and the DVB-T
-frame link use).
+"""OFDM waveform: config, whole-frame modulation (TX lowpass, DFT-s-OFDM
+transform precoding and caller pilots included), the generic receive
+(symbol FFT, ZF or LMMSE one-tap equalization, grid extraction, hard and
+soft decisions, EVM), training-symbol and pilot channel estimates,
+estimate denoising and common-phase-error tracking (counterpart of
+``orion_sdr_tpu/ofdm.py``).
+
+Every entry point takes host data or tensors; ``device`` None keeps a
+tensor where it is and sends host data to the card ("cuda"). A frame is
+one batched op over (..., n_symbols, n_fft).
 """
 
 from __future__ import annotations
@@ -14,10 +19,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .constellation import bits_per_symbol, map_bits
-from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass, grid_map, \
-    map_bits_grid, ofdm_assemble, symbol_taper
-from .dsp.device import full_f32
+from .constellation import BITS_PER_SYMBOL, bits_per_symbol, decide, \
+    map_bits, soft_llr
+from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass, grid_extract, \
+    grid_map, map_bits_grid, ofdm_assemble, symbol_fft, symbol_taper
+from .dsp.device import full_f32, on_device
 from .dsp.osc import rotate
 
 EQUALIZER_FLOOR = 1e-6  # |h|² floor in ZF division
@@ -146,6 +152,74 @@ class OfdmConfig:
     def grid(self) -> CarrierGrid:
         return CarrierGrid(self.carrier_plan)
 
+    def validate(self) -> None:
+        """Raise ValueError (CarrierPlanError for the plan) on an invalid
+        config: the plan, the rate, the constellation, the equalizer and
+        phase tracking names, the window backoff, precoding against the
+        DVB-T mapping, the TX lowpass's transition, and the frame-layer
+        fields (a per-frame scrambler seed needs a header block;
+        interleaver dimensions; BCH t; RS (n, n_parity))."""
+        plan = self.carrier_plan
+        plan.validate()
+        if self.fs <= 0.0:
+            raise ValueError("fs must be positive")
+        if self.constellation not in BITS_PER_SYMBOL:
+            raise ValueError(f"unknown constellation {self.constellation!r}")
+        if self.equalizer_method not in ("training_symbol", "pilot_interp"):
+            raise ValueError(
+                f"unknown equalizer {self.equalizer_method!r} "
+                "(expected 'training_symbol' or 'pilot_interp')")
+        if self.phase_tracking not in ("off", "cpe"):
+            raise ValueError(
+                f"unknown phase_tracking {self.phase_tracking!r} "
+                "(expected 'off' or 'cpe')")
+        if not 0 <= self.rx_window_backoff <= plan.cp_len:
+            raise ValueError(
+                "rx_window_backoff must be within the cyclic prefix")
+        if self.transform_precoding and self.dvb_t_scattered:
+            raise ValueError(
+                "transform_precoding is not a DVB-T mechanism (EN 300 744 "
+                "fixes the carrier mapping); disable one of the two")
+        if self.transform_precoding and plan.num_data_carriers() < 2:
+            raise ValueError("transform_precoding needs ≥2 data carriers")
+        if self.tx_lowpass is not None and not self.tx_lowpass \
+                .transition_fits(plan.n_fft, plan.occupied_half_carriers()):
+            raise ValueError("tx_lowpass transition does not fit the null "
+                             "band")
+        from .frame.types import header_has_block
+        if (getattr(self.scrambler, "kind", "none") == "additive"
+                and getattr(self.scrambler, "seed_mode", "fixed")
+                == "per_frame"
+                and not header_has_block(self.header_format)):
+            raise ValueError(
+                "per-frame-random scrambler seed needs a header block to "
+                "carry it to the receiver")
+        for il in (self.outer_interleaver, self.inner_interleaver):
+            kind = getattr(il, "kind", "none")
+            if kind == "block" and (il.rows == 0 or il.cols == 0):
+                raise ValueError("interleaver dimensions must be nonzero")
+            if kind == "conv" and (il.branches == 0 or il.depth == 0):
+                raise ValueError("interleaver dimensions must be nonzero")
+        ofec = self.outer_fec
+        okind = getattr(ofec, "kind", "none")
+        if okind == "bch" and ofec.t == 0:
+            raise ValueError("BCH t must be nonzero")
+        if okind == "rs" and (ofec.n == 0 or ofec.n > 255
+                              or ofec.n_parity == 0
+                              or ofec.n_parity >= ofec.n
+                              or ofec.n_parity % 2 != 0):
+            raise ValueError("invalid Reed-Solomon (n, n_parity) config")
+
+
+def carried_phase(phase0, device) -> torch.Tensor:
+    """``phase0`` as the float32 tensor a rotation carries: the JAX
+    package's jitted OFDM programs trace their phase argument, so XLA
+    fuses p0 + w·k into one rounding, which :func:`~orion_sdr_tpu_torch.
+    dsp.osc.rotate` reproduces for a tensor phase."""
+    if isinstance(phase0, torch.Tensor):
+        return phase0.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.float32(phase0), device=device)
+
 
 def dft_precode(syms: torch.Tensor) -> torch.Tensor:
     """Unitary M-point DFT across the data-carrier axis (SC-FDMA TX
@@ -163,29 +237,39 @@ def dft_deprecode(syms: torch.Tensor) -> torch.Tensor:
             * np.float32(np.sqrt(m))).to(torch.complex64)
 
 
-def ofdm_mod(cfg: OfdmConfig, bits: torch.Tensor, phase0: float = 0.0):
-    """bits (..., n_bits) → IQ for whole frames on the bits' device. The
-    bit count is zero-padded up to a whole number of OFDM symbols; the
-    plan's symbol-window taper and the config's TX lowpass apply, and with
+def ofdm_mod(cfg: OfdmConfig, bits, phase0: float = 0.0, pilot_bins=None,
+             pilot_values=None, device=None):
+    """bits (..., n_bits) → IQ for whole frames. The bit count is
+    zero-padded up to a whole number of OFDM symbols; the plan's
+    symbol-window taper and the config's TX lowpass apply, and with
     ``transform_precoding`` each symbol's data cells are DFT-spread before
-    grid mapping. Returns (iq complex64, phase)."""
+    grid mapping. ``pilot_bins``/``pilot_values`` (numpy, (n_pilots,) or
+    per symbol (n_sym, n_pilots)) replace the plan's own pilots; without
+    them (and without precoding) mapping and placement are one fused
+    gather. Returns (iq complex64 on the bits' device, phase)."""
+    bits = on_device(bits, device)
     g = cfg.grid()
     bps = cfg.bits_per_ofdm_symbol()
     n_sym = -(-bits.shape[-1] // bps)
     pad = n_sym * bps - bits.shape[-1]
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    if cfg.transform_precoding:
+    if pilot_bins is None and pilot_values is None \
+            and not cfg.transform_precoding:
+        freq = map_bits_grid(g, bits, cfg.constellation)
+    else:
         syms = map_bits(bits, cfg.constellation)
         syms = syms.reshape(syms.shape[:-1] + (n_sym, g.num_data_carriers))
-        freq = grid_map(g, dft_precode(syms))
-    else:
-        freq = map_bits_grid(g, bits, cfg.constellation)
+        if cfg.transform_precoding:
+            syms = dft_precode(syms)
+        freq = grid_map(g, syms, pilot_bins=pilot_bins,
+                        pilot_values=pilot_values)
     taper = symbol_taper(cfg.samples_per_ofdm_symbol(),
                          cfg.carrier_plan.window_roll_off)
     t = ofdm_assemble(freq, cfg.carrier_plan.cp_len, taper=taper) * cfg.gain
     if cfg.rf_hz != 0.0:
-        t, phase0 = rotate(t, cfg.rf_hz, cfg.fs, phase0)
+        t, phase0 = rotate(t, cfg.rf_hz, cfg.fs,
+                           carried_phase(phase0, t.device))
     if cfg.tx_lowpass is not None:
         t = cfg.tx_lowpass.apply(t)
     return t.to(torch.complex64), phase0
@@ -195,6 +279,28 @@ def zf_equalize(freq_syms: torch.Tensor, estimate: torch.Tensor) -> torch.Tensor
     """Per-bin zero-forcing: x·conj(h)/max(|h|², 1e−6)."""
     mag2 = torch.clamp(estimate.abs() ** 2, min=EQUALIZER_FLOOR)
     return (freq_syms * torch.conj(estimate) / mag2).to(torch.complex64)
+
+
+def mmse_equalize(freq_syms: torch.Tensor, estimate: torch.Tensor,
+                  noise_var: float) -> torch.Tensor:
+    """Per-bin LMMSE: x·conj(h)/(|h|² + σ²), σ² the complex noise variance
+    per frequency bin relative to unit-amplitude cells (``n_fft·σ²ₜ`` for
+    time-domain AWGN of variance σ²ₜ through the unity-gain symbol FFT).
+    Shrinks deep fades toward zero instead of amplifying their noise: the
+    front end for waveforms whose later transform averages over bins
+    (DFT-s-OFDM, OTFS)."""
+    denom = estimate.abs() ** 2 + np.float32(max(noise_var,
+                                                 EQUALIZER_FLOOR))
+    return (freq_syms * torch.conj(estimate) / denom).to(torch.complex64)
+
+
+def channel_estimate_training(rx_training_freq, known_freq,
+                              device=None) -> torch.Tensor:
+    """Training-symbol hold: h[bin] = rx[bin]/known[bin], on the received
+    symbol's device."""
+    rx = on_device(rx_training_freq, device, torch.complex64)
+    known = on_device(known_freq, rx.device, torch.complex64)
+    return (rx / known).to(torch.complex64)
 
 
 def channel_estimate_denoise(estimate: torch.Tensor, cp_len: int,
@@ -329,6 +435,46 @@ def channel_estimate_pilots(freq_syms: torch.Tensor, pilot_bins, pilot_values,
     return torch.complex(re, im)
 
 
+def ofdm_demod(cfg: OfdmConfig, iq, n_symbols: Optional[int] = None,
+               estimate=None, gain: float = 1.0, phase0=0.0, device=None):
+    """IQ (..., n) → soft data symbols (..., n_sym, n_data): down-mix by
+    ``cfg.rf_hz`` from ``phase0``, window and FFT every symbol, ZF-equalize
+    by ``estimate`` ((n_fft,) held or (..., n_sym, n_fft) per symbol) when
+    given, extract the data bins, scale by ``gain``, and despread with
+    ``transform_precoding``. Returns (soft complex64, phase)."""
+    g = cfg.grid()
+    z = on_device(iq, device, torch.complex64)
+    if cfg.rf_hz != 0.0:
+        z, phase0 = rotate(z, -cfg.rf_hz, cfg.fs,
+                           carried_phase(phase0, z.device))
+    freq = symbol_fft(z, g.n_fft, g.cp_len, backoff=cfg.rx_window_backoff,
+                      n_symbols=n_symbols)
+    if estimate is not None:
+        freq = zf_equalize(freq, on_device(estimate, freq.device,
+                                           torch.complex64))
+    soft = grid_extract(g, freq) * gain
+    if cfg.transform_precoding:
+        soft = dft_deprecode(soft)
+    return soft.to(torch.complex64), phase0
+
+
+def _flat_symbols(soft_symbols, device) -> torch.Tensor:
+    s = on_device(soft_symbols, device, torch.complex64)
+    return s.reshape(s.shape[:-2] + (-1,))
+
+
+def ofdm_decide(cfg: OfdmConfig, soft_symbols, device=None) -> torch.Tensor:
+    """Hard bits (..., n_sym·bps) uint8 from soft symbols (..., n_sym,
+    n_data)."""
+    return decide(_flat_symbols(soft_symbols, device), cfg.constellation)
+
+
+def ofdm_soft_demod(cfg: OfdmConfig, soft_symbols,
+                    device=None) -> torch.Tensor:
+    """Max-log LLRs (..., n_sym·bps) float32, positive ⇒ bit 0."""
+    return soft_llr(_flat_symbols(soft_symbols, device), cfg.constellation)
+
+
 class OfdmRxFrame(NamedTuple):
     """Per-packet diagnostics."""
     bits: np.ndarray
@@ -337,3 +483,24 @@ class OfdmRxFrame(NamedTuple):
     cfo_hz: Optional[float] = None
     timing_offset_samples: Optional[int] = None
     channel_mse: Optional[float] = None
+
+
+def build_ofdm_rx_frame(cfg: OfdmConfig, soft_symbols, bits) -> OfdmRxFrame:
+    """Per-packet diagnostics on the host: EVM of the soft symbols against
+    the ideal points the hard ``bits`` map to (None when the counts do not
+    line up or there is nothing to measure)."""
+    from .util import _np
+    s = _np(soft_symbols).reshape(-1)
+    b = _np(bits)
+    n_data = cfg.carrier_plan.num_data_carriers()
+    num_symbols = len(s) // max(n_data, 1)
+    evm = None
+    if num_symbols and len(s):
+        ideal = map_bits(torch.as_tensor(np.ascontiguousarray(b)),
+                         cfg.constellation).numpy()
+        if len(ideal) == len(s):
+            err = float(np.sum(np.abs(s - ideal) ** 2))
+            ref = float(np.sum(np.abs(ideal) ** 2))
+            if ref > 0:
+                evm = 10.0 * np.log10(err / ref) if err > 0 else -np.inf
+    return OfdmRxFrame(bits=b, num_symbols=num_symbols, evm_db=evm)

@@ -6,11 +6,15 @@ Everything but :func:`atan2_approx` and the Welch periodogram behind
 also runs it in numpy): it is measurement code, not the hot path.
 :func:`atan2_approx` is the FM/PM discriminators' arctangent on torch
 tensors, with the JAX version's float32 operation order (equal to it on
-the CPU).
+the CPU). :class:`trace` and :func:`measure` are the observability pair:
+a ``torch.profiler`` trace of a block, and wall-clock throughput with the
+card's queue drained on both sides of the work.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -170,6 +174,57 @@ def awgn(rng: np.random.Generator, shape, scale: float, complex_: bool = True):
                          + 1j * rng.standard_normal(shape))
                 / np.sqrt(2.0)).astype(np.complex64)
     return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+class trace:
+    """Profiling context: ``with util.trace("prof_dir"): run()`` records
+    every CPU op and, where CUDA is available, every card kernel in the
+    block under ``torch.profiler``, and writes a Chrome/Perfetto trace
+    (``trace_<pid>_<n>.json``) into ``log_dir`` on exit; ``.path`` names
+    the file."""
+
+    _count = 0
+
+    def __init__(self, log_dir: str) -> None:
+        self.log_dir = log_dir
+        self.path = None
+        self._prof = None
+
+    def __enter__(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        trace._count += 1
+        self.path = os.path.join(self.log_dir,
+                                 f"trace_{os.getpid()}_{trace._count}.json")
+        self._prof.export_chrome_trace(self.path)
+        return False
+
+
+def _drain_card() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def measure(fn, n_samples: int, repeats: int = 1):
+    """Wall-clock throughput of ``fn`` processing ``n_samples`` a call:
+    (Msps, seconds) over ``repeats`` calls. The card's queue is drained
+    before the clock is read on each side, so the time covers the work
+    and not only its enqueueing."""
+    _drain_card()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    _drain_card()
+    dt = time.perf_counter() - t0
+    return (n_samples * repeats / dt / 1e6 if dt > 0 else float("inf")), dt
 
 
 def atan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Tables (energy-dispersal PRBS, Figure-9a axes, pilot and TPS carriers, the
 four scattered-pilot phases) are host numpy built once; mapping, soft
 demapping and the rotating-grid scatter/gather run on the device of the
 tensors they are given, whole frames at a time. The COFDM presets
-(``dvb_t_config``, ``dvb_t_scattered_config``) are not in the port yet.
+``dvb_t_config`` and ``dvb_t_scattered_config`` give the 2K grid as an
+``OfdmConfig`` for the generic links.
 """
 
 from __future__ import annotations

@@ -22,7 +22,10 @@ dechirp and WSPR energy grid) with the band receivers' BP and Viterbi
 launches, and the CSS and WSPR receivers on the card; and slice 6a (each
 channel impairment, the SSTV discriminator and the ADS-B score on the card
 against the CPU, SSTV, ADS-B, Morse and the band decode on the card, the
-top-level names). They skip without a CUDA card.
+top-level names); and slice 6b (the generic OFDM receive and OTFS on the
+card against the CPU, the Block classes through their kernels, and
+checkpoints moving between the card and the CPU). They skip without a
+CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -1420,3 +1423,104 @@ def test_top_level_has_the_slice_6a_names(cuda):
              and node.module in mods for a in node.names]
     assert len(names) == 36 and hasattr(P, "io")
     assert [n for n in names if not hasattr(P, n)] == []
+
+
+def test_ofdm_receive_and_otfs_on_the_card_match_the_cpu(cuda):
+    """``ofdm_demod`` with a held estimate, ``mmse_equalize`` and OTFS
+    under LMMSE on the card against the CPU path: soft symbols within 1e-5
+    of the peak, hard bits equal."""
+    cfg = P.dvb_t_config("1/4", 7.61e6)
+    rng = np.random.default_rng(48)
+    bits = rng.integers(0, 2, (4, 8 * cfg.bits_per_ofdm_symbol())
+                        ).astype(np.uint8)
+    est = (1 + 0.3 * rng.standard_normal(2048)
+           + 0.3j * rng.standard_normal(2048)).astype(np.complex64)
+    for dev in ("cpu", cuda):
+        iq, _ = P.ofdm_mod(cfg, bits, device=dev)
+        soft, _ = P.ofdm_demod(cfg, iq * torch.as_tensor(
+            np.complex64(0.7 - 0.2j), device=iq.device),
+            estimate=np.full(2048, 0.7 - 0.2j, np.complex64))
+        dd, _ = P.otfs_demod(cfg, P.otfs_mod(cfg, bits, 8, device=dev)[0]
+                             * torch.as_tensor(est[:1], device=iq.device),
+                             8, estimate=est[:1].repeat(2048),
+                             noise_var=0.01)
+        if dev == "cpu":
+            ref_soft, ref_dd = soft, dd
+    for got, ref in ((soft, ref_soft), (dd, ref_dd)):
+        assert got.device.type == "cuda"
+        err = float((got.cpu() - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(P.ofdm_decide(cfg, soft).cpu(),
+                       P.ofdm_decide(cfg, ref_soft))
+    assert torch.equal(P.ofdm_decide(cfg, soft).cpu(),
+                       torch.as_tensor(bits))
+
+
+def test_blocks_launch_their_kernels_on_the_card(cuda):
+    """Bpsk31Demod (PSK31 PLL), CwKeyedMod (two-rate one-pole) and
+    Ft8Codec.decode_soft (BP) on the card: one launch a call, output equal
+    to the CPU block's (texts, payloads exact; IQ within 1e-5)."""
+    from orion_sdr_tpu_torch.ops import onepole_two_rate, psk31_pll
+    iq = P.Bpsk31Mod(8000.0, 700.0, device="cpu").modulate_text("card")
+    psk31_pll.psk31_pll.launches = 0
+    card = P.Bpsk31Demod(8000.0, 700.0, device=cuda)
+    soft = np.concatenate([card.process(iq[:20_000]),
+                           card.process(iq[20_000:])])
+    assert psk31_pll.psk31_pll.launches == 2
+    host = P.Bpsk31Demod(8000.0, 700.0, device="cpu")
+    ref = np.concatenate([host.process(iq[:20_000]),
+                          host.process(iq[20_000:])])
+    assert np.array_equal(soft >= 0, ref >= 0)
+    assert "card" in P.VaricodeDecoder().push_bits(
+        P.Bpsk31Decider(device=cuda).process(soft))
+    key = np.zeros(48_000, np.float32)
+    key[1000:30_000] = 1.0
+    onepole_two_rate.onepole_two_rate.launches = 0
+    out = P.CwKeyedMod(48e3, 700.0, device=cuda).process(key)
+    assert onepole_two_rate.onepole_two_rate.launches == 1
+    np.testing.assert_allclose(out, P.CwKeyedMod(48e3, 700.0, device="cpu")
+                               .process(key), rtol=0, atol=1e-5)
+    payload = P.ft8_pack_free_text("CARD 73")
+    codec = P.Ft8Codec(device=cuda)
+    tones = codec.encode(payload)
+    llr = P.codec.ft8.ft8_frame_llr_hard(tones)
+    ldpc_bp.bp_decode_kernel.launches = 0
+    assert codec.decode_soft(llr) == payload
+    assert ldpc_bp.bp_decode_kernel.launches == 1
+
+
+def test_checkpoint_moves_between_the_card_and_the_cpu(cuda, tmp_path):
+    """A QPSK31 stream checkpointed on the card finishes on the CPU with
+    the uninterrupted text, and a COFDM stream checkpointed on the CPU
+    resumes on the card with its buffer there."""
+    msg = "from the card"
+    iq = P.qpsk31_mod_text(msg, 8000.0, 1000.0, device="cpu").numpy()
+    one = P.Psk31Stream.new_qpsk(8000.0, 1000.0, device="cpu")
+    want = one.feed(iq) + one.flush()
+    a = P.Psk31Stream.new_qpsk(8000.0, 1000.0, device=cuda)
+    got = a.feed(iq[:len(iq) // 2 + 99])
+    path = str(tmp_path / "q.npz")
+    P.save_checkpoint(path, a)
+    b = P.load_checkpoint(path, P.Psk31Stream.new_qpsk(8000.0, 1000.0,
+                                                       device="cpu"))
+    assert got + b.feed(iq[len(iq) // 2 + 99:]) + b.flush() == want
+    assert msg in want
+    plan = P.CarrierPlan(256, 64).with_contiguous_data(edge_guard=16)
+    cfg = P.OfdmConfig(plan, fs=1e6)
+    pre = P.OfdmPreamble(repeat_len=128, num_repeats=4
+                         ).with_training_symbol(256, 64)
+    table = P.McsTable.default_ladder()
+    payload = np.arange(150, dtype=np.uint8)
+    fr = P.OfdmFrameMod(cfg, table, pre, device="cpu").modulate_frame(
+        P.FramePacket(P.FrameMetadata(3, 1), payload), 5)
+    buf = np.concatenate([np.zeros(500, np.complex64), fr,
+                          np.zeros(100, np.complex64)])
+    s = P.OfdmFrameStreamDemod(cfg, table, pre, device="cpu")
+    assert s.feed(buf[:len(buf) // 2]) == []
+    P.save_checkpoint(path, s)
+    r = P.load_checkpoint(path, P.OfdmFrameStreamDemod(cfg, table, pre,
+                                                       device=cuda))
+    assert r._buf.device.type == "cuda"
+    out = [x for x in r.feed(buf[len(buf) // 2:]) + r.flush()
+           if hasattr(x, "packet")]
+    assert len(out) == 1 and np.array_equal(out[0].packet.payload, payload)

@@ -179,3 +179,22 @@ def test_jax_bp_decode_takes_the_edge_rule_as_min_sum_and_the_port_refuses():
                                      "sum_product_edge")):
         with pytest.raises(ValueError, match="bp_decode_pallas"):
             call()
+
+
+@pytest.mark.parametrize("name", sorted(LDPC_CODES))
+def test_syndrome_weight_matches(name):
+    """``ldpc_syndrome_weight`` on codewords, flipped codewords and random
+    words, batched (exact counts)."""
+    from orion_sdr_tpu.fec.ldpc import ldpc_syndrome_weight as j_weight, \
+        ldpc_encode as j_encode
+    from orion_sdr_tpu_torch.fec.ldpc import ldpc_syndrome_weight
+    n, k, _ = LDPC_CODES[name]
+    rng = np.random.default_rng(31)
+    msg = rng.integers(0, 2, (4, k)).astype(np.uint8)
+    cw = np.asarray(j_encode(name, msg))
+    words = np.concatenate([cw, cw ^ (rng.random(cw.shape) < 0.01),
+                            rng.integers(0, 2, (2, n))]).astype(np.uint8)
+    ours = ldpc_syndrome_weight(name, torch.as_tensor(words))
+    assert ours.dtype == torch.int32
+    assert np.array_equal(ours.numpy(), np.asarray(j_weight(name, words)))
+    assert not ours[:4].any()

@@ -330,3 +330,19 @@ def test_stream_state_from_the_jax_package_continues_in_the_port(qpsk):
     port = convert.psk31_stream_from_fields(fields, CPU)
     text += port.feed(iq[cut:]) + port.flush()
     assert text == ref and "HANDOVER TEST 73" in text
+
+
+def test_hard_decisions_match():
+    """``hard_decide_dbpsk``/``_dqpsk`` (exact), zeros and ties included."""
+    rng = np.random.default_rng(17)
+    re = np.concatenate([rng.standard_normal(200), [0.0, -0.0, 1.0, -1.0]]
+                        ).astype(np.float32)
+    im = np.concatenate([rng.standard_normal(200), [0.0, 0.5, 1.0, 1.0]]
+                        ).astype(np.float32)
+    assert np.array_equal(PD.hard_decide_dbpsk(torch.as_tensor(re)).numpy(),
+                          np.asarray(JD.hard_decide_dbpsk(re)))
+    ours = PD.hard_decide_dqpsk(torch.as_tensor(re), torch.as_tensor(im))
+    ref = JD.hard_decide_dqpsk(re, im)
+    for o, r in zip(ours, ref):
+        assert o.dtype == torch.float32
+        assert np.array_equal(o.numpy(), np.asarray(r))

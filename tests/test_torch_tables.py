@@ -282,3 +282,62 @@ def test_rs_encode_and_decode_match(n, n_parity):
     if not ok[-1]:
         with pytest.raises(RsError):
             p.decode(bad[-1])
+
+
+def test_scramble_stream_and_dvb_taps_match():
+    """``scramble``, ``PnScramblerStream`` and ``DVB_TAPS`` (bit-exact)."""
+    from orion_sdr_tpu.fec import scramble as j_scramble, \
+        PnScramblerStream as JStream, DVB_TAPS as J_TAPS
+    from orion_sdr_tpu_torch.fec import scramble, PnScramblerStream, \
+        DVB_TAPS
+    assert DVB_TAPS == J_TAPS
+    data = np.random.default_rng(4).integers(0, 256, (3, 77)).astype(
+        np.uint8)
+    for taps, width, seed in ((DVB_TAPS, 15, 0x4A80), (0b1001, 7, 0x5B)):
+        out = scramble(data, taps, width, seed)
+        assert np.array_equal(out, j_scramble(data, taps, width, seed))
+        assert np.array_equal(scramble(out, taps, width, seed), data)
+        ours, ref = PnScramblerStream(taps, width, seed), \
+            JStream(taps, width, seed)
+        for a, b in ((0, 10), (10, 11), (11, 77)):
+            assert np.array_equal(ours.feed(data[0, a:b]),
+                                  ref.feed(data[0, a:b]))
+        ours.reset()
+        assert np.array_equal(ours.feed(data[0]), out[0])
+
+
+def test_gf_inverse_power_and_single_codeword_bch_decode():
+    """``gf_inv``, ``gf_pow_alpha`` and ``Bch.decode`` against the JAX
+    package's (bit-exact; an uncorrectable word raises BchError in both)."""
+    from orion_sdr_tpu.fec.galois import gf_inv as j_inv, \
+        gf_pow_alpha as j_pow, Bch as JBch, BchError as JBchError
+    from orion_sdr_tpu_torch.fec import gf_inv, gf_pow_alpha, gf_mul, Bch, \
+        BchError
+    a = np.arange(1, 256, dtype=np.uint8)
+    assert np.array_equal(gf_inv(a), j_inv(a))
+    assert np.all(gf_mul(a, gf_inv(a)) == 1)
+    e = np.arange(-300, 600)
+    assert np.array_equal(gf_pow_alpha(e), j_pow(e))
+    rng = np.random.default_rng(9)
+    for t, n in ((4, 255), (8, 184)):
+        ours, ref = Bch(t, n), JBch(t, n)
+        msg = rng.integers(0, 2, (3, ours.k)).astype(np.uint8)
+        cw = ours.encode(msg)
+        for errs in (0, 1, t):
+            r = cw.copy()
+            for row in r:
+                row[rng.choice(n, errs, replace=False)] ^= 1
+            assert np.array_equal(ours.decode(r), ref.decode(r))
+            assert np.array_equal(ours.decode(r[0]), msg[0])
+        r = cw[0].copy()
+        r[rng.choice(n, 3 * t, replace=False)] ^= 1
+        try:
+            ref.decode(r)
+            raised = False
+        except JBchError:
+            raised = True
+        if raised:
+            with pytest.raises(BchError):
+                ours.decode(r)
+        else:
+            assert np.array_equal(ours.decode(r), ref.decode(r))
