@@ -348,7 +348,39 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    and load times; every BP, radix-2 and PLL launch held to the plain
    version. Then the QPSK31 stream checkpointed on the card and finished
    on the CPU, with the same text.
-51. Prints the kernels' JSON line (each kernel's main-path launches, error
+51. The multi-device layer (slice 7) on one Mesh of 8 shards of the card,
+   shape (2, 4) (ch x t): fir_overlap_save_sharded (8 time shards) and
+   fm_demod_sharded at [28]'s 64 x 2^20 at 480 kHz, 129 taps (1e-5; FM
+   1e-4 from column 1); ofdm_soft_demap_sharded at [48]'s 64 x 68 symbols
+   of the 2K grid behind its echo at 20 dB under ZF with the held training
+   estimate, pilot_interp, DFT precoding and CPE (1e-4, CPE 1e-3, absolute
+   and relative); dvb_t_receive_sharded on 64 aligned QPSK r1/2 frames at
+   10 dB (LLRs 1e-3, TPS cells 1e-4); psk31_demod_sharded on [49]'s 60 s of
+   BPSK31 and QPSK31 (1e-5, one PLL launch a call) and the sharded stream
+   decode's texts; each against the port's one-device path on the card,
+   on the same inputs (tests/test_parallel.py's tolerances). Then the
+   capstones: dvb_t_decode_time_sharded on a 16-QAM r3/4 GI 1/32 capture
+   at 18 dB and a noiseless one of tests/test_parallel.py's QPSK r1/2 GI
+   1/8 link, each the largest whole-packet payload that fits 1088 and 272
+   symbols (1088 and 271 symbols), payload and TPS equal to
+   DvbTFrameDemod.decode (one Viterbi launch a shard, RS on the card),
+   and the first one's Viterbi and Forney stages alone, each equal to its
+   one-device version bit for bit; ofdm_frame_decode_time_sharded
+   on [4]'s link, one 1500-byte frame at each of MCS 0-3 (30 dB), and on
+   a pilot_interp + CPE link behind an echo, payload and metadata equal to
+   OfdmFrameStreamDemod; ber_sharded (exact counts) and
+   power_spectrum_sharded (2e-4) on 64 x 2^20; two processes under gloo
+   (tools/torch_distributed_smoke.py, the local work on the card)
+   all-reducing ber_sharded; dryrun_multichip(8, ["cuda:0"] * 8) and
+   entry(). For each path, the time at 8 shards and at 1 shard of the
+   card for the same work (host clock, median of 5 after a warm-up, busy
+   share under torch.profiler) and the bytes each collective moved between
+   shards (parallel.mesh.traffic): shards on one card measure overhead, not
+   scaling; and format_scaling_table over 1/2/4/8 channel shards of the
+   card for the FIR. Every BP, radix-2 Viterbi, PSK31 PLL and BCH/RS
+   launch of the phase is recorded and held to its plain version on its
+   own inputs, exact.
+52. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -371,8 +403,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase), a
    "slice5" object with [32]-[36]'s rates, bounds and readings, a
    "slice5b" object with [39]-[42]'s, a "slice6a" object with
-   [43]-[47]'s and a "slice6b" object with [48]-[50]'s ([49] and [50] add
-   to the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase);
+   [43]-[47]'s, a "slice6b" object with [48]-[50]'s ([49] and [50] add
+   to the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase)
+   and a "slice7" object with [51]'s readings ([51] adds to the BP,
+   radix-2, PSK31 PLL and outer-code launches by phase);
    the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
@@ -531,6 +565,20 @@ BLOCK_CW_S, BLOCK_CW_FS, BLOCK_CW_CHUNK = 10.0, 48_000.0, 48_000
 BLOCK_FT8_ROWS, BLOCK_FT8_SIGMA = 256, 0.55
 BLOCK_LOG2_N, BLOCK_LOG2_CHUNK = 20, 16
 CKPT_DVB_FRAMES = 3
+# slice 7 (phase 51): the multi-device layer on one Mesh of 8 shards of the
+# card, shape (2, 4) (ch x t), each sharded path against the port's
+# one-device path: [28]'s FIR/FM width (129 taps), [48]'s 2K grid, 64
+# aligned DVB-T frames, [49]'s 60 s of PSK31, the DVB-T capstone on the
+# largest payloads that fit 1088 symbols of 16-QAM r3/4 GI 1/32 at 18 dB
+# and 272 of tests/test_parallel.py's QPSK r1/2 GI 1/8 link, the COFDM
+# capstone on [4]'s link at MCS 0-3 (30 dB) and on a pilot_interp + CPE
+# link; the overhead of 8 shards against 1 for the same work
+S7_SEED, S7_RUNS, S7_SHARDS, S7_SHAPE = 713, 5, 8, (2, 4)
+S7_FIR_TAPS, S7_SCALE_ROWS, S7_COFDM_SNR_DB = 129, 8, 30.0
+S7_DVB = {"16-QAM r3/4 GI 1/32 at 18 dB, a 1088-symbol payload":
+          ("1/32", "qam16", "3/4", 1088, 18.0),
+          "QPSK r1/2 GI 1/8 (tests/test_parallel.py's link), a 272-symbol "
+          "payload": ("1/8", "qpsk", "1/2", 272, None)}
 
 
 def fail(msg: str):
@@ -1045,16 +1093,21 @@ def viterbi_vs_plain(viterbi, dev, rng):
     return max_err, k_ms, p_ms
 
 
-def dvb_t_full_payload(P, params):
-    """Largest whole-packet payload whose coded stream fits a 68-symbol
-    frame."""
+def dvb_t_full_payload(P, params, n_sym: int = 68):
+    """Largest whole-packet payload whose coded stream fits ``n_sym``
+    symbols (a 68-symbol frame by default)."""
     from orion_sdr_tpu_torch.modulate.dvb_t_frame import _coded_bits_for_packets
     from orion_sdr_tpu_torch.constellation import BITS_PER_SYMBOL
-    capacity = 68 * 1512 * BITS_PER_SYMBOL[params.link.constellation]
-    n_pkt = 1
-    while _coded_bits_for_packets(n_pkt + 1, params) <= capacity:
-        n_pkt += 1
-    return n_pkt * 187
+    capacity = n_sym * 1512 * BITS_PER_SYMBOL[params.link.constellation]
+    # the coded length grows with the packet count: bisect for the last fit
+    lo, hi = 1, capacity // (188 * 8) + 1
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        if _coded_bits_for_packets(mid, params) <= capacity:
+            lo = mid
+        else:
+            hi = mid
+    return lo * 187
 
 
 def dvb_t_run(P, viterbi, dev, rng, link, n_frames, snr_db):
@@ -5148,6 +5201,495 @@ def checkpoint_phase(P, ldpc_bp, viterbi, pll, dev):
             {"bp": bp_err, "vit": vit_err, "pll": pll_err}, out)
 
 
+# ── slice 7 (phase 51): the multi-device layer ──────────────────────────────
+
+def s7_close(bad, label, got, ref, atol, rtol=0.0):
+    """``got`` against ``ref`` (tensors on the card) within atol + rtol ×
+    |ref|, printed; a failure is noted in ``bad``. → max |diff|."""
+    ok = got.shape == ref.shape
+    err = max_diff([got], [ref]) if ok else float("inf")
+    ok = ok and bool(torch.allclose(got, ref, atol=atol, rtol=rtol))
+    print(f"    {label}: {tuple(got.shape)}, max |sharded - one device| "
+          f"{err:.3g} (tolerance {atol:g} + {rtol:g} x |ref|): "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        bad.append(label)
+    return err
+
+
+def s7_overhead(label, fn8, fn1, shards=S7_SHARDS):
+    """The sharded path ``fn8`` on the 8-shard mesh against ``fn1``, the
+    same function on a 1-shard mesh of the card, for the same work: host ms
+    of each (median of S7_RUNS runs after a warm-up), one run of each under
+    torch.profiler (busy share), and the bytes each collective of one run
+    of ``fn8`` moved between shards (parallel.mesh.traffic); printed."""
+    from orion_sdr_tpu_torch.parallel import mesh as pmesh
+    out = {}
+    for name, fn in ((f"{shards} shards", fn8), ("1 shard", fn1)):
+        med, runs = median_ms(fn, S7_RUNS)
+        out[name] = with_busy({"median_ms": med, "runs_ms": runs}, fn)
+    pmesh.traffic.clear()
+    fn8()
+    torch.cuda.synchronize()
+    out["collective_bytes"] = dict(pmesh.traffic)
+    r8, r1 = out[f"{shards} shards"], out["1 shard"]
+    out["overhead"] = r8["median_ms"] / r1["median_ms"]
+    print(f"  {label}: {shards} shards {r8['median_ms']:.4f} ms, 1 shard "
+          f"{r1['median_ms']:.4f} ms ({out['overhead']:.3f}x; shards on one "
+          f"card: overhead, not scaling); busy "
+          f"{r8['busy_share'] and round(r8['busy_share'], 3)} / "
+          f"{r1['busy_share'] and round(r1['busy_share'], 3)}; bytes "
+          f"between shards {out['collective_bytes']}")
+    return out
+
+
+def s7_fir_fm(P, PP, mesh, one, dev, bad):
+    """FIR (8 time shards) and the FM discriminator ((2, 4) shards) at
+    [28]'s width, against fir_apply and the discriminator on one device."""
+    from orion_sdr_tpu_torch.dsp.fir import fir_apply, kaiser_lowpass_taps
+    gen = torch.Generator(device=dev).manual_seed(S7_SEED)
+    x = torch.randn((FM_ROWS, 1 << FM_LOG2_N), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    taps = kaiser_lowpass_taps(S7_FIR_TAPS, 0.25, 60.0)
+    flat8, flat1 = mesh.flat(), one.flat()
+    y1 = fir_apply(x, taps)[0]
+    errs = {"fir": s7_close(bad, f"fir_overlap_save_sharded {FM_ROWS} x "
+                            f"2^{FM_LOG2_N}, {S7_FIR_TAPS} taps",
+                            PP.fir_overlap_save_sharded(x, taps, flat8), y1,
+                            1e-5)}
+    prev = torch.cat([torch.zeros_like(y1[:, :1]), y1[:, :-1]], dim=1)
+    prod = y1 * torch.conj(prev)
+    k = 1.0 / FM_DEV_HZ
+    ref = (torch.atan2(prod.imag, prod.real) * k).to(torch.float32)
+    fm = PP.fm_demod_sharded(x, taps, mesh, FM_FS, FM_DEV_HZ)
+    errs["fm"] = s7_close(bad, f"fm_demod_sharded at {FM_FS:g} Hz, "
+                          f"{FM_DEV_HZ:g} Hz deviation (from column 1)",
+                          fm[:, 1:], ref[:, 1:], 1e-4)
+    out = {"fir": s7_overhead(
+        "fir_overlap_save_sharded",
+        lambda: PP.fir_overlap_save_sharded(x, taps, flat8),
+        lambda: PP.fir_overlap_save_sharded(x, taps, flat1)),
+        "fm": s7_overhead(
+        "fm_demod_sharded", lambda: PP.fm_demod_sharded(
+            x, taps, mesh, FM_FS, FM_DEV_HZ),
+        lambda: PP.fm_demod_sharded(x, taps, one, FM_FS, FM_DEV_HZ))}
+
+    def make_fn(m):
+        return PP.shard_channels(lambda z: fir_apply(z, taps)[0], m)
+
+    def make_input(n):
+        return (x[: n * S7_SCALE_ROWS],)
+    rows = PP.measure_scaling(make_fn, make_input, [1, 2, 4, 8], S7_RUNS,
+                              devices=[dev] * S7_SHARDS)
+    print(f"  FIR by channel shards of the card ({S7_SCALE_ROWS} rows x "
+          f"2^{FM_LOG2_N} a shard; shards on one card: overhead, not "
+          f"scaling):")
+    print("    " + PP.format_scaling_table(rows).replace("\n", "\n    "))
+    out["fir_scaling_table"] = rows
+    return out, errs
+
+
+def s7_demap(P, PP, mesh, one, dev, bad):
+    """The OFDM soft demap at [48]'s 2K grid, 64 x 68 symbols behind the
+    echo at 20 dB, against soft_demap on one device: ZF with the held
+    training estimate, pilot_interp, DFT precoding, CPE."""
+    cfg, _ = s6b_grid(P, "qpsk")
+    g = cfg.grid()
+    sps = g.n_fft + g.cp_len
+    _, iq = s6b_capture(P, cfg, OFDM_ROWS, OFDM_SYMS, dev, S7_SEED + 1)
+    rx, _ = s6b_noise(P.multipath_apply(iq, *OFDM_ECHO, device=dev),
+                      OFDM_SNR_DB, S7_SEED + 2)
+    f0 = P.multicarrier.symbol_fft(rx[0, :sps], g.n_fft, g.cp_len,
+                                   n_symbols=1)[0]
+    est = P.channel_estimate_training(f0, s6b_known(P, g.n_fft))
+    body = rx[:, sps:].contiguous()
+    cases = {"ZF, held estimate": (cfg, est, 1e-4),
+             "pilot_interp": (cfg.with_equalizer_method("pilot_interp"),
+                              None, 1e-4),
+             "DFT precoded": (cfg.with_transform_precoding(True), est, 1e-4),
+             "CPE": (cfg.with_phase_tracking("cpe"), est, 1e-3)}
+    errs, out = {}, {}
+    for name, (c, e, tol) in cases.items():
+        got = PP.ofdm_soft_demap_sharded(c, "qpsk", body, OFDM_SYMS, mesh,
+                                         estimate=e)
+        ref = P.soft_demap(c, "qpsk", body, OFDM_SYMS, e)
+        errs[name] = s7_close(bad, f"ofdm_soft_demap_sharded {name}, "
+                              f"{OFDM_ROWS} x {OFDM_SYMS} symbols", got, ref,
+                              tol, tol)
+        if name in ("ZF, held estimate", "CPE"):
+            out[name] = s7_overhead(
+                f"ofdm_soft_demap_sharded {name}",
+                lambda c=c, e=e: PP.ofdm_soft_demap_sharded(
+                    c, "qpsk", body, OFDM_SYMS, mesh, estimate=e),
+                lambda c=c, e=e: PP.ofdm_soft_demap_sharded(
+                    c, "qpsk", body, OFDM_SYMS, one, estimate=e))
+    return out, errs
+
+
+def s7_dvb_receive(P, PP, mesh, one, dev, rng, bad):
+    """dvb_t_receive_sharded on 64 aligned frames of [8]'s link at 10 dB
+    (8 modulated, each 8 times), against receive_frame_body on the
+    batch."""
+    from orion_sdr_tpu_torch.demodulate.dvb_t_frame import receive_frame_body
+    params = P.DvbTFrameParams(P.DvbTLinkParams("1/8", "qpsk", "1/2"), 0, 3)
+    mod = P.DvbTFrameMod(params, device=dev)
+    n_bytes = dvb_t_full_payload(P, params)
+    frames = [add_noise(mod.modulate(rng.integers(0, 256, n_bytes).astype(
+        np.uint8)).iq, 10.0, rng) for _ in range(8)]
+    segs = torch.as_tensor(np.stack(frames * 8), device=dev)
+    args = (68, 256, 0, 2)
+    got = PP.dvb_t_receive_sharded(segs, *args, mesh)
+    ref = receive_frame_body(segs, *args)
+    errs = {"llrs": s7_close(bad, "dvb_t_receive_sharded LLRs, 64 frames",
+                             got[0], ref[0], 1e-3),
+            "tps_cells": s7_close(bad, "dvb_t_receive_sharded TPS cells",
+                                  got[1], ref[1], 1e-4)}
+    return {"dvb_t_receive": s7_overhead(
+        "dvb_t_receive_sharded, 64 frames",
+        lambda: PP.dvb_t_receive_sharded(segs, *args, mesh),
+        lambda: PP.dvb_t_receive_sharded(segs, *args, one))}, errs
+
+
+def s7_psk31(P, PP, mesh, one, dev, seen, bad):
+    """60 s of BPSK31 and QPSK31 at 8 kHz: the sharded demod against
+    bpsk31_demod / qpsk31_demod on one device (1e-5), one PLL launch a
+    call, and the sharded stream decode's text."""
+    fs = 8000.0
+    text = s6b_psk_text(P, BLOCK_PSK_S, fs)
+    errs, out = {}, {}
+    for name, mod, demod, qpsk in (
+            ("BPSK31", P.bpsk31_mod_text, P.bpsk31_demod, False),
+            ("QPSK31", P.qpsk31_mod_text, P.qpsk31_demod, True)):
+        iq = mod(text, fs, device=dev)
+        n0 = len(seen)
+        got = PP.psk31_demod_sharded(iq, mesh, fs, qpsk=qpsk)
+        if len(seen) - n0 != 1:
+            bad.append(f"{name}: {len(seen) - n0} PLL launches a call")
+        ref = demod(iq, fs, device=dev)
+        errs[name] = s7_close(bad, f"psk31_demod_sharded {name}, "
+                              f"{iq.shape[-1]} samples", got, ref, 1e-5)
+        decoded = PP.psk31_stream_decode_sharded(iq, mesh, fs, qpsk=qpsk)
+        print(f"    psk31_stream_decode_sharded {name}: {len(text)} "
+              f"characters sent, text back {text in decoded}")
+        if text not in decoded:
+            bad.append(f"{name} text")
+        out[name] = s7_overhead(
+            f"psk31_demod_sharded {name}",
+            lambda iq=iq, q=qpsk: PP.psk31_demod_sharded(iq, mesh, fs,
+                                                          qpsk=q),
+            lambda iq=iq, q=qpsk: PP.psk31_demod_sharded(iq, one, fs,
+                                                          qpsk=q))
+    return out, errs
+
+
+def s7_trellis(P, PP, mesh, one, dev, iq, params, n_sym, n_bytes, bad):
+    """viterbi_decode_sharded and forney_deinterleave_sharded alone, on the
+    DVB-T capstone's own stream (the LLRs of its time-sharded receive, so
+    their Viterbi launches are the capstone's): the decode equal to
+    viterbi_decode_soft_chunked and the deinterleave to the host's
+    forney_deinterleave, bit for bit; each timed at 8 shards and at 1."""
+    from orion_sdr_tpu_torch.demodulate.dvb_t_frame import _ts_plan
+    from orion_sdr_tpu_torch.fec.bch_device import bytes_from_bits
+    from orion_sdr_tpu_torch.fec.conv import viterbi_decode_soft_chunked
+    from orion_sdr_tpu_torch.fec.interleave import forney_deinterleave
+    from orion_sdr_tpu_torch.sync.dvb_t_gi_sync import dvb_t_gi_sync
+    from orion_sdr_tpu_torch.waveform.dvb_t_ts import TS_PAYLOAD_LEN
+    cp = P.dvb_t_cp_len(params.link.guard)
+    sps = 2048 + cp
+    start = dvb_t_gi_sync(iq, 2048, cp, P.nb_bandwidth_fs(1e6),
+                          sps).start_sample
+    llrs, _ = PP.dvb_t_receive_time_sharded(
+        iq[start:start + n_sym * sps], n_sym, cp, 0,
+        P.BITS_PER_SYMBOL[params.link.constellation], mesh)
+    inner = params.inner()
+    plan = _ts_plan(-(-n_bytes // TS_PAYLOAD_LEN), inner)
+    llrs = llrs.reshape(-1)[: plan.coded_bits].contiguous()
+    args = (plan.outer_il_bits, inner.rate, inner.code)
+    bits = PP.viterbi_decode_sharded(llrs, args[0], mesh, *args[1:])
+    same_v = torch.equal(bits, viterbi_decode_soft_chunked(llrs, *args))
+    byts = bytes_from_bits(bits[: bits.shape[0] // 8 * 8])
+    deint = PP.forney_deinterleave_sharded(byts, mesh)
+    same_f = np.array_equal(deint.cpu().numpy(),
+                            forney_deinterleave(byts.cpu().numpy())[0])
+    print(f"    viterbi_decode_sharded: {args[0]} trellis steps, equal to "
+          f"viterbi_decode_soft_chunked {same_v}; "
+          f"forney_deinterleave_sharded: {byts.shape[0]} bytes, equal to "
+          f"forney_deinterleave {same_f}")
+    if not (same_v and same_f):
+        bad.append("viterbi / forney on the capstone's stream")
+    return {"viterbi": s7_overhead(
+        "viterbi_decode_sharded",
+        lambda: PP.viterbi_decode_sharded(llrs, args[0], mesh, *args[1:]),
+        lambda: PP.viterbi_decode_sharded(llrs, args[0], one, *args[1:])),
+        "forney": s7_overhead(
+        "forney_deinterleave_sharded",
+        lambda: PP.forney_deinterleave_sharded(byts, mesh),
+        lambda: PP.forney_deinterleave_sharded(byts, one)),
+        "trellis_steps": args[0], "bytes": int(byts.shape[0])}
+
+
+def s7_dvb_decode(P, PP, mesh, one, dev, rng, seen_vit, bad):
+    """dvb_t_decode_time_sharded, payload- and TPS-equal to
+    DvbTFrameDemod.decode: the largest whole-packet payloads that fit 1088
+    symbols of 16-QAM r3/4 GI 1/32 at 18 dB and 272 symbols of
+    tests/test_parallel.py's QPSK r1/2 GI 1/8 link without noise, each
+    behind 1500 zeros; one Viterbi launch a shard. The first capture's
+    Viterbi and Forney stages are also timed alone."""
+    out = {}
+    for label, (guard, order, rate, n_sym, snr) in S7_DVB.items():
+        params = P.DvbTFrameParams(P.DvbTLinkParams(guard, order, rate), 0,
+                                   7)
+        n_bytes = dvb_t_full_payload(P, params, n_sym)
+        payload = rng.integers(0, 256, n_bytes).astype(np.uint8)
+        frame = P.DvbTFrameMod(params, device=dev).modulate(payload)
+        iq = np.concatenate([np.zeros(1500, np.complex64), frame.iq])
+        if snr is not None:
+            iq = add_noise(iq, snr, rng)
+        iq = torch.as_tensor(iq, device=dev)
+        n0 = len(seen_vit)
+        got = PP.dvb_t_decode_time_sharded(iq, frame.n_symbols, n_bytes,
+                                           params, mesh)
+        n_vit = len(seen_vit) - n0
+        ref = P.DvbTFrameDemod(params, device=dev).decode(
+            iq, frame.n_symbols, n_bytes)
+        ok = (np.array_equal(got.payload, payload)
+              and np.array_equal(got.payload, ref.payload)
+              and got.tps == ref.tps and n_vit == S7_SHARDS)
+        print(f"    dvb_t_decode_time_sharded {label}: {frame.n_symbols} "
+              f"symbols, {iq.shape[0]} samples, {n_bytes} B payload: "
+              f"payload and TPS equal to DvbTFrameDemod.decode and to the "
+              f"sent payload {ok} ({n_vit} Viterbi launches)")
+        if not ok:
+            bad.append(f"dvb_t_decode_time_sharded {label}")
+        r = s7_overhead(
+            f"dvb_t_decode_time_sharded {label}",
+            lambda iq=iq, p=params, f=frame, b=n_bytes:
+            PP.dvb_t_decode_time_sharded(iq, f.n_symbols, b, p, mesh),
+            lambda iq=iq, p=params, f=frame, b=n_bytes:
+            PP.dvb_t_decode_time_sharded(iq, f.n_symbols, b, p, one))
+        r["one_device_decode_ms"], _ = median_ms(
+            lambda iq=iq, p=params, f=frame, b=n_bytes: P.DvbTFrameDemod(
+                p, device=dev).decode(iq, f.n_symbols, b), S7_RUNS)
+        print(f"    DvbTFrameDemod.decode on one device: "
+              f"{r['one_device_decode_ms']:.4f} ms")
+        out[label] = {**r, "symbols": frame.n_symbols, "samples":
+                      int(iq.shape[0]), "payload_bytes": n_bytes,
+                      "viterbi_launches": n_vit}
+        if not out.get("stages"):
+            out["stages"] = s7_trellis(P, PP, mesh, one, dev, iq, params,
+                                       frame.n_symbols, n_bytes, bad)
+    return out
+
+
+def s7_cofdm(P, PP, mesh, one, dev, rng, seen_bp, bad):
+    """ofdm_frame_decode_time_sharded on [4]'s link, one 1500-byte frame at
+    each of MCS 0-3 (30 dB), and a pilot_interp + CPE link behind an echo,
+    payload- and metadata-equal to OfdmFrameStreamDemod."""
+    cfg, pre, table = link(P)
+    plan = P.CarrierPlan(256, 64).with_pilot_carriers(PILOT_CARRIERS)
+    pcfg = P.OfdmConfig(plan.with_contiguous_data(edge_guard=16), fs=1e6) \
+        .with_equalizer_method("pilot_interp").with_phase_tracking("cpe")
+    cases = [(f"MCS {m}", cfg, m, None) for m in range(4)] + [
+        ("pilot_interp + CPE, MCS 1, echo", pcfg, 1, ([0, 5], [1.0, 0.4]))]
+    out, bufs = {}, {}
+    for label, c, mcs, echo in cases:
+        payload = rng.integers(0, 256, PAYLOAD_BYTES).astype(np.uint8)
+        meta = P.FrameMetadata(500 + mcs, mcs, 17 + mcs)
+        iq = P.OfdmFrameMod(c, table, pre, device=dev).modulate_frame(
+            P.FramePacket(meta, payload), 40 + mcs)
+        buf = np.concatenate([np.zeros(700, np.complex64), iq,
+                              np.zeros(300, np.complex64)])
+        if echo is not None:
+            buf = P.multipath_apply(buf, *echo, normalize=False,
+                                    device="cpu").numpy()
+        buf = torch.as_tensor(add_noise(buf, S7_COFDM_SNR_DB, rng), device=dev)
+        n0 = len(seen_bp)
+        got = PP.ofdm_frame_decode_time_sharded(c, table, pre, buf, mesh)
+        n_bp = len(seen_bp) - n0
+        s = P.OfdmFrameStreamDemod(c, table, pre, device=dev)
+        ref = [r.packet for r in s.feed(buf) + s.flush()
+               if hasattr(r, "packet")]
+        ok = (len(ref) == 1 and np.array_equal(got.payload, payload)
+              and np.array_equal(got.payload, ref[0].payload)
+              and got.metadata == ref[0].metadata == meta and n_bp >= 2)
+        print(f"    ofdm_frame_decode_time_sharded {label}: payload and "
+              f"metadata equal to OfdmFrameStreamDemod and to the sent frame "
+              f"{ok} ({n_bp} BP launches)")
+        if not ok:
+            bad.append(f"ofdm_frame_decode_time_sharded {label}")
+        bufs[label] = (c, buf)
+    c, buf = bufs["MCS 3"]
+    out["MCS 3"] = s7_overhead(
+        "ofdm_frame_decode_time_sharded MCS 3",
+        lambda: PP.ofdm_frame_decode_time_sharded(c, table, pre, buf, mesh),
+        lambda: PP.ofdm_frame_decode_time_sharded(c, table, pre, buf, one))
+    return out
+
+
+def s7_metrics(P, PP, mesh, one, dev, bad):
+    """ber_sharded and power_spectrum_sharded on 64 x 2^20, against the
+    same sums on one device."""
+    gen = torch.Generator(device=dev).manual_seed(S7_SEED + 3)
+    bits = torch.randint(0, 2, (FM_ROWS, 1 << FM_LOG2_N), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    flips = (torch.rand(bits.shape, generator=gen, device=dev)
+             < 1e-3).to(torch.uint8)
+    hat = bits ^ flips
+    flat8, flat1 = mesh.flat("ch"), one.flat("ch")
+    ber, errs, n = PP.ber_sharded(bits, hat, flat8)
+    want = (int(flips.sum()), bits.numel())
+    print(f"    ber_sharded: {errs} errors of {n} bits (one device: "
+          f"{want[0]} of {want[1]}), ber {ber:.6g}")
+    if (errs, n) != want:
+        bad.append("ber_sharded")
+    x = torch.randn((FM_ROWS, 1 << FM_LOG2_N), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    nfft = 1024
+    spec = PP.power_spectrum_sharded(x, flat8, nfft)
+    segs = x.reshape(FM_ROWS, -1, nfft)
+    ref = (torch.fft.fft(segs, dim=-1).abs() ** 2).mean(dim=(0, 1))
+    err = s7_close(bad, f"power_spectrum_sharded nfft {nfft}", spec, ref,
+                   0.0, 2e-4)
+    return {"ber": s7_overhead(
+        "ber_sharded", lambda: PP.ber_sharded(bits, hat, flat8),
+        lambda: PP.ber_sharded(bits, hat, flat1)),
+        "power_spectrum": s7_overhead(
+        "power_spectrum_sharded",
+        lambda: PP.power_spectrum_sharded(x, flat8, nfft),
+        lambda: PP.power_spectrum_sharded(x, flat1, nfft))}, err
+
+
+def s7_two_processes(dev, bad):
+    """tools/torch_distributed_smoke.py on the card: two processes join
+    one gloo group, each counts its own rows' errors on the card, and
+    ber_sharded's counts are all-reduced across them."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_distributed_smoke.py")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([sys.executable, tool, "--device", str(dev),
+                            "--rendezvous", tmp, "--timeout", "120"],
+                           capture_output=True, text=True, timeout=150)
+    dt = time.perf_counter() - t0
+    ok = r.returncode == 0 and "PASS" in r.stdout
+    lines = [ln for ln in r.stdout.splitlines() if "proc " in ln]
+    print(f"    two processes under gloo, the local work on {dev}: "
+          f"{'; '.join(lines)} ({dt:.1f} s): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        print(r.stdout[-2000:], r.stderr[-2000:])
+        bad.append("two-process gloo ber_sharded")
+    return {"ok": ok, "seconds": dt}
+
+
+def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
+    """[51] the multi-device layer on one Mesh of 8 shards of the card,
+    each sharded path against the port's one-device path on the same
+    inputs; every BP, Viterbi, PSK31 PLL and outer-code launch recorded and
+    held to its plain version: → ({kernel: launches}, {kernel: max |kernel
+    − plain|}, readings)."""
+    from orion_sdr_tpu_torch import graft_entry
+    from orion_sdr_tpu_torch import parallel as PP
+    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
+    devs = [dev] * S7_SHARDS
+    mesh = PP.make_mesh(S7_SHARDS, shape=S7_SHAPE, devices=devs)
+    one = PP.make_mesh(1, shape=(1, 1), devices=devs[:1])
+    rng = np.random.default_rng(S7_SEED)
+    bad, out, errs = [], {}, {}
+    ldpc_bp.bp_decode_kernel.launches = 0
+    zero_vit(viterbi)
+    pll.psk31_pll.launches = 0
+    OUTER.zero()
+    with recording_kernel(ldpc_bp, "bp_decode_kernel",
+                          ("launches", "launches_edge")) as seen_bp, \
+            recording_kernel(viterbi, "viterbi_chunks_kernel",
+                             ("launches", "launches_radix4")) as seen_vit, \
+            recording_kernel(pll, "psk31_pll") as seen_pll, \
+            recording(psk31_mod, "psk31_pll") as seen_pll_1, \
+            recording_kernel(outer_fec, "bch_decode_kernel") as seen_bch, \
+            recording_kernel(outer_fec, "rs_decode_kernel") as seen_rs:
+        t0 = tick = time.perf_counter()
+
+        def took():
+            nonlocal tick
+            now = time.perf_counter()
+            print(f"    ({now - tick:.1f} s)")
+            tick = now
+        print(f"  [51] FIR and FM at {FM_ROWS} x 2^{FM_LOG2_N}, {FM_FS:g} "
+              f"Hz, {S7_FIR_TAPS} taps")
+        out["fir_fm"], errs["fir_fm"] = s7_fir_fm(P, PP, mesh, one, dev, bad)
+        took()
+        print(f"  [51] OFDM soft demap, {OFDM_ROWS} x {OFDM_SYMS} symbols of "
+              f"the 2K grid")
+        out["ofdm_demap"], errs["ofdm_demap"] = s7_demap(P, PP, mesh, one,
+                                                         dev, bad)
+        took()
+        print("  [51] service-parallel DVB-T receive, 64 frames")
+        out["dvb_t_receive"], errs["dvb_t_receive"] = s7_dvb_receive(
+            P, PP, mesh, one, dev, rng, bad)
+        took()
+        print(f"  [51] PSK31, {BLOCK_PSK_S:g} s at 8 kHz")
+        out["psk31"], errs["psk31"] = s7_psk31(P, PP, mesh, one, dev,
+                                               seen_pll, bad)
+        took()
+        print("  [51] dvb_t_decode_time_sharded")
+        out["dvb_t_decode"] = s7_dvb_decode(P, PP, mesh, one, dev, rng,
+                                            seen_vit, bad)
+        took()
+        print("  [51] ofdm_frame_decode_time_sharded")
+        out["cofdm_decode"] = s7_cofdm(P, PP, mesh, one, dev, rng, seen_bp,
+                                       bad)
+        took()
+        print(f"  [51] ber_sharded and power_spectrum_sharded, {FM_ROWS} x "
+              f"2^{FM_LOG2_N}")
+        out["metrics"], errs["power_spectrum"] = s7_metrics(P, PP, mesh, one,
+                                                            dev, bad)
+        took()
+        print("  [51] cross-process: two processes under gloo")
+        out["two_processes"] = s7_two_processes(devs[0], bad)
+        took()
+        t1 = time.perf_counter()
+        graft_entry.dryrun_multichip(S7_SHARDS, devs)
+        fn, args = graft_entry.entry(device=dev)
+        shape = tuple(fn(*args).shape)
+        torch.cuda.synchronize()
+        print(f"    dryrun_multichip({S7_SHARDS}, {S7_SHARDS} x {devs[0]}): "
+              f"every path and both capstones ok "
+              f"({time.perf_counter() - t1:.1f} s); entry() -> {shape}")
+        out["dryrun_s"] = time.perf_counter() - t1
+        out["paths_s"] = time.perf_counter() - t0
+    n_bp = ldpc_bp.bp_decode_kernel.launches
+    n_vit = read_vit(viterbi)
+    n_pll = pll.psk31_pll.launches
+    outer = OUTER.read("51")
+    t2 = time.perf_counter()
+    bp_exact, bp_err = held_to_plain(seen_bp, ldpc_bp.bp_decode_reference)
+    vit_exact, vit_err = held_to_plain(
+        seen_vit, lambda c0, c1, pm0, code:
+        viterbi.viterbi_chunks_reference(c0, c1, pm0, code, 2))
+    pll_exact, pll_err = held_to_plain(seen_pll + seen_pll_1,
+                                       pll.psk31_pll_reference)
+    bch_exact, bch_err = held_to_plain(seen_bch,
+                                       bd.bch_decode_batch_reference)
+    rs_exact, rs_err = held_to_plain(seen_rs, bd.rs_decode_batch_reference)
+    out["held_s"] = time.perf_counter() - t2
+    print(f"  [51] launches: BP {n_bp}, Viterbi radix 2 {n_vit[0]} radix 4 "
+          f"{n_vit[1]}, PSK31 PLL {n_pll}, BCH {outer['bch']}, RS "
+          f"{outer['rs']}; each against its plain version on its own inputs "
+          f"({out['held_s']:.1f} s): exact {bp_exact}, {vit_exact}, "
+          f"{pll_exact}, {bch_exact}, {rs_exact}")
+    if (bad or n_bp <= 0 or n_vit[0] <= 0 or n_vit[1] or n_pll <= 0
+            or outer["rs"] <= 0
+            or (n_bp, n_vit[0], n_pll, outer["bch"], outer["rs"])
+            != (len(seen_bp), len(seen_vit), len(seen_pll) + len(seen_pll_1),
+                len(seen_bch), len(seen_rs))
+            or not (bp_exact and vit_exact and pll_exact and bch_exact
+                    and rs_exact)):
+        fail(f"[51] the multi-device layer: {bad}")
+    return ({"bp": n_bp, "vit": n_vit, "pll": n_pll, "outer": outer},
+            {"bp": bp_err, "vit": vit_err, "pll": pll_err,
+             "outer": max(bch_err, rs_err), "paths": errs}, out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -5530,6 +6072,20 @@ def main() -> int:
     pll6b_err = max(err49["pll"], err50["pll"])
     print(f"  [50] took {time.perf_counter() - t_s6:.1f} s; [48]-[50] "
           f"{time.perf_counter() - t_s6b:.1f} s")
+    t_s7 = time.perf_counter()
+    print(f"[51] the multi-device layer on one Mesh of {S7_SHARDS} shards of "
+          f"the card, shape {S7_SHAPE}: each sharded path against the "
+          f"one-device path, 8 shards against 1 for the same work")
+    n51, err51, par51_stats = parallel_phase(P, ldpc_bp, viterbi, psk31_pll,
+                                             outer_fec, bch_device, dev)
+    bp_runs["51"], vit_runs["51"], pll_runs["51"] = (n51["bp"], n51["vit"],
+                                                     n51["pll"])
+    outer_runs["51"] = n51["outer"]
+    max_err = max(max_err, err51["bp"])
+    vit_err = max(vit_err, err51["vit"])
+    outer_err = max(outer_err, err51["outer"])
+    pll6b_err = max(pll6b_err, err51["pll"])
+    print(f"  [51] took {time.perf_counter() - t_s7:.1f} s")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
@@ -5544,6 +6100,10 @@ def main() -> int:
           f"([50]), PSK31 PLL {pll_runs['49']} ([49]) + {pll_runs['50']} "
           f"([50]), two-rate one-pole {one_runs['49']} ([49]), each held to "
           f"its plain version; [48] none")
+    print(f"  slice 7 launches ([51]): BP {bp_runs['51']}, Viterbi radix 2 "
+          f"{by_phase[2]['51']}, PSK31 PLL {pll_runs['51']}, outer BCH / RS "
+          f"{outer_runs['51']['bch']} / {outer_runs['51']['rs']}, each held "
+          f"to its plain version")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -5724,7 +6284,9 @@ def main() -> int:
                     "47 sstv": sstv_stats},
         "slice6b": {"48 ofdm_otfs_receive": ofdm48_stats,
                     "49 blocks": blocks49_stats,
-                    "50 checkpoint_resume": ckpt50_stats}}))
+                    "50 checkpoint_resume": ckpt50_stats},
+        "slice7": {"51 parallel": {**par51_stats,
+                                   "max_abs_err_by_path": err51["paths"]}}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

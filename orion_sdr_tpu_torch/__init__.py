@@ -1,7 +1,6 @@
 """orion_sdr_tpu_torch — the PyTorch/CUDA port of orion_sdr_tpu.
 
-Everything the JAX package does on one device; its multi-device layer
-(``parallel``) is still to come. The coded COFDM frame link
+Everything the JAX package does. The coded COFDM frame link
 (LDPC or convolutional inner code, BCH or RS outer code, block/Forney
 interleavers, additive or DVB scramblers): frame modulation, batch and
 streaming demodulation. And the conformant DVB-T 2K receive chain:
@@ -29,7 +28,11 @@ multipath, Watterson), the Morse encoder and CW skimmer, blind
 classification with the band survey and band decode, ADS-B and SSTV.
 And the generic OFDM receive with OTFS, the drop-in Block classes
 (``blocks.py``), checkpoint/resume of the streaming receivers
-(``checkpoint.py``) and the JAX package's flat namespace. Eight
+(``checkpoint.py``) and the JAX package's flat namespace. And the
+multi-device layer (``parallel``): a mesh of shards driven by one process
+(several on one card, or one a card), channel- and time-sharded paths with
+their halos and gathers, the time-sharded DVB-T and COFDM decodes, and
+reductions across processes through ``torch.distributed``. Eight
 hand-written Hopper kernels carry them: LDPC belief propagation
 (``ops/ldpc_bp.py``, ``csrc/ldpc_bp.cu``, four check rules), the Viterbi
 ACS + traceback (``ops/viterbi.py``, ``csrc/viterbi.cu``, radix 2 and 4),
@@ -218,6 +221,9 @@ from .blocks import (
 from . import checkpoint
 from .checkpoint import (save_checkpoint, load_checkpoint, state_dict,
                          load_state_dict)
+
+# ── slice 7: the multi-device layer (a mesh of shards in one process) ───────
+from . import parallel
 
 # the reference's NB/bandwidth helper names
 from .waveform.dvb_t import (

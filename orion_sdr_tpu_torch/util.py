@@ -224,7 +224,8 @@ def measure(fn, n_samples: int, repeats: int = 1):
         fn()
     _drain_card()
     dt = time.perf_counter() - t0
-    return (n_samples * repeats / dt / 1e6 if dt > 0 else float("inf")), dt
+    # millions of samples first, then one division by the time
+    return (n_samples * repeats / 1e6 / dt if dt > 0 else float("inf")), dt
 
 
 def atan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

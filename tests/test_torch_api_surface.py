@@ -1,8 +1,9 @@
 """Torch port: the flat namespace. The port's top level carries the 114
 names tests/test_api_surface.py requires of the JAX package and every
-public name ``orion_sdr_tpu/__init__.py`` binds except ``parallel`` (the
-multi-device layer, not ported yet); the NB helpers agree with the JAX
-package's; the twelve frame and DVB-T entry points default ``device`` to
+public name ``orion_sdr_tpu/__init__.py`` binds, ``parallel`` with the 19
+names of ``orion_sdr_tpu/parallel/__init__.py`` among them (the test
+keeps the name it had before the multi-device layer was ported); the NB
+helpers agree with the JAX package's; the twelve frame and DVB-T entry points default ``device`` to
 "cuda" and the three COFDM frame classes accept ``cache=``; ``trace``
 writes a profiler trace and ``measure`` times a call. The source files
 are read with ``ast`` (no JAX import is needed for the name checks)."""
@@ -57,10 +58,22 @@ def test_reference_surface_names():
     assert [s for s in surface if not hasattr(P, s)] == []
 
 
+def _jax_parallel_names():
+    """The names ``orion_sdr_tpu/parallel/__init__.py`` imports."""
+    with open(os.path.join(ROOT, "orion_sdr_tpu", "parallel",
+                           "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    return [a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names]
+
+
 def test_every_public_name_of_the_jax_package_but_parallel():
     names = _jax_public_names()
     assert "parallel" in names and len(names) > 300
-    assert sorted(n for n in names - {"parallel"} if not hasattr(P, n)) == []
+    assert sorted(n for n in names if not hasattr(P, n)) == []
+    par = _jax_parallel_names()
+    assert len(par) == 19
+    assert [n for n in par if not hasattr(P.parallel, n)] == []
 
 
 def test_nb_helpers_consistent():

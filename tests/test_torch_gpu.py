@@ -24,8 +24,10 @@ channel impairment, the SSTV discriminator and the ADS-B score on the card
 against the CPU, SSTV, ADS-B, Morse and the band decode on the card, the
 top-level names); and slice 6b (the generic OFDM receive and OTFS on the
 card against the CPU, the Block classes through their kernels, and
-checkpoints moving between the card and the CPU). They skip without a
-CUDA card.
+checkpoints moving between the card and the CPU); and slice 7 (a mesh of
+eight shards of the card: the sharded FIR and OFDM demap, the sharded
+Viterbi's one launch a shard, and the sharded link metrics, each against
+the one-device path). They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -1524,3 +1526,71 @@ def test_checkpoint_moves_between_the_card_and_the_cpu(cuda, tmp_path):
     out = [x for x in r.feed(buf[len(buf) // 2:]) + r.flush()
            if hasattr(x, "packet")]
     assert len(out) == 1 and np.array_equal(out[0].packet.payload, payload)
+
+
+# ── slice 7: the multi-device layer on eight shards of the card ─────────────
+
+
+def _card_mesh(cuda, shape=(2, 4)):
+    return P.parallel.make_mesh(8, shape=shape, devices=[cuda] * 8)
+
+
+def test_sharded_fir_and_demap_on_the_card_match_one_device(cuda):
+    """sharding.py: the time-sharded FIR (both filter routes) and the
+    sharded OFDM demap under CPE against the one-device paths on the
+    card."""
+    from orion_sdr_tpu_torch.dsp.fir import fir_apply, kaiser_lowpass_taps
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    mesh = _card_mesh(cuda)
+    x = torch.randn((2, 1 << 16), dtype=torch.complex64, device=cuda,
+                    generator=gen)
+    for ntaps in (63, 1031):
+        taps = kaiser_lowpass_taps(ntaps, 0.2, 60.0)
+        got = P.parallel.fir_overlap_save_sharded(x, taps, mesh.flat())
+        assert got.device.type == "cuda"
+        assert torch.allclose(got, fir_apply(x, taps)[0], atol=1e-5)
+    plan = P.CarrierPlan(128, 32).with_contiguous_data(edge_guard=8)
+    cfg = P.OfdmConfig(plan, fs=1e6).with_phase_tracking("cpe")
+    iq = torch.randn((2, 16 * 160), dtype=torch.complex64, device=cuda,
+                     generator=gen)
+    got = P.parallel.ofdm_soft_demap_sharded(cfg, "qpsk", iq, 16, mesh)
+    ref = P.soft_demap(cfg, "qpsk", iq, 16)
+    assert torch.allclose(got, ref, atol=1e-3, rtol=1e-3)
+
+
+def test_sharded_viterbi_on_the_card_is_the_chunked_decode(cuda):
+    """streaming.py: one chunked Viterbi launch a shard, the output equal
+    to the one-device chunked decode bit for bit."""
+    rng = np.random.default_rng(3)
+    info = rng.integers(0, 2, 30_000).astype(np.uint8)
+    coded = conv.conv_encode_punctured(torch.as_tensor(info, device=cuda),
+                                       "3/4", "dvb_k7")
+    llr = ((1.0 - 2.0 * coded.to(torch.float32)) * 3.0
+           + torch.as_tensor(rng.standard_normal(coded.shape[0]).astype(
+               np.float32), device=cuda))
+    viterbi.viterbi_chunks_kernel.launches = 0
+    got = P.parallel.viterbi_decode_sharded(llr, len(info), _card_mesh(cuda),
+                                            "3/4", "dvb_k7")
+    assert viterbi.viterbi_chunks_kernel.launches == 8
+    ref = conv.viterbi_decode_soft_chunked(llr, len(info), "3/4", "dvb_k7")
+    assert torch.equal(got, ref)
+    assert float((got.cpu() != torch.as_tensor(info)).float().mean()) < 1e-3
+
+
+def test_sharded_link_metrics_on_the_card(cuda):
+    """distributed.py: ber_sharded's counts and power_spectrum_sharded
+    over eight shards of the card against the same sums on one device."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mesh = _card_mesh(cuda).flat("ch")
+    bits = torch.randint(0, 2, (8, 4096), generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    hat = bits.clone()
+    hat[3, :17] ^= 1
+    assert P.parallel.ber_sharded(bits, hat, mesh) == (17 / 32768, 17,
+                                                        32768)
+    x = torch.randn((8, 4096), dtype=torch.complex64, device=cuda,
+                    generator=gen)
+    ref = (torch.fft.fft(x.reshape(8, 8, 512), dim=-1).abs() ** 2).mean(
+        dim=(0, 1))
+    got = P.parallel.power_spectrum_sharded(x, mesh, nfft=512)
+    assert torch.allclose(got, ref, rtol=2e-4)

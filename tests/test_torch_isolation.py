@@ -1,5 +1,6 @@
 """The port stands alone: it builds its native host library from its own
-source, imports nothing of the JAX package (nor JAX), and its top level
+source, imports nothing of the JAX package (nor JAX; nor do chip_smoke.py
+and tools/torch_distributed_smoke.py), and its top level
 carries the JAX package's names of the modules it has ported. Runs on the
 CPU: it reads the sources with ``ast``, imports no JAX module for the
 check, and builds nothing."""
@@ -47,7 +48,8 @@ def _imports(path):
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "torch_distributed_smoke.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
