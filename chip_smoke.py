@@ -238,11 +238,15 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 36. WSPR (wspr_energy_grid_throughput, bench.py:781-799): _energy_grid at
    166 x 8192 samples, 9 dt x 7 df, Msps; wspr_decode_band on
    tests/test_wspr.py:114's three beacons: all three messages.
-37. The DD-PLL kernel (slice 5b) against its plain version, exact, on
-   every order (BPSK to 256-QAM) at the JAX bench's 4 x 2048 symbols and
-   at 64 x 2048 (constellation symbols behind a phase ramp, so the
-   unwrapped phase reaches ~27 rad); kernel and plain times at 4 and 64
-   rows of 16-QAM with the bytes bound.
+37. The DD-PLL kernel (slice 5b; specialised on the constellation, one
+   sincosf, rows staged through shared memory): first
+   the premise of its one range reduction, sincosf against cosf and sinf
+   on all 2^32 float32 inputs (ops.dd_pll.sincos_mismatches, none may
+   differ); then the kernel against its plain version, exact, on every
+   order (BPSK to 256-QAM) at the JAX bench's 4 x 2048 symbols and at 64 x
+   2048 (constellation symbols behind a phase ramp, so the unwrapped phase
+   reaches ~27 rad); kernel and plain times at 4 and 64 rows of 16-QAM
+   with the bytes bound and the kernel's time a symbol.
 38. The Gardner kernel against its plain version, exact (symbols and final
    positions), at 64 rows x 2^17 samples of RRC-shaped QPSK at sps 8
    through the matched filter; the loop locks (|y| spread < 0.25); timed
@@ -265,14 +269,22 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    cells/s beside its bound and the busy share; gps_acquire on tests/test_gnss.py:51-80's
    three satellites: each at its Doppler (250 Hz) and code phase (1.5
    samples).
-41. The tracking kernel against its plain version, exact (prompts,
-   frequencies, bases, fractions), at the bench's 8 satellites x 2000
-   epochs (bench.py:906-940); gnss_tracking_throughput from the kernel's
-   marginal time of 2000 over 100 epochs; then tests/test_gnss_nav.py:
-   139-183's two-satellite ~18.7 s capture through gps_decode_ephemeris on
-   the card, every ephemeris field within that test's tolerances, each of
-   the path's tracking launches recorded and its first 2000 epochs held to
-   the plain version (run from the same start for 2000 epochs), exact.
+41. The tracking kernel (a prefetched window for E, P and L, two barriers
+   an epoch) against its plain version, exact
+   (prompts, frequencies, bases, fractions), at the bench's 8 satellites x
+   2000 epochs (bench.py:906-940) at each width of TRACK_WIDTHS (128, 256,
+   512 threads a satellite, the plain version at the same width): each
+   width's time and us an epoch, the chosen width (ops.gnss_track.THREADS)
+   beside the fastest, and the window misses (epochs that read device
+   memory) a satellite, equal to ops.gnss_track.window_misses' count from
+   the run's bases; gnss_tracking_throughput from the kernel's marginal
+   time of 2000 over 100 epochs; then tests/test_gnss_nav.py:139-183's
+   two-satellite ~18.7 s capture through gps_decode_ephemeris on the card,
+   every ephemeris field within that test's tolerances, each of the path's
+   tracking launches recorded and its first 2000 epochs held to the plain
+   version (run from the same start for 2000 epochs), exact; each launch
+   timed again alone (ms, us an epoch) with its window misses against the
+   model's.
 42. The 2-FSK family (fsk2_engine_throughput, bench.py:815-831):
    fsk2_decision at 4 and 64 x 2^18 samples at 48 kHz, Msps beside the
    bytes bound and the busy share; an AX.25 beacon, Afsk1200Stream under two chunkings, RTTY
@@ -399,7 +411,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    where the plain loop runs, and its 64 x 2^20 time and bound are under
    ms_full and bound_ms_full; for the DD-PLL, Gardner and tracking
    kernels of slice 5b the same, with their launches by phase: [39]'s
-   runs, symbol_sync_gardner, [41]'s ephemeris path; [43]-[45] add to
+   runs, symbol_sync_gardner, [41]'s ephemeris path (the DD-PLL adds its
+   time a symbol and [37]'s sincosf count; the tracking kernel its time
+   an epoch, its threads a satellite, [41]'s sweep, its window misses at
+   8 x 2000 and on the ephemeris launches, and those launches' times);
+   [43]-[45] add to
    the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase), a
    "slice5" object with [32]-[36]'s rates, bounds and readings, a
    "slice5b" object with [39]-[42]'s, a "slice6a" object with
@@ -520,6 +536,7 @@ BURST_SPS, BURST_SYMS, BURST_ROWS, BURST_ORDER = 8, 2048, (4, 64), "qam16"
 GARDNER_ROWS, GARDNER_LOG2_N = 64, 17
 GNSS_FS, GNSS_SPMS = 2.048e6, 2048
 TRACK_SATS, TRACK_EPOCHS, TRACK_SHORT = 8, 2000, 100
+TRACK_WIDTHS = (128, 256, 512)     # kernel E's threads a satellite, swept
 FSK_LOG2_N, FSK_ROWS = 18, (4, 64)
 # slice 6a (phases 43-47): the capture-to-text receivers. [43] a 2^22-sample
 # capture through the file formats, the seven impairments at 64 x 2^20
@@ -3418,11 +3435,19 @@ def ramped_symbols(P, order, rows, n, seed, cfo=0.013):
 
 
 def dd_pll_phase(P, dd, dev):
-    """[37]: kernel D against its plain version, exact, on every order at
-    the bench's 4 × 2048 symbols and a 64-row batch; times at 4 and 64 ×
-    2048 (qam16, the bench's order) with the bytes bound."""
+    """[37]: the premise of kernel C's one range reduction (sincosf gives
+    the bits of cosf and sinf on all 2^32 float32 inputs); kernel C against
+    its plain version, exact, on every order at the bench's 4 × 2048
+    symbols and a 64-row batch; times at 4 and 64 × 2048 (qam16, the
+    bench's order) with the bytes bound and the time a symbol."""
     err, same = 0.0, True
-    stats = {}
+    t0 = time.perf_counter()
+    mism = dd.sincos_mismatches(dev)
+    print(f"  sincosf against cosf and sinf over all 2^32 float32 inputs: "
+          f"{mism} with other bits ({time.perf_counter() - t0:.2f} s)")
+    if mism:
+        fail("[37] sincosf gives other bits than cosf/sinf")
+    stats = {"sincos_mismatches": mism}
     for rows in BURST_ROWS:
         for order in P.constellation.ORDERS:
             z = torch.as_tensor(ramped_symbols(P, order, rows, BURST_SYMS,
@@ -3438,11 +3463,14 @@ def dd_pll_phase(P, dd, dev):
                 k_ms = cuda_ms(lambda: dd.dd_pll(z, order, 0.03))
                 p_ms = cuda_ms(lambda: dd.dd_pll_reference(z, order, 0.03),
                                reps=1, warmup=0)
+                us_sym = k_ms / BURST_SYMS * 1e3
                 stats[f"{rows}x{BURST_SYMS}"] = {
-                    "ms": k_ms, "plain_ms": p_ms, "bound": bnd}
-                print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
-                      f"bound {bnd[0]:.6f} ms (bytes; the chain is "
-                      f"{BURST_SYMS} dependent steps a row)")
+                    "ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                    "us_per_symbol": us_sym}
+                print(f"    kernel {k_ms:.4f} ms ({us_sym:.4f} us a "
+                      f"symbol), plain {p_ms:.1f} ms, bound {bnd[0]:.6f} ms "
+                      f"(bytes; the chain is {BURST_SYMS} dependent steps a "
+                      f"row)")
     if not same:
         fail("[37] the DD-PLL kernel disagrees with its plain version")
     return err, stats
@@ -3772,25 +3800,62 @@ def ephemeris_ok(P, d, eph) -> bool:
             and 25.9e6 < np.linalg.norm(P.eph_sat_pos(d, d.t_oe)) < 27.2e6)
 
 
+def track_width(tk, width, z, codes, starts, f0, args):
+    """Kernel E at ``width`` threads a satellite (tk.THREADS set for the
+    kernel and the plain version alike): (outputs, window misses, plain
+    outputs, plain host ms, kernel ms)."""
+    saved, tk.THREADS = tk.THREADS, width
+    try:
+        got = tk.gnss_track(z, codes, starts, f0, *args)
+        misses = tk.gnss_track.last_misses.clone()
+        t0 = time.perf_counter()
+        ref = tk.track_reference(z, codes, starts, f0, *args)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        k_ms = cuda_ms(lambda: tk.gnss_track(z, codes, starts, f0, *args),
+                       reps=3, warmup=1)
+    finally:
+        tk.THREADS = saved
+    return got, misses, ref, p_ms, k_ms
+
+
+def track_misses_model(tk, starts, bases, n, args):
+    """tk.window_misses for a launch's starts and output bases."""
+    d_el = tk.loop_constants(args[0], GNSS_SPMS, *args[2:])["d_el"]
+    return tk.window_misses(starts, bases, n, GNSS_SPMS, d_el)
+
+
 def track_phase(P, tk, dev):
-    """[41]: kernel T against its plain version, exact, at the bench's 8
-    satellites × 2000 epochs; gnss_tracking_throughput; then the ~18.7 s
-    capture → ephemeris path on the card, each of its launches held to
-    the plain version over its first 2000 epochs. Returns (max |diff|,
-    {run: T launches}, stats)."""
+    """[41]: kernel E against its plain version, exact, at the bench's 8
+    satellites × 2000 epochs at each width of TRACK_WIDTHS (times, the
+    chosen width tk.THREADS, the window misses against tk.window_misses);
+    gnss_tracking_throughput; then the ~18.7 s capture → ephemeris path on
+    the card, each of its launches held to the plain version over its first
+    2000 epochs, timed again alone, with its window misses. Returns (max
+    |diff|, {run: E launches}, stats)."""
     import orion_sdr_tpu_torch.gnss as gnss_mod
     E = TRACK_EPOCHS
     z, codes, starts, f0 = track_bench_inputs(P, dev, E)
     args = (GNSS_FS, E, 7.2, 0.9, 0.12)
-    got = tk.gnss_track(z, codes, starts, f0, *args)
-    t0 = time.perf_counter()
-    ref = tk.track_reference(z, codes, starts, f0, *args)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3
-    same = exact_all(got, ref)
-    err = max_diff(got, ref)
-    k_ms = cuda_ms(lambda: tk.gnss_track(z, codes, starts, f0, *args),
-                   reps=3, warmup=1)
+    sweep, same, err = {}, True, 0.0
+    for width in TRACK_WIDTHS:
+        got_w, miss_w, ref_w, p_w, k_w = track_width(tk, width, z, codes,
+                                                     starts, f0, args)
+        ok = exact_all(got_w, ref_w)
+        same &= ok
+        err = max(err, max_diff(got_w, ref_w))
+        sweep[str(width)] = {"ms": k_w, "us_per_epoch": k_w / E * 1e3,
+                             "exact": ok, "plain_ms": p_w}
+        print(f"  {width} threads a satellite: kernel {k_w:.3f} ms "
+              f"({k_w / E * 1e3:.3f} us an epoch), exact {ok} (plain "
+              f"{p_w:.0f} ms)")
+        if width == tk.THREADS:
+            got, misses, p_ms, k_ms = got_w, miss_w, p_w, k_w
+    fastest = min(sweep, key=lambda w: sweep[w]["ms"])
+    model = track_misses_model(tk, starts, got[2], z.shape[0], args)
+    print(f"  threads a satellite: {tk.THREADS} (fastest of the sweep: "
+          f"{fastest}); window misses at {TRACK_SATS} x {E}: "
+          f"{misses.tolist()} (the window model: {model.tolist()})")
     z1, c1, s1, f1 = track_bench_inputs(P, dev, TRACK_SHORT)
     k_short = cuda_ms(lambda: tk.gnss_track(z1, c1, s1, f1, GNSS_FS,
                                             TRACK_SHORT, 7.2, 0.9, 0.12),
@@ -3804,48 +3869,80 @@ def track_phase(P, tk, dev):
           f"compared run); bound {bnd[0]:.5f} ms ({bnd[1]}; the chain is "
           f"{E} dependent epochs)")
     print(f"  gnss_tracking_throughput: {msps:.1f} Msps ({TRACK_SATS} x "
-          f"{GNSS_SPMS} samples an epoch over {per_epoch * 1e3:.2f} us an "
+          f"{GNSS_SPMS} samples an epoch over {per_epoch * 1e3:.3f} us an "
           f"epoch, the marginal of {E} over {TRACK_SHORT} epochs; bound "
           f"{bnd[0] / E * 1e3:.5f} us an epoch)")
     if not same:
         fail("[41] the tracking kernel disagrees with its plain version")
+    if not torch.equal(misses.cpu(), model.cpu()):
+        fail("[41] the tracking kernel's window misses disagree with the "
+             "window model")
     rng = np.random.default_rng(9)
     t0 = time.perf_counter()
     cap, svs = ephemeris_capture(P, rng)
     cap_s = time.perf_counter() - t0
     tk.gnss_track.launches = 0
-    with recording(gnss_mod, "gnss_track") as seen:
-        zc = torch.as_tensor(cap, device=dev)
-        t0 = time.perf_counter()
-        frames = [P.gps_decode_ephemeris(zc, GNSS_FS, prn, device=dev)
-                  for prn, *_ in svs]
-        torch.cuda.synchronize()
-        path_s = time.perf_counter() - t0
+    eph_misses = []
+    real = gnss_mod.gnss_track
+
+    def with_misses(*a, **kw):
+        out = real(*a, **kw)
+        eph_misses.append(tk.gnss_track.last_misses.clone())
+        return out
+    gnss_mod.gnss_track = with_misses
+    try:
+        with recording(gnss_mod, "gnss_track") as seen:
+            zc = torch.as_tensor(cap, device=dev)
+            t0 = time.perf_counter()
+            frames = [P.gps_decode_ephemeris(zc, GNSS_FS, prn, device=dev)
+                      for prn, *_ in svs]
+            torch.cuda.synchronize()
+            path_s = time.perf_counter() - t0
+    finally:
+        gnss_mod.gnss_track = real
     runs = {"41 ephemeris": tk.gnss_track.launches}
     good = [bool(ephemeris_ok(P, f.ephemeris, sv[4]))
             for f, sv in zip(frames, svs)]
-    prefix = []
+    prefix, launch_ms, eph_model = [], [], []
     for (zz, cc, ss, ff, fs, _, *gains), out in seen:
         pre = tk.track_reference(zz, cc, ss, ff, fs, E, *gains)
         prefix.append(exact_all([o[:, :E] for o in out], pre))
         err = max(err, max_diff([o[:, :E] for o in out], pre))
+        eph_model.append(track_misses_model(
+            tk, ss, out[2], zz.shape[0], (fs, 0, *gains)).tolist())
+    for args_e, out in seen:
+        launch_ms.append(cuda_ms(lambda: tk.gnss_track(*args_e), reps=1,
+                                 warmup=0))
+    eph_epochs = [int(o[0].shape[1]) for _, o in seen]
+    eph_misses = [m.tolist() for m in eph_misses]
     print(f"  capture -> ephemeris: {cap.shape[0]} samples "
           f"({cap.shape[0] / GNSS_FS:.2f} s, made in {cap_s:.1f} s), "
           f"gps_decode_ephemeris on the card for PRNs "
           f"{[sv[0] for sv in svs]}: every field within tolerance {good} "
           f"({path_s:.2f} s); {runs['41 ephemeris']} tracking launches of "
-          f"{[int(o[0].shape[1]) for _, o in seen]} epochs, the first {E} "
-          f"of each exact against the plain version: {prefix}")
+          f"{eph_epochs} epochs, the first {E} of each exact against the "
+          f"plain version: {prefix}")
+    print(f"  each ephemeris launch alone: "
+          f"{[round(m, 3) for m in launch_ms]} ms "
+          f"({[round(m / e * 1e3, 3) for m, e in zip(launch_ms, eph_epochs)]}"
+          f" us an epoch); window misses {eph_misses} (the window model: "
+          f"{eph_model})")
     if not all(good):
         fail("[41] an ephemeris did not come back")
     if len(prefix) != runs["41 ephemeris"] or not all(prefix):
         fail("[41] a tracking launch of the ephemeris path disagrees with "
              "the plain version")
+    if eph_misses != eph_model:
+        fail("[41] an ephemeris launch's window misses disagree with the "
+             "window model")
     return err, runs, {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
                        "ms_short": k_short, "per_epoch_ms": per_epoch,
                        "msps": msps, "ephemeris_s": path_s,
-                       "ephemeris_epochs": [int(o[0].shape[1])
-                                            for _, o in seen]}
+                       "ephemeris_epochs": eph_epochs,
+                       "ephemeris_launch_ms": launch_ms,
+                       "threads": tk.THREADS, "sweep": sweep,
+                       "window_misses": misses.tolist(),
+                       "ephemeris_window_misses": eph_misses}
 
 
 def fsk2_phase(P, dev):
@@ -6239,6 +6336,8 @@ def main() -> int:
                    f"bench's 4x{BURST_SYMS} {BURST_ORDER}",
               launches_by_phase=dd_runs, shape=f"4x{BURST_SYMS}",
               chain_steps_per_row=BURST_SYMS,
+              us_per_symbol=dd_stats[f"4x{BURST_SYMS}"]["us_per_symbol"],
+              sincos_mismatches=dd_stats["sincos_mismatches"],
               at_64_rows={k: (v[0] if k == "bound" else v) for k, v in
                           dd_stats[f"64x{BURST_SYMS}"].items()}),
         entry("gardner", "gardner.cu",
@@ -6263,7 +6362,13 @@ def main() -> int:
               shape=f"{TRACK_SATS}x{TRACK_EPOCHS}",
               chain_steps_per_row=TRACK_EPOCHS,
               ms_at_100_epochs=tk_stats["ms_short"],
-              ephemeris_epochs=tk_stats["ephemeris_epochs"])],
+              us_per_epoch=tk_stats["per_epoch_ms"] * 1e3,
+              threads=tk_stats["threads"], sweep=tk_stats["sweep"],
+              window_misses=tk_stats["window_misses"],
+              ephemeris_epochs=tk_stats["ephemeris_epochs"],
+              ephemeris_launch_ms=tk_stats["ephemeris_launch_ms"],
+              ephemeris_window_misses=tk_stats[
+                  "ephemeris_window_misses"])],
         "slice5": {"32 pfb_channelizer_throughput": pfb_stats,
                    "33 band_receivers": band_stats,
                    "34 fm_stereo_rds_throughput": stereo_stats,

@@ -7,7 +7,9 @@ Pallas kernel), and its bench ``vmap``s it over channels: derotate by the
 carried phase, decide the nearest constellation point, take the angle
 error, run a proportional-integral loop. In eager torch each step would be
 some thirty launches; the kernel runs one row a thread, every symbol of
-the row in turn, all rows in one launch.
+the row in turn, all rows in one launch, specialised on the constellation
+(sign decisions, or 3, 7 or 15 thresholds in registers) with each block's
+rows staged through shared memory.
 
 :func:`dd_pll` launches the kernel for a CUDA tensor (built with nvcc at
 first use; a failed build or launch raises) and runs
@@ -15,8 +17,11 @@ first use; a failed build or launch raises) and runs
 ``.launches``. The plain version writes ``e^{−jφ}`` as explicit cos and
 sin and every complex product in real arithmetic, in the kernel's order,
 and both decide through ``constellation.decide_tables``: on the card the
-two agree bit for bit. Against the JAX scan (XLA's cos/sin and fused
-multiply-adds) they agree within float32 rounding, carried by the loop.
+two agree bit for bit. The kernel takes cos and sin from one ``sincosf``;
+:func:`sincos_mismatches` counts on the card the float32 inputs where that
+differs from ``cosf``/``sinf`` (none over all 2^32). Against the JAX scan
+(XLA's cos/sin and fused multiply-adds) they agree within float32
+rounding, carried by the loop.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
 from ..constellation import decide_tables
 
 _LIB = CudaLib("dd_pll", NVCC_FLAGS_NO_FMA, {
-    "dd_pll": [PTR, INT, I64, PTR, INT, PTR, INT, INT, F32, F32, PTR, PTR]})
+    "dd_pll": [PTR, INT, I64, PTR, INT, PTR, INT, INT, F32, F32, PTR, PTR],
+    "dd_pll_sincos_mismatches": [INT, I64, PTR, PTR]})
 build = _LIB.build
 
 
@@ -43,10 +49,13 @@ _TABLES: dict = {}
 
 def _tables(order: str, device):
     """(thresholds, levels, sign) of ``decide_tables`` with the two tables
-    on ``device``, made once a device."""
+    on ``device``, made once a device. The kernel decides by a tree of
+    selects that needs the thresholds in ascending order."""
     key = (order, str(device))
     if key not in _TABLES:
         thr, lv, sign = decide_tables(order)
+        if np.any(np.diff(thr) < 0):
+            raise ValueError(f"{order}: decision thresholds must ascend")
         _TABLES[key] = (torch.as_tensor(thr, device=device),
                         torch.as_tensor(lv, device=device), sign)
     return _TABLES[key]
@@ -110,3 +119,15 @@ def dd_pll(z: torch.Tensor, order: str, loop_bw: float) -> torch.Tensor:
 
 
 dd_pll.launches = 0
+
+
+def sincos_mismatches(device="cuda", lo: int = 0, count: int = 1 << 32
+                      ) -> int:
+    """The float32 inputs with bit patterns lo .. lo + count − 1 (mod 2^32,
+    lo < 2^31) where the card's ``sincosf`` gives other bits than its
+    ``cosf`` and ``sinf`` (any NaN agrees with any NaN): the premise of the
+    kernel's one range reduction. Card only."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _LIB.launch("dd_pll_sincos_mismatches", bad.device, int(lo), int(count),
+                bad.data_ptr())
+    return int(bad.item())

@@ -7,17 +7,21 @@ its bench ``vmap``s it over satellites: three sliced, carrier-wiped code
 correlations an epoch, a Costas discriminator, an envelope DLL and a
 carrier-aided code NCO carried as an int32 epoch base and a float32
 fraction. In eager torch each epoch would be some seventy launches; the
-kernel runs one block a satellite with the epochs in a loop inside it.
+kernel runs one block of ``THREADS`` threads a satellite with the epochs in
+a loop inside it, each epoch's samples prefetched into shared memory while
+the epoch before runs.
 
 :func:`gnss_track` launches the kernel for a CUDA capture (built with nvcc
 at first use; a failed build or launch raises) and runs
 :func:`track_reference` for a CPU one; it counts its launches in
-``.launches``. The plain version sums each correlation in the kernel's
-fixed order (``THREADS`` strided partial sums, then a pairwise tree) and
-writes every complex product in real arithmetic, so the two agree bit for
-bit on the card. Against the JAX scan (XLA's dot order, its cos/sin and
-fused multiply-adds) they agree within float32 rounding carried by the
-loops.
+``.launches`` and keeps the last launch's window misses (the epochs per
+satellite that read device memory, not the prefetched window) in
+``.last_misses``. The plain version sums each correlation in the kernel's
+fixed order (``THREADS`` strided partial sums, a pairwise tree within each
+warp of 32, then a pairwise tree over the warps) and writes every complex
+product in real arithmetic, so the two agree bit for bit on the card.
+Against the JAX scan (XLA's dot order, its cos/sin and fused multiply-adds)
+they agree within float32 rounding carried by the loops.
 """
 
 from __future__ import annotations
@@ -28,12 +32,19 @@ import torch
 from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
 
 _LIB = CudaLib("gnss_track", NVCC_FLAGS_NO_FMA, {
-    "gnss_track": [PTR, I64, PTR, INT, INT, PTR, PTR, I64, INT, F32, F32, F32,
-                   F32, F32, F32, F32, F32, PTR, PTR, PTR, PTR, PTR]})
+    "gnss_track": [PTR, I64, PTR, INT, INT, PTR, PTR, I64, INT, INT, INT, F32,
+                   F32, F32, F32, F32, F32, F32, F32, PTR, PTR, PTR, PTR, PTR,
+                   PTR]})
 build = _LIB.build
 
-# threads a block, the width of the kernel's sum tree (csrc/gnss_track.cu)
+# threads a satellite (128, 256 or 512), the width of the kernel's and the
+# plain version's sum order: the fastest of chip_smoke [41]'s sweep at 8
+# satellites x 2000 epochs (PERF.md §6)
 THREADS = 512
+WARP = 32
+# M: the code shift (samples) an epoch's prefetched window allows for, on
+# each side of the slices the epoch before predicts
+WINDOW_MARGIN = 8
 TAU = 2.0 * np.pi
 GPS_CA_RATE = 1.023e6
 GPS_L1_HZ = 1575.42e6
@@ -53,27 +64,59 @@ def loop_constants(fs: float, spms: int, k_pll_f: float, k_pll_p: float,
 
 
 def _sum_fixed(p: torch.Tensor) -> torch.Tensor:
-    """(..., spms) → (...,): the kernel's order — THREADS strided partial
-    sums in turn (zero padded), then pairs (t, t + stride) down to one."""
+    """(..., spms) → (...,): the kernel's order at ``THREADS`` threads —
+    each thread's strided partial sum in turn (zero padded), pairs (l,
+    l + s) for s = 16 .. 1 within each warp of 32, then pairs (w, w + s)
+    for s = THREADS/64 .. 1 over the warp sums."""
+    T = THREADS
     spms = p.shape[-1]
-    J = -(-spms // THREADS)
-    p = torch.nn.functional.pad(p, (0, J * THREADS - spms))
-    p = p.reshape(p.shape[:-1] + (J, THREADS))
-    acc = torch.zeros(p.shape[:-2] + (THREADS,), dtype=p.dtype,
-                      device=p.device)
+    J = -(-spms // T)
+    p = torch.nn.functional.pad(p, (0, J * T - spms))
+    p = p.reshape(p.shape[:-1] + (J, T))
+    acc = torch.zeros(p.shape[:-2] + (T,), dtype=p.dtype, device=p.device)
     for j in range(J):
         acc = acc + p[..., j, :]
-    stride = THREADS // 2
-    while stride:
-        acc = acc[..., :stride] + acc[..., stride:2 * stride]
-        stride //= 2
-    return acc[..., 0]
+    acc = acc.reshape(acc.shape[:-1] + (T // WARP, WARP))
+    for width in (WARP, T // WARP):
+        stride = width // 2
+        while stride:
+            acc = acc[..., :stride] + acc[..., stride:2 * stride]
+            stride //= 2
+        acc = acc[..., 0]
+    return acc
 
 
 def slice_start(s: torch.Tensor, n: int, spms: int) -> torch.Tensor:
     """``lax.dynamic_slice``'s start: a negative start wraps by n
     (numpy-style), then the start clamps to [0, n − spms]."""
     return torch.clamp(torch.where(s < 0, s + n, s), 0, n - spms)
+
+
+def window_misses(starts: torch.Tensor, bases: torch.Tensor, n: int,
+                  spms: int, d_el: int, margin: int = WINDOW_MARGIN
+                  ) -> torch.Tensor:
+    """The kernel's window misses, from a run's (S,) starts and (S, E)
+    output bases: (S,) int32, the epochs whose three slices do not all lie
+    in the window placed from the base before (from start − spms for the
+    first), [b + spms − d − M, b + 2·spms + d + M) clamped to the capture,
+    its start rounded down to even and its length up to even (down where
+    that would pass the capture's end), as its bulk copy needs. The kernel
+    reads those epochs from device memory (a 16-byte aligned capture whose
+    two windows fit the block's shared memory)."""
+    base = torch.cat([starts.to(bases.device, torch.int64)[:, None],
+                      bases[:, :-1].to(torch.int64)], dim=1)
+    prev = torch.cat([base[:, :1] - spms, base[:, :-1]], dim=1)
+    lo = torch.clamp(prev + spms - d_el - margin, min=0)
+    lo = lo - lo % 2
+    hi = torch.clamp(prev + 2 * spms + d_el + margin, max=n)
+    cnt = torch.clamp(hi - lo, min=0)
+    cnt = cnt + cnt % 2
+    cnt = torch.where(lo + cnt > n, cnt - 2, cnt)
+    sl = [slice_start(base + o, n, spms) for o in (-d_el, 0, d_el)]
+    s_lo = torch.minimum(torch.minimum(sl[0], sl[1]), sl[2])
+    s_hi = torch.maximum(torch.maximum(sl[0], sl[1]), sl[2]) + spms
+    inside = (cnt > 0) & (s_lo >= lo) & (s_hi <= lo + cnt)
+    return (~inside).sum(-1).to(torch.int32)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +181,9 @@ def gnss_track(z: torch.Tensor, codes: torch.Tensor, starts: torch.Tensor,
     """(n,) complex64 capture, (S, spms) float32 ±1 codes, (S,) int32
     epoch starts and (S,) float32 initial Dopplers → (prompts (S, E)
     complex64, frequencies (S, E) float32, epoch bases (S, E) int32,
-    fractions (S, E) float32) on the capture's device, E = ``n_epochs``."""
+    fractions (S, E) float32) on the capture's device, E = ``n_epochs``.
+    On the card ``gnss_track.last_misses`` is then the (S,) int32 count of
+    each satellite's epochs that read device memory."""
     if z.dtype != torch.complex64 or z.dim() != 1:
         raise TypeError("the capture must be a 1-D complex64 tensor")
     dev = z.device
@@ -153,22 +198,31 @@ def gnss_track(z: torch.Tensor, codes: torch.Tensor, starts: torch.Tensor,
                                k_pll_f, k_pll_p, k_dll)
     if dev.type != "cuda":
         raise ValueError(f"no tracking kernel for device {dev}")
+    if z.shape[0] >= 1 << 31:
+        raise ValueError("the tracking kernel takes captures of up to 2^31 - 1 "
+                         "samples")
     E = int(n_epochs)
     c = loop_constants(fs, spms, k_pll_f, k_pll_p, k_dll)
     prompts = torch.empty((S, E), dtype=torch.complex64, device=dev)
     freqs = torch.empty((S, E), dtype=torch.float32, device=dev)
     bases = torch.empty((S, E), dtype=torch.int32, device=dev)
     fracs = torch.empty((S, E), dtype=torch.float32, device=dev)
+    misses = torch.zeros(S, dtype=torch.int32, device=dev)
     if S and E:
         zc = z.contiguous()
+        if zc.data_ptr() % 16:
+            zc = zc.clone()         # the window's bulk copy reads 16-byte units
         _LIB.launch("gnss_track", dev, zc.data_ptr(), zc.shape[0],
                     codes.data_ptr(), S, spms, starts.data_ptr(),
-                    f0.data_ptr(), E, c["d_el"], c["w0"], c["spms_f"],
-                    c["tau"], c["l1"], c["spc"], c["kf"], c["kp"], c["kd"],
-                    prompts.data_ptr(), freqs.data_ptr(), bases.data_ptr(),
-                    fracs.data_ptr())
+                    f0.data_ptr(), E, c["d_el"], WINDOW_MARGIN, THREADS,
+                    c["w0"], c["spms_f"], c["tau"], c["l1"], c["spc"],
+                    c["kf"], c["kp"], c["kd"], prompts.data_ptr(),
+                    freqs.data_ptr(), bases.data_ptr(), fracs.data_ptr(),
+                    misses.data_ptr())
         gnss_track.launches += 1
+    gnss_track.last_misses = misses
     return prompts, freqs, bases, fracs
 
 
 gnss_track.launches = 0
+gnss_track.last_misses = None

@@ -140,12 +140,83 @@ def test_track_scan_plain_version_matches_jax(starts, f0, n_ep):
     assert np.abs(got[3] - ref[3]).max() <= 1e-4
 
 
+def _kernel_order_sum(row: np.ndarray, T: int) -> np.float32:
+    """The tracking kernel's sum written as its threads run it, in float32:
+    thread t adds samples t, t + T, ... in turn; each warp of 32 adds its
+    partial sums by shuffles, lane l taking l + s for s = 16 .. 1; warp 0
+    adds the T/32 warp sums the same way, w taking w + s for s = T/64 .. 1."""
+    f = np.float32
+    part = [f(0.0)] * T
+    for t in range(T):
+        for k in range(t, len(row), T):
+            part[t] = f(part[t] + row[k])
+
+    def tree(vals):
+        s = len(vals) // 2
+        while s:
+            vals = [f(vals[i] + vals[i + s]) for i in range(s)]
+            s //= 2
+        return vals[0]
+    return tree([tree(part[w:w + 32]) for w in range(0, T, 32)])
+
+
+def _check_sum_order(T):
+    x = np.random.default_rng(4).standard_normal((3, 2047)).astype(
+        np.float32)
+    got = GT._sum_fixed(torch.as_tensor(x)).numpy()
+    want = np.array([_kernel_order_sum(r, T) for r in x])
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.allclose(got, x.astype(np.float64).sum(-1), atol=1e-4)
+
+
 def test_track_reference_sums_in_the_kernel_order():
-    """The fixed-order sum is a sum: within float32 rounding of torch's."""
-    x = torch.as_tensor(np.random.default_rng(4).standard_normal(
-        (3, 2047)).astype(np.float32))
-    assert torch.allclose(GT._sum_fixed(x), x.double().sum(-1).float(),
-                          atol=1e-4)
+    """The plain version's fixed-order sum is the kernel's thread, warp and
+    cross-warp order bit for bit (an explicit loop model), and a sum:
+    within float32 rounding of the float64 sum."""
+    _check_sum_order(GT.THREADS)
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512])
+def test_track_reference_sum_order_at_each_width(threads, monkeypatch):
+    """The widths chip_smoke [41] sweeps: the plain version follows
+    ``THREADS``."""
+    monkeypatch.setattr(GT, "THREADS", threads)
+    _check_sum_order(threads)
+
+
+def _bases(starts, steps):
+    """(S, E) output bases from (S,) starts and (S, E) base steps."""
+    return (torch.as_tensor(starts)[:, None]
+            + torch.cumsum(torch.as_tensor(steps), 1)).to(torch.int32)
+
+
+def test_window_misses_model():
+    """The kernel's prefetched window (M = 8 samples of code shift either
+    side, d = 1): shifts within M read the window; a shift beyond it, the
+    early slice wrapped at start 0 and slices clamped past the capture's
+    end read device memory."""
+    n, spms, d = 20 * SPMS + 3, SPMS, 1
+    within = np.full((1, 10), spms)
+    within[0, 3:7] = spms + np.array([8, -8, 7, -7])
+    assert GT.window_misses(torch.tensor([615]), _bases([615], within), n,
+                            spms, d).tolist() == [0]
+    # the window's 16-byte alignment may widen it by a sample either side,
+    # so a shift of M + 2 is the least that always leaves it
+    beyond = within.copy()
+    beyond[0, 4] = spms - 10               # epoch 5 shifts 10 samples back
+    beyond[0, 8] = spms + 10               # epoch 9 shifts 10 forward
+    assert GT.window_misses(torch.tensor([615]), _bases([615], beyond), n,
+                            spms, d).tolist() == [2]
+    # epoch 0 at base 0: the early slice starts at −1, wraps by n and
+    # clamps to n − spms
+    assert GT.window_misses(torch.tensor([0]), _bases([0], within), n, spms,
+                            d).tolist() == [1]
+    # 25 epochs from 615 in a 20-epoch capture: from the epoch whose late
+    # slice passes the end, every slice clamps to n − spms
+    steps = np.full((1, 25), spms)
+    last_in = (n - spms - 615 - d) // spms      # the last epoch inside
+    assert GT.window_misses(torch.tensor([615]), _bases([615], steps), n,
+                            spms, d).tolist() == [25 - last_in - 1]
 
 
 def test_gnss_track_input_contract():

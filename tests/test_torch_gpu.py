@@ -19,7 +19,13 @@ a caller's TF32 switches; and slice 5a on the card against the CPU path
 (the channelizer on both FIR routes and under two chunkings, the PFB,
 band_compose, AM/SSB band audio, the FM stereo program and RDS, the CSS
 dechirp and WSPR energy grid) with the band receivers' BP and Viterbi
-launches, and the CSS and WSPR receivers on the card; and slice 6a (each
+launches, and the CSS and WSPR receivers on the card; and slice 5b's
+recurrence kernels against their plain versions, exact (the DD-PLL on every
+order and on a 16 384-symbol burst whose tracked phase passes 3 000 rad,
+with sincosf against cosf and sinf on all 2^32 float32 inputs; the Gardner
+loop; the tracking loops at each width, at the capture's edges and with
+the code leaving the prefetched window, their window misses equal to the
+window model's) with the entry points that launch them; and slice 6a (each
 channel impairment, the SSTV discriminator and the ADS-B score on the card
 against the CPU, SSTV, ADS-B, Morse and the band decode on the card, the
 top-level names); and slice 6b (the generic OFDM receive and OTFS on the
@@ -1118,7 +1124,7 @@ def _ramped_symbols(order, rows, n, seed, cfo=0.013):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (4, 1024), (33, 200), (5, 0),
-                                   (0, 7)])
+                                   (0, 7), (65, 33)])
 @pytest.mark.parametrize("order", ["bpsk", "qpsk", "qam16", "qam64",
                                    "qam256"])
 def test_dd_pll_kernel_is_exact(cuda, order, shape):
@@ -1131,6 +1137,35 @@ def test_dd_pll_kernel_is_exact(cuda, order, shape):
     torch.cuda.synchronize()
     assert K.dd_pll.launches == before + (1 if z.numel() else 0)
     assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def test_dd_pll_kernel_exact_on_a_long_tracked_burst(cuda):
+    """16 384 QPSK symbols behind a 0.2 rad/symbol carrier offset that the
+    loop (bandwidth 0.1) tracks: φ grows past 3 000 rad, so the kernel's
+    sincosf and the plain version's cos and sin take large arguments; two
+    rows, exact, and locked (the derotated symbols sit on the grid up to a
+    quarter turn)."""
+    from orion_sdr_tpu_torch.ops import dd_pll as K
+    n = 16384
+    z = _ramped_symbols("qpsk", 2, n, seed=5, cfo=0.2)
+    zc = torch.as_tensor(z, device=cuda)
+    got = K.dd_pll(zc, "qpsk", 0.1)
+    ref = K.dd_pll_reference(zc, "qpsk", 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    y = got.cpu().numpy()
+    phi = np.unwrap(np.angle(z * np.conj(y)), axis=-1)
+    assert np.all(np.abs(phi[:, -1]) > 3000.0)
+    rot = np.angle(y[:, 2000:] ** 4) / 4      # the quarter-turn ambiguity
+    assert float(np.abs(rot - np.pi / 4 * np.sign(rot)).max()) < 0.2
+
+
+def test_sincosf_gives_the_bits_of_cosf_and_sinf(cuda):
+    """The DD-PLL and tracking kernels take cos and sin from one sincosf;
+    their plain versions call torch.cos and torch.sin (cosf, sinf on the
+    card). Every float32 input, all 2^32 bit patterns: the same bits."""
+    from orion_sdr_tpu_torch.ops import dd_pll as K
+    assert K.sincos_mismatches(cuda) == 0
 
 
 @pytest.mark.parametrize("mu0,n_out", [(3.0, 120), (-2.5, 120),
@@ -1209,6 +1244,54 @@ def test_gnss_track_kernel_takes_empty_batches(cuda):
     out = K.gnss_track(z, codes, starts, f0, fs, 0, 7.2, 0.9, 0.12)
     assert tuple(out[2].shape) == (3, 0)
     assert K.gnss_track.launches == before
+
+
+def _track_exact(K, z, codes, starts, f0, fs, n_ep, k_dll):
+    """One launch against the plain version, exact; its window misses
+    equal the window model's. Returns (outputs, misses)."""
+    got = K.gnss_track(z, codes, starts, f0, fs, n_ep, 7.2, 0.9, k_dll)
+    misses = K.gnss_track.last_misses
+    ref = K.track_reference(z, codes, starts, f0, fs, n_ep, 7.2, 0.9, k_dll)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    d_el = K.loop_constants(fs, codes.shape[1], 7.2, 0.9, k_dll)["d_el"]
+    want = K.window_misses(starts, got[2], z.shape[0], codes.shape[1], d_el)
+    assert torch.equal(misses.cpu(), want.cpu())
+    return got, misses.cpu()
+
+
+def test_gnss_track_window_misses_at_the_capture_edges(cuda):
+    """PRN 6's first epoch wraps its early slice to the capture's end and
+    every satellite's last epochs clamp at n − spms: those epochs read
+    device memory, counted, and the result stays exact."""
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    z, codes, starts, f0, fs = _track_case(cuda)
+    _, misses = _track_exact(K, z, codes, starts, f0, fs, 90, 0.12)
+    assert int(misses.min()) > 0 and int(misses.max()) < 90
+
+
+def test_gnss_track_exact_when_the_code_leaves_the_window(cuda):
+    """A DLL gain of 5 moves the code NCO up to ~10 samples an epoch, past
+    the window's margin M: epochs inside the capture read device memory,
+    and the result stays exact."""
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    z, codes, starts, f0, fs = _track_case(cuda)
+    got, misses = _track_exact(K, z, codes, starts, f0, fs, 60, 5.0)
+    steps = torch.diff(torch.cat([starts[:, None], got[2]], 1).long(), dim=1)
+    assert bool(((steps - codes.shape[1]).abs() > K.WINDOW_MARGIN + 1).any())
+    assert int(misses.sum()) > 0 and int(misses.max()) < 60
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512])
+def test_gnss_track_kernel_is_exact_at_each_width(cuda, threads,
+                                                  monkeypatch):
+    """The widths chip_smoke [41] sweeps: kernel and plain version follow
+    ``THREADS`` together."""
+    from orion_sdr_tpu_torch.ops import gnss_track as K
+    monkeypatch.setattr(K, "THREADS", threads)
+    z, codes, starts, f0, fs = _track_case(cuda)
+    _track_exact(K, z, codes, starts, f0, fs, 40, 0.12)
 
 
 def test_burst_demod_runs_through_the_dd_pll_kernel(cuda):
