@@ -107,19 +107,27 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    hierarchical 16-QAM GI 1/16 frame through dvb_t_blind_decode: guard,
    TPS and payloads.
 17. Outer-code kernel vs its plain version vs the native host decoder,
-   exact (messages and ok flags equal on every row): BCH t=8 (184,120) at
-   12 928 codewords ([4]'s count) and RS(204,188) at 1 632 ([8]'s), rows
-   with 0..t+3 errors (failed rows keep their systematic prefix); small
-   batches at BCH t=1 and t=4 and RS(255,239) and RS(60,56); then every
-   batch of blocks [4]'s and [8]'s warm-up runs handed the outer decoder,
-   recorded as the path formed them.
-18. Outer-code times at the two main batches: the kernel and its plain
-   version (CUDA events), its bound, the kernel at the recorded path
-   blocks, and the chain's own outer decode (frame.chain.outer_decode_batch,
-   host clock, the copies the chain makes included) on the native host path
-   and on the card path, swept over the block count on the error-laden
-   rows and on the path's rows: the crossover the chain's block threshold
-   (_DEVICE_OUTER_MIN_BLOCKS) is set from.
+   exact (messages and ok flags equal on every row): the ptxas report
+   (registers, stack, spills) of both kernels at t = 8 and each lane
+   width; every BCH and RS launch that [4]-[16] made, each on its own
+   input (every later path's launches are held the same way after [50],
+   [51]'s in [51]); BCH t=8 (184,120) at 12 928 codewords ([4]'s count)
+   and RS(204,188) at 1 632 ([8]'s), rows with 0..t+3 errors (failed rows
+   keep their systematic prefix); small batches at BCH t=1 and t=4 and
+   RS(255,239) and RS(60,56); then every batch of blocks [4]'s and [8]'s
+   warm-up runs handed the outer decoder, recorded as the path formed them.
+18. Outer-code times (CUDA events) at the two main batches, at the
+   recorded path blocks and, for RS, at one DVB-T frame's 51 codewords and
+   83 ([13]'s largest decode), each beside its bound and its launch plan
+   (ops.outer_fec.launch_plan: lanes a codeword, codewords a block, grid);
+   the plain version at the main batches; the sweep of lanes a codeword
+   (16, 32) and blocks an SM (4, 8, 16) at each of those shapes, each run
+   held to the plain version; and the chain's own outer decode
+   (frame.chain.outer_decode_batch, host clock, the copies the chain makes
+   included) on the native host path and on the card path, swept over the
+   block count on the error-laden rows and on the path's rows: the
+   crossover the chain's block threshold (_DEVICE_OUTER_MIN_BLOCKS) is set
+   from.
 19. COFDM batch with a TX lowpass (with_tx_lowpass_null_band(65, 60.0)),
    32 frames, MCS 0-3, through decode_batch.
 20. DVB-T with tx_lowpass_for_2k(89, 60.0) (the setup of the JAX package's
@@ -485,6 +493,10 @@ STREAM_FRAMES, STREAM_CHUNK = 6, 50_000
 # the sweep that locates the crossover between the chain's host and card
 # outer paths
 BCH_ROWS, RS_ROWS = N_FRAMES * 101, DVB_FRAMES * 51
+# [18] also times RS at one DVB-T frame's codewords and at [13]'s largest
+# decode, and sweeps the outer kernel's lanes a codeword and blocks an SM
+OUTER_FRAME_ROWS = (51, 83)
+OUTER_SWEEP_LANES, OUTER_SWEEP_BPS = (16, 32), (4, 8, 16)
 SWEEP_BLOCKS = (1, 4, 16, 32, 64, 128, 256, 512, 1024, 1632, 3232, 12928)
 # the new link phases (19-24)
 LINK_FRAMES, DVB_LP_FRAMES = 32, 4
@@ -756,14 +768,8 @@ def print_bp_plans(ldpc_bp):
 def ptxas_registers(built, rule_code, width):
     """Registers of ldpc_bp_kernel<rule_code, width, exact> from the
     build's -Xptxas -v report."""
-    tag = f"ldpc_bp_kernelILi{rule_code}ELi{width}ELb1E"
-    lines = built.log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and tag in line:
-            for nxt in lines[i + 1:i + 4]:
-                if "registers" in nxt:
-                    return int(nxt.split("Used ")[1].split(" registers")[0])
-    return None
+    rep = ptxas_report(built, f"ldpc_bp_kernelILi{rule_code}ELi{width}ELb1E")
+    return rep.get("registers") if rep else None
 
 
 def r4_shared_sums(code: str) -> int:
@@ -1633,17 +1639,44 @@ class OuterSpy:
     def __init__(self, chain, outer_fec, bch_device):
         self.chain, self.outer_fec, self.bd = chain, outer_fec, bch_device
         self.calls, self.recorded, self.record = [], [], False
+        self.held, self.hold = [], True
         self.real = real = chain.outer_decode_batch
 
         def spy(outer, coded_bits, device=None):
             self._see(outer, coded_bits, device)
             return real(outer, coded_bits, device)
         chain.outer_decode_batch = spy
+        for name in ("bch_decode_kernel", "rs_decode_kernel"):
+            self._keep_launches(name)
+
+    def _keep_launches(self, name):
+        """Replaces the kernel wrapper ``outer_fec.<name>`` in its module
+        (the chain's coders read it there at each call) by a pass-through
+        that, while ``hold`` is set, keeps each card launch's (kind,
+        arguments, input, output) in ``held``, for holding to the plain
+        version and the native host decoder. The wrapper counts its
+        launches through that name, so the counts live on the pass-through
+        from here on."""
+        real = getattr(self.outer_fec, name)
+        kind = name.split("_")[0]
+
+        def keep(*args):
+            out = real(*args)
+            x = args[-1]
+            if self.hold and x.is_cuda and x.shape[0]:
+                self.held.append((kind, args[:-1], x, out))
+            return out
+        keep.launches = real.launches
+        setattr(self.outer_fec, name, keep)
+
+    def take_held(self):
+        held, self.held = self.held, []
+        return held
 
     def _see(self, outer, bits, device):
         if outer.kind == "none":
             return
-        dev = device if device is not None else getattr(bits, "device", None)
+        dev = self.chain._outer_device(bits, device)
         nb, nbits = bits.shape
         if outer.kind == "bch":
             code = self.chain.shortened_bch_for(outer.t)
@@ -1729,11 +1762,10 @@ def outer_host_code(P, kind, args):
     return Bch(args[2], args[0]) if kind == "bch" else ReedSolomon(*args)
 
 
-def outer_exact(P, outer_fec, bd, label, kind, args, x):
-    """Kernel vs plain version vs native host decoder on the (B, n) uint8
-    CUDA tensor ``x``: messages and ok flags equal on every row. Returns
-    (max |kernel − plain| over messages and flags, rows ok)."""
-    kb, kok = outer_run(outer_fec, kind, args, x)
+def outer_compare(P, bd, kind, args, x, kb, kok):
+    """A kernel result (kb, kok) on the (B, n) uint8 CUDA tensor ``x``
+    against the plain version and the native host decoder: (max |kernel −
+    plain| over messages and flags, equal to the host decoder)."""
     rb, rok = outer_plain(bd, kind, args, x)
     torch.cuda.synchronize()
     err = max(float((kb.int() - rb.int()).abs().max()) if kb.numel() else 0.0,
@@ -1741,6 +1773,33 @@ def outer_exact(P, outer_fec, bd, label, kind, args, x):
     hb, hok = outer_host_code(P, kind, args).decode_batch(x.cpu().numpy())
     host_same = (np.array_equal(kb.cpu().numpy(), hb) and np.array_equal(
         kok.cpu().numpy().astype(bool), hok.astype(bool)))
+    return err, host_same
+
+
+def outer_held(P, bd, held, label):
+    """Every path launch ``OuterSpy`` kept (``held``) against the plain
+    version and the native host decoder on its own input, exact: → (max
+    |kernel − plain|, {kind: launches held})."""
+    err, n = 0.0, {"bch": 0, "rs": 0}
+    for kind, args, x, (kb, kok) in held:
+        e, host_same = outer_compare(P, bd, kind, args, x, kb, kok)
+        if e != 0.0 or not host_same:
+            fail(f"{label}: a {kind} launch of {x.shape[0]} codewords "
+                 f"differs from its plain version or the host decoder")
+        err = max(err, e)
+        n[kind] += 1
+    print(f"  {label}: every outer-kernel launch of the paths (BCH "
+          f"{n['bch']}, RS {n['rs']}) equal to its plain version and to the "
+          f"native host decoder on its own input")
+    return err, n
+
+
+def outer_exact(P, outer_fec, bd, label, kind, args, x):
+    """Kernel vs plain version vs native host decoder on the (B, n) uint8
+    CUDA tensor ``x``: messages and ok flags equal on every row. Returns
+    (max |kernel − plain| over messages and flags, rows ok)."""
+    kb, kok = outer_run(outer_fec, kind, args, x)
+    err, host_same = outer_compare(P, bd, kind, args, x, kb, kok)
     n_ok = int(kok.sum())
     print(f"  {label}: {x.shape[0]} x {x.shape[1]}, max|kernel-plain|={err:g}, "
           f"equal to the host decoder: {host_same}; {n_ok} rows ok, "
@@ -1851,42 +1910,126 @@ def outer_phase_exact(P, outer_fec, bd, dev, rng):
     return err, main
 
 
+def outer_shapes(kind, x):
+    """{name: (B, n) CUDA words} the kernel is timed at: the bench batch
+    ``x``, the path's recorded blocks and, for RS, one DVB-T frame's 51
+    codewords and 83 (the size of [13]'s largest decode), both cut from the
+    path's blocks."""
+    shapes = {"bench": x}
+    rec = [r[2] for r in OUTER.recorded if r[0] == kind]
+    if rec:
+        xr = torch.cat(rec)
+        shapes["path"] = xr
+        if kind == "rs":
+            for b in OUTER_FRAME_ROWS:
+                shapes[f"path_{b}"] = xr[:b].contiguous()
+    return shapes
+
+
+def ptxas_report(built, tag):
+    """{registers, stack, spill_stores, spill_loads} of the kernel whose
+    mangled name holds ``tag``, from the build's -Xptxas -v report."""
+    lines = built.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            rep = {}
+            for nxt in lines[i + 1:i + 5]:
+                if "bytes stack frame" in nxt:
+                    w = nxt.split()
+                    rep.update(stack=int(w[0]), spill_stores=int(w[4]),
+                               spill_loads=int(w[8]))
+                elif "Used " in nxt and " registers" in nxt:
+                    rep["registers"] = int(
+                        nxt.split("Used ")[1].split(" registers")[0])
+            return rep
+    return None
+
+
+def outer_ptxas(built):
+    """{kind: {lanes: ptxas report}} of the t = 8 kernels."""
+    out = {}
+    for kind in ("bch", "rs"):
+        out[kind] = {G: ptxas_report(built, f"{kind}_decode_kernelILi8ELi{G}E")
+                     for G in OUTER_SWEEP_LANES}
+        print(f"  {kind}_decode_kernel<8, G> (ptxas): " + "; ".join(
+            f"G={G}: {r}" for G, r in out[kind].items()))
+    return out
+
+
+def outer_sweep_plans(P, outer_fec, bd, kind, args, shapes):
+    """The kernel at every lanes × BLOCKS_PER_SM of the sweep on each shape,
+    each run held to the plain version (exact): → {"GxBPS": {shape: ms}}."""
+    want = {name: outer_plain(bd, kind, args, xs)
+            for name, xs in shapes.items()}
+    sweep = {}
+    lanes, bps = dict(outer_fec.LANES), outer_fec.BLOCKS_PER_SM
+    try:
+        for G in OUTER_SWEEP_LANES:
+            for b in OUTER_SWEEP_BPS:
+                outer_fec.LANES[kind], outer_fec.BLOCKS_PER_SM = G, b
+                row = sweep[f"{G}x{b}"] = {}
+                for name, xs in shapes.items():
+                    got = outer_run(outer_fec, kind, args, xs)
+                    if not (torch.equal(got[0], want[name][0])
+                            and torch.equal(got[1], want[name][1])):
+                        fail(f"[18] {kind} at {G} lanes, {b} blocks an SM, "
+                             f"{name}: the kernel differs from its plain "
+                             f"version")
+                    row[name] = cuda_ms(
+                        lambda: outer_run(outer_fec, kind, args, xs), reps=20)
+    finally:
+        outer_fec.LANES.update(lanes)
+        outer_fec.BLOCKS_PER_SM = bps
+    names = list(shapes)
+    print(f"  {kind.upper()} sweep, kernel ms at lanes x blocks an SM "
+          f"({', '.join(f'{n} {shapes[n].shape[0]}' for n in names)}; "
+          f"default {lanes[kind]}x{bps}, each run exact): " + "; ".join(
+              f"{k}: " + " / ".join(f"{v[n]:.4f}" for n in names)
+              for k, v in sweep.items()))
+    return sweep
+
+
 def outer_phase_times(P, outer_fec, bd, main, dev):
-    """Phase 18: kernel, plain and host times at the two main batches and
-    at the recorded path batches, the bounds, and the block-count sweep of
-    the chain's two outer paths. Returns {kind: dict of numbers}."""
+    """Phase 18: kernel times at the bench batch, the path's blocks and
+    (RS) one frame's and [13]'s counts, each with its bound and launch
+    plan; the plain version's time at the bench batch; the lanes and
+    blocks-an-SM sweep; the chain's two outer paths swept over the block
+    count. Returns {kind: dict of numbers}."""
     from orion_sdr_tpu_torch.frame import chain
     out = {}
     for kind, (code, args, x) in main.items():
         outer = (P.OuterFec.bch(args[2]) if kind == "bch"
                  else P.OuterFec.reed_solomon(*args))
-        k_ms = cuda_ms(lambda: outer_run(outer_fec, kind, args, x), reps=20)
+        shapes = outer_shapes(kind, x)
+        at = {}
+        for name, xs in shapes.items():
+            ms = cuda_ms(lambda: outer_run(outer_fec, kind, args, xs),
+                         reps=20)
+            bnd = outer_bound(bd, kind, args, xs)
+            plan = outer_fec.launch_plan(kind, xs.shape[0], dev)
+            at[name] = {"rows": xs.shape[0], "not_codewords": bnd[2],
+                        "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "plan": plan}
+            print(f"  {kind.upper()}({code.n},{code.k}) kernel at {name} "
+                  f"({xs.shape[0]} codewords, {bnd[2]} not codewords): "
+                  f"{ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                  f"{bnd[0] / ms:.1%} of it; plan {plan['lanes']} lanes a "
+                  f"codeword, {plan['groups_per_block']} codewords a block, "
+                  f"grid {plan['grid']} on {plan['sms']} SMs")
         p_ms = cuda_ms(lambda: outer_plain(bd, kind, args, x), reps=3,
                        warmup=1)
-        bnd = outer_bound(bd, kind, args, x)
-        rec = [r[2] for r in OUTER.recorded if r[0] == kind]
-        rec_ms = rec_bnd = None
-        if rec:
-            xr = torch.cat(rec)
-            rec_ms = cuda_ms(lambda: outer_run(outer_fec, kind, args, xr),
-                             reps=20)
-            rec_bnd = outer_bound(bd, kind, args, xr)
+        lane_sweep = outer_sweep_plans(P, outer_fec, bd, kind, args, shapes)
         # the chain's inputs: a CUDA bit tensor for BCH (no outer
         # interleaver), numpy bits after the Forney deinterleave for RS;
         # swept on these error-laden rows and on the path's own blocks
         sweeps = {"errors": outer_sweep(chain, bd, kind, outer, x)}
-        if rec:
-            sweeps["path"] = outer_sweep(chain, bd, kind, outer, xr)
+        if "path" in shapes:
+            sweeps["path"] = outer_sweep(chain, bd, kind, outer,
+                                         shapes["path"])
         host_ms, dev_ms = sweeps["errors"][0][-1][1:]
-        print(f"  {kind.upper()}({code.n},{code.k}) at {x.shape[0]} codewords "
-              f"({bnd[2]} not codewords): kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
-              f"{bnd[0] / k_ms:.1%} of it; chain's outer decode, host clock: "
-              f"native host path {host_ms:.4f} ms, card path {dev_ms:.4f} ms")
-        if rec_ms is not None:
-            print(f"  {kind.upper()} at the path's recorded blocks "
-                  f"({xr.shape[0]} codewords, {rec_bnd[2]} not codewords): "
-                  f"kernel {rec_ms:.4f} ms, bound {rec_bnd[0]:.5f} ms")
+        print(f"  {kind.upper()} at {x.shape[0]} codewords: plain "
+              f"{p_ms:.4f} ms; chain's outer decode, host clock: native "
+              f"host path {host_ms:.4f} ms, card path {dev_ms:.4f} ms")
         for name, (sweep, cross) in sweeps.items():
             print(f"  {kind.upper()} sweep on the {name} rows, the chain's "
                   f"outer decode ms (blocks: host path / card path): "
@@ -1895,10 +2038,14 @@ def outer_phase_times(P, outer_fec, bd, main, dev):
             print(f"  {kind.upper()} crossover on the {name} rows: the card "
                   f"path is faster from {cross} blocks on (threshold in "
                   f"frame/chain.py: {chain._DEVICE_OUTER_MIN_BLOCKS})")
-        out[kind] = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+        bench = at["bench"]
+        out[kind] = {"ms": bench["ms"], "plain_ms": p_ms,
+                     "bound": (bench["bound_ms"], bench["bound_by"],
+                               bench["not_codewords"]),
                      "host_ms": host_ms, "card_path_ms": dev_ms,
-                     "ms_at_path": rec_ms, "sweeps": sweeps,
-                     "rows": x.shape[0]}
+                     "ms_at_path": at["path"]["ms"] if "path" in at else None,
+                     "sweeps": sweeps, "rows": x.shape[0], "at": at,
+                     "lane_sweep": lane_sweep, "plan": bench["plan"]}
     return out
 
 
@@ -5924,18 +6071,24 @@ def main() -> int:
     print(f"  BP launches by phase: slab rules {bp_runs}; sum_product_edge "
           f"{{'12': {edge_launches}}}")
 
+    OUTER.hold = False
     print(f"[17] outer-code kernel vs plain version vs native host decoder "
-          f"(exact): BCH t=8 at {BCH_ROWS}, RS(204,188) at {RS_ROWS}, small "
-          f"batches, and the {len(OUTER.recorded)} batches [4] and [8] "
-          f"handed the outer decoder")
+          f"(exact): every BCH and RS launch of [4]-[16], BCH t=8 at "
+          f"{BCH_ROWS}, RS(204,188) at {RS_ROWS}, small batches, and the "
+          f"{len(OUTER.recorded)} batches [4] and [8] handed the outer "
+          f"decoder")
     print(f"  built {outer_built.path} in {outer_built.seconds:.2f} s")
-    print_ptxas(outer_built)
-    outer_err, outer_main = outer_phase_exact(P, outer_fec, bch_device, dev,
-                                              rng)
-    print("[18] outer-code times: kernel and plain version (CUDA events), "
-          "the chain's outer decode on each path (host clock, copies "
-          "included), bounds, and the block-count sweep")
+    outer_regs = outer_ptxas(outer_built)
+    outer_err, outer_held_n = outer_held(P, bch_device, OUTER.take_held(),
+                                         "[4]-[16]")
+    err17, outer_main = outer_phase_exact(P, outer_fec, bch_device, dev, rng)
+    outer_err = max(outer_err, err17)
+    print("[18] outer-code times: kernel at each batch with its bound and "
+          "launch plan, plain version (CUDA events), the lanes and "
+          "blocks-an-SM sweep, the chain's outer decode on each path (host "
+          "clock, copies included) and the block-count sweep")
     outer_t = outer_phase_times(P, outer_fec, bch_device, outer_main, dev)
+    OUTER.hold = True
     outer_runs.update(new_links(P, dev, rng))
     print(f"  outer-kernel launches by phase (BCH / RS; decodes due at the "
           f"threshold {chain._DEVICE_OUTER_MIN_BLOCKS}): " + "; ".join(
@@ -6173,6 +6326,11 @@ def main() -> int:
     print(f"[51] the multi-device layer on one Mesh of {S7_SHARDS} shards of "
           f"the card, shape {S7_SHAPE}: each sharded path against the "
           f"one-device path, 8 shards against 1 for the same work")
+    OUTER.hold = False           # [51] holds its own launches
+    err_rest, n_rest = outer_held(P, bch_device, OUTER.take_held(),
+                                  "[19]-[50]")
+    outer_err = max(outer_err, err_rest)
+    outer_held_n = {k: outer_held_n[k] + n_rest[k] for k in outer_held_n}
     n51, err51, par51_stats = parallel_phase(P, ldpc_bp, viterbi, psk31_pll,
                                              outer_fec, bch_device, dev)
     bp_runs["51"], vit_runs["51"], pll_runs["51"] = (n51["bp"], n51["vit"],
@@ -6248,6 +6406,16 @@ def main() -> int:
             note="no Pallas kernel in the JAX package computes this: it "
                  "replaces a jnp program",
             launches_by_phase={ph: r[kind] for ph, r in outer_runs.items()},
+            launches_held_outside_51=outer_held_n[kind],
+            registers=outer_regs[kind][t["plan"]["lanes"]],
+            registers_by_lanes={str(G): r for G, r in
+                                outer_regs[kind].items()},
+            launch_plan=t["plan"],
+            at={name: {k: v for k, v in a.items() if k != "plan"}
+                | {"grid": a["plan"]["grid"],
+                   "groups_per_block": a["plan"]["groups_per_block"]}
+                for name, a in t["at"].items()},
+            lane_sweep_ms=t["lane_sweep"],
             rows=t["rows"], host_path_ms=t["host_ms"],
             card_path_ms=t["card_path_ms"], ms_at_path_blocks=t["ms_at_path"],
             sweep_host_card_ms={name: {str(nb): [h, d] for nb, h, d in sw}

@@ -286,13 +286,23 @@ def block_plan(info_bytes: int, crc: str, outer: OuterFec, inner: InnerFec,
 # code runs on the card; below it the native host coder runs (the outputs
 # are the same bits either way). Set from chip_smoke.py's sweep [18] of the
 # chain's outer decode on an NVIDIA H100 80GB HBM3 at its 700 W power
-# limit: BCH's card path is faster from 4 blocks on over the main path's own
-# blocks (from 1 on over rows with errors: 0.15 against 0.54 ms at one
-# block, 0.59 against 8.7 ms at 12 928); RS's two paths tie within the host
-# clock's noise at every count from 1 to 3 048 (the bit packing around the
-# host's Forney deinterleaver costs more than either decoder), so one
-# threshold serves both.
+# limit: from 64 codewords up the card path was faster in every run (RS
+# 3-7x, BCH 6-21x at 1 632-12 928 codewords); below 64 the two paths
+# differed by at most 0.15 ms and changed order from run to run, so the
+# threshold stays low: the receive paths' decodes of more than a few
+# codewords (27 and up in chip_smoke.py) go to the card.
 _DEVICE_OUTER_MIN_BLOCKS = 4
+
+
+def _outer_device(coded, device) -> torch.device:
+    """The device an outer coder's call asks for: ``device`` when given, else
+    a tensor's own device, else the card ("cuda"), the rule of
+    ``dsp/device.py::on_device``; ``device="cpu"`` asks for the native host
+    coder."""
+    if device is not None:
+        return torch.device(device)
+    return coded.device if isinstance(coded, torch.Tensor) else \
+        torch.device("cuda")
 
 
 def _outer_device_ok(t: int, n_blocks: int, device) -> bool:
@@ -305,14 +315,21 @@ def _outer_device_ok(t: int, n_blocks: int, device) -> bool:
 
 def outer_encode(outer: OuterFec, message_bytes, device=None):
     """Bytes → outer-coded bits: BCH in 120-bit blocks, RS in k-byte
-    blocks, each zero-padded to whole blocks. Numpy bits from the host
-    coder when ``device`` is None; else a uint8 tensor on ``device``, coded
-    there when :func:`_outer_device_ok` says so."""
+    blocks, each zero-padded to whole blocks, coded on the card when
+    :func:`_outer_device_ok` says so for :func:`_outer_device`'s device
+    (with no ``device``: a tensor's own, host data the card's), else by the
+    native host coder. Numpy bits when ``device`` is None (the JAX
+    package's signature and return); else a uint8 tensor on ``device``."""
+    dev = _outer_device(message_bytes, device)
+    if isinstance(message_bytes, torch.Tensor):
+        message_bytes = message_bytes.cpu().numpy()
     message_bytes = np.asarray(message_bytes, np.uint8)
 
     def out(bits):
-        return bits if device is None else torch.as_tensor(bits,
-                                                           device=device)
+        if device is None:
+            return bits.cpu().numpy() if isinstance(bits, torch.Tensor) \
+                else bits
+        return torch.as_tensor(bits, device=device)
     if outer.kind == "none":
         return out(bytes_to_bits(message_bytes))
     if outer.kind == "bch":
@@ -322,19 +339,19 @@ def outer_encode(outer: OuterFec, message_bytes, device=None):
         blocks = np.concatenate([bits, np.zeros(
             n_blk * BCH_INFO_BITS - len(bits), np.uint8)]).reshape(
                 n_blk, BCH_INFO_BITS)
-        if _outer_device_ok(outer.t, n_blk, device):
-            return bch_encode_batch_device(
+        if _outer_device_ok(outer.t, n_blk, dev):
+            return out(bch_encode_batch_device(
                 code.n, code.k, code.t,
-                torch.as_tensor(blocks, device=device)).reshape(-1)
+                torch.as_tensor(blocks, device=dev)).reshape(-1))
         return out(code.encode(blocks).reshape(-1))
     rs = rs_for(outer.n, outer.n_parity)
     n_blk = -(-len(message_bytes) // rs.k)
     blocks = np.concatenate([message_bytes, np.zeros(
         n_blk * rs.k - len(message_bytes), np.uint8)]).reshape(n_blk, rs.k)
-    if _outer_device_ok(outer.n_parity // 2, n_blk, device):
-        return bits_from_bytes(rs_encode_batch_device(
-            rs.n, rs.n_parity, torch.as_tensor(blocks, device=device))
-        ).reshape(-1)
+    if _outer_device_ok(outer.n_parity // 2, n_blk, dev):
+        return out(bits_from_bytes(rs_encode_batch_device(
+            rs.n, rs.n_parity, torch.as_tensor(blocks, device=dev))
+        ).reshape(-1))
     return out(bytes_to_bits(rs.encode(blocks).reshape(-1)))
 
 
@@ -410,13 +427,12 @@ def inner_decode_batch(inner: InnerFec, coded_llrs: torch.Tensor,
 def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
     """(B, L) bits (numpy, or a uint8 tensor) → ((B, msg) numpy bits, (B,)
     ok): every frame's BCH or RS codewords decode in one batch, on
-    ``device`` (default: the tensor's device; the host for numpy bits) when
-    :func:`_outer_device_ok` says so, else through the native host decoder.
-    A failed codeword keeps its systematic prefix, so the CRC still
-    adjudicates."""
-    if isinstance(coded_bits, torch.Tensor):
-        device = coded_bits.device if device is None else device
-    else:
+    :func:`_outer_device`'s device (with no ``device``: a tensor's own, host
+    data the card's) when :func:`_outer_device_ok` says so, else through
+    the native host decoder (``device="cpu"`` asks for it). A failed
+    codeword keeps its systematic prefix, so the CRC still adjudicates."""
+    device = _outer_device(coded_bits, device)
+    if not isinstance(coded_bits, torch.Tensor):
         coded_bits = np.asarray(coded_bits, np.uint8)
     nb, nbits = coded_bits.shape
 
@@ -474,9 +490,12 @@ def inner_decode(inner: InnerFec, coded_llrs: torch.Tensor, info_len: int,
     return bits[0], bool(ok[0])
 
 
-def outer_decode(outer: OuterFec, coded_bits):
-    """1-D form of :func:`outer_decode_batch`: (message bits, all_ok)."""
-    msg, ok = outer_decode_batch(outer, np.asarray(coded_bits, np.uint8)[None])
+def outer_decode(outer: OuterFec, coded_bits, device=None):
+    """1-D form of :func:`outer_decode_batch`: (message bits, all_ok), on
+    the same device rule."""
+    if not isinstance(coded_bits, torch.Tensor):
+        coded_bits = np.asarray(coded_bits, np.uint8)
+    msg, ok = outer_decode_batch(outer, coded_bits[None], device=device)
     return msg[0], bool(ok[0])
 
 

@@ -4,9 +4,11 @@ public name ``orion_sdr_tpu/__init__.py`` binds, ``parallel`` with the 19
 names of ``orion_sdr_tpu/parallel/__init__.py`` among them (the test
 keeps the name it had before the multi-device layer was ported); the NB
 helpers agree with the JAX package's; the twelve frame and DVB-T entry points default ``device`` to
-"cuda" and the three COFDM frame classes accept ``cache=``; ``trace``
-writes a profiler trace and ``measure`` times a call. The source files
-are read with ``ast`` (no JAX import is needed for the name checks)."""
+"cuda" and the three COFDM frame classes accept ``cache=``; the outer
+coders called with the JAX package's signature ask for the card (and with
+``device="cpu"`` equal the JAX functions); ``trace`` writes a profiler
+trace and ``measure`` times a call. The source files are read with ``ast``
+(no JAX import is needed for the name checks)."""
 
 import ast
 import inspect
@@ -114,6 +116,55 @@ def test_entry_point_runs_on_the_card_by_default(module, name):
     assert getattr(P, name) is obj
     p = inspect.signature(obj).parameters["device"]
     assert p.default == "cuda" and p.kind is p.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("outer", ["bch", "rs"])
+def test_outer_coders_run_on_the_card_by_default(outer, monkeypatch):
+    """A call of outer_encode, outer_decode_batch or outer_decode with the
+    JAX package's signature (host data, no device) asks for the card past
+    the block threshold; ``device="cpu"`` runs the native host coder and
+    equals the JAX functions on the CPU."""
+    from orion_sdr_tpu.frame import chain as jchain
+
+    from orion_sdr_tpu_torch.frame import chain
+    jo = (jchain.OuterFec.bch(8) if outer == "bch"
+          else jchain.OuterFec.reed_solomon(204, 16))
+    po = (P.OuterFec.bch(8) if outer == "bch"
+          else P.OuterFec.reed_solomon(204, 16))
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, 6 * 188).astype(np.uint8)
+    asked = []
+    real = chain._outer_device_ok
+
+    def spy(t, n_blocks, device):
+        asked.append((n_blocks, torch.device(device).type))
+        return real(t, n_blocks, "cpu")        # no card here: the host coder
+    monkeypatch.setattr(chain, "_outer_device_ok", spy)
+    coded = P.outer_encode(po, data)
+    assert isinstance(coded, np.ndarray)
+    bits = np.stack([coded, coded])
+    bits[0, rng.choice(coded.size, 9, replace=False)] ^= 1
+    msg, ok = P.outer_decode_batch(po, bits)
+    one, one_ok = P.outer_decode(po, bits[0])
+    assert isinstance(msg, np.ndarray) and isinstance(one, np.ndarray)
+    assert [a[1] for a in asked] == ["cuda"] * 3
+    assert all(n >= chain._DEVICE_OUTER_MIN_BLOCKS for n, _ in asked)
+    del asked[:]
+    got = P.outer_encode(po, data, device="cpu")
+    want = jchain.outer_encode(jo, data)
+    assert got.device.type == "cpu" and np.array_equal(got.numpy(), want)
+    assert np.array_equal(coded, want)
+    for x in (bits, torch.as_tensor(bits)):
+        pmsg, pok = P.outer_decode_batch(po, x, device="cpu")
+        jmsg, jok = jchain.outer_decode_batch(jo, bits)
+        assert np.array_equal(pmsg, np.asarray(jmsg))
+        assert np.array_equal(pok, np.asarray(jok))
+        assert np.array_equal(msg, pmsg) and np.array_equal(ok, pok)
+    jone, jone_ok = jchain.outer_decode(jo, bits[0])
+    pone, pone_ok = P.outer_decode(po, bits[0], device="cpu")
+    assert np.array_equal(pone, jone) and pone_ok == jone_ok
+    assert np.array_equal(one, jone) and one_ok == jone_ok
+    assert [a[1] for a in asked] == ["cpu"] * 4
 
 
 def test_frame_classes_accept_cache():

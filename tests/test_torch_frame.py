@@ -191,12 +191,12 @@ def test_decode_chain_batch_runs_forney_per_frame():
         assert np.array_equal(g, d)
     outer_il = pargs[2]
     coded = np.stack([P.interleave_bits(outer_il, P.outer_encode(
-        pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d))))
-        for d in datas])
+        pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d)),
+        device="cpu").numpy()) for d in datas])
     assert np.array_equal(P.deinterleave_bits(outer_il, coded)[
         :, : plan.outer_coded_bits], np.stack([P.outer_encode(
-            pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d)))
-            for d in datas]))
+            pargs[0], P.scramble_bytes(pargs[4], 0, P.append_crc("crc32", d)),
+            device="cpu").numpy() for d in datas]))
 
 
 def _conv_links():

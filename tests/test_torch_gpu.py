@@ -7,7 +7,8 @@ staircase graph of its size and a (1200, 600) one), the Viterbi kernel
 against its plain version in both modes and both radices, the BCH/RS
 outer-code kernel against its plain version and the native host decoders
 (every t, an empty batch, one row, exactly t errors, rows that all fail, RS
-rows where the error locator's derivative vanishes), and frame decodes
+rows where the error locator's derivative vanishes, each lane width at the
+batch sizes where its launch plan changes), and frame decodes
 (COFDM, DVB-T, hierarchical DVB-T with radix 4 forced) through the kernels;
 then the FT8 receive's device code (waterfall and Costas grid against the
 CPU, the stable top-k on a tied grid, the many-window decode through the BP
@@ -640,6 +641,36 @@ def test_outer_kernel_other_code_lengths(cuda, kind, n, p):
     else:
         rs, _, words = _rs_words(n, p, 129, lambda i, r: i % (p // 2 + 3), n)
         _outer_check("rs", rs, words, cuda)
+
+
+def _plan_edges(kind, lanes, sms):
+    """Batch sizes at the edges of ops.outer_fec.plan_for's choices: one
+    warp of codewords, the first grid of BLOCKS_PER_SM blocks an SM, each
+    step up of codewords a block, and the largest blocks."""
+    per_warp = 32 // lanes
+    full = sms * outer_fec.BLOCKS_PER_SM
+    edges = {1, per_warp - 1, per_warp, per_warp + 1, sms, full - 1, full,
+             full + 1, full * per_warp + 1, full * 2 * per_warp + 1,
+             full * (outer_fec.MAX_THREADS // lanes) + 1}
+    return sorted(b for b in edges if b >= 1)
+
+
+@pytest.mark.parametrize("kind", ["bch", "rs"])
+@pytest.mark.parametrize("lanes", [16, 32])
+def test_outer_kernel_at_the_plan_edges(cuda, monkeypatch, kind, lanes):
+    # every lane width the plan can pick, at the batch sizes where the
+    # groups a block and the grid change; rows 0..t+3 errors
+    monkeypatch.setitem(outer_fec.LANES, kind, lanes)
+    sms = outer_fec.launch_plan(kind, 1, cuda)["sms"]
+    for B in _plan_edges(kind, lanes, sms):
+        plan = outer_fec.launch_plan(kind, B, cuda)
+        assert plan["lanes"] == lanes
+        assert plan["grid"] * plan["groups_per_block"] >= B
+        if kind == "bch":
+            code, _, words = _bch_words(8, B, lambda i, r: i % 12, B)
+        else:
+            code, _, words = _rs_words(204, 16, B, lambda i, r: i % 12, B)
+        _outer_check(kind, code, words, cuda)
 
 
 def test_decode_chain_batch_runs_the_outer_kernel(cuda):
