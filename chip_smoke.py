@@ -3,8 +3,9 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-1. Environment: requires a CUDA card (exits 1 otherwise; there is no CPU
-   path) and prints its name and power limit.
+1. Environment: requires a CUDA card and the port's package beside the
+   script (exits 1 otherwise, with the reason; there is no CPU path) and
+   prints the card's name and power limit.
 2. Builds the eight kernels in parallel with nvcc, one process per source
    (the LDPC belief-propagation kernel csrc/ldpc_bp.cu, the Viterbi kernel
    csrc/viterbi.cu, the BCH/RS outer-code kernel csrc/outer_fec.cu, the
@@ -190,9 +191,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    bpsk31_demod on the card; every bit back, one PLL launch; Msps of the
    median of 7 timed runs. The PLL kernel against its plain version on the
    roundtrip's matched-filter dots, BPSK and QPSK: decisions exact, soft
-   values, symbols and phases within 1e-5 of the peak (the kernel's cosf,
-   sinf and rsqrtf against torch's own on the card); both timed (CUDA
-   events), with the bound.
+   values, symbols and phases within 1e-5 of the peak (the kernel's
+   sincosf and rsqrtf against torch's cos, sin and rsqrt on the card);
+   both timed (CUDA events), with the bound and the kernel's time a
+   symbol.
 30. PSK31 receivers (tests/test_psk31.py's setups) on the card, each run's
    PLL launches counted from 0: psk31_decode_band on three BPSK31 texts off
    the waterfall grid and on a QPSK31 text; Psk31Stream at -5 dB (BPSK31)
@@ -257,10 +259,13 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    with the bytes bound and the kernel's time a symbol.
 38. The Gardner kernel against its plain version, exact (symbols and final
    positions), at 64 rows x 2^17 samples of RRC-shaped QPSK at sps 8
-   through the matched filter; the loop locks (|y| spread < 0.25); timed
-   with the bytes bound. After [42], symbol_sync_gardner on 4096 QPSK
-   symbols with its launches counted from 0, its launch recorded and held
-   to the plain version on its own inputs, exact.
+   through the matched filter; the loop locks (|y| spread < 0.25); the
+   kernel alone on the normalised rows (ops.gardner.gardner_rows) and the
+   wrapper (normalisation + kernel) timed, with the bytes bound, the time
+   a step and the launch's window misses. After [42], symbol_sync_gardner
+   on 4096 QPSK symbols with its launches counted from 0, its launch
+   recorded and held to the plain version on its own inputs, exact, its
+   window misses, and the recorded launch timed again.
 39. The burst modem (burst_modem_throughput, bench.py:851-874): the bench's
    body (RRC matched filter, energy timing, the batched DD-PLL) at 4 and
    64 x 16384 random-normal samples, Msps beside the bytes bound and the
@@ -420,7 +425,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    ms_full and bound_ms_full; for the DD-PLL, Gardner and tracking
    kernels of slice 5b the same, with their launches by phase: [39]'s
    runs, symbol_sync_gardner, [41]'s ephemeris path (the DD-PLL adds its
-   time a symbol and [37]'s sincosf count; the tracking kernel its time
+   time a symbol and [37]'s sincosf count; the Gardner kernel its time a
+   step, the wrapper's time, its window misses at [38] and on the main
+   path, the main-path launch's time and ptxas's registers, stack and
+   spills; the PSK31 PLL its time a symbol and ptxas's report for BPSK
+   and QPSK; the tracking kernel its time
    an epoch, its threads a satellite, [41]'s sweep, its window misses at
    8 x 2000 and on the ephemeris launches, and those launches' times);
    [43]-[45] add to
@@ -2730,7 +2739,10 @@ def psk31_phase(P, pll, dev):
                            lambda: pll.psk31_pll_reference(*args),
                            reps=2, warmup=1),
                        "bound": psk31_bound(PSK_ROWS, dots.shape[-1], qpsk)}
-        print(f"    kernel {stats[mode]['ms']:.4f} ms, plain "
+        stats[mode]["us_per_symbol"] = (stats[mode]["ms"] / dots.shape[-1]
+                                        * 1e3)
+        print(f"    kernel {stats[mode]['ms']:.4f} ms "
+              f"({stats[mode]['us_per_symbol']:.4f} us a symbol), plain "
               f"{stats[mode]['plain_ms']:.2f} ms, bound "
               f"{stats[mode]['bound'][0]:.6f} ms (bytes; the chain is "
               f"{dots.shape[-1]} dependent steps a row)")
@@ -3645,20 +3657,28 @@ def gardner_phase(P, ga, dev):
     err = max_diff(got, ref)
     mags = got[0][:, 200:].abs()
     spread = float((mags.std(-1) / mags.mean(-1)).max())
-    k_ms = cuda_ms(lambda: ga.gardner(zf, float(BURST_SPS), n_out, 0.02,
+    w_ms = cuda_ms(lambda: ga.gardner(zf, float(BURST_SPS), n_out, 0.02,
                                       3.0), reps=5, warmup=1)
+    k_ms = cuda_ms(lambda: ga.gardner_rows(zn, float(BURST_SPS), n_out, 0.02,
+                                           3.0), reps=5, warmup=1)
+    misses = int(ga.gardner.last_misses.sum())
+    us_step = k_ms / n_out * 1e3
     bnd = bound_ms(GARDNER_ROWS * (n + n_out) * 8 + GARDNER_ROWS * 4, 0)
     print(f"  {GARDNER_ROWS} x 2^{GARDNER_LOG2_N} samples, {n_out} symbols "
           f"a row: exact {same}; locked |y| spread {spread:.3f} (bound "
-          f"0.25); kernel {k_ms:.3f} ms, plain {p_ms:.0f} ms (host clock, "
-          f"the compared run), bound {bnd[0]:.5f} ms (bytes; the chain is "
-          f"{n_out} dependent steps a row)")
+          f"0.25); kernel alone on the normalised rows {k_ms:.4f} ms "
+          f"({us_step:.4f} us a step), the wrapper (normalise + kernel) "
+          f"{w_ms:.4f} ms, plain {p_ms:.0f} ms (host clock, the compared "
+          f"run), bound {bnd[0]:.5f} ms (bytes; the chain is {n_out} "
+          f"dependent steps a row); window misses {misses}")
     if not same:
         fail("[38] the Gardner kernel disagrees with its plain version")
     if not spread < 0.25:
         fail("[38] the Gardner loop did not lock")
-    return err, {"ms": k_ms, "plain_ms": p_ms, "bound": bnd,
-                 "shape": f"{GARDNER_ROWS}x{n}", "n_out": n_out}
+    return err, {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                 "bound": bnd, "us_per_step": us_step,
+                 "window_misses": misses, "shape": f"{GARDNER_ROWS}x{n}",
+                 "n_out": n_out}
 
 
 def gardner_plain(ga, z, sps, n_out, loop_bw, mu0):
@@ -3687,20 +3707,27 @@ def gardner_path(P, ga, dev):
                                         mu0=3.0, device=dev)
         torch.cuda.synchronize()
     runs = {"38 symbol_sync_gardner": ga.gardner.launches}
+    misses = int(ga.gardner.last_misses.sum())
     exact, err = held_to_plain(seen, lambda *a: gardner_plain(ga, *a))
     mags = syms[200:].abs()
     spread = float(mags.std() / mags.mean())
+    # the recorded launch again, timed (these launches are not counted)
+    args = seen[0][0]
+    path_ms = cuda_ms(lambda: ga.gardner(*args), reps=5, warmup=1)
+    steps = int(args[2])
     print(f"  symbol_sync_gardner on 4096 QPSK symbols: |y| spread "
           f"{spread:.3f} (bound 0.25); {runs} launches, each held to the "
           f"plain version on its own inputs ({len(seen)} calls of "
           f"{[tuple(o[0].shape) for _, o in seen]} symbols): exact {exact}, "
-          f"max |diff| {err}")
+          f"max |diff| {err}; window misses {misses}; the launch timed "
+          f"again {path_ms:.4f} ms ({path_ms / steps * 1e3:.4f} us a step)")
     if not spread < 0.25 or min(runs.values()) <= 0:
         fail("[38] symbol_sync_gardner did not lock or launched no kernel")
     if not exact or len(seen) != runs["38 symbol_sync_gardner"]:
         fail("[38] the Gardner launch of symbol_sync_gardner disagrees with "
              "the plain version")
-    return runs, err
+    return runs, err, {"path_launch_ms": path_ms, "path_steps": steps,
+                       "path_window_misses": misses}
 
 
 def burst_body(P, pll, re, im, taps):
@@ -5939,7 +5966,12 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    import orion_sdr_tpu_torch as P
+    try:
+        import orion_sdr_tpu_torch as P
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script "
+              f"({e})", file=sys.stderr)
+        return 1
     from orion_sdr_tpu_torch.ops import ldpc_bp
 
     dev = torch.device("cuda")
@@ -6232,7 +6264,7 @@ def main() -> int:
           f" AIS")
     fsk_stats = fsk2_phase(P, dev)
     print(f"  [42] took {time.perf_counter() - t_s5:.1f} s")
-    ga_runs, ga_path_err = gardner_path(P, gardner, dev)
+    ga_runs, ga_path_err, ga_path = gardner_path(P, gardner, dev)
     ga_err = max(ga_err, ga_path_err)
     print(f"  launches by phase: DD-PLL {dd_runs}, Gardner {ga_runs}, "
           f"tracking {tk_runs}")
@@ -6457,10 +6489,15 @@ def main() -> int:
               pll_stats["bpsk"]["bound"], pallas_counterpart=None,
               note="no Pallas kernel in the JAX package computes this: it "
                    "replaces the lax.scan _pll_scan; latency-bound by "
-                   "design (one row a thread)",
+                   "design (one row a thread, a warp of rows a block, dots "
+                   "and soft values staged through shared memory, one "
+                   "sincosf)",
               launches_by_phase=pll_runs,
               shape=f"{PSK_ROWS}x{PSK_BITS}",
               chain_steps_per_row=PSK_BITS,
+              us_per_symbol=pll_stats["bpsk"]["us_per_symbol"],
+              ptxas={mode: ptxas_report(pll_built, f"psk31_pll_kernelILb{q}E")
+                     for q, mode in enumerate(("bpsk", "qpsk"))},
               qpsk={k: v for k, v in pll_stats["qpsk"].items()
                     if k != "bound"},
               psk31_roundtrip=psk_stats, fm_demod_chain=fm_stats,
@@ -6515,9 +6552,16 @@ def main() -> int:
               note="no Pallas kernel in the JAX package computes this: it "
                    "replaces the lax.scan _gardner_kernel "
                    "(demodulate/digital.py:127-161); latency-bound by design "
-                   "(one row a thread, each step's reads set by the last)",
+                   "(one block a row, each step's reads set by the last, "
+                   "the row staged through a ring of chunks in shared "
+                   "memory); ms is the kernel alone on the normalised rows, "
+                   "wrapper_ms adds the normalisation",
               launches_by_phase=ga_runs, shape=ga_stats["shape"],
-              chain_steps_per_row=ga_stats["n_out"]),
+              chain_steps_per_row=ga_stats["n_out"],
+              wrapper_ms=ga_stats["wrapper_ms"],
+              us_per_step=ga_stats["us_per_step"],
+              window_misses=ga_stats["window_misses"], **ga_path,
+              ptxas=ptxas_report(ga_built, "gardner_kernel")),
         entry("gnss_track", "gnss_track.cu", "orion_sdr_tpu/gnss.py:200",
               sum(tk_runs.values()), tk_err, tk_stats["ms"],
               tk_stats["plain_ms"], tk_stats["bound"],

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.onepole_two_rate import onepole_two_rate
+from .device import on_device
 from .recurrence import first_order
 
 
@@ -39,10 +40,12 @@ def _gain(env: torch.Tensor, p: AgcParams) -> torch.Tensor:
     return torch.clamp(p.target_rms / rms, p.min_gain, p.max_gain)
 
 
-def agc_rms(x: torch.Tensor, p: AgcParams, env0=None):
+def agc_rms(x, p: AgcParams, env0=None, device=None):
     """AGC over real audio or complex IQ (one real gain on I and Q).
     Returns (y, env_out). ``env0=None`` seeds the envelope from the first
-    sample's power (agc.rs:57-62)."""
+    sample's power (agc.rs:57-62). Host data runs on ``device`` (None: the
+    card)."""
+    x = on_device(x, device)
     x2 = (x.abs() ** 2).to(torch.float32)
     if env0 is None:
         env0 = torch.clamp(x2[..., 0], min=1e-12)

@@ -10,11 +10,12 @@ import numpy as np
 import torch
 
 
-def sanitize_iq(iq: torch.Tensor) -> torch.Tensor:
+def sanitize_iq(iq, device=None) -> torch.Tensor:
     """Blank non-finite samples to 0 (a NaN burst would otherwise poison the
     cumulative-sum sync metrics for the whole buffer and can steer FEC onto
-    the trivial all-zero codeword)."""
-    z = iq.to(torch.complex64)
+    the trivial all-zero codeword). Host data goes to ``device`` (None: the
+    card)."""
+    z = on_device(iq, device, torch.complex64)
     bad = ~torch.isfinite(z.real) | ~torch.isfinite(z.imag)
     return torch.where(bad, torch.zeros_like(z), z)
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device import full_f32
+from .device import full_f32, on_device
 
 # ── design (numpy) ───────────────────────────────────────────────────────────
 
@@ -156,10 +156,12 @@ def _conv_valid(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return _conv_direct(x, taps)
 
 
-def fir_filter_aligned(x: torch.Tensor, taps) -> torch.Tensor:
+def fir_filter_aligned(x, taps, device=None) -> torch.Tensor:
     """Group-delay-compensated, same-length filtering with zero edge
     extension: output sample i is the filtered value of input sample i.
-    ``x`` (..., n), real or complex, on any device."""
+    ``x`` (..., n), real or complex: a tensor is filtered on its device,
+    host data on ``device`` (None: the card)."""
+    x = on_device(x, device)
     taps = np.asarray(taps, np.float32)
     if len(taps) == 1:
         return x * float(taps[0])
@@ -205,28 +207,34 @@ def _causal_conv(x: torch.Tensor, taps, state=None):
     return y, xp[..., xp.shape[-1] - (ntaps - 1):]
 
 
-def fir_apply(x: torch.Tensor, taps, state=None):
+def fir_apply(x, taps, state=None, device=None):
     """Streaming causal FIR: the output lags the input by
     ``group_delay(taps)`` (FirLowpass(Iq)::process / push, dsp/fir.rs:47-67,
     229-257). Returns (y, state), the state being the carried input
-    tail."""
-    return _causal_conv(x, taps, state)
+    tail. Host data runs on ``device`` (None: the card)."""
+    x = on_device(x, device)
+    return _causal_conv(x, taps, None if state is None
+                        else on_device(state, x.device))
 
 
-def fir_decimate(x: torch.Tensor, taps, m: int, state=None):
+def fir_decimate(x, taps, m: int, state=None, device=None):
     """Lowpass, then every m-th sample from phase 0 (FirDecimator,
     dsp/decim.rs:10-77). Returns (y, state)."""
-    y, state = _causal_conv(x, taps, state)
+    y, state = fir_apply(x, taps, state, device)
     return y[..., ::m], state
 
 
-def fir_filter_aligned_bank(pairs):
+def fir_filter_aligned_bank(pairs, device=None):
     """Aligned same-length filtering of several signals, each with its own
     odd-length taps, in one overlap-save call: ``pairs`` is a list of
     (x (..., n), taps); returns the filtered signals, each
     ``fir_filter_aligned(x, taps)`` up to FFT rounding. Complex signals
-    ride as two real channels."""
-    n = pairs[0][0].shape[-1]
+    ride as two real channels. Host data goes to ``device`` (None: the
+    first tensor's device, else the card)."""
+    if device is None:
+        device = next((x.device for x, _ in pairs
+                       if isinstance(x, torch.Tensor)), None)
+    pairs = [(on_device(x, device), t) for x, t in pairs]
     taps = [np.asarray(t, np.float32) for _, t in pairs]
     gds = [group_delay(t) for t in taps]
     G = max(gds)

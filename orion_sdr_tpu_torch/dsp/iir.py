@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .device import full_f32
+from .device import full_f32, on_device
 from .recurrence import _first_order_assoc, first_order
 
 
@@ -151,8 +151,11 @@ def _biquad_chunked_real(v: torch.Tensor, p: complex, A: complex,
     return y, s_last
 
 
-def biquad(x: torch.Tensor, c: BiquadCoefs, state: BiquadState | None = None):
-    """One second-order section over the last axis. Returns (y, state)."""
+def biquad(x, c: BiquadCoefs, state: BiquadState | None = None,
+           device=None):
+    """One second-order section over the last axis. Returns (y, state).
+    Host data runs on ``device`` (None: the card)."""
+    x = on_device(x, device)
     if state is None:
         state = biquad_init(x.shape[:-1], x.dtype, x.device)
     p = _pole(c)
@@ -169,9 +172,10 @@ def biquad(x: torch.Tensor, c: BiquadCoefs, state: BiquadState | None = None):
     return y.to(x.dtype), BiquadState(sp=s_last, x_tail=xp[..., -2:])
 
 
-def lp_cascade(x: torch.Tensor, c: BiquadCoefs, state=None):
+def lp_cascade(x, c: BiquadCoefs, state=None, device=None):
     """Two cascaded identical biquads = a 4th-order LR lowpass
     (dsp/iir.rs:44-87). ``state``: (BiquadState, BiquadState) or None."""
+    x = on_device(x, device)
     if state is None:
         state = (biquad_init(x.shape[:-1], x.dtype, x.device),
                  biquad_init(x.shape[:-1], x.dtype, x.device))
@@ -180,9 +184,10 @@ def lp_cascade(x: torch.Tensor, c: BiquadCoefs, state=None):
     return y1, (s0, s1)
 
 
-def dc_blocker(x: torch.Tensor, r: float, state=None):
+def dc_blocker(x, r: float, state=None, device=None):
     """y[n] = x[n] − x[n−1] + r·y[n−1] (dsp/dc.rs). Returns (y, state),
     state = (x1, y1) packed in a (..., 2) tensor."""
+    x = on_device(x, device)
     if state is None:
         state = torch.zeros(x.shape[:-1] + (2,), dtype=x.dtype,
                             device=x.device)
@@ -207,10 +212,11 @@ def lp_dc_init(lead_shape, dtype=torch.float32, device="cuda") -> LpDcState:
                                     device=device))
 
 
-def lp_dc_cascade(x: torch.Tensor, c: BiquadCoefs, r: float,
-                  state: LpDcState | None = None, map_fn=None):
+def lp_dc_cascade(x, c: BiquadCoefs, r: float,
+                  state: LpDcState | None = None, map_fn=None, device=None):
     """LP4, an optional elementwise map (e.g. sqrt for AM power-sqrt), then
     the DC blocker (dsp/iir.rs:90-187)."""
+    x = on_device(x, device)
     if state is None:
         state = lp_dc_init(x.shape[:-1], x.dtype, x.device)
     y, bq_state = lp_cascade(x, c, state.bq)

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import on_device
+
 TAU = 6.283185307179586
 
 
@@ -62,19 +64,21 @@ def oscillator(freq_hz, fs: float, n: int, phase0=0.0, device="cuda"):
     return _phasor(ph), phase_out
 
 
-def rotate(x: torch.Tensor, freq_hz, fs: float, phase0=0.0):
+def rotate(x, freq_hz, fs: float, phase0=0.0, device=None):
     """Frequency-translate IQ by ``freq_hz``: y = x·e^{j·phase}
     (Rotator::rotate_block, dsp/rotator.rs:74). Returns ``(y, phase_out)``
-    so blocks chain."""
+    so blocks chain. Host data runs on ``device`` (None: the card)."""
+    x = on_device(x, device)
     ph, phase_out = _ramp(freq_hz, fs, x.shape[-1], phase0, x.device)
     return (x * _phasor(ph)).to(torch.complex64), phase_out
 
 
-def rotate_host(x: torch.Tensor, freq_hz, fs: float, phase0: float = 0.0):
+def rotate_host(x, freq_hz, fs: float, phase0: float = 0.0, device=None):
     """:func:`rotate` with the step ``w = 2π·freq_hz/fs`` formed in float32,
     as the JAX package's ``rotate_host`` forms it from a float32
     frequency; its jitted program fuses p0 + w·k into one multiply-add, so
     the phase is formed in float64 and rounded once."""
+    x = on_device(x, device)
     w = np.float32(TAU) * np.float32(freq_hz) / np.float32(fs)
     n = x.shape[-1]
     p0 = np.float32(phase0)
@@ -84,18 +88,20 @@ def rotate_host(x: torch.Tensor, freq_hz, fs: float, phase0: float = 0.0):
     return y, float(np.remainder(p0 + np.float32(w * n), np.float32(TAU)))
 
 
-def mix_usb(x: torch.Tensor, freq_hz, fs: float, phase0=0.0):
+def mix_usb(x, freq_hz, fs: float, phase0=0.0, device=None):
     """USB product detector: y = I·cos + Q·sin (Rotator::mix_usb_block,
     dsp/rotator.rs:88). Returns (y float32, phase_out)."""
+    x = on_device(x, device)
     ph, phase_out = _ramp(freq_hz, fs, x.shape[-1], phase0, x.device)
     y = x.real * torch.cos(ph) + x.imag * torch.sin(ph)
     return y.to(torch.float32), phase_out
 
 
-def mix_usb_host(x: torch.Tensor, freq_hz, fs: float, phase0=0.0):
+def mix_usb_host(x, freq_hz, fs: float, phase0=0.0, device=None):
     """:func:`mix_usb` with the step formed in float32 from a float32
     frequency, as the JAX package's ``mix_usb_host`` forms it when the
     frequency crosses as an array."""
+    x = on_device(x, device)
     f = torch.tensor(np.float32(freq_hz), device=x.device)
     y, phase_out = mix_usb(x, f, fs, phase0)
     return y, (float(phase_out) if phase_out.dim() == 0 else phase_out)

@@ -25,7 +25,7 @@ import numbers
 import numpy as np
 import torch
 
-from .device import full_f32
+from .device import full_f32, on_device
 
 _CHUNK = 8192      # the JAX package's associative-scan chunk for array ``a``
 _GEOM_CHUNK = 128  # chunk of the constant-coefficient matmul route
@@ -117,12 +117,14 @@ def _first_order_const(a, b: torch.Tensor, y0):
     return y, y[..., -1]
 
 
-def first_order(a, b: torch.Tensor, y0=None):
+def first_order(a, b, y0=None, device=None):
     """Solve ``y[n] = a[n]·y[n−1] + b[n]`` along the last axis; returns
     ``(y, y_last)``. ``a``: a Python/numpy scalar (constant one-pole: the
     chunked matmul route) or a tensor broadcastable to ``b`` (the scan,
     in chunks of 8192 carried in turn when n is a multiple of it); ``y0``:
-    the carry-in (0 by default)."""
+    the carry-in (0 by default). Host ``b`` runs on ``device`` (None: the
+    card)."""
+    b = on_device(b, device)
     n = b.shape[-1]
     if n == 0:
         lead = b.shape[:-1]
@@ -148,12 +150,14 @@ def first_order(a, b: torch.Tensor, y0=None):
     return torch.cat(ys, dim=-1), y_last
 
 
-def affine2(A, B, x: torch.Tensor, s0=None):
+def affine2(A, B, x, s0=None, device=None):
     """Solve the 2-state recurrence ``s[n] = A @ s[n−1] + B·x[n]``. ``A``:
     (2, 2) constant, ``B``: (2,), ``x``: (..., n), ``s0``: optional (..., 2)
     initial state. Returns ``(s, s_last)``, s of shape (..., n, 2): the
     state after absorbing x[..., k]. A Hillis–Steele doubling over the maps
-    (A_n, b_n) with (A2, b2) ∘ (A1, b1) = (A2 @ A1, A2 @ b1 + b2)."""
+    (A_n, b_n) with (A2, b2) ∘ (A1, b1) = (A2 @ A1, A2 @ b1 + b2). Host
+    ``x`` runs on ``device`` (None: the card)."""
+    x = on_device(x, device)
     A = _as(A, x)
     Bv = _as(B, x)
     n = x.shape[-1]

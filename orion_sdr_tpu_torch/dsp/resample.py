@@ -19,6 +19,7 @@ from math import gcd
 import numpy as np
 import torch
 
+from .device import on_device
 from .fir import to_rows, from_rows, conv1d_f32, kaiser_lowpass_taps
 
 
@@ -87,11 +88,12 @@ def _upfirdn_strided(xp: torch.Tensor, taps: np.ndarray, up: int, down: int,
     return from_rows(y, how)
 
 
-def resample(x: torch.Tensor, up: int, down: int, taps=None) -> torch.Tensor:
+def resample(x, up: int, down: int, taps=None, device=None) -> torch.Tensor:
     """One-shot rational resample, group-delay compensated: output sample m
     lands on input time m·down/up, length ⌈n·up/down⌉. ``taps``: a
     prototype from :func:`resample_taps` (24 taps a phase, 70 dB by
-    default)."""
+    default). Host data runs on ``device`` (None: the card)."""
+    x = on_device(x, device)
     up, down = int(up), int(down)
     g = gcd(up, down)
     up, down = up // g, down // g

@@ -26,6 +26,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dsp.device import on_device
 from .galois import GF_EXP, GF_LOG, ReedSolomon, _bch_generator, gf_mul
 
 # the device decoders serve the deployed code sizes (DVB RS t=8, frame BCH
@@ -157,20 +158,24 @@ def _mod2_product(bits: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
 # ── encode ───────────────────────────────────────────────────────────────────
 
 
-def bch_encode_batch_device(n: int, k: int, t: int,
-                            message_bits: torch.Tensor) -> torch.Tensor:
+def bch_encode_batch_device(n: int, k: int, t: int, message_bits,
+                            device=None) -> torch.Tensor:
     """(..., k) message bits → (..., n) systematic codewords (uint8) on the
-    tensor's device; bit-exact with ``galois.Bch.encode``."""
+    tensor's device (host data: ``device``, None for the card); bit-exact
+    with ``galois.Bch.encode``."""
+    message_bits = on_device(message_bits, device)
     P = _const(("bch_P", n, k, t), lambda: _bch_parity_matrix(n, k, t),
                torch.float32, message_bits.device)
     m = message_bits.to(torch.int32) & 1
     return torch.cat([m, _mod2_product(m, P)], dim=-1).to(torch.uint8)
 
 
-def rs_encode_batch_device(n: int, n_parity: int,
-                           message_bytes: torch.Tensor) -> torch.Tensor:
+def rs_encode_batch_device(n: int, n_parity: int, message_bytes,
+                           device=None) -> torch.Tensor:
     """(..., k) message bytes → (..., n) systematic RS codewords (uint8) on
-    the tensor's device; bit-exact with ``galois.ReedSolomon.encode``."""
+    the tensor's device (host data: ``device``, None for the card);
+    bit-exact with ``galois.ReedSolomon.encode``."""
+    message_bytes = on_device(message_bytes, device)
     P = _const(("rs_P", n, n_parity),
                lambda: _rs_parity_bit_matrix(n, n_parity), torch.float32,
                message_bytes.device)
@@ -353,16 +358,18 @@ def rs_decode_batch_reference(n: int, n_parity: int, received: torch.Tensor):
 # ── decode entry points ──────────────────────────────────────────────────────
 
 
-def bch_decode_batch_device(n: int, k: int, t: int, bits: torch.Tensor):
+def bch_decode_batch_device(n: int, k: int, t: int, bits, device=None):
     """(B, n) bit codewords → ((B, k) message bits, (B,) int32 ok flags),
     the whole batch in one launch of the outer-code kernel on a CUDA
-    tensor (its plain version on a CPU tensor). t <= MAX_DEVICE_T."""
+    tensor (its plain version on a CPU tensor; host data: ``device``, None
+    for the card). t <= MAX_DEVICE_T."""
     from ..ops.outer_fec import bch_decode_kernel
-    return bch_decode_kernel(n, k, t, bits)
+    return bch_decode_kernel(n, k, t, on_device(bits, device, torch.uint8))
 
 
-def rs_decode_batch_device(n: int, n_parity: int, received: torch.Tensor):
+def rs_decode_batch_device(n: int, n_parity: int, received, device=None):
     """(B, n) byte codewords → ((B, k) messages, (B,) int32 ok flags), as
     :func:`bch_decode_batch_device`. n_parity // 2 <= MAX_DEVICE_T."""
     from ..ops.outer_fec import rs_decode_kernel
-    return rs_decode_kernel(n, n_parity, received)
+    return rs_decode_kernel(n, n_parity,
+                            on_device(received, device, torch.uint8))

@@ -7,7 +7,10 @@ Branch metric = LLR correlation Σ(1−2c)·llr, maximised (positive ⇒ bit 0).
 
 Encoding is two binary convolutions over the bit stream on the bits'
 device. Decoding runs the ACS + traceback of ``ops/viterbi.py``: the CUDA
-kernel for a CUDA tensor, its plain torch version for a CPU tensor.
+kernel for a CUDA tensor, its plain torch version for a CPU tensor. Every
+entry point takes host data (numpy, lists) as the JAX functions do and a
+``device=`` keyword: None keeps a tensor on its device and sends host data
+to the card (``dsp.device.on_device``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..dsp.device import on_device
 
 CONV_CODES = {
     "k5": {"K": 5, "g0": 0b10101, "g1": 0b10011},
@@ -66,11 +71,11 @@ def _tables(code: str):
     return K, S, top, taps0, taps1, prev, sign0, sign1
 
 
-def conv_encode(bits: torch.Tensor, code: str = "k5") -> torch.Tensor:
+def conv_encode(bits, code: str = "k5", device=None) -> torch.Tensor:
     """Rate-1/2 mother encode (no tail): (..., n) bits → (..., 2n) uint8,
     interleaved [g0_0, g1_0, g0_1, …]."""
     K, _, _, taps0, taps1, *_ = _tables(code)
-    b = bits.to(torch.int32) & 1
+    b = on_device(bits, device, torch.int32) & 1
     n = b.shape[-1]
     bp = torch.nn.functional.pad(b, (K - 1, 0))
     c0 = torch.zeros_like(b)
@@ -99,11 +104,11 @@ def punctured_coded_len(info_bits: int, rate: str, code: str = "k5") -> int:
     return int(_puncture_mask(rate, info_bits + tail_bits(code)).sum())
 
 
-def conv_encode_punctured(info_bits: torch.Tensor, rate: str = "1/2",
-                          code: str = "k5") -> torch.Tensor:
+def conv_encode_punctured(info_bits, rate: str = "1/2", code: str = "k5",
+                          device=None) -> torch.Tensor:
     """Zero tail + mother encode + puncture: (..., n) → (..., coded)."""
-    padded = torch.nn.functional.pad(info_bits.to(torch.uint8),
-                                     (0, tail_bits(code)))
+    padded = torch.nn.functional.pad(
+        on_device(info_bits, device, torch.uint8), (0, tail_bits(code)))
     coded = conv_encode(padded, code)
     if rate == "1/2":
         return coded
@@ -111,12 +116,12 @@ def conv_encode_punctured(info_bits: torch.Tensor, rate: str = "1/2",
     return coded[..., torch.as_tensor(keep, device=coded.device)]
 
 
-def depuncture_llrs(coded_llrs: torch.Tensor, info_bits: int, rate: str,
-                    code: str = "k5") -> torch.Tensor:
+def depuncture_llrs(coded_llrs, info_bits: int, rate: str,
+                    code: str = "k5", device=None) -> torch.Tensor:
     """Reinsert LLR-0 erasures at punctured positions → (..., 2·n_steps)
     float32; input past the coded length is ignored, a short input leaves
     the missing positions at 0."""
-    l = coded_llrs.to(torch.float32)
+    l = on_device(coded_llrs, device, torch.float32)
     n_steps = info_bits + tail_bits(code)
     out = l.new_zeros(l.shape[:-1] + (2 * n_steps,))
     if rate == "1/2":
@@ -129,17 +134,18 @@ def depuncture_llrs(coded_llrs: torch.Tensor, info_bits: int, rate: str,
     return out
 
 
-def viterbi_decode_soft(coded_llrs: torch.Tensor, info_bits: int,
-                        rate: str = "1/2", code: str = "k5") -> torch.Tensor:
+def viterbi_decode_soft(coded_llrs, info_bits: int, rate: str = "1/2",
+                        code: str = "k5", device=None) -> torch.Tensor:
     """Soft Viterbi over a zero-tail-terminated punctured stream: (B,
     n_coded) or (n_coded,) LLRs → (B, info_bits) / (info_bits,) uint8 on the
     same device. Path metrics start pinned at state 0, are never
     renormalised, and the traceback starts at state 0."""
     from ..ops.viterbi import viterbi_decode_soft_kernel
+    coded_llrs = on_device(coded_llrs, device, torch.float32)
     squeeze = coded_llrs.dim() == 1
     llrs = coded_llrs[None] if squeeze else coded_llrs
-    out = viterbi_decode_soft_kernel(llrs.to(torch.float32).contiguous(),
-                                     info_bits, rate, code)
+    out = viterbi_decode_soft_kernel(llrs.contiguous(), info_bits, rate,
+                                     code)
     return out[0] if squeeze else out
 
 
@@ -170,15 +176,16 @@ def chunk_llrs(coded_llrs: torch.Tensor, info_bits: int, rate: str,
     return c0, c1, pm0.reshape(nb * nchunk, S), nchunk
 
 
-def viterbi_decode_soft_chunked(coded_llrs: torch.Tensor, info_bits: int,
-                                rate: str = "1/2", code: str = "dvb_k7"
-                                ) -> torch.Tensor:
+def viterbi_decode_soft_chunked(coded_llrs, info_bits: int,
+                                rate: str = "1/2", code: str = "dvb_k7",
+                                device=None) -> torch.Tensor:
     """Overlap-chunked soft Viterbi for long streams, as one batched decode
     of all chunks of all rows: a fixed-lag approximation of the full decode
     (each chunk renormalises its metrics every step and traces back from its
     best final state; the margins are dropped). (B, n_coded) or (n_coded,)
     → (B, info_bits) / (info_bits,) uint8."""
     from ..ops.viterbi import viterbi_chunks_kernel
+    coded_llrs = on_device(coded_llrs, device)
     squeeze = coded_llrs.dim() == 1
     llrs = coded_llrs[None] if squeeze else coded_llrs
     nb = llrs.shape[0]

@@ -21,6 +21,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dsp.device import on_device
+
 LDPC_CODES = {
     "N512R12": (512, 256, 0x4C44_5043_3531_3200),
     "N576R23": (576, 384, 0x4C44_5043_3531_3201),
@@ -127,12 +129,13 @@ def ldpc_graph(name: str) -> LdpcGraph:
                      check_bits=cb, check_mask=mask, max_deg=max_deg)
 
 
-def ldpc_encode(name: str, message: torch.Tensor) -> torch.Tensor:
+def ldpc_encode(name: str, message, device=None) -> torch.Tensor:
     """Systematic encode (..., K) bits → (..., N) uint8 codeword on the
-    message's device: s = A·msg mod 2 (the XOR of each check's message
-    bits, gathered through the graph), parity = prefix-XOR(s)."""
+    message's device (host data: ``device``, None for the card): s = A·msg
+    mod 2 (the XOR of each check's message bits, gathered through the
+    graph), parity = prefix-XOR(s)."""
     g = ldpc_graph(name)
-    msg = message.to(torch.int32) & 1
+    msg = on_device(message, device, torch.int32) & 1
     a_bits = np.where(g.check_mask & (g.check_bits < g.k), g.check_bits, g.k)
     idx = torch.as_tensor(a_bits, dtype=torch.int64, device=msg.device)
     msg_p = torch.cat([msg, msg.new_zeros(msg.shape[:-1] + (1,))], dim=-1)
@@ -147,10 +150,11 @@ def ldpc_encode(name: str, message: torch.Tensor) -> torch.Tensor:
 DECODE_RULES = ("sum_product", "min_sum", "scaled_min_sum")
 
 
-def bp_decode(g: LdpcGraph, llr: torch.Tensor, max_iter: int = 50,
-              rule: str = "sum_product", alpha: float = 0.75):
-    """BP over a padded Tanner graph. ``llr``: (..., N) float32 tensor,
-    positive ⇒ bit 0. Returns (message (..., K) uint8, unsat (...,) int32):
+def bp_decode(g: LdpcGraph, llr, max_iter: int = 50,
+              rule: str = "sum_product", alpha: float = 0.75, device=None):
+    """BP over a padded Tanner graph. ``llr``: (..., N) float32 LLRs,
+    positive ⇒ bit 0: a tensor decodes on its device, host data on
+    ``device`` (None: the card). Returns (message (..., K) uint8, unsat (...,) int32):
     0 unsatisfied checks means a valid codeword was reached. ``rule``:
     sum_product | min_sum | scaled_min_sum (extrinsics scaled by ``alpha``);
     any other raises ValueError."""
@@ -159,22 +163,22 @@ def bp_decode(g: LdpcGraph, llr: torch.Tensor, max_iter: int = 50,
         raise ValueError(f"unknown BP rule {rule!r} (expected one of "
                          f"{DECODE_RULES}; the edge-layout rule is "
                          f"ops.bp_decode_pallas's)")
+    llr = on_device(llr, device, torch.float32)
     lead = llr.shape[:-1]
-    flat = llr.to(torch.float32).reshape(-1, g.n).contiguous()
+    flat = llr.reshape(-1, g.n).contiguous()
     bits, unsat = bp_decode_kernel(g, flat, max_iter, rule, alpha)
     return bits.reshape(lead + (g.k,)), unsat.reshape(lead)
 
 
-def ldpc_decode(name: str, llr: torch.Tensor, max_iter: int = 50,
-                rule: str = "sum_product", alpha: float = 0.75):
+def ldpc_decode(name: str, llr, max_iter: int = 50,
+                rule: str = "sum_product", alpha: float = 0.75, device=None):
     """Belief-propagation decode of a named code; see :func:`bp_decode`."""
-    return bp_decode(ldpc_graph(name), llr, max_iter, rule, alpha)
+    return bp_decode(ldpc_graph(name), llr, max_iter, rule, alpha, device)
 
 
 def ldpc_syndrome_weight(name: str, hard) -> torch.Tensor:
     """Unsatisfied parity checks of hard bits (..., N) of a named code →
     (...,) int32 counts, on the bits' device (host data: the card)."""
-    from ..dsp.device import on_device
     g = ldpc_graph(name)
     h = on_device(hard).to(torch.int32) & 1
     hp = torch.cat([h, h.new_zeros(h.shape[:-1] + (1,))], dim=-1)

@@ -7,15 +7,23 @@ Pallas kernel): linear interpolation at a float32 position and half a
 symbol before it, the mid-symbol error, a clipped rate and a position
 update. In eager torch each step would be some twenty-five launches, with
 gathers at positions the previous step computed; the kernel runs one row a
-thread, every symbol of the row in turn, all rows in one launch.
+block, every symbol of the row in turn on one lane, the row staged ahead
+of it through a ring of ``DEPTH`` chunks of ``CHUNK`` samples in shared
+memory and the symbols written back ``OUT_CHUNK`` at a time (the
+constants of ``csrc/gardner.cu``, which
+``tests/test_torch_gardner_schedule.py`` models and holds to it). A step
+whose reads leave the chunks the chain holds reads device memory instead
+and counts a window miss: ``gardner.last_misses`` holds the last launch's,
+one int32 a row.
 
 :func:`gardner` normalises each row to unit RMS with a torch reduction
-(shared by both paths), then launches the kernel for a CUDA tensor (built
-with nvcc at first use; a failed build or launch raises) or runs
-:func:`gardner_reference` for a CPU tensor; it counts its launches in
-``.launches``. The plain version rounds every product and sum apart in the
-kernel's order, so the two agree bit for bit on the card. Against the JAX
-scan they agree within float32 rounding carried by the loop.
+(shared by both paths); :func:`gardner_rows` then launches the kernel on
+the unit-RMS rows of a CUDA tensor (built with nvcc at first use; a failed
+build or launch raises) or runs :func:`gardner_reference` for a CPU
+tensor, and counts the launches in ``gardner.launches``. The plain
+version rounds every product and sum apart in the kernel's order, so the
+two agree bit for bit on the card. Against the JAX scan they agree
+within float32 rounding carried by the loop.
 """
 
 from __future__ import annotations
@@ -27,8 +35,11 @@ from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, I64, F32, CudaLib
 
 _LIB = CudaLib("gardner", NVCC_FLAGS_NO_FMA, {
     "gardner": [PTR, INT, I64, I64, F32, F32, F32, F32, F32, F32, PTR, PTR,
-                PTR]})
+                PTR, PTR]})
 build = _LIB.build
+
+# the kernel's ring (csrc/gardner.cu: kChunk, kDepth, kOutChunk, kOutDepth)
+CHUNK, DEPTH, OUT_CHUNK, OUT_DEPTH = 512, 4, 256, 2
 
 
 def loop_constants(sps: float, loop_bw: float, mu0: float):
@@ -85,34 +96,50 @@ def gardner_reference(zn: torch.Tensor, sps: float, n_out: int,
     return out, pos
 
 
+def gardner_rows(zn: torch.Tensor, sps: float, n_out: int,
+                 loop_bw: float = 0.02, mu0: float = 0.0):
+    """The loop on (rows, n) unit-RMS complex64 rows (``normalise``'s
+    output), contiguous: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor. Returns ((rows, n_out) symbols, (rows,) final
+    positions); a launch's window misses, (rows,) int32, go to
+    ``gardner.last_misses``."""
+    if zn.device.type == "cpu":
+        return gardner_reference(zn, sps, n_out, loop_bw, mu0)
+    if zn.device.type != "cuda":
+        raise ValueError(f"no Gardner kernel for device {zn.device}")
+    rows, n = zn.shape
+    pos0, rate0, kp, ki, lo, hi = loop_constants(sps, loop_bw, mu0)
+    out = torch.empty((rows, n_out), dtype=torch.complex64, device=zn.device)
+    pos = torch.full((rows,), pos0, dtype=torch.float32, device=zn.device)
+    if rows and n_out:
+        misses = torch.zeros(rows, dtype=torch.int32, device=zn.device)
+        _LIB.launch("gardner", zn.device, zn.data_ptr(), rows, n, n_out,
+                    pos0, rate0, kp, ki, lo, hi, out.data_ptr(),
+                    pos.data_ptr(), misses.data_ptr())
+        gardner.launches += 1
+        gardner.last_misses = misses
+    return out, pos
+
+
 def gardner(z: torch.Tensor, sps: float, n_out: int, loop_bw: float = 0.02,
             mu0: float = 0.0):
     """(..., n) complex64 samples → ((..., n_out) complex64 symbols, (...,)
     float32 final positions) on the same device, each row its own loop.
-    Needs n >= 2 samples a row when n_out > 0."""
+    Needs 2 <= n < 2^31 samples a row when n_out > 0."""
     if z.dtype != torch.complex64:
         raise TypeError(f"samples must be complex64, got {z.dtype}")
     if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no Gardner kernel for device {z.device}")
     lead, n = z.shape[:-1], z.shape[-1]
     n_out = int(n_out)
-    if n_out and n < 2:
-        raise ValueError("the Gardner loop needs at least 2 samples a row")
+    if n_out and not 2 <= n < 1 << 31:
+        raise ValueError("the Gardner loop needs 2 to 2^31 - 1 samples a "
+                         "row")
     rows = int(np.prod(lead, dtype=np.int64))
     zn = normalise(z.reshape(rows, n)).contiguous()
-    if z.device.type == "cpu":
-        out, pos = gardner_reference(zn, sps, n_out, loop_bw, mu0)
-    else:
-        pos0, rate0, kp, ki, lo, hi = loop_constants(sps, loop_bw, mu0)
-        out = torch.empty((rows, n_out), dtype=torch.complex64,
-                          device=z.device)
-        pos = torch.full((rows,), pos0, dtype=torch.float32, device=z.device)
-        if rows and n_out:
-            _LIB.launch("gardner", z.device, zn.data_ptr(), rows, n, n_out,
-                        pos0, rate0, kp, ki, lo, hi, out.data_ptr(),
-                        pos.data_ptr())
-            gardner.launches += 1
+    out, pos = gardner_rows(zn, sps, n_out, loop_bw, mu0)
     return out.reshape(lead + (n_out,)), pos.reshape(lead)
 
 
 gardner.launches = 0
+gardner.last_misses = None

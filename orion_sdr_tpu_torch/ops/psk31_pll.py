@@ -6,17 +6,18 @@ as a ``lax.scan`` over the matched-filter dots (``_pll_scan``,
 ``orion_sdr_tpu/demodulate/psk31.py:65-100``; no Pallas kernel): hard
 decision, phase error through ``rsqrt``, loop filter, wrap to [−π, π). In
 eager torch each step would be some fifteen launches; the kernel runs one
-row a thread, every symbol of the row in turn.
+row a thread, every symbol of the row in turn, a warp of rows a block with
+the block's dots and soft values staged through shared memory.
 
 :func:`psk31_pll` launches the kernel for a CUDA tensor (built with nvcc at
 first use; a failed build or launch raises) and runs
 :func:`psk31_pll_reference` for a CPU tensor; it counts its launches in
 ``.launches``. The plain version writes ``e^{−j·acc}`` as explicit cos and
 sin and the phase error with ``rsqrt``, in real arithmetic, in the kernel's
-order, so on the card the two differ only where ``cosf``/``sinf``/
-``rsqrtf`` inside the kernel round otherwise than torch's own calls of them
-(the tests and the smoke hold the decisions exact and the soft values to a
-stated bound). Against the JAX package (whose CPU build contracts products
+order, so on the card the two differ only where the kernel's ``sincosf``
+(the bits of ``cosf`` and ``sinf``: ``ops.dd_pll.sincos_mismatches``) and
+``rsqrtf`` round otherwise than torch's own calls (the tests and the smoke
+hold the decisions exact and the soft values to a stated bound). Against the JAX package (whose CPU build contracts products
 and sums into fused multiply-adds, and whose cos/sin/rsqrt are XLA's) the
 soft values agree within float32 rounding and the decisions on clean
 symbols exactly.

@@ -13,7 +13,8 @@ batch sizes where its launch plan changes), and frame decodes
 then the FT8 receive's device code (waterfall and Costas grid against the
 CPU, the stable top-k on a tied grid, the many-window decode through the BP
 kernel); and slice 4's two recurrence kernels (the PSK31 PLL against its
-plain version, decisions exact and soft values within 1e-5 of the peak;
+plain version, also from a phase anywhere in ±60 rad and at 200 rows,
+decisions exact and soft values within 1e-5 of the peak;
 the two-rate one-pole exact) with the entry points that launch them, the
 FM chain on the card against the CPU, and the float32 products unmoved by
 a caller's TF32 switches; and slice 5a on the card against the CPU path
@@ -24,7 +25,9 @@ launches, and the CSS and WSPR receivers on the card; and slice 5b's
 recurrence kernels against their plain versions, exact (the DD-PLL on every
 order and on a 16 384-symbol burst whose tracked phase passes 3 000 rad,
 with sincosf against cosf and sinf on all 2^32 float32 inputs; the Gardner
-loop; the tracking loops at each width, at the capture's edges and with
+loop at one, 64 and 200 rows, odd n, past the row's end, from far into the
+row and with its position stepping back, its window misses equal to the
+ring model's; the tracking loops at each width, at the capture's edges and with
 the code leaving the prefetched window, their window misses equal to the
 window model's) with the entry points that launch them; and slice 6a (each
 channel impairment, the SSTV discriminator and the ADS-B score on the card
@@ -808,6 +811,42 @@ def test_psk31_pll_kernel_matches_plain_version(cuda, rows, n, qpsk):
     assert float((a - ra).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("rows,n", [(1, 0), (1, 700), (16, 2048),
+                                    (200, 257)])
+@pytest.mark.parametrize("qpsk", [False, True])
+def test_psk31_pll_kernel_from_any_phase(cuda, rows, n, qpsk):
+    """The staged kernel from a caller's phase anywhere in ±60 rad (the
+    first symbol's sincosf takes its slow path, the wrap its fmodf): 0
+    symbols, one row, [29]'s 16 × 2048 and 200 rows (seven blocks, the
+    last one part-full). Decisions exact; soft values, symbols and phases
+    within 1e-5 of the peak, as [29] holds them."""
+    from orion_sdr_tpu_torch.demodulate.psk31 import pll_constants
+    from orion_sdr_tpu_torch.ops import psk31_pll as K
+    clean, noisy = _pll_dots(rows, n, 7 * rows + n)
+    dots = torch.as_tensor(noisy if qpsk else clean, device=cuda)
+    rng = np.random.default_rng(5)
+    prev = torch.as_tensor(np.exp(1j * rng.uniform(0, 6, rows)).astype(
+        np.complex64), device=cuda)
+    acc = torch.as_tensor(rng.uniform(-60, 60, rows).astype(np.float32),
+                          device=cuda)
+    c_fb, scale = pll_constants(256, 1.0)
+    before = K.psk31_pll.launches
+    soft, p, a = K.psk31_pll(dots, prev, acc, c_fb, scale, 0.05, qpsk)
+    rs, rp, ra = K.psk31_pll_reference(dots, prev, acc, c_fb, scale, 0.05,
+                                       qpsk)
+    torch.cuda.synchronize()
+    assert K.psk31_pll.launches == before + (1 if n else 0)
+    assert soft.shape == rs.shape
+    if n:
+        assert torch.equal(soft[..., 0] >= 0 if qpsk else soft >= 0,
+                           rs[..., 0] >= 0 if qpsk else rs >= 0)
+        peak = float(rs.abs().max())
+        assert float((soft - rs).abs().max()) <= 1e-5 * peak
+        assert float(a.abs().max()) <= np.pi
+    assert float((p - rp).abs().max()) <= 1e-5
+    assert float((a - ra).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("rows,n", [(1, 1), (33, 5000), (64, 8192), (3, 0)])
 @pytest.mark.parametrize("ge", [False, True])
 def test_onepole_two_rate_kernel_is_exact(cuda, rows, n, ge):
@@ -1230,6 +1269,63 @@ def test_gardner_kernel_takes_empty_batches(cuda):
                                    device=cuda), 8.0, 0)
     assert tuple(s.shape) == (4, 0) and float(pos[0]) == 8.0
     assert K.gardner.launches == before
+
+
+@pytest.mark.parametrize("rows,n,sps,loop_bw,mu0,n_out,kind", [
+    (1, 4096, 8, 0.02, 3.0, 500, "shaped"),
+    (64, 8192, 8, 0.02, 3.0, 1000, "shaped"),
+    (200, 3001, 4, 0.02, -2.0, 3001 // 4 + 30, "shaped"),
+    (2, 5003, 16, 0.3, 20.0, 5003 // 16 + 20, "shaped"),
+    (3, 6000, 4, 8.0, 0.0, 1500, "noise")],
+    ids=["1row", "64rows", "200rows-odd-n-past-the-end",
+         "odd-n-past-the-end", "loop_bw-past-0.95sps"])
+def test_gardner_kernel_window_is_exact(cuda, rows, n, sps, loop_bw, mu0,
+                                        n_out, kind):
+    """The ring-staged kernel against its plain version, exact, at one
+    row, 64 rows, 200 rows (more than the SMs), odd n and n not a multiple
+    of the chunk, symbols past the row's end, and loop_bw past 0.95·sps on
+    noise, where the position steps back and the kernel reads device
+    memory. Each row's window misses equal the ring model's
+    (tests/test_torch_gardner_schedule.py)."""
+    from test_torch_gardner_schedule import noise_rows, ring_model, \
+        shaped_rows
+    from orion_sdr_tpu_torch.ops import gardner as K
+    z, zt = (shaped_rows(rows, n, sps, rows + n) if kind == "shaped"
+             else noise_rows(rows, n, 1))
+    zn = zt.to(cuda)
+    before = K.gardner.launches
+    s, pos = K.gardner_rows(zn, float(sps), n_out, loop_bw, mu0)
+    misses = K.gardner.last_misses.cpu().numpy()
+    rs, rpos = K.gardner_reference(zn, float(sps), n_out, loop_bw, mu0)
+    torch.cuda.synchronize()
+    assert K.gardner.launches == before + 1
+    assert torch.equal(s, rs) and torch.equal(pos, rpos)
+    for r in range(min(rows, 4)):
+        want = ring_model(z[r], float(sps), n_out, loop_bw, mu0)[2]
+        assert misses[r] == want
+    if kind == "noise":
+        assert misses.sum() > 0
+    elif mu0 >= 0:
+        assert not misses.any()
+
+
+def test_gardner_kernel_starts_far_into_the_row(cuda):
+    """A start 20 000 samples in: the chain takes and frees every chunk
+    before it (waiting on the loader for each), then runs from its window
+    with no miss; with mu0 past the row's end every read clamps at n − 2,
+    inside the last chunk, again with no miss."""
+    from test_torch_gardner_schedule import ring_model, shaped_rows
+    from orion_sdr_tpu_torch.ops import gardner as K
+    z, zt = shaped_rows(2, 30001, 8, 11)
+    zn = zt.to(cuda)
+    for mu0, n_out in ((20000.0, 600), (40000.0, 50)):
+        s, pos = K.gardner_rows(zn, 8.0, n_out, 0.02, mu0)
+        misses = K.gardner.last_misses.cpu().numpy()
+        rs, rpos = K.gardner_reference(zn, 8.0, n_out, 0.02, mu0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, rs) and torch.equal(pos, rpos)
+        assert [ring_model(z[r], 8.0, n_out, 0.02, mu0)[2]
+                for r in range(2)] == list(misses) == [0, 0]
 
 
 def _track_case(device):

@@ -182,6 +182,46 @@ def test_pll_plain_version_against_the_jax_scan(qpsk):
                           else got.numpy() >= 0)
 
 
+@pytest.mark.parametrize("qpsk", [False, True])
+def test_pll_tile_schedule_gives_the_whole_call(qpsk):
+    """The kernel's data flow, modelled with the plain version: rows in
+    blocks of 32 (a block's rows past the batch run on zero dots from a
+    zero carry) and symbols in tiles of 32, each tile from the carry the
+    last left. The tiled, padded run equals one call over the whole batch
+    bit for bit, and the padding rows stay at zero (no slow path)."""
+    from orion_sdr_tpu_torch.ops.psk31_pll import psk31_pll_reference
+    rows, n, tile, block = 37, 70, 32, 32
+    rng = np.random.default_rng(9)
+    dots = torch.as_tensor((120.0 * np.exp(1j * rng.uniform(
+        0, 6, (rows, n))) + 20.0 * (rng.standard_normal((rows, n)) + 1j
+        * rng.standard_normal((rows, n)))).astype(np.complex64))
+    prev = torch.as_tensor(np.exp(1j * rng.uniform(0, 6, rows)).astype(
+        np.complex64))
+    acc = torch.as_tensor(rng.uniform(-40, 40, rows).astype(np.float32))
+    c_fb, scale = PD.pll_constants(256, 1.0)
+    args = (c_fb, scale, 0.05, qpsk)
+    whole = psk31_pll_reference(dots, prev, acc, *args)
+    pad = -rows % block
+    d = torch.cat([dots, dots.new_zeros((pad, n))])
+    p = torch.cat([prev, prev.new_zeros(pad)])
+    a = torch.cat([acc, acc.new_zeros(pad)])
+    soft = []
+    for b0 in range(0, rows + pad, block):
+        pb, ab = p[b0:b0 + block], a[b0:b0 + block]
+        parts = []
+        for k0 in range(0, n, tile):
+            s, pb, ab = psk31_pll_reference(d[b0:b0 + block, k0:k0 + tile],
+                                            pb, ab, *args)
+            parts.append(s)
+        soft.append(torch.cat(parts, dim=1))
+        p[b0:b0 + block], a[b0:b0 + block] = pb, ab
+    soft = torch.cat(soft)
+    assert torch.equal(soft[:rows], whole[0])
+    assert torch.equal(p[:rows], whole[1]) and torch.equal(a[:rows], whole[2])
+    assert not soft[rows:].any() and not p[rows:].any() \
+        and not a[rows:].any()
+
+
 def test_bpsk_and_qpsk_demod():
     rng = np.random.default_rng(6)
     bits = rng.integers(0, 2, 100).astype(np.uint8)
