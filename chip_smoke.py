@@ -79,9 +79,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    N512R34 at B = 3072 + 256 garbage rows (bits and unsat equal on every
    row); on rows where both converge, the same message as the sum_product
    kernel. Times it on N512R12 (also at max_iter 0, 1 and 2), then drives it
-   once through the entry point that reaches it,
-   ops.bp_decode_pallas(rule="sum_product_edge"), on the 3072 decodable
-   rows, counting the launches; then holds it to its plain version (exact)
+   once through the wrapper that reaches it,
+   ops.ldpc_bp.bp_decode_kernel(rule="sum_product_edge"), on the 3072
+   decodable rows, counting the launches; then holds it to its plain version (exact)
    and times it at [4]'s five recorded batches.
 13. Hierarchical link (the JAX bench's dvb_t_hier_receive_throughput link:
    16-QAM alpha=2, GI 1/8, HP r1/2, LP r3/4): 8 full frames modulated on
@@ -405,7 +405,22 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    card for the FIR. Every BP, radix-2 Viterbi, PSK31 PLL and BCH/RS
    launch of the phase is recorded and held to its plain version on its
    own inputs, exact.
-52. Prints the kernels' JSON line (each kernel's main-path launches, error
+52. The thirteen examples of examples/torch/ (the README's account of how
+   the system starts: FM, FT8, the DVB-T link, scale-out on a Mesh of 8
+   shards of the card, the drop-in blocks, the CW band, the robust COFDM
+   link, the band gateway, the FM band with RDS, packet and aviation,
+   blind receive, WSPR, GPS), each loaded from its file and run with
+   main("cuda") twice: a warm-up, then a timed run (host clock, ending in
+   torch.cuda.synchronize()). One line an example: its own checks (the
+   texts, payload flags, stations, decodes and fix its JAX namesake
+   prints), the seconds of both runs and each hand-written kernel's
+   launches in each run. Every launch of the phase is recorded and held
+   to its plain version on its own inputs, exact (the two-rate one-pole's
+   step by step, as in [44]). First, the JAX package's three ops names on
+   host data: bp_decode_pallas by graph key (the BP kernel's
+   whole-codeword store, against the plain version), viterbi_chunks_pallas
+   and viterbi_decode_soft_pallas, each one launch of its kernel.
+53. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -439,7 +454,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    [43]-[47]'s, a "slice6b" object with [48]-[50]'s ([49] and [50] add
    to the BP, radix-2, PSK31 PLL and two-rate one-pole launches by phase)
    and a "slice7" object with [51]'s readings ([51] adds to the BP,
-   radix-2, PSK31 PLL and outer-code launches by phase);
+   radix-2, PSK31 PLL and outer-code launches by phase), and an
+   "examples" object with [52]'s seconds and launches by example ([52]
+   adds to the launches by phase of each kernel the examples launch);
    the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
@@ -465,6 +482,8 @@ bound.
 """
 
 import contextlib
+import importlib
+import io
 import json
 import os
 import subprocess
@@ -1342,7 +1361,6 @@ def edge_vs_plain(ldpc_bp, dev, rng, batches):
     at max_iter 0 / 1 / 2, {label: (ms, bound)} at [4]'s recorded batches)
     of the sum_product_edge rule."""
     from orion_sdr_tpu_torch.fec.ldpc import LDPC_CODES, ldpc_graph
-    from orion_sdr_tpu_torch.ops import bp_decode_pallas
     rule = "sum_product_edge"
     max_err = 0.0
     for name in sorted(LDPC_CODES):
@@ -1386,14 +1404,14 @@ def edge_vs_plain(ldpc_bp, dev, rng, batches):
             main = (g, x, msg)
     g, x, msg = main
     ldpc_bp.bp_decode_kernel.launches_edge = 0
-    bits, unsat = bp_decode_pallas(g, x, 50, rule=rule)
+    bits, unsat = ldpc_bp.bp_decode_kernel(g, x, 50, rule)
     torch.cuda.synchronize()
     launches = ldpc_bp.bp_decode_kernel.launches_edge
     good = int(((unsat == 0) & (bits == msg).all(dim=1)).sum())
-    print(f"  ops.bp_decode_pallas(rule={rule!r}), N512R12 B={BP_BATCH}: "
-          f"{good} messages back, {launches} launch(es)")
+    print(f"  ops.ldpc_bp.bp_decode_kernel(rule={rule!r}), N512R12 "
+          f"B={BP_BATCH}: {good} messages back, {launches} launch(es)")
     if launches <= 0 or good < 0.95 * BP_BATCH:
-        fail("bp_decode_pallas did not run the sum_product_edge kernel")
+        fail("bp_decode_kernel did not run the sum_product_edge kernel")
     path_err, path = bp_path_times(ldpc_bp, batches, rule)
     return max(max_err, path_err), k_ms, p_ms, bound, launches, iters, path
 
@@ -2306,10 +2324,10 @@ def ft_layers(P, ldpc_bp, mode, x, batch):
     from orion_sdr_tpu_torch.codec.ft8_crc import ft8_check_crc_batch
     from orion_sdr_tpu_torch.dsp.device import sanitize_iq
     from orion_sdr_tpu_torch.message import unpack77
-    from orion_sdr_tpu_torch.sync import ft8_sync as S
     from orion_sdr_tpu_torch.sync.costas import (candidate_score_grid,
                                                  top_k_stable)
     from orion_sdr_tpu_torch.sync.waterfall import compute_waterfall
+    S = importlib.import_module("orion_sdr_tpu_torch.sync.ft8_sync")
     m = S._MODE[mode]
     costas, sync_pos, data_pos, gray = S._mode_tables(mode)
     nb = S._num_bins(FT_BASE, FT_MAX + m["spacing"], m)
@@ -4313,20 +4331,27 @@ def s6_psnr(got, want) -> float:
 
 @contextlib.contextmanager
 def recording_kernel(module, attr, counters=("launches",)):
-    """The kernel wrapper ``module.attr`` in its own module (callers that
-    import it inside a function read it there) replaced by its
-    ``recorder`` for the block; yields the list. The wrapper counts its
-    launches through that name, so the launches counted on the recorder
-    meanwhile are added to the wrapper's ``counters`` after the block."""
+    """The kernel wrapper ``module.attr`` replaced by its ``recorder`` for
+    the block, in its own module (callers that import it inside a function
+    read it there) and in every loaded module that bound it by name at
+    import; yields the list. The wrapper counts its launches through its
+    module's name, so the launches counted on the recorder meanwhile are
+    added to the wrapper's ``counters`` after the block. On exit every
+    module holding the recorder, one first imported inside the block
+    included, gets the wrapper back."""
     real = getattr(module, attr)
     rec, seen = recorder(real)
     for c in counters:
         setattr(rec, c, 0)
-    setattr(module, attr, rec)
+    for m in list(sys.modules.values()):
+        if getattr(m, "__dict__", {}).get(attr) is real:
+            setattr(m, attr, rec)
     try:
         yield seen
     finally:
-        setattr(module, attr, real)
+        for m in list(sys.modules.values()):
+            if getattr(m, "__dict__", {}).get(attr) is rec:
+                setattr(m, attr, real)
         for c in counters:
             setattr(real, c, getattr(real, c) + getattr(rec, c))
 
@@ -5860,7 +5885,6 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     − plain|}, readings)."""
     from orion_sdr_tpu_torch import graft_entry
     from orion_sdr_tpu_torch import parallel as PP
-    from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
     devs = [dev] * S7_SHARDS
     mesh = PP.make_mesh(S7_SHARDS, shape=S7_SHAPE, devices=devs)
     one = PP.make_mesh(1, shape=(1, 1), devices=devs[:1])
@@ -5875,7 +5899,6 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
             recording_kernel(viterbi, "viterbi_chunks_kernel",
                              ("launches", "launches_radix4")) as seen_vit, \
             recording_kernel(pll, "psk31_pll") as seen_pll, \
-            recording(psk31_mod, "psk31_pll") as seen_pll_1, \
             recording_kernel(outer_fec, "bch_decode_kernel") as seen_bch, \
             recording_kernel(outer_fec, "rs_decode_kernel") as seen_rs:
         t0 = tick = time.perf_counter()
@@ -5937,8 +5960,7 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     vit_exact, vit_err = held_to_plain(
         seen_vit, lambda c0, c1, pm0, code:
         viterbi.viterbi_chunks_reference(c0, c1, pm0, code, 2))
-    pll_exact, pll_err = held_to_plain(seen_pll + seen_pll_1,
-                                       pll.psk31_pll_reference)
+    pll_exact, pll_err = held_to_plain(seen_pll, pll.psk31_pll_reference)
     bch_exact, bch_err = held_to_plain(seen_bch,
                                        bd.bch_decode_batch_reference)
     rs_exact, rs_err = held_to_plain(seen_rs, bd.rs_decode_batch_reference)
@@ -5951,14 +5973,205 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     if (bad or n_bp <= 0 or n_vit[0] <= 0 or n_vit[1] or n_pll <= 0
             or outer["rs"] <= 0
             or (n_bp, n_vit[0], n_pll, outer["bch"], outer["rs"])
-            != (len(seen_bp), len(seen_vit), len(seen_pll) + len(seen_pll_1),
-                len(seen_bch), len(seen_rs))
+            != (len(seen_bp), len(seen_vit), len(seen_pll), len(seen_bch),
+                len(seen_rs))
             or not (bp_exact and vit_exact and pll_exact and bch_exact
                     and rs_exact)):
         fail(f"[51] the multi-device layer: {bad}")
     return ({"bp": n_bp, "vit": n_vit, "pll": n_pll, "outer": outer},
             {"bp": bp_err, "vit": vit_err, "pll": pll_err,
              "outer": max(bch_err, rs_err), "paths": errs}, out)
+
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch")
+EXAMPLE_CALLS = ("CQ KA1ABC FN42", "CQ W9XYZ FN42", "CQ K5TPU FN42")
+# each example's own checks on what its main() returns: the result lines of
+# its JAX namesake under examples/
+EXAMPLE_CHECKS = {
+    "01_fm_broadcast": lambda r: r["tone_snr_db"] > 20.0,
+    "02_ft8_receive": lambda r: tuple(
+        d and d["text"] for d in r["decodes"]) == EXAMPLE_CALLS,
+    "03_dvb_t_link": lambda r: [f["payload_ok"] for f in r["frames"]]
+    == [True] and r["frames"][0]["cell_id"] == 190,
+    "04_scale_out": lambda r: r["psk31_text"] == "sharded psk31 stream "
+    "decode" and (r["ber_errors"], r["ber_bits"]) == (41, 32768),
+    "05_dropin_blocks": lambda r: r["ft8"]["call_de"] == "KA1ABC"
+    and r["psk31_text"] == "via blocks" and r["qam64_exact"]
+    and r["fm_snr_db"] > 40.0,
+    "06_cw_band_decode": lambda r: [d["text"] for d in r["decodes"]]
+    == ["CQ CQ DE W1AW", "HELLO WORLD", "73 GL SK"],
+    "07_robust_cofdm_link": lambda r: r.get("payload_intact", False),
+    "08_band_gateway": lambda r: [c["intact"] for c in r["channels"]]
+    == [True] * 3,
+    "09_fm_broadcast_band": lambda r: [(s["pi"], s["ps"], s["rt"])
+                                       for s in r["stations"]]
+    == [(0x1111, "ALPHA FM", "MORNING SHOW"),
+        (0x2222, "BETA  FM", "ALL NEWS ALL DAY"),
+        (0x3333, "GAMMAFM ", "CLASSIC HITS")],
+    "10_packet_and_aviation": lambda r: len(r["adsb"]) == 7
+    and len(r["aprs"]) == 1 and r["css"]["crc_ok"]
+    and [s["mmsi"] for s in r["ais"]] == [211234567, 244000111]
+    and "CQ CQ CQ DE W1AW" in r["rtty"],
+    "11_blind_receive": lambda r: r["dvb_t"]["payload_recovered"]
+    and r["dvb_t"]["cell_id"] == 42
+    and [e["label"] for e in r["band"]] == ["am", "fsk"],
+    "12_weak_signal_beacons": lambda r: [d["callsign"] for d in r["decodes"]]
+    == ["K1ABC", "W1AW", "DL2XYZ"],
+    "13_gps_receiver": lambda r: [a["prn"] for a in r["acquired"]] == [7, 13]
+    and r["fix_error_m"] < 0.5,
+}
+
+
+def load_example(name):
+    """examples/torch/<name>.py as a module, loaded from its file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ops_names_on_card(P, ldpc_bp, viterbi, dev):
+    """[52] the JAX package's three ops names on host data: each one launch
+    of its kernel, its output against the plain version (exact)."""
+    from orion_sdr_tpu_torch.fec.ldpc import ldpc_encode, ldpc_graph
+    rng = np.random.default_rng(SEED + 52)
+    g = ldpc_graph("N512R12")
+    msg = torch.as_tensor(rng.integers(0, 2, (256, g.k)), dtype=torch.uint8,
+                          device=dev)
+    llr = torch.where(ldpc_encode("N512R12", msg) == 0, 4.0, -4.0)
+    llr = (llr + 1.5 * torch.randn(llr.shape, generator=torch.Generator(
+        device=dev).manual_seed(52), device=dev)).cpu().numpy()
+    before = ldpc_bp.bp_decode_kernel.launches
+    best, unsat = P.ops.bp_decode_pallas(f"N512R12:{g.n}:{g.k}", llr, 50,
+                                         stall_iters=50)
+    torch.cuda.synchronize()
+    n_bp = ldpc_bp.bp_decode_kernel.launches - before
+    rb, ru = ldpc_bp.bp_decode_reference(g, torch.as_tensor(llr, device=dev),
+                                         50, store="codeword")
+    ok = {"bp_decode_pallas": n_bp == 1 and torch.equal(
+        best, rb.to(torch.float32)) and torch.equal(unsat, ru)
+        and best.shape == (256, g.n)}
+    S = 64
+    for span in (1216, 1217):            # the path's span, and an odd one
+        c0, c1 = (rng.integers(-8, 9, (99, span)).astype(np.float32)
+                  for _ in range(2))
+        pm0 = np.zeros((99, S), np.float32)
+        before = viterbi.viterbi_chunks_kernel.launches
+        bits = P.ops.viterbi_chunks_pallas(c0, c1, pm0, "dvb_k7")
+        torch.cuda.synchronize()
+        ref = viterbi.viterbi_chunks_reference(
+            *(torch.as_tensor(x, device=dev) for x in (c0, c1, pm0)),
+            "dvb_k7", 2)
+        ok[f"viterbi_chunks_pallas span {span}"] = (
+            viterbi.viterbi_chunks_kernel.launches - before == 1
+            and torch.equal(bits, ref.to(torch.float32)))
+    for n_info in (1000, 997):           # an even and an odd trellis
+        info = rng.integers(0, 2, (64, n_info)).astype(np.uint8)
+        coded = P.fec.conv_encode_punctured(info, "3/4", "k5", device=dev)
+        soft = torch.where(coded == 0, 3.0, -3.0).cpu().numpy()
+        before = viterbi.viterbi_decode_soft_kernel.launches
+        dec = P.ops.viterbi_decode_soft_pallas(soft, n_info, "3/4")
+        torch.cuda.synchronize()
+        ok[f"viterbi_decode_soft_pallas info {n_info}"] = (
+            viterbi.viterbi_decode_soft_kernel.launches - before == 1
+            and np.array_equal(dec.cpu().numpy(), info))
+    print(f"  [52] ops names on host data, one launch each, exact against "
+          f"the plain version: {ok}")
+    if not all(ok.values()):
+        fail(f"[52] an ops name did not run its kernel: {ok}")
+
+
+def examples_phase(P, ldpc_bp, viterbi, pll, one, outer_fec, bd, tk, dd, ga,
+                   dev):
+    """[52] the port's thirteen examples on the card, two runs each, every
+    launch of a hand-written kernel recorded and held to its plain version:
+    → ({kernel: launches of the phase}, {kernel: max |kernel − plain|},
+    {example: readings})."""
+    ops_names_on_card(P, ldpc_bp, viterbi, dev)
+    kernels = {
+        "bp": (ldpc_bp, "bp_decode_kernel", ("launches", "launches_edge"),
+               ldpc_bp.bp_decode_reference),
+        "vit": (viterbi, "viterbi_chunks_kernel",
+                ("launches", "launches_radix4"),
+                lambda c0, c1, pm0, code, *radix:
+                viterbi.viterbi_chunks_reference(c0, c1, pm0, code, 2)),
+        "vit_t": (viterbi, "viterbi_decode_soft_kernel",
+                  ("launches", "launches_radix4"),
+                  lambda llrs, info, rate, code, *radix:
+                  viterbi.viterbi_terminated_reference(llrs, info, rate,
+                                                       code, 2)),
+        "pll": (pll, "psk31_pll", ("launches",), pll.psk31_pll_reference),
+        "one": (one, "onepole_two_rate", ("launches",), None),
+        "bch": (outer_fec, "bch_decode_kernel", ("launches",),
+                bd.bch_decode_batch_reference),
+        "rs": (outer_fec, "rs_decode_kernel", ("launches",),
+               bd.rs_decode_batch_reference),
+        "track": (tk, "gnss_track", ("launches",), tk.track_reference),
+        "dd": (dd, "dd_pll", ("launches",), dd.dd_pll_reference),
+        "gardner": (ga, "gardner", ("launches",),
+                    lambda *a: gardner_plain(ga, *a)),
+    }
+    names = sorted(EXAMPLE_CHECKS)
+    found = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
+                   if f[:2].isdigit() and f.endswith(".py"))
+    if found != names:
+        fail(f"[52] examples/torch/ holds {found}, expected {names}")
+    readings, bad = {}, []
+    with contextlib.ExitStack() as stack:
+        seens = {k: stack.enter_context(recording_kernel(m, a, c))
+                 for k, (m, a, c, _) in kernels.items()}
+        recs = {k: getattr(m, a) for k, (m, a, _, _) in kernels.items()}
+
+        def counts():
+            return {k: sum(getattr(rec, c) for c in kernels[k][2])
+                    for k, rec in recs.items()}
+        for name in names:
+            mod = load_example(name)
+            runs = []
+            for _ in range(2):
+                before = counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    result = mod.main("cuda")
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                after = counts()
+                runs.append((secs, {k: after[k] - before[k] for k in after
+                                    if after[k] - before[k]}, result))
+            ok = all(EXAMPLE_CHECKS[name](r) for _, _, r in runs)
+            (w_s, w_n, _), (t_s, t_n, _) = runs
+            print(f"  [52] {name}: checks {'ok' if ok else 'FAILED'}; "
+                  f"{t_s:.3f} s (warm-up {w_s:.3f} s); launches {t_n} "
+                  f"(warm-up {w_n})")
+            readings[name] = {"ok": ok, "s": t_s, "warmup_s": w_s,
+                              "launches": t_n, "warmup_launches": w_n}
+            if not ok:
+                bad.append(name)
+        launches = counts()
+        radix4 = recs["vit"].launches_radix4 + recs["vit_t"].launches_radix4
+    t0 = time.perf_counter()
+    exact, errs = {}, {}
+    for k, (_, _, _, plain) in kernels.items():
+        seen = seens[k]
+        if k == "one":
+            exact[k] = all(onepole_steps_exact(one, *args[:5], *out)
+                           for args, out in seen)
+            errs[k] = 0.0 if exact[k] else float("inf")
+        else:
+            exact[k], errs[k] = held_to_plain(seen, plain)
+        if len(seen) != launches[k]:
+            bad.append(f"{k}: {launches[k]} launches, {len(seen)} recorded")
+    print(f"  [52] launches of the phase: "
+          f"{ {k: n for k, n in launches.items() if n} }; each against its "
+          f"plain version on its own inputs "
+          f"({time.perf_counter() - t0:.1f} s): exact "
+          f"{ {k: exact[k] for k, n in launches.items() if n} }")
+    if bad or radix4 or not all(exact.values()):
+        fail(f"[52] the examples: {bad}, radix 4 {radix4}, exact {exact}")
+    return launches, errs, readings
 
 
 def main() -> int:
@@ -6391,6 +6604,30 @@ def main() -> int:
           f"{by_phase[2]['51']}, PSK31 PLL {pll_runs['51']}, outer BCH / RS "
           f"{outer_runs['51']['bch']} / {outer_runs['51']['rs']}, each held "
           f"to its plain version")
+    t_ex = time.perf_counter()
+    print(f"[52] the thirteen examples of examples/torch/ with "
+          f"main(\"cuda\"), a warm-up run then a timed run each, every "
+          f"kernel launch held to its plain version")
+    OUTER.zero()
+    n52, err52, examples52 = examples_phase(
+        P, ldpc_bp, viterbi, psk31_pll, onepole_two_rate, outer_fec,
+        bch_device, gnss_track, dd_pll, gardner, dev)
+    outer_runs["52"] = OUTER.read("52")
+    for runs, key in ((bp_runs, "bp"), (pll_runs, "pll"),
+                      (one_runs, "one"), (tk_runs, "track"),
+                      (dd_runs, "dd"), (ga_runs, "gardner")):
+        if n52[key]:
+            runs["52"] = n52[key]
+    vit_runs["52"] = (n52["vit"] + n52["vit_t"], 0)
+    max_err = max(max_err, err52["bp"])
+    vit_err = max(vit_err, err52["vit"], err52["vit_t"])
+    outer_err = max(outer_err, err52["bch"], err52["rs"])
+    pll6b_err = max(pll6b_err, err52["pll"])
+    tk_err = max(tk_err, err52["track"])
+    default = [p for p in vit_runs if p != FORCED]
+    by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
+                for k, radix in enumerate((2, 4))}
+    print(f"  [52] took {time.perf_counter() - t_ex:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
@@ -6603,7 +6840,8 @@ def main() -> int:
                     "49 blocks": blocks49_stats,
                     "50 checkpoint_resume": ckpt50_stats},
         "slice7": {"51 parallel": {**par51_stats,
-                                   "max_abs_err_by_path": err51["paths"]}}}))
+                                   "max_abs_err_by_path": err51["paths"]}},
+        "examples": {"52": examples52}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -23,3 +23,17 @@ from .adsb import (AdsbMessage, adsb_crc24, adsb_decode_frame,
                    cpr_encode, cpr_decode_global)
 from .ax25 import (Ax25Frame, ax25_crc, hdlc_encode, hdlc_decode,
                    HDLC_FLAG, AX25_CONTROL_UI, AX25_PID_NONE)
+from .varicode import (VARICODE, VARICODE_MAX_BITS, varicode_encode,
+                       varicode_decode, VaricodeEncoder, VaricodeDecoder,
+                       encode_text, decode_bits)
+from .psk31 import (DQPSK_EXP, conv_encode, viterbi_decode,
+                    viterbi_decode_coherent, viterbi_decode_hard,
+                    StreamingViterbi)
+from .gray import (FT8_GRAY, FT4_GRAY, gray8_encode, gray8_decode,
+                   gray4_encode, gray4_decode)
+from .ft8_crc import (ft8_crc14, ft8_add_crc, ft8_extract_crc, ft8_check_crc,
+                      CRC14_POLY)
+from . import ft8_ldpc
+from .ft8 import (FT4_XOR, ft8_encode, ft4_encode, ft8_decode_soft,
+                  ft4_decode_soft, ft8_decode_hard, ft4_decode_hard,
+                  ft8_frame_llr_hard, ft4_frame_llr_hard)

@@ -19,6 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..fec.ldpc import LdpcGraph, bp_decode
 
 N = 174
@@ -231,6 +232,7 @@ def ft8_ldpc_graph() -> LdpcGraph:
 _G: dict = {}
 
 
+@takes_host_data("message_bits")
 def ldpc_encode(message_bits: torch.Tensor) -> torch.Tensor:
     """(..., 91) bits → (..., 174) uint8 systematic codeword on the
     message's device: parity = G·msg mod 2 as one float32 product (sums of
@@ -244,6 +246,7 @@ def ldpc_encode(message_bits: torch.Tensor) -> torch.Tensor:
     return torch.cat([msg, parity], dim=-1).to(torch.uint8)
 
 
+@takes_host_data("llr")
 def ldpc_decode_soft(llr: torch.Tensor, max_iter: int = 20,
                      rule: str = "sum_product"):
     """(..., 174) float32 LLRs (positive ⇒ bit 0) → ((..., 91) uint8 message

@@ -513,8 +513,9 @@ extern "C" int ldpc_bp_launch_plan(int n, int m, int D, int C, int rule,
 // blocks of `threads` threads and `smem` bytes (ldpc_bp_launch_plan's, on
 // the same device). check_slots (D x m) and bit_slots (C x n) are
 // graph_tables' uint16 tables, 16-byte aligned. Writes the first k bits of
-// each row's best snapshot to bits_out (batch, k) uint8 and its
-// unsatisfied-check count to unsat_out (batch,) int32. rule: 0 sum-product, 1 min-sum with extrinsics
+// each row's best snapshot to bits_out (batch, k) uint8 (k is the store
+// width: the message's bits on the decode path, or n for the whole snapshot,
+// the plane ops.bp_decode_pallas returns) and its unsatisfied-check count to unsat_out (batch,) int32. rule: 0 sum-product, 1 min-sum with extrinsics
 // scaled by `scale`, 2 edge-layout (log-domain) sum-product. Returns a
 // cudaError_t code (0 on a successful launch).
 extern "C" int ldpc_bp_decode(const float* llr, int batch, int n, int k, int m,

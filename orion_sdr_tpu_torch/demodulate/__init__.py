@@ -21,3 +21,8 @@ from .afsk import (afsk1200_demod, ax25_decode, rtty_decode,
                    Afsk1200Stream, fsk2_decision, rtty_decode_fsk)
 from .adsb import adsb_decode_capture
 from .sstv import sstv_demod, SstvImage
+from .analog import (cw_demod, am_demod, ssb_demod, SsbDemodState, fm_demod,
+                     pm_demod, QuadDemodState)
+from .psk31 import (bpsk31_demod, qpsk31_demod, bpsk31_decide,
+                    hard_decide_dbpsk, hard_decide_dqpsk)
+from .ft8 import ft8_demod, ft4_demod

@@ -21,6 +21,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..constellation import BITS_PER_SYMBOL
 from ..dsp.osc import rotate_host
 from ..frame.chain import block_plan, decode_chain_batch
@@ -62,6 +63,7 @@ class DvbTRxFrame(NamedTuple):
     tps: TpsWord
 
 
+@takes_host_data("freq")
 def scattered_equalize_csi(freq: torch.Tensor, first_phase: int = 0,
                            backoff: int = 0):
     """(..., n_sym, 2048) raw spectra → (ZF-equalised spectra, |ĥ|² CSI),
@@ -85,6 +87,7 @@ def scattered_equalize_csi(freq: torch.Tensor, first_phase: int = 0,
     return out, csi
 
 
+@takes_host_data("freq")
 def scattered_equalize(freq: torch.Tensor, first_phase: int = 0,
                        backoff: int = 0) -> torch.Tensor:
     return scattered_equalize_csi(freq, first_phase, backoff)[0]

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dsp.device import full_f32, to_device
+from ..dsp.device import full_f32, takes_host_data, to_device
 from ..dsp.fir import convolve
 from ..dsp.osc import rotate
 from ..modulate.psk31 import PSK31_BAUD, psk31_hann, psk31_sps
@@ -31,11 +31,13 @@ QPSK31_LOOP_GAIN = 0.05
 _H: dict = {}
 
 
+@takes_host_data("d_re")
 def hard_decide_dbpsk(d_re: torch.Tensor) -> torch.Tensor:
     """±1.0 by the sign of the differential real component."""
     return torch.where(d_re >= 0.0, 1.0, -1.0).to(torch.float32)
 
 
+@takes_host_data("d_re", "d_im")
 def hard_decide_dqpsk(d_re: torch.Tensor, d_im: torch.Tensor):
     """The nearest unit-axis phasor, (±1, 0) or (0, ±1), as (re, im)."""
     re_wins = d_re.abs() >= d_im.abs()
@@ -225,6 +227,7 @@ def psk31_demod_multi(iq, fs: float, carriers_hz, gain: float = 1.0,
     return soft, off.to(torch.int32)
 
 
+@takes_host_data("z")
 def stream_step(z: torch.Tensor, phase0, prev_sym, phase_acc, sps: int,
                 gain: float, qpsk: bool, carrier_hz: float, fs: float):
     """One whole-symbol chunk of the live decode: carries the down-mix

@@ -13,3 +13,4 @@ from .interleave import (block_interleave, block_deinterleave,
                          forney_interleave, forney_deinterleave, forney_flush)
 from .sequential import (conv_encode_long, stack_decode, LL_POLY1,
                          LL_POLY2)
+from .bch_device import bch_decode_batch_device, rs_decode_batch_device

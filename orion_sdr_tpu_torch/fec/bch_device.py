@@ -201,6 +201,14 @@ def _gf_ops(device):
     return mul, inv
 
 
+def gf_inv(a, device=None) -> torch.Tensor:
+    """Elementwise inverse in GF(256) as int32, zero mapping to zero (the
+    JAX package's a^254). A tensor stays on its device; host data goes to
+    ``device`` (None: the card)."""
+    x = on_device(a, device, torch.int64)
+    return _gf_ops(x.device)[1](x).to(torch.int32)
+
+
 def _xor_last(x: torch.Tensor) -> torch.Tensor:
     """XOR-reduce the last axis."""
     out = x[..., 0]

@@ -146,7 +146,8 @@ def ldpc_encode(name: str, message, device=None) -> torch.Tensor:
 
 # the rules of the JAX bp_decode; its XLA path would decode any other string
 # (sum_product_edge included) as min-sum, so here they raise instead. The
-# edge-layout rule is reached through ops.bp_decode_pallas.
+# edge-layout rule is reached through ops.ldpc_bp.bp_decode_kernel (a graph)
+# or ops.bp_decode_pallas (the JAX package's graph key).
 DECODE_RULES = ("sum_product", "min_sum", "scaled_min_sum")
 
 
@@ -162,6 +163,7 @@ def bp_decode(g: LdpcGraph, llr, max_iter: int = 50,
     if rule not in DECODE_RULES:
         raise ValueError(f"unknown BP rule {rule!r} (expected one of "
                          f"{DECODE_RULES}; the edge-layout rule is "
+                         f"ops.ldpc_bp.bp_decode_kernel's and "
                          f"ops.bp_decode_pallas's)")
     llr = on_device(llr, device, torch.float32)
     lead = llr.shape[:-1]

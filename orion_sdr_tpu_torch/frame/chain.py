@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..dsp.device import on_device
 from ..fec.bch_device import (MAX_DEVICE_T, bch_decode_batch_device,
                               bch_encode_batch_device, bits_from_bytes,
                               bytes_from_bits, rs_decode_batch_device,
@@ -126,17 +127,27 @@ def _pn_bits(kind: ScramblerKind, per_frame_seed: int, n_bits: int) -> np.ndarra
     return np.unpackbits(scramble_bytes(kind, per_frame_seed, zero))[:n_bits]
 
 
-def scramble_bits(kind: ScramblerKind, per_frame_seed: int,
-                  bits: torch.Tensor) -> torch.Tensor:
-    """Bit-domain position: XOR the PN bit stream over a 1-D bit tensor."""
+def scramble_bits(kind: ScramblerKind, per_frame_seed: int, bits,
+                  device=None) -> torch.Tensor:
+    """Bit-domain position: XOR the PN bit stream over 1-D bits (uint8).
+    A tensor stays on its device; host data goes to ``device`` (None: the
+    card)."""
+    bits = on_device(bits, device, torch.uint8)
     pn = _pn_bits(kind, per_frame_seed, bits.shape[-1])
     return bits ^ torch.as_tensor(pn, device=bits.device)
 
 
-def apply_pn_to_llrs(kind: ScramblerKind, per_frame_seeds,
-                     llrs: torch.Tensor) -> torch.Tensor:
-    """Descramble (B, L) LLRs in the LLR domain: negate where the row's PN
-    bit is 1 (one seed per row)."""
+def apply_pn_to_llrs(kind: ScramblerKind, per_frame_seed: int, llrs,
+                     device=None) -> torch.Tensor:
+    """Descramble one frame's 1-D LLRs in the LLR domain: negate where the
+    PN bit is 1. Placement as :func:`scramble_bits`."""
+    return _apply_pn_rows(kind, [per_frame_seed],
+                          on_device(llrs, device, torch.float32)[None])[0]
+
+
+def _apply_pn_rows(kind: ScramblerKind, per_frame_seeds,
+                   llrs: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_pn_to_llrs` over (B, L) LLRs, one seed a row."""
     pn = np.stack([_pn_bits(kind, int(s), llrs.shape[-1])
                    for s in per_frame_seeds])
     flip = torch.as_tensor(pn, device=llrs.device) != 0
@@ -355,11 +366,12 @@ def outer_encode(outer: OuterFec, message_bytes, device=None):
     return out(bytes_to_bits(rs.encode(blocks).reshape(-1)))
 
 
-def inner_encode(inner: InnerFec, info_bits: torch.Tensor) -> torch.Tensor:
-    """1-D bit tensor → inner-coded bits on the same device: LDPC blocks
-    zero-padded to whole codewords and encoded in one batch, or the
-    zero-tailed punctured convolutional code."""
-    info_bits = info_bits.to(torch.uint8)
+def inner_encode(inner: InnerFec, info_bits, device=None) -> torch.Tensor:
+    """1-D bits → inner-coded bits (uint8): LDPC blocks zero-padded to
+    whole codewords and encoded in one batch, or the zero-tailed punctured
+    convolutional code. A tensor stays on its device; host data goes to
+    ``device`` (None: the card)."""
+    info_bits = on_device(info_bits, device, torch.uint8)
     if inner.kind == "none":
         return info_bits.clone()
     if inner.kind == "ldpc":
@@ -374,9 +386,13 @@ def inner_encode(inner: InnerFec, info_bits: torch.Tensor) -> torch.Tensor:
 def encode_chain(data_bytes, crc: str, outer: OuterFec, inner: InnerFec,
                  outer_il: InterleaverKind, inner_il: InterleaverKind,
                  scrambler: ScramblerKind, scrambler_pos: str,
-                 per_frame_seed: int, *, device) -> torch.Tensor:
+                 per_frame_seed: int, *, device=None) -> torch.Tensor:
     """bytes → CRC → [scramble] → outer → outer-IL → inner → inner-IL →
-    [scramble]; returns the coded bits (uint8) on ``device``, ready to map."""
+    [scramble]; returns the coded bits (uint8), ready to map, on ``device``
+    (None: a tensor's own device, the card for host bytes)."""
+    device = _outer_device(data_bytes, device)
+    if isinstance(data_bytes, torch.Tensor):
+        data_bytes = data_bytes.cpu().numpy()
     framed = append_crc(crc, data_bytes)
     if scrambler_pos == SCRAMBLER_BEFORE_OUTER:
         framed = scramble_bytes(scrambler, per_frame_seed, framed)
@@ -392,15 +408,17 @@ def encode_chain(data_bytes, crc: str, outer: OuterFec, inner: InnerFec,
 # ── decode side ──────────────────────────────────────────────────────────────
 
 
-def inner_decode_batch(inner: InnerFec, coded_llrs: torch.Tensor,
-                       info_len: int, ldpc_rule: str = "sum_product"):
-    """(B, L) LLR tensor → ((B, info) bit tensor, (B,) numpy ok): all
-    frames' FEC blocks decode in one launch. LDPC: each block's LLRs are
+def inner_decode_batch(inner: InnerFec, coded_llrs, info_len: int,
+                       ldpc_rule: str = "sum_product", device=None):
+    """(B, L) LLRs → ((B, info) bit tensor, (B,) numpy ok): all frames' FEC
+    blocks decode in one launch. A tensor stays on its device; host data
+    goes to ``device`` (None: the card). LDPC: each block's LLRs are
     scaled to RMS 4 first (the max-log demapper's outputs are not scaled by
     1/σ², and sum-product stalls on magnitudes ≪ 1; hard decisions are
     unaffected). Convolutional: a trellis of at most
     ``CONV_TERMINATED_MAX_INFO`` info bits decodes whole and terminated, a
     longer one overlap-chunked."""
+    coded_llrs = on_device(coded_llrs, device, torch.float32)
     nb = coded_llrs.shape[0]
     if inner.kind == "none":
         return (coded_llrs <= 0.0).to(torch.uint8), np.ones(nb, bool)
@@ -483,10 +501,13 @@ def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
     return np.unpackbits(msg.reshape(nb, -1), axis=1), ok
 
 
-def inner_decode(inner: InnerFec, coded_llrs: torch.Tensor, info_len: int,
-                 ldpc_rule: str = "sum_product"):
-    """1-D form of :func:`inner_decode_batch`: (info bits, all_ok)."""
-    bits, ok = inner_decode_batch(inner, coded_llrs[None], info_len, ldpc_rule)
+def inner_decode(inner: InnerFec, coded_llrs, info_len: int,
+                 ldpc_rule: str = "sum_product", device=None):
+    """1-D form of :func:`inner_decode_batch`: (info bits, all_ok), on the
+    same device rule."""
+    bits, ok = inner_decode_batch(
+        inner, on_device(coded_llrs, device, torch.float32)[None], info_len,
+        ldpc_rule)
     return bits[0], bool(ok[0])
 
 
@@ -499,23 +520,26 @@ def outer_decode(outer: OuterFec, coded_bits, device=None):
     return msg[0], bool(ok[0])
 
 
-def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
+def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
                        outer: OuterFec, inner: InnerFec,
                        outer_il: InterleaverKind, inner_il: InterleaverKind,
                        scrambler: ScramblerKind, scrambler_pos: str,
-                       per_frame_seeds, ldpc_rule: str = "sum_product"):
-    """decode_chain over B same-plan frames: (B, L) LLR tensor → (list of
-    byte arrays or None, (B,) ok). The inner code runs batched on the
-    device, the outer deinterleaver per frame (each row its own stream) and
-    the outer code batched (on the device past the block threshold), CRCs
-    per frame."""
+                       per_frame_seeds, ldpc_rule: str = "sum_product",
+                       device=None):
+    """decode_chain over B same-plan frames: (B, L) LLRs → (list of byte
+    arrays or None, (B,) ok). The inner code runs batched on the device,
+    the outer deinterleaver per frame (each row its own stream) and the
+    outer code batched (on the device past the block threshold), CRCs per
+    frame. A tensor stays on its device; host data goes to ``device``
+    (None: the card)."""
+    coded_llrs = on_device(coded_llrs, device, torch.float32)
     seeds = [int(s) for s in per_frame_seeds]
     llrs = coded_llrs[:, : plan.coded_bits]
     nb = llrs.shape[0]
     if len(seeds) != nb:
         raise ValueError(f"{len(seeds)} seeds for {nb} frames")
     if scrambler_pos == SCRAMBLER_AFTER_INNER and scrambler.kind != "none":
-        llrs = apply_pn_to_llrs(scrambler, seeds, llrs)
+        llrs = _apply_pn_rows(scrambler, seeds, llrs)
     inner_de = deinterleave_llrs(inner_il, llrs)[:, : plan.inner_coded_bits]
     inner_bits, inner_ok = inner_decode_batch(inner, inner_de,
                                               plan.outer_il_bits, ldpc_rule)
@@ -547,13 +571,15 @@ def decode_chain_batch(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
     return datas, oks
 
 
-def decode_chain(coded_llrs: torch.Tensor, plan: BlockPlan, crc: str,
+def decode_chain(coded_llrs, plan: BlockPlan, crc: str,
                  outer: OuterFec, inner: InnerFec, outer_il: InterleaverKind,
                  inner_il: InterleaverKind, scrambler: ScramblerKind,
                  scrambler_pos: str, per_frame_seed: int,
-                 ldpc_rule: str = "sum_product"):
-    """Inverse of encode_chain for one 1-D LLR tensor: (bytes, all_ok), or
-    raises RxError when the decoded frame is too short to hold its CRC."""
+                 ldpc_rule: str = "sum_product", device=None):
+    """Inverse of encode_chain for one frame's 1-D LLRs: (bytes, all_ok),
+    or raises RxError when the decoded frame is too short to hold its CRC.
+    Placement as :func:`decode_chain_batch`."""
+    coded_llrs = on_device(coded_llrs, device, torch.float32)
     datas, oks = decode_chain_batch(coded_llrs[None], plan, crc, outer, inner,
                                     outer_il, inner_il, scrambler,
                                     scrambler_pos, [per_frame_seed], ldpc_rule)

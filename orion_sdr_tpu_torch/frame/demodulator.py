@@ -18,8 +18,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..constellation import soft_llr, bits_per_symbol
-from ..dsp.device import sanitize_iq
+from ..constellation import BITS_PER_SYMBOL, bits_per_symbol, soft_llr
+from ..dsp.device import on_device, sanitize_iq, takes_host_data
 from ..dsp.osc import rotate
 from ..multicarrier import CarrierGrid, grid_extract, symbol_fft
 from ..ofdm import OfdmConfig, OfdmRxFrame, channel_estimate_denoise, \
@@ -38,9 +38,8 @@ class _Incomplete(Exception):
     """Streaming hold: not enough samples yet."""
 
 
-def soft_demap(cfg: OfdmConfig, constellation: str, iq: torch.Tensor,
-               n_symbols: int, estimate: Optional[torch.Tensor] = None
-               ) -> Optional[torch.Tensor]:
+def soft_demap(cfg: OfdmConfig, constellation: str, iq, n_symbols: int,
+               estimate=None, device=None) -> Optional[torch.Tensor]:
     """IQ (..., T) → LLRs (..., n_symbols·n_data·bps) for n_symbols OFDM
     symbols; None if iq is too short.
 
@@ -52,7 +51,11 @@ def soft_demap(cfg: OfdmConfig, constellation: str, iq: torch.Tensor,
     |h|²/mean_sym(|h|²). Then, in this order: DFT despreading
     (``transform_precoding``; it mixes every bin into every symbol, so no
     CSI weighting follows) and common-phase correction (``phase_tracking
-    == 'cpe'``)."""
+    == 'cpe'``). A tensor stays on its device; host data goes to
+    ``device`` (None: the card)."""
+    iq = on_device(iq, device, torch.complex64)
+    if estimate is not None:
+        estimate = on_device(estimate, iq.device, torch.complex64)
     g = CarrierGrid(cfg.carrier_plan)
     sps = g.n_fft + g.cp_len
     if iq.shape[-1] < n_symbols * sps:
@@ -89,6 +92,7 @@ def soft_demap(cfg: OfdmConfig, constellation: str, iq: torch.Tensor,
     return llr
 
 
+@takes_host_data("iq", "channel_estimate")
 def decode_frame_body(cfg: OfdmConfig, mcs_table: McsTable, iq: torch.Tensor,
                       channel_estimate: Optional[torch.Tensor] = None,
                       ) -> Tuple[FramePacket, int]:

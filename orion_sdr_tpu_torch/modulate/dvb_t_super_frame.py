@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..multicarrier import TxLowpass
-from ..waveform.dvb_t import DVB_T_FRAMES_PER_SUPER_FRAME, DvbTSuperFrameParams
+from ..waveform.dvb_t import (DVB_T_FRAMES_PER_SUPER_FRAME, DVB_T_N_FFT,
+                               DvbTSuperFrameParams)
 from .dvb_t_frame import DvbTFrameMod, _as_bytes
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..dsp.osc import rotate
 
 # FT8 protocol constants (public WSJT-X definition)
@@ -92,6 +93,7 @@ def ft4_data_positions() -> np.ndarray:
     return np.flatnonzero(~reserved)
 
 
+@takes_host_data("symbols")
 def cpfsk_mod(symbols: torch.Tensor, sps: int, fs: float, base_hz: float,
               spacing_hz: float, gain: float = 1.0, rf_hz: float = 0.0):
     """Phase-continuous rectangular FSK over a (n_syms,) tone-index tensor,
@@ -121,6 +123,7 @@ def cpfsk_mod(symbols: torch.Tensor, sps: int, fs: float, base_hz: float,
     return out
 
 
+@takes_host_data("tones")
 def cpfsk_mod_batch(tones: torch.Tensor, sps: int, fs: float, base_hz,
                     spacing_hz: float, gain: float = 1.0):
     """Batched phase-continuous FSK: (..., n_sym) tone tensor → (...,

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dsp.osc import TAU
 from ..codec.wspr import WSPR_FS, WSPR_SPS, wspr_symbols
 from .css import freq_to_iq
 

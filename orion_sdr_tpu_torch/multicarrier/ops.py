@@ -13,10 +13,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..constellation import map_bits, bits_per_symbol
 from .plan import CarrierGrid
 
 
+@takes_host_data("data_symbols")
 def grid_map(grid: CarrierGrid, data_symbols: torch.Tensor,
              pilot_bins=None, pilot_values=None) -> torch.Tensor:
     """Scatter dense data symbols (..., n_sym, n_data) into FFT bins →
@@ -46,6 +48,7 @@ def grid_map(grid: CarrierGrid, data_symbols: torch.Tensor,
     return src.gather(-1, idx.expand(d.shape[:-1] + (grid.n_fft,)))
 
 
+@takes_host_data("bits")
 def map_bits_grid(grid: CarrierGrid, bits: torch.Tensor, order: str
                   ) -> torch.Tensor:
     """Constellation map + grid placement with the grid's own pilots:
@@ -59,11 +62,13 @@ def map_bits_grid(grid: CarrierGrid, bits: torch.Tensor, order: str
     return grid_map(grid, syms)
 
 
+@takes_host_data("freq_symbols")
 def grid_extract(grid: CarrierGrid, freq_symbols: torch.Tensor) -> torch.Tensor:
     """(..., n_sym, n_fft) → (..., n_sym, n_data): gather the data bins."""
     return freq_symbols[..., grid.tensor("data_bins", freq_symbols.device)]
 
 
+@takes_host_data("freq_grid")
 def ofdm_assemble(freq_grid: torch.Tensor, cp_len: int,
                   taper: Optional[np.ndarray] = None) -> torch.Tensor:
     """IFFT + cyclic-prefix insert + optional per-symbol edge taper:
@@ -91,6 +96,7 @@ def symbol_taper(symbol_len: int, roll_off: int) -> Optional[np.ndarray]:
     return w
 
 
+@takes_host_data("time_stream")
 def symbol_fft(time_stream: torch.Tensor, n_fft: int, cp_len: int,
                backoff: int = 0, n_symbols: Optional[int] = None
                ) -> torch.Tensor:

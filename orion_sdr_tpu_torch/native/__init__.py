@@ -6,12 +6,18 @@ use into the port's build directory and bound with ctypes.
 The source is the port's own copy of the JAX package's ``native/
 orion_native.cpp``, kept byte for byte equal to it (a test holds the two
 together); nothing of that package is read or imported.
+
+``AVAILABLE`` (the JAX package's name) is True when the library builds and
+loads. The JAX package builds at import; the port probes on the first read
+of ``AVAILABLE`` (one g++ run, or the cached library) and keeps the answer,
+so importing the port never runs the compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
@@ -46,6 +52,26 @@ def load() -> ctypes.CDLL:
         lib.rs_encode_batch.restype = None
         _lib = lib
     return _lib
+
+
+_available = None
+
+
+def __getattr__(name):
+    global _available
+    if name == "AVAILABLE":
+        if _available is None:
+            try:
+                load()
+                _available = True
+            except (OSError, RuntimeError, subprocess.SubprocessError):
+                _available = False
+        return _available
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + ["AVAILABLE"])
 
 
 def _ptr(a: np.ndarray):

@@ -23,7 +23,7 @@ from .constellation import BITS_PER_SYMBOL, bits_per_symbol, decide, \
     map_bits, soft_llr
 from .multicarrier import CarrierPlan, CarrierGrid, TxLowpass, grid_extract, \
     grid_map, map_bits_grid, ofdm_assemble, symbol_fft, symbol_taper
-from .dsp.device import full_f32, on_device
+from .dsp.device import full_f32, on_device, takes_host_data
 from .dsp.osc import rotate
 
 EQUALIZER_FLOOR = 1e-6  # |h|² floor in ZF division
@@ -221,6 +221,7 @@ def carried_phase(phase0, device) -> torch.Tensor:
     return torch.tensor(np.float32(phase0), device=device)
 
 
+@takes_host_data("syms")
 def dft_precode(syms: torch.Tensor) -> torch.Tensor:
     """Unitary M-point DFT across the data-carrier axis (SC-FDMA TX
     spreading): X[k] = (1/√M)·Σₘ x[m]·e^(−2πi·mk/M)."""
@@ -229,6 +230,7 @@ def dft_precode(syms: torch.Tensor) -> torch.Tensor:
             * np.float32(1.0 / np.sqrt(m))).to(torch.complex64)
 
 
+@takes_host_data("syms")
 def dft_deprecode(syms: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`dft_precode` (RX despreading after the
     frequency-domain equalizer)."""
@@ -275,12 +277,14 @@ def ofdm_mod(cfg: OfdmConfig, bits, phase0: float = 0.0, pilot_bins=None,
     return t.to(torch.complex64), phase0
 
 
+@takes_host_data("freq_syms", "estimate")
 def zf_equalize(freq_syms: torch.Tensor, estimate: torch.Tensor) -> torch.Tensor:
     """Per-bin zero-forcing: x·conj(h)/max(|h|², 1e−6)."""
     mag2 = torch.clamp(estimate.abs() ** 2, min=EQUALIZER_FLOOR)
     return (freq_syms * torch.conj(estimate) / mag2).to(torch.complex64)
 
 
+@takes_host_data("freq_syms", "estimate")
 def mmse_equalize(freq_syms: torch.Tensor, estimate: torch.Tensor,
                   noise_var: float) -> torch.Tensor:
     """Per-bin LMMSE: x·conj(h)/(|h|² + σ²), σ² the complex noise variance
@@ -303,6 +307,7 @@ def channel_estimate_training(rx_training_freq, known_freq,
     return (rx / known).to(torch.complex64)
 
 
+@takes_host_data("estimate")
 def channel_estimate_denoise(estimate: torch.Tensor, cp_len: int,
                              backoff: int = 0, timing_slop: int = 4
                              ) -> torch.Tensor:
@@ -340,6 +345,7 @@ def _pilot_interp_matrix(pb_key: tuple, n_fft: int,
     return torch.as_tensor(W, device=device)
 
 
+@takes_host_data("syms")
 def cpe_raw_phases(syms: torch.Tensor, constellation: str) -> torch.Tensor:
     """Per-OFDM-symbol common-phase estimates, Viterbi & Viterbi style:
     ``syms`` (..., n_sym, n_data) equalized data cells → (..., n_sym)
@@ -350,6 +356,7 @@ def cpe_raw_phases(syms: torch.Tensor, constellation: str) -> torch.Tensor:
     return torch.angle(-(z2 * z2).sum(-1)) / 4.0
 
 
+@takes_host_data("raw")
 def cpe_unwrap(raw: torch.Tensor, constellation: str) -> torch.Tensor:
     """Cumulatively unwrap the modulus-π/2 (π for BPSK) phases along the
     symbol axis: each step takes the branch nearest the previous symbol's
@@ -361,6 +368,7 @@ def cpe_unwrap(raw: torch.Tensor, constellation: str) -> torch.Tensor:
                      dim=-1)
 
 
+@takes_host_data("syms")
 def cpe_correct(syms: torch.Tensor, constellation: str):
     """Estimate and remove per-symbol common phase error from equalized
     data cells (the ``phase_tracking='cpe'`` RX stage): raw phases →
@@ -396,6 +404,7 @@ def _interp_per_symbol(pb: torch.Tensor, ratio: torch.Tensor,
     return torch.where(x > xp[:, -1:], ratio[..., -1:], f)
 
 
+@takes_host_data("freq_syms")
 def channel_estimate_pilots(freq_syms: torch.Tensor, pilot_bins, pilot_values,
                             n_fft: int) -> torch.Tensor:
     """Per-symbol pilot interpolation: linear complex interpolation between

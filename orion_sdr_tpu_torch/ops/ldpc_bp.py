@@ -23,9 +23,11 @@ with nvcc at first use; any failure raises) and runs
 in the same fixed order and round every float operation alike (the edge
 rule's ``log``/``exp`` are the card's ``logf``/``expf`` in the kernel and
 torch's on the plain side), so on the card they agree bit for bit.
-:func:`bp_decode_pallas` is the entry point named after the JAX one, and
-the way to reach the edge rule: ``fec/ldpc.py::bp_decode`` takes only the
-three rules the JAX ``bp_decode`` implements.
+:func:`bp_decode_pallas` is the JAX package's entry point with its
+arguments and results (the graph by its key, the N-bit hard plane) over the
+same kernel, and with :func:`bp_decode_kernel` the way to reach the edge
+rule: ``fec/ldpc.py::bp_decode`` takes only the three rules the JAX
+``bp_decode`` implements.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from ..buildlib import NVCC_FLAGS_NO_FMA, PTR, INT, F32, CudaLib
+from ..dsp.device import pallas_placed
 
 RULES = ("sum_product", "min_sum", "scaled_min_sum", "sum_product_edge")
 # the kernel's rule codes: 1 is min-sum with the extrinsics scaled
@@ -208,9 +211,11 @@ def _check_update(msg, mask, rule: str, alpha: float):
 
 
 def bp_decode_reference(g, llr: torch.Tensor, max_iter: int = 50,
-                        rule: str = "sum_product", alpha: float = 0.75):
+                        rule: str = "sum_product", alpha: float = 0.75,
+                        store: str = "message"):
     """Plain torch BP over the whole batch on ``llr``'s device: (B, n) f32 →
-    (bits (B, k) uint8, unsat (B,) int32). Rows that reached a zero syndrome
+    (bits (B, k) uint8, unsat (B,) int32); ``store="codeword"`` returns all
+    n bits of the snapshot, (B, n). Rows that reached a zero syndrome
     keep iterating with the batch but can no longer change their snapshot,
     so each row's result is its own early-exit result."""
     _check_rule(rule)
@@ -246,7 +251,8 @@ def bp_decode_reference(g, llr: torch.Tensor, max_iter: int = 50,
         best = torch.where(better[:, None], hard, best)
         min_unsat = torch.where(better, unsat, min_unsat)
         msg = torch.where(mask, pad(total)[:, cb].reshape(B, m, D) - ext, 0.0)
-    return best[:, :t.k].to(torch.uint8), min_unsat
+    width = t.n if store == "codeword" else t.k
+    return best[:, :width].to(torch.uint8), min_unsat
 
 
 # ── CUDA kernel ──────────────────────────────────────────────────────────────
@@ -305,14 +311,20 @@ def launch_plan(g, rule: str, B: int, device=None) -> dict:
 
 
 def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
-                     rule: str = "sum_product", alpha: float = 0.75):
+                     rule: str = "sum_product", alpha: float = 0.75,
+                     store: str = "message"):
     """Batched BP decode: ``llr`` (B, n) contiguous float32 → (bits (B, k)
-    uint8, unsat (B,) int32) on the same device. A CUDA tensor launches the
-    kernel on :func:`launch_plan`'s grid; a CPU tensor runs
-    :func:`bp_decode_reference`. ``bp_decode_kernel.launches`` counts the
-    launches of the three slab rules, ``.launches_edge`` those of
+    uint8, unsat (B,) int32) on the same device. ``store="codeword"``
+    returns all n bits of each row's best snapshot, (B, n) uint8, in place
+    of its k message bits (the kernel's store width set to n). A CUDA
+    tensor launches the kernel on :func:`launch_plan`'s grid; a CPU tensor
+    runs :func:`bp_decode_reference`. ``bp_decode_kernel.launches`` counts
+    the launches of the three slab rules, ``.launches_edge`` those of
     ``sum_product_edge``."""
     _check_rule(rule)
+    if store not in ("message", "codeword"):
+        raise ValueError(f"store must be 'message' or 'codeword', "
+                         f"got {store!r}")
     if llr.dtype != torch.float32:
         raise TypeError(f"llr must be float32, got {llr.dtype}")
     if llr.dim() != 2 or llr.shape[1] != g.n:
@@ -320,11 +332,12 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
     if llr.device.type == "cpu":
-        return bp_decode_reference(g, llr, max_iter, rule, alpha)
+        return bp_decode_reference(g, llr, max_iter, rule, alpha, store)
     if llr.device.type != "cuda":
         raise ValueError(f"no BP kernel for device {llr.device}")
     B = llr.shape[0]
-    bits = torch.empty((B, g.k), dtype=torch.uint8, device=llr.device)
+    width = g.n if store == "codeword" else g.k
+    bits = torch.empty((B, width), dtype=torch.uint8, device=llr.device)
     unsat = torch.empty((B,), dtype=torch.int32, device=llr.device)
     if B == 0:
         return bits, unsat
@@ -333,7 +346,7 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     plan = _resident(t, code, llr.device)
     grid = min(B, plan["blocks_per_sm"] * plan["sms"])
     scale = float(alpha) if rule == "scaled_min_sum" else 1.0
-    _LIB.launch("ldpc_bp_decode", llr.device, llr.data_ptr(), B, t.n, t.k,
+    _LIB.launch("ldpc_bp_decode", llr.device, llr.data_ptr(), B, t.n, width,
                 t.m, t.D, t.C, t.check_slots.data_ptr(),
                 t.bit_slots.data_ptr(), int(max_iter), code, scale, grid,
                 plan["threads"], plan["smem"], bits.data_ptr(),
@@ -349,10 +362,73 @@ bp_decode_kernel.launches = 0
 bp_decode_kernel.launches_edge = 0
 
 
-def bp_decode_pallas(g, llr: torch.Tensor, max_iter: int = 50, *,
-                     rule: str = "sum_product", alpha: float = 0.75):
-    """Counterpart of ``orion_sdr_tpu.ops.bp_decode_pallas``: the batched BP
-    kernel under any of the four rules, ``sum_product_edge`` included.
-    Takes the graph itself and returns what :func:`bp_decode_kernel`
-    returns, (message bits (B, k) uint8, unsatisfied checks (B,) int32)."""
-    return bp_decode_kernel(g, llr, max_iter, rule, alpha)
+# ── the JAX package's entry points ───────────────────────────────────────────
+
+
+def graph_by_key(graph_key: str):
+    """The graph the JAX package names ``"name:n:k"``
+    (``orion_sdr_tpu/fec/ldpc.py::_graph_key``): a staircase code of
+    ``fec.ldpc.LDPC_CODES`` or FT8/FT4's ``ft8_174_91``. Raises KeyError
+    for any other key."""
+    from ..codec.ft8_ldpc import ft8_ldpc_graph
+    from ..fec.ldpc import LDPC_CODES, ldpc_graph
+    name, _, rest = graph_key.partition(":")
+    if name in LDPC_CODES:
+        g = ldpc_graph(name)
+    elif name == "ft8_174_91":
+        g = ft8_ldpc_graph()
+    else:
+        raise KeyError(graph_key)
+    if f"{g.name}:{g.n}:{g.k}" != graph_key:
+        raise KeyError(graph_key)
+    return g
+
+
+def bp_graph_fits(graph_key: str) -> bool:
+    """Whether the port's kernel takes the graph ``graph_key`` names: its
+    16-bit tables hold it (at most 65 535 bits and edge slots, check degree
+    1 to 32) and, on a card, one block's shared memory as the kernel's own
+    :func:`launch_plan` lays it out fits what a block may opt into there
+    (the plan raises when the kernel cannot be given it). With no card the
+    answer rests on the tables alone: the shared memory is the card's to
+    say. The JAX package's rule is the TPU's VMEM budget; this is the
+    card's."""
+    g = graph_by_key(graph_key)
+    if g.n > NO_BIT or g.m * g.max_deg >= NO_BIT or \
+            not 1 <= g.max_deg <= MAX_D:
+        return False
+    if not torch.cuda.is_available():
+        return True
+    build()                     # a build failure raises, it is no answer
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        plan = launch_plan(g, "sum_product", 1, dev)
+    except RuntimeError:        # the opt-in limit refused, or no block fits
+        return False
+    return plan["smem"] <= \
+        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def bp_decode_pallas(graph_key: str, llr, max_iter: int = 50,
+                     interpret=None, *, rule: str = "sum_product",
+                     alpha: float = 0.75, stall_iters: int = 12):
+    """Counterpart of ``orion_sdr_tpu.ops.bp_decode_pallas``, with its
+    arguments: the graph by its JAX key ``"name:n:k"`` (:func:`graph_by_key`)
+    and (B, N) LLRs under any of the four rules, ``sum_product_edge``
+    included. Returns (best (B, N) float32 hard plane of each row's best
+    snapshot, min_unsat (B,) int32), as the JAX wrapper does (whose plane
+    carries N padded to a multiple of 128 columns; the port's stops at N).
+
+    ``interpret=True`` or a CPU tensor runs the plain version
+    :func:`bp_decode_reference`; otherwise a tensor stays on its device and
+    host data goes to the card, where the kernel runs (it raises if it
+    cannot build or launch). ``stall_iters`` is accepted and has no effect:
+    the JAX kernel lets a row that has not improved for ``stall_iters``
+    iterations stop holding its tile of 128 rows, while the port's kernel
+    ends each row on its own at a zero syndrome or ``max_iter``. So the two
+    agree whenever ``stall_iters >= max_iter``."""
+    del stall_iters
+    best, unsat = bp_decode_kernel(graph_by_key(graph_key),
+                                   pallas_placed(llr, interpret), max_iter,
+                                   rule, alpha, store="codeword")
+    return best.to(torch.float32), unsat

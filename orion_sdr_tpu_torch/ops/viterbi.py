@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..buildlib import NVCC_FLAGS_NO_FMA as NVCC_FLAGS, PTR, INT, CudaLib
+from ..dsp.device import pallas_placed
 from ..fec.conv import CONV_CODES, _tables, depuncture_llrs, tail_bits
 
 # trellises longer than this keep their decisions in a global scratch buffer
@@ -426,3 +427,38 @@ viterbi_chunks_kernel.launches = 0
 viterbi_chunks_kernel.launches_radix4 = 0
 viterbi_decode_soft_kernel.launches = 0
 viterbi_decode_soft_kernel.launches_radix4 = 0
+
+
+# ── the JAX package's entry points ───────────────────────────────────────────
+
+
+def viterbi_chunks_pallas(c0, c1, pm0, code: str,
+                          interpret=None) -> torch.Tensor:
+    """Counterpart of ``orion_sdr_tpu.ops.viterbi_chunks_pallas``, with its
+    arguments and result: ``c0``/``c1`` (L, span) LLR pairs and ``pm0``
+    (L, S) initial metrics → (L, span) float32 bit planes, margins
+    included. ``interpret=True`` or a CPU tensor runs the plain version;
+    otherwise a tensor stays on its device and host data goes to the card,
+    where :func:`viterbi_chunks_kernel` launches (radix as
+    :func:`pick_radix` picks). Every span launches it: the JAX wrapper
+    sends odd spans to its jnp path because its Pallas kernel steps two
+    trellis stages at a time, and the radix-2 kernel here steps one."""
+    c0, c1, pm0 = (pallas_placed(x, interpret) for x in (c0, c1, pm0))
+    return viterbi_chunks_kernel(c0, c1, pm0, code).to(torch.float32)
+
+
+def viterbi_decode_soft_pallas(coded_llrs, info_bits: int, rate: str = "1/2",
+                               code: str = "k5",
+                               interpret=None) -> torch.Tensor:
+    """Counterpart of ``orion_sdr_tpu.ops.viterbi_decode_soft_pallas``, with
+    its arguments and result: (B, n_coded) or (n_coded,) punctured LLRs →
+    (B, info_bits) or (info_bits,) uint8, terminated. Placement as
+    :func:`viterbi_chunks_pallas`; the card runs
+    :func:`viterbi_decode_soft_kernel` for every trellis length, odd ones
+    included."""
+    llrs = pallas_placed(coded_llrs, interpret)
+    squeeze = llrs.dim() == 1
+    if squeeze:
+        llrs = llrs[None, :]
+    bits = viterbi_decode_soft_kernel(llrs, info_bits, rate, code)
+    return bits[0] if squeeze else bits

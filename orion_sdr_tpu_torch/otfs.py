@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .constellation import map_bits
+from .constellation import BITS_PER_SYMBOL, map_bits
 from .dsp.device import on_device
 from .dsp.osc import rotate
 from .multicarrier import grid_extract, grid_map, ofdm_assemble, \

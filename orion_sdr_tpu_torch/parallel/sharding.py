@@ -21,6 +21,7 @@ import torch
 from ..constellation import bits_per_symbol, soft_llr
 from ..dsp import fir as _fir
 from ..dsp.device import to_device
+from ..dsp.osc import TAU
 from .mesh import Mesh, all_gather, ppermute, shard, unshard
 
 _HOST_DTYPES = {np.dtype(np.float64): torch.float32,

@@ -23,6 +23,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
+
 
 @dataclass
 class Candidate:
@@ -87,6 +89,7 @@ def _shift_sum(cell, kernel, t_count, f_count, pad_top: int = 0):
     return score
 
 
+@takes_host_data("wf")
 def candidate_score_grid(wf: torch.Tensor, costas, sync_pos: Sequence[int],
                          num_tones: int, t_min: int, t_max: int):
     """Costas score grid over every (t, f) start: (..., S, B) waterfall →
@@ -119,6 +122,7 @@ def top_k_stable(flat: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+@takes_host_data("wf")
 def find_candidates(wf: torch.Tensor, costas, sync_pos: Sequence[int],
                     num_tones: int, t_min: int, t_max: int,
                     max_candidates: int) -> List[Candidate]:

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..waveform.dvb_t import continual_pilot_bins
 
 
@@ -84,6 +85,7 @@ def _gi_metrics(iq: torch.Tensor, n_fft: int, cp_len: int, search_len: int,
             float(phi[argmax]), complex(gamma[origin]), float(phi[origin]))
 
 
+@takes_host_data("iq")
 def dvb_t_gi_sync(iq: torch.Tensor, n_fft: int, cp_len: int, fs: float,
                   search_len: int, cfg: GiSyncConfig = GiSyncConfig()
                   ) -> Optional[GiSyncResult]:
@@ -114,6 +116,7 @@ def dvb_t_gi_sync(iq: torch.Tensor, n_fft: int, cp_len: int, fs: float,
     return GiSyncResult(start_sample=best_d, cfo_hz=cfo_hz, score=score)
 
 
+@takes_host_data("iq")
 def dvb_t_gi_refine(iq: torch.Tensor, n_fft: int, cp_len: int, fs: float,
                     coarse: int, radius: int,
                     cfg: GiSyncConfig = GiSyncConfig()

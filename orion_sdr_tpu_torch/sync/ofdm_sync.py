@@ -18,6 +18,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..dsp.osc import rotate
 from ..multicarrier import symbol_fft
 
@@ -103,6 +104,12 @@ def _sliding_sum(x: torch.Tensor, win: int) -> torch.Tensor:
     return c[..., win:] - c[..., :-win]
 
 
+# scores this close to the top are a tie, taken at the earliest offset
+# (orion_sdr_tpu/frame/demodulator.py's stream receiver, 1e-3)
+_NEAR_TOP = 1e-3
+
+
+@takes_host_data("iq")
 def sc_metric(iq: torch.Tensor, repeat_len: int, num_repeats: int):
     """S&C correlation P(d) (complex) and window energy R(d) for every
     candidate offset d, each of length len(iq) − num_repeats·repeat_len + 1."""
@@ -147,6 +154,7 @@ def _with_integer_cfo(iq, fs, preamble, res: OfdmSyncResult) -> OfdmSyncResult:
     return res._replace(integer_cfo_bins=k)
 
 
+@takes_host_data("iq")
 def ofdm_sync(iq: torch.Tensor, fs: float, preamble: OfdmPreamble,
               search_start: int = 0, search_end: Optional[int] = None,
               max_candidates: int = 8) -> List[OfdmSyncResult]:
@@ -169,14 +177,19 @@ def ofdm_sync(iq: torch.Tensor, fs: float, preamble: OfdmPreamble,
 
 def first_preamble(iq: torch.Tensor, fs: float, preamble: OfdmPreamble,
                    threshold: float) -> Optional[OfdmSyncResult]:
-    """The EARLIEST preamble whose score reaches ``threshold``: the peak of
-    the score within one preamble span after the first offset at or above
-    it, with its fractional and integer CFO; None if no offset reaches it.
+    """The EARLIEST preamble whose score reaches ``threshold``: within one
+    preamble span after the first offset at or above it, the earliest
+    offset whose score is within ``_NEAR_TOP`` of that span's peak (the JAX
+    receiver's rule among near-equal top scores), with its fractional and
+    integer CFO; None if no offset reaches it.
 
     A streaming receiver must take frames in order. The best-scoring
     candidate of :func:`ofdm_sync` can belong to a later frame when two
     preambles share the buffer, and decoding that one first would drain the
-    earlier frame with it."""
+    earlier frame with it. Within one preamble the metric's plateau can
+    peak a sample late, where the integer-CFO search on the training symbol
+    goes wrong; the earliest near-top offset is where the JAX receiver
+    decodes."""
     sc = sc_scores(iq, fs, preamble)
     if sc is None:
         return None
@@ -186,12 +199,15 @@ def first_preamble(iq: torch.Tensor, fs: float, preamble: OfdmPreamble,
         return None
     first = int(above[0, 0])
     span = preamble.repeat_len * preamble.num_repeats
-    d = first + int(torch.argmax(score[first:first + span]))
+    window = score[first:first + span]
+    near = torch.nonzero(window >= window.max() - _NEAR_TOP)
+    d = first + int(near[0, 0])
     return _with_integer_cfo(iq, fs, preamble, OfdmSyncResult(
         start_sample=d, cfo_hz=float(cfo[d]), integer_cfo_bins=0,
         score=float(score[d])))
 
 
+@takes_host_data("iq")
 def estimate_integer_cfo_bins(iq: torch.Tensor, fs: float,
                               training: TrainingSymbol, training_start: int,
                               fractional_cfo_hz: float) -> int:

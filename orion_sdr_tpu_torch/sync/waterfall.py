@@ -23,7 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..dsp.device import full_f32
+from ..dsp.device import full_f32, takes_host_data
 
 
 @lru_cache(maxsize=64)
@@ -49,6 +49,7 @@ def tone_matrix(fs: float, base_hz: float, tone_spacing_hz: float, sps: int,
     return w
 
 
+@takes_host_data("iq")
 def compute_waterfall(iq: torch.Tensor, fs: float, base_hz: float,
                       tone_spacing_hz: float, samples_per_sym: int,
                       num_syms: int, num_tones: int, time_offset: int = 0):

@@ -25,3 +25,7 @@ from .dvb_t_tps import (TpsWord, TpsDecoder, tps_bch_encode, tps_bch_decode,
 from .dvb_t_ts import (TS_PACKET_LEN, TS_PAYLOAD_LEN, TS_SYNC_BYTE,
                        ts_energy_disperse, ts_packetize, ts_null_packet,
                        ts_stuff_null_packets, ts_depacketize)
+from .dvb_t import dvb_t_map_symbol
+from .dvb_t_tps import (TPS_SYNC_WORD_13, TPS_SYNC_WORD_24, TPS_CODEWORD_BITS,
+                        TPS_INFO_BITS)
+from .dvb_t_ts import TS_SYNC_BYTE_INVERTED, TS_DISPERSAL_GROUP

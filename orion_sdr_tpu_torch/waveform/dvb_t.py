@@ -17,6 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dsp.device import takes_host_data
 from ..multicarrier import CarrierPlan
 
 # ── energy dispersal (EN 300 744 §4.3.1) ─────────────────────────────────────
@@ -101,6 +102,7 @@ def _point_table(v: int, alpha: int = 1) -> np.ndarray:
     return ((table[i_idx] + 1j * table[q_idx]) * scale).astype(np.complex64)
 
 
+@takes_host_data("bits")
 def dvb_t_map_symbols(bits: torch.Tensor, v: int, alpha: int = 1
                       ) -> torch.Tensor:
     """(..., n·v) bits → (..., n) complex64 points. Each axis is
@@ -124,6 +126,16 @@ def dvb_t_map_symbols(bits: torch.Tensor, v: int, alpha: int = 1
     return torch.complex(axis_val(g[..., 0::2]), axis_val(g[..., 1::2]))
 
 
+def dvb_t_map_symbol(bits):
+    """One symbol's v bits → its complex point (a Python complex), or None
+    when v is not a DVB-T order."""
+    b = np.asarray(bits.cpu() if isinstance(bits, torch.Tensor) else bits)
+    if len(b) not in DVB_T_AXIS:
+        return None
+    return complex(dvb_t_map_symbols(torch.as_tensor(b), len(b))[0])
+
+
+@takes_host_data("syms")
 def dvb_t_demap_symbols(syms: torch.Tensor, v: int, alpha: int = 1
                         ) -> torch.Tensor:
     """Hard nearest-point inverse → (..., n·v) uint8 bits."""
@@ -139,6 +151,7 @@ def dvb_t_demap_symbols(syms: torch.Tensor, v: int, alpha: int = 1
         .to(torch.uint8)
 
 
+@takes_host_data("syms")
 def dvb_t_soft_llrs(syms: torch.Tensor, v: int, alpha: int = 1
                     ) -> torch.Tensor:
     """Max-log LLRs in y0..y(v−1) order, positive ⇒ bit 0: (..., n) →
@@ -321,6 +334,7 @@ def _phase_symbols(n_sym: int, first_phase: int, phase: int) -> np.ndarray:
     return s[(s + first_phase) % DVB_T_SCATTERED_PHASES == phase]
 
 
+@takes_host_data("data_syms")
 def scattered_map_frame(data_syms: torch.Tensor, first_phase: int = 0
                         ) -> torch.Tensor:
     """TX: (..., n_sym, 1512) data points → (..., n_sym, 2048) frequency
@@ -342,6 +356,7 @@ def scattered_map_frame(data_syms: torch.Tensor, first_phase: int = 0
     return freq
 
 
+@takes_host_data("freq")
 def scattered_extract_frame(freq: torch.Tensor, first_phase: int = 0
                             ) -> torch.Tensor:
     """RX: (..., n_sym, 2048) equalised grids → (..., n_sym, 1512) data."""

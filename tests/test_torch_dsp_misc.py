@@ -28,10 +28,10 @@ import orion_sdr_tpu_torch.util as PU
 from orion_sdr_tpu_torch.dsp import agc as PA
 from orion_sdr_tpu_torch.dsp import fir as PF
 from orion_sdr_tpu_torch.dsp import osc as PO
-from orion_sdr_tpu_torch.dsp import resample as PRS
 from orion_sdr_tpu_torch.ops.onepole_two_rate import (
     onepole_two_rate, onepole_two_rate_reference)
 
+PRS = importlib.import_module("orion_sdr_tpu_torch.dsp.resample")
 JA = importlib.import_module("orion_sdr_tpu.dsp.agc")
 JF = importlib.import_module("orion_sdr_tpu.dsp.fir")
 JO = importlib.import_module("orion_sdr_tpu.dsp.osc")

@@ -385,3 +385,78 @@ def test_stream_takes_frames_in_order():
     assert [r.packet.metadata.sequence_num for r in got] == [0, 1, 2, 3]
     for r, p in zip(got, payloads):
         assert np.array_equal(r.packet.payload, p)
+
+
+def test_stream_start_behind_a_two_ray_echo_matches_jax():
+    """A frame behind an in-guard two-ray echo (delay 24, 0.45 at 0.9 rad),
+    12 Hz phase noise and 8 dB AWGN: the sync score's plateau peaks one
+    sample after the preamble's start, where the integer-CFO search lands
+    on the wrong bin. The port's ``first_preamble`` takes the earliest
+    offset within 1e-3 of the span's peak, as the JAX stream receiver does:
+    its start sample and integer CFO equal the JAX ones, its total CFO is
+    within 0.01 Hz of the JAX receiver's, and both receivers decode the
+    frame at that start."""
+    import importlib
+
+    from orion_sdr_tpu.channel import multipath_apply, phase_noise_apply
+    from orion_sdr_tpu.sync.ofdm_sync import ofdm_sync as jax_ofdm_sync
+    PS = importlib.import_module("orion_sdr_tpu_torch.sync.ofdm_sync")
+    plan = dict(n_fft=256, cp_len=64)
+    jc = JaxOfdmConfig(JaxPlan(**plan).with_contiguous_data(edge_guard=16),
+                       fs=FS).with_phase_tracking("cpe")
+    pc = P.OfdmConfig(P.CarrierPlan(**plan).with_contiguous_data(
+        edge_guard=16), fs=FS).with_phase_tracking("cpe")
+    jp = JaxPreamble(repeat_len=128, num_repeats=4).with_training_symbol(256, 64)
+    pp = P.OfdmPreamble(repeat_len=128, num_repeats=4).with_training_symbol(
+        256, 64)
+    rng = np.random.default_rng(7)
+    payload = rng.integers(0, 256, 400).astype(np.uint8)
+    iq = np.asarray(J.OfdmFrameMod(jc, J.McsTable.default_ladder(), jp)
+                    .modulate_frame(J.FramePacket(J.FrameMetadata(1, 1),
+                                                  payload), 0x1234))
+    buf = np.concatenate([np.zeros(5000, np.complex64), iq,
+                          np.zeros(2000, np.complex64)])
+    buf = np.asarray(multipath_apply(buf, [0, 24],
+                                     [1.0, 0.45 * np.exp(0.9j)]))
+    buf = np.asarray(phase_noise_apply(rng, buf, 12.0, FS))
+    sig = float(np.mean(np.abs(iq[jp.total_len():]) ** 2))
+    sigma = np.sqrt(sig / (2 * 10 ** 0.8))
+    buf = (buf + (rng.standard_normal(len(buf))
+                  + 1j * rng.standard_normal(len(buf))).astype(np.complex64)
+           * sigma).astype(np.complex64)
+
+    jrx = J.OfdmFrameStreamDemod(jc, J.McsTable.default_ladder(), jp)
+    thr = jrx.score_threshold
+    passing = [r for r in jax_ofdm_sync(buf, FS, jp, 0, len(buf))
+               if r.score >= thr]
+    top = max(r.score for r in passing)
+    want = min((r for r in passing if r.score >= top - 1e-3),
+               key=lambda r: r.start_sample)
+    jax_frames = [r for r in jrx.feed(buf) + jrx.flush()
+                  if isinstance(r, J.RxFrame)]
+    assert len(jax_frames) == 1
+    jd = jax_frames[0].diagnostics
+
+    x = torch.as_tensor(buf)
+    got = PS.first_preamble(x, FS, pp, thr)
+    assert got.start_sample == want.start_sample == jd.timing_offset_samples
+    assert got.integer_cfo_bins == want.integer_cfo_bins
+    spacing = FS / 256
+    assert got.cfo_hz + got.integer_cfo_bins * spacing == pytest.approx(
+        jd.cfo_hz, abs=1e-2)
+    # the case this covers: the span's argmax is later, with another bin
+    score, cfo = PS.sc_scores(x, FS, pp)[:2]
+    first = int(torch.nonzero(score >= thr)[0, 0])
+    late = first + int(torch.argmax(score[first:first + 512]))
+    assert late > got.start_sample
+    at_late = PS._with_integer_cfo(x, FS, pp, PS.OfdmSyncResult(
+        start_sample=late, cfo_hz=float(cfo[late]), integer_cfo_bins=0,
+        score=float(score[late])))
+    assert at_late.integer_cfo_bins != want.integer_cfo_bins
+
+    prx = P.OfdmFrameStreamDemod(pc, P.McsTable.default_ladder(), pp,
+                                 device="cpu")
+    ours = [r for r in prx.feed(buf) + prx.flush()
+            if isinstance(r, P.RxFrame)]
+    assert len(ours) == 1 and np.array_equal(ours[0].packet.payload, payload)
+    assert ours[0].diagnostics.timing_offset_samples == jd.timing_offset_samples

@@ -37,7 +37,11 @@ card against the CPU, the Block classes through their kernels, and
 checkpoints moving between the card and the CPU); and slice 7 (a mesh of
 eight shards of the card: the sharded FIR and OFDM demap, the sharded
 Viterbi's one launch a shard, and the sharded link metrics, each against
-the one-device path). They skip without a CUDA card.
+the one-device path); and the JAX package's three ``ops`` names (the BP
+kernel's whole-codeword store against the plain version, the message store
+of the main path unchanged beside it, the launch plan's shared memory as
+``bp_graph_fits`` computes it; the two Viterbi names through their
+kernels). They skip without a CUDA card.
 
 Run on a card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the repository's conftest pins JAX, which a card
@@ -1804,3 +1808,80 @@ def test_sharded_link_metrics_on_the_card(cuda):
         dim=(0, 1))
     got = P.parallel.power_spectrum_sharded(x, mesh, nfft=512)
     assert torch.allclose(got, ref, rtol=2e-4)
+
+
+# ── the JAX package's ops names ──────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("rule", ldpc_bp.RULES)
+@pytest.mark.parametrize("name", sorted(LDPC_CODES) + ["ft8_174_91"])
+def test_bp_codeword_store_matches_plain_version(cuda, name, rule):
+    g = ft8_ldpc.ft8_ldpc_graph() if name == "ft8_174_91" else \
+        ldpc_graph(name)
+    encode = (lambda m: ft8_ldpc.ldpc_encode(m)) if name == "ft8_174_91" \
+        else (lambda m: ldpc_encode(name, m))
+    _, llr = _llrs(g, encode, 300, 5, 40, 17, cuda)
+    before = (ldpc_bp.bp_decode_kernel.launches,
+              ldpc_bp.bp_decode_kernel.launches_edge)
+    kb, ku = ldpc_bp.bp_decode_kernel(g, llr, 40, rule, store="codeword")
+    rb, ru = ldpc_bp.bp_decode_reference(g, llr, 40, rule, store="codeword")
+    assert kb.shape == (340, g.n)
+    assert torch.equal(kb, rb) and torch.equal(ku, ru)
+    # the main path's message store: the codeword plane's first k bits,
+    # one launch each
+    mb, mu = ldpc_bp.bp_decode_kernel(g, llr, 40, rule)
+    assert mb.shape == (340, g.k)
+    assert torch.equal(mb, kb[:, :g.k]) and torch.equal(mu, ku)
+    after = (ldpc_bp.bp_decode_kernel.launches,
+             ldpc_bp.bp_decode_kernel.launches_edge)
+    assert sum(after) - sum(before) == 2
+    key = f"{g.name}:{g.n}:{g.k}"
+    pb, pu = P.ops.bp_decode_pallas(key, llr.cpu().numpy(), 40, rule=rule,
+                                    stall_iters=40)
+    assert pb.device.type == "cuda" and pb.dtype == torch.float32
+    assert torch.equal(pb, kb.to(torch.float32)) and torch.equal(pu, ku)
+    assert sum((ldpc_bp.bp_decode_kernel.launches,
+                ldpc_bp.bp_decode_kernel.launches_edge)) - sum(after) == 1
+
+
+@pytest.mark.parametrize("name", sorted(LDPC_CODES) + ["ft8_174_91"])
+def test_bp_graph_fits_reads_the_launch_plans_shared_memory(cuda, name):
+    g = ft8_ldpc.ft8_ldpc_graph() if name == "ft8_174_91" else \
+        ldpc_graph(name)
+    optin = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    for rule in ldpc_bp.RULES:
+        plan = ldpc_bp.launch_plan(g, rule, 64)
+        assert 0 < plan["smem"] <= optin and plan["blocks_per_sm"] >= 1
+    assert ldpc_bp.bp_graph_fits(f"{g.name}:{g.n}:{g.k}")
+
+
+@pytest.mark.parametrize("span, info", [(128, 200), (37, 97)])
+@pytest.mark.parametrize("code", ["k5", "dvb_k7"])
+def test_viterbi_pallas_names_launch_their_kernels(cuda, code, span, info):
+    """Even and odd lengths alike launch the kernel once (the port's radix-2
+    kernel has no even-length rule) and match the plain version exactly."""
+    rng = np.random.default_rng(23)
+    S = 64 if code == "dvb_k7" else 16
+    c0 = rng.integers(-8, 9, (40, span)).astype(np.float32)
+    c1 = rng.integers(-8, 9, (40, span)).astype(np.float32)
+    pm0 = rng.integers(-20, 1, (40, S)).astype(np.float32)
+    before = viterbi.viterbi_chunks_kernel.launches
+    got = P.ops.viterbi_chunks_pallas(c0, c1, pm0, code)
+    assert viterbi.viterbi_chunks_kernel.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = viterbi.viterbi_chunks_reference(
+        *(torch.as_tensor(x) for x in (c0, c1, pm0)), code)
+    assert torch.equal(got.cpu(), want.to(torch.float32))
+    bits = rng.integers(0, 2, (8, info)).astype(np.uint8)
+    llr = np.where(conv.conv_encode_punctured(
+        torch.as_tensor(bits), "3/4", code).numpy() == 0, 3.0,
+        -3.0).astype(np.float32)
+    before = viterbi.viterbi_decode_soft_kernel.launches
+    out = P.ops.viterbi_decode_soft_pallas(llr, info, "3/4", code)
+    assert viterbi.viterbi_decode_soft_kernel.launches == before + 1
+    assert out.device.type == "cuda"
+    assert np.array_equal(out.cpu().numpy(), bits)
+    plain = viterbi.viterbi_terminated_reference(torch.as_tensor(llr), info,
+                                                 "3/4", code)
+    assert torch.equal(out.cpu(), plain)

@@ -13,7 +13,13 @@ port's entry-point rule (``dsp.device.on_device``): with no device, numpy
 input asks for the card (a spy on ``on_device`` records the device each
 call resolves, and sends it to the CPU here); with ``device="cpu"`` the
 result equals the JAX function on the same numpy input; a tensor keeps its
-device.
+device. The same three checks hold ``SWEPT``: the frame chain
+(scramble_bits, apply_pn_to_llrs with the JAX contract, inner_encode,
+inner_decode, inner_decode_batch, encode_chain, decode_chain,
+decode_chain_batch) and ``frame/demodulator.py::soft_demap``, and the
+functions of modulate/, demodulate/, codec/, sync/, multicarrier/,
+waveform/ and ofdm.py that raised on numpy before they took host data
+through ``dsp.device.takes_host_data``.
 
 Tolerances: bits, codewords, decoded messages, blanked IQ and depunctured
 LLRs exact (Viterbi on integer-valued LLRs, BP on a clean-enough channel);
@@ -37,7 +43,6 @@ from orion_sdr_tpu_torch.dsp import fir as PF
 from orion_sdr_tpu_torch.dsp import iir as PI
 from orion_sdr_tpu_torch.dsp import osc as PO
 from orion_sdr_tpu_torch.dsp import recurrence as PR
-from orion_sdr_tpu_torch.dsp import resample as PRS
 from orion_sdr_tpu_torch.fec import bch_device as PB
 from orion_sdr_tpu_torch.fec import conv as PC
 from orion_sdr_tpu_torch.fec import ldpc as PL
@@ -46,6 +51,7 @@ from orion_sdr_tpu_torch.fec.galois import ReedSolomon
 JC = importlib.import_module("orion_sdr_tpu.fec.conv")
 JL = importlib.import_module("orion_sdr_tpu.fec.ldpc")
 JB = importlib.import_module("orion_sdr_tpu.fec.bch_device")
+PRS = importlib.import_module("orion_sdr_tpu_torch.dsp.resample")
 JF = importlib.import_module("orion_sdr_tpu.dsp.fir")
 JA = importlib.import_module("orion_sdr_tpu.dsp.agc")
 JDV = importlib.import_module("orion_sdr_tpu.dsp.device")
@@ -228,8 +234,11 @@ def _agree(ref, got, how, pick=_leaves):
         assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
         if how == "exact":
             assert np.array_equal(np.asarray(r), g.numpy())
-        else:
+        elif how == "close":
             close(r, g)
+        else:                               # an absolute tolerance
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                       atol=how)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -265,3 +274,376 @@ def test_tensor_input_keeps_its_device(name):
     the same result as numpy input with ``device="cpu"``."""
     _, call, _, x, how, *pick = CASES[name]
     _agree(call(x, device="cpu"), call(torch.as_tensor(x)), how, *pick)
+
+
+# ── frame/ and the rest of the package ───────────────────────────────────────
+#
+# Each public function outside fec/ and dsp/ that takes signal, bit or LLR
+# data and raised on numpy before: the frame chain and its demapper (their
+# own ``device=None``: the spy sits on the chain's or the demodulator's
+# ``on_device``, and on the chain's ``_outer_device`` for encode_chain, whose
+# device rule is the outer coders'), and the functions that take host data
+# through ``dsp.device.takes_host_data`` (the spy sits on dsp.device's
+# ``on_device``). Tolerances as above: bits, codewords, bytes, hard
+# decisions and detected offsets exact; IQ, spectra, LLRs and scores within
+# 1e-5 of the largest magnitude; the CPFSK modulators 1e-4 and 2e-3 absolute,
+# the tolerances of tests/test_torch_ft8_modem.py.
+
+JCH = importlib.import_module("orion_sdr_tpu.frame.chain")
+JDM = importlib.import_module("orion_sdr_tpu.frame.demodulator")
+JMC = importlib.import_module("orion_sdr_tpu.multicarrier.ops")
+JOF = importlib.import_module("orion_sdr_tpu.ofdm")
+JDT = importlib.import_module("orion_sdr_tpu.waveform.dvb_t")
+JDTF = importlib.import_module("orion_sdr_tpu.demodulate.dvb_t_frame")
+JPD = importlib.import_module("orion_sdr_tpu.demodulate.psk31")
+JFT = importlib.import_module("orion_sdr_tpu.modulate.ft8")
+JFL = importlib.import_module("orion_sdr_tpu.codec.ft8_ldpc")
+JCO = importlib.import_module("orion_sdr_tpu.sync.costas")
+JGI = importlib.import_module("orion_sdr_tpu.sync.dvb_t_gi_sync")
+JOS = importlib.import_module("orion_sdr_tpu.sync.ofdm_sync")
+JWF = importlib.import_module("orion_sdr_tpu.sync.waterfall")
+import orion_sdr_tpu as J  # noqa: E402
+PCH = importlib.import_module("orion_sdr_tpu_torch.frame.chain")
+PDM = importlib.import_module("orion_sdr_tpu_torch.frame.demodulator")
+PMC = importlib.import_module("orion_sdr_tpu_torch.multicarrier.ops")
+POF = importlib.import_module("orion_sdr_tpu_torch.ofdm")
+PDT = importlib.import_module("orion_sdr_tpu_torch.waveform.dvb_t")
+PDTF = importlib.import_module("orion_sdr_tpu_torch.demodulate.dvb_t_frame")
+PPD = importlib.import_module("orion_sdr_tpu_torch.demodulate.psk31")
+PFT = importlib.import_module("orion_sdr_tpu_torch.modulate.ft8")
+PFL = importlib.import_module("orion_sdr_tpu_torch.codec.ft8_ldpc")
+PCO = importlib.import_module("orion_sdr_tpu_torch.sync.costas")
+PGI = importlib.import_module("orion_sdr_tpu_torch.sync.dvb_t_gi_sync")
+POS = importlib.import_module("orion_sdr_tpu_torch.sync.ofdm_sync")
+PWF = importlib.import_module("orion_sdr_tpu_torch.sync.waterfall")
+
+R2 = np.random.default_rng(17)
+JCFG = J.OfdmConfig(J.CarrierPlan(64, 16).with_contiguous_data(), fs=48e3)
+PCFG = P.OfdmConfig(P.CarrierPlan(64, 16).with_contiguous_data(), fs=48e3)
+JGRID = J.CarrierGrid(JCFG.carrier_plan)
+PGRID = P.CarrierGrid(PCFG.carrier_plan)
+ND = PGRID.num_data_carriers
+CELLS = (R2.standard_normal((3, ND))
+         + 1j * R2.standard_normal((3, ND))).astype(np.complex64)
+FREQ = (R2.standard_normal((3, 64))
+        + 1j * R2.standard_normal((3, 64))).astype(np.complex64)
+H = (1.0 + 0.3 * R2.standard_normal(64)
+     + 0.3j * R2.standard_normal(64)).astype(np.complex64)
+GBITS = R2.integers(0, 2, 3 * ND * 2).astype(np.uint8)
+# three OFDM symbols with their 16-sample prefixes after 50 samples of noise
+STREAM = np.concatenate([
+    (0.05 * R2.standard_normal(50)).astype(np.complex64),
+    np.asarray(JMC.ofdm_assemble(FREQ, 16)).reshape(-1)]).astype(np.complex64)
+DVB_CELLS = (R2.standard_normal((4, 2048))
+             + 1j * R2.standard_normal((4, 2048))).astype(np.complex64)
+DVB_DATA = (R2.standard_normal((4, 1512))
+            + 1j * R2.standard_normal((4, 1512))).astype(np.complex64)
+DBITS = R2.integers(0, 2, 4 * 24).astype(np.uint8)
+TONES = R2.integers(0, 8, (2, 79))
+WF = R2.random((2, 79, 40)).astype(np.float32)
+COSTAS = [3, 1, 4, 0, 6, 5, 2]
+D_RE = R2.standard_normal(16).astype(np.float32)
+D_IM = R2.standard_normal(16).astype(np.float32)
+FT8_MSG = R2.integers(0, 2, 91).astype(np.uint8)
+IL = P.InterleaverKind.block(8, 12)
+JIL = J.InterleaverKind.block(8, 12)
+
+
+def _link():
+    """One COFDM frame body's arguments in both packages: conv 1/2 K=7 (dvb_k7)
+    inner code over RS(204, 188)-less framing, a block inner interleaver
+    and the additive scrambler after the inner code, and the frame's
+    noiseless ±4 LLRs."""
+    jin, pin = (J.InnerFec.convolutional("1/2", "dvb_k7"),
+                P.InnerFec.convolutional("1/2", "dvb_k7"))
+    jsc, psc = (J.ScramblerKind.additive(0b1001, 15, per_frame=True),
+                P.ScramblerKind.additive(0b1001, 15, per_frame=True))
+    none_o = (J.OuterFec.none(), P.OuterFec.none())
+    none_il = (J.InterleaverKind.none(), P.InterleaverKind.none())
+    data = R2.integers(0, 256, 40).astype(np.uint8)
+    jargs = ("crc16", none_o[0], jin, none_il[0], JIL, jsc,
+             JCH.SCRAMBLER_AFTER_INNER)
+    pargs = ("crc16", none_o[1], pin, none_il[1], IL, psc,
+             P.SCRAMBLER_AFTER_INNER)
+    coded = JCH.encode_chain(data, *jargs, 77)
+    llr = np.where(np.asarray(coded) == 0, 4.0, -4.0).astype(np.float32)
+    plan = JCH.block_plan(len(data), "crc16", none_o[0], jin, none_il[0], JIL)
+    pplan = PCH.block_plan(len(data), "crc16", none_o[1], pin, none_il[1], IL)
+    return data, jargs, pargs, llr, plan, pplan, jsc, psc
+
+
+DATA, JARGS, PARGS, LINK_LLR, JPLAN, PPLAN, JSC, PSC = _link()
+CONV_LLR = np.where(np.asarray(JCH.inner_encode(
+    J.InnerFec.convolutional("1/2", "dvb_k7"), BITS[0])) == 0, 3.0,
+    -3.0).astype(np.float32)
+LDPC_LLR = BP_LLR[0]
+PN_LLR = R2.standard_normal(300).astype(np.float32)
+DEMAP_IQ = np.asarray(JOF.ofdm_mod(JCFG, GBITS)[0]).astype(np.complex64)
+
+
+def _pair(out):
+    """(tensor, host ok/flag) results: the tensor, and the flag as one."""
+    return [out[0], torch.as_tensor(np.asarray(out[1]))]
+
+
+def _bytes_ok(out):
+    return [torch.as_tensor(np.asarray(out[0])),
+            torch.as_tensor(np.asarray(out[1]))]
+
+
+def _cands(out):
+    return [torch.as_tensor(np.array([[c.time_sym, c.freq_bin, c.score]
+                                      for c in out], np.float64))]
+
+
+def _gi(out):
+    return [torch.as_tensor(np.array([out.start_sample, out.cfo_hz,
+                                      out.score], np.float64))]
+
+
+def _sync(out):
+    return [torch.as_tensor(np.array([[c.start_sample, c.cfo_hz,
+                                       c.integer_cfo_bins, c.score]
+                                      for c in out], np.float64))]
+
+
+# name: (module whose resolver the spy wraps, that resolver's name, port
+# call on x with **kw, JAX result, host input, "exact" or "close"[, pick])
+SWEPT = {
+    # frame/chain.py and frame/demodulator.py
+    "scramble_bits": (PCH, "on_device", lambda x, **kw: PCH.scramble_bits(
+        PSC, 77, x, **kw), lambda: JCH.scramble_bits(JSC, 77, BITS[0]),
+        BITS[0], "exact"),
+    "apply_pn_to_llrs": (PCH, "on_device", lambda x, **kw: PCH.apply_pn_to_llrs(
+        PSC, 77, x, **kw), lambda: JCH.apply_pn_to_llrs(JSC, 77, PN_LLR),
+        PN_LLR, "exact"),
+    "inner_encode": (PCH, "on_device", lambda x, **kw: PCH.inner_encode(
+        P.InnerFec.ldpc(), x, **kw),
+        lambda: JCH.inner_encode(J.InnerFec.ldpc(), MSG[0]), MSG[0], "exact"),
+    "inner_decode": (PCH, "on_device", lambda x, **kw: PCH.inner_decode(
+        P.InnerFec.ldpc(), x, 256, **kw),
+        lambda: JCH.inner_decode(J.InnerFec.ldpc(), LDPC_LLR, 256), LDPC_LLR,
+        "exact", _pair),
+    "inner_decode_batch": (PCH, "on_device", lambda x, **kw:
+                           PCH.inner_decode_batch(
+                               P.InnerFec.convolutional("1/2", "dvb_k7"), x, 61,
+                               **kw),
+                           lambda: JCH.inner_decode_batch(
+                               J.InnerFec.convolutional("1/2", "dvb_k7"),
+                               CONV_LLR[None], 61), CONV_LLR[None], "exact",
+                           _pair),
+    "encode_chain": (PCH, "_outer_device", lambda x, **kw: PCH.encode_chain(
+        x, *PARGS, 77, **kw), lambda: JCH.encode_chain(DATA, *JARGS, 77),
+        DATA, "exact"),
+    "decode_chain": (PCH, "on_device", lambda x, **kw: PCH.decode_chain(
+        x, PPLAN, *PARGS, 77, **kw),
+        lambda: JCH.decode_chain(LINK_LLR, JPLAN, *JARGS, 77), LINK_LLR,
+        "exact", _bytes_ok),
+    "decode_chain_batch": (PCH, "on_device", lambda x, **kw:
+                           PCH.decode_chain_batch(x, PPLAN, *PARGS, [77, 77],
+                                                  **kw),
+                           lambda: JCH.decode_chain_batch(
+                               np.stack([LINK_LLR, LINK_LLR]), JPLAN, *JARGS,
+                               [77, 77]), np.stack([LINK_LLR, LINK_LLR]),
+                           "exact", lambda out: [torch.as_tensor(
+                               np.stack(out[0])), torch.as_tensor(out[1])]),
+    "soft_demap": (PDM, "on_device", lambda x, **kw: PDM.soft_demap(
+        PCFG, "qpsk", x, 3, **kw),
+        lambda: JDM.soft_demap(JCFG, "qpsk", DEMAP_IQ, 3), DEMAP_IQ, "close"),
+    # modulate/, demodulate/, codec/, sync/
+    "cpfsk_mod": (PDV, "on_device", lambda x, **kw: PFT.cpfsk_mod(
+        x, 64, 12000.0, 1000.0, 6.25, **kw),
+        lambda: JFT.cpfsk_mod(tuple(int(t) for t in TONES[0]), 64, 12000.0,
+                              1000.0, 6.25), TONES[0], 1e-4),
+    "cpfsk_mod_batch": (PDV, "on_device", lambda x, **kw: PFT.cpfsk_mod_batch(
+        x, 64, 12000.0, 1000.0, 6.25, **kw),
+        lambda: JFT.cpfsk_mod_batch(TONES, 64, 12000.0, 1000.0, 6.25),
+        TONES, 2e-3),
+    "scattered_equalize": (PDV, "on_device", lambda x, **kw:
+                           PDTF.scattered_equalize(x, 1, **kw),
+                           lambda: JDTF.scattered_equalize(DVB_CELLS, 1),
+                           DVB_CELLS, "close"),
+    "scattered_equalize_csi": (PDV, "on_device", lambda x, **kw:
+                               PDTF.scattered_equalize_csi(x, 1, **kw),
+                               lambda: JDTF.scattered_equalize_csi(
+                                   DVB_CELLS, 1), DVB_CELLS, "close"),
+    "hard_decide_dbpsk": (PDV, "on_device", lambda x, **kw:
+                          PPD.hard_decide_dbpsk(x, **kw),
+                          lambda: JPD.hard_decide_dbpsk(D_RE), D_RE,
+                          "exact"),
+    "hard_decide_dqpsk": (PDV, "on_device", lambda x, **kw:
+                          PPD.hard_decide_dqpsk(x, D_IM, **kw),
+                          lambda: JPD.hard_decide_dqpsk(D_RE, D_IM), D_RE,
+                          "exact"),
+    "ft8_ldpc_encode": (PDV, "on_device", lambda x, **kw: PFL.ldpc_encode(
+        x, **kw), lambda: JFL.ldpc_encode(FT8_MSG), FT8_MSG, "exact"),
+    "candidate_score_grid": (PDV, "on_device", lambda x, **kw:
+                             PCO.candidate_score_grid(x, COSTAS, [0, 36, 72],
+                                                      8, -2, 6, **kw),
+                             lambda: JCO.candidate_score_grid(
+                                 WF, COSTAS, [0, 36, 72], 8, -2, 6), WF,
+                             "close"),
+    "find_candidates": (PDV, "on_device", lambda x, **kw:
+                        PCO.find_candidates(x, COSTAS, [0, 36, 72], 8, -2, 6,
+                                            5, **kw),
+                        lambda: JCO.find_candidates(WF[0], COSTAS,
+                                                    [0, 36, 72], 8, -2, 6, 5),
+                        WF[0], "close", _cands),
+    "dvb_t_gi_sync": (PDV, "on_device", lambda x, **kw: PGI.dvb_t_gi_sync(
+        x, 64, 16, 48e3, 80, **kw),
+        lambda: JGI.dvb_t_gi_sync(STREAM, 64, 16, 48e3, 80), STREAM, "close",
+        _gi),
+    "dvb_t_gi_refine": (PDV, "on_device", lambda x, **kw:
+                        PGI.dvb_t_gi_refine(x, 64, 16, 48e3, 48, 6, **kw),
+                        lambda: JGI.dvb_t_gi_refine(STREAM, 64, 16, 48e3, 48,
+                                                    6), STREAM, "close", _gi),
+    "sc_metric": (PDV, "on_device", lambda x, **kw: POS.sc_metric(
+        x, 16, 2, **kw), lambda: JOS.sc_metric(STREAM, 16, 2), STREAM,
+        "close"),
+    "ofdm_sync": (PDV, "on_device", lambda x, **kw: POS.ofdm_sync(
+        x, 48e3, P.OfdmPreamble(32, 2), **kw),
+        lambda: JOS.ofdm_sync(STREAM, 48e3, J.OfdmPreamble(32, 2)), STREAM,
+        "close", _sync),
+    "compute_waterfall": (PDV, "on_device", lambda x, **kw:
+                          PWF.compute_waterfall(x, 12000.0, 1000.0, 6.25, 64,
+                                                3, 8, **kw),
+                          lambda: JWF.compute_waterfall(
+                              STREAM[:192], 12000.0, 1000.0, 6.25, 64, 3, 8),
+                          STREAM[:192], "close"),
+    # multicarrier/, waveform/, ofdm.py
+    "grid_map": (PDV, "on_device", lambda x, **kw: PMC.grid_map(
+        PGRID, x, **kw), lambda: JMC.grid_map(JGRID, CELLS), CELLS, "exact"),
+    "map_bits_grid": (PDV, "on_device", lambda x, **kw: PMC.map_bits_grid(
+        PGRID, x, "qpsk", **kw),
+        lambda: JMC.map_bits_grid(JGRID, GBITS, "qpsk"), GBITS, "close"),
+    "ofdm_assemble": (PDV, "on_device", lambda x, **kw: PMC.ofdm_assemble(
+        x, 16, **kw), lambda: JMC.ofdm_assemble(FREQ, 16), FREQ, "close"),
+    "symbol_fft": (PDV, "on_device", lambda x, **kw: PMC.symbol_fft(
+        x, 64, 16, **kw), lambda: JMC.symbol_fft(STREAM[50:], 64, 16),
+        STREAM[50:], "close"),
+    "dvb_t_map_symbols": (PDV, "on_device", lambda x, **kw:
+                          PDT.dvb_t_map_symbols(x, 4, **kw),
+                          lambda: JDT.dvb_t_map_symbols(DBITS, 4), DBITS,
+                          "exact"),
+    "dvb_t_demap_symbols": (PDV, "on_device", lambda x, **kw:
+                            PDT.dvb_t_demap_symbols(x, 4, **kw),
+                            lambda: JDT.dvb_t_demap_symbols(CELLS[0], 4),
+                            CELLS[0], "exact"),
+    "dvb_t_soft_llrs": (PDV, "on_device", lambda x, **kw:
+                        PDT.dvb_t_soft_llrs(x, 4, **kw),
+                        lambda: JDT.dvb_t_soft_llrs(CELLS[0], 4), CELLS[0],
+                        "close"),
+    "scattered_map_frame": (PDV, "on_device", lambda x, **kw:
+                            PDT.scattered_map_frame(x, 2, **kw),
+                            lambda: JDT.scattered_map_frame(DVB_DATA, 2),
+                            DVB_DATA, "exact"),
+    "scattered_extract_frame": (PDV, "on_device", lambda x, **kw:
+                                PDT.scattered_extract_frame(x, 2, **kw),
+                                lambda: JDT.scattered_extract_frame(
+                                    DVB_CELLS, 2), DVB_CELLS, "exact"),
+    "channel_estimate_denoise": (PDV, "on_device", lambda x, **kw:
+                                 POF.channel_estimate_denoise(x, 16, **kw),
+                                 lambda: JOF.channel_estimate_denoise(H, 16),
+                                 H, "close"),
+    "cpe_correct": (PDV, "on_device", lambda x, **kw: POF.cpe_correct(
+        x, "qpsk", **kw), lambda: JOF.cpe_correct(CELLS, "qpsk"), CELLS,
+        "close"),
+    "cpe_raw_phases": (PDV, "on_device", lambda x, **kw: POF.cpe_raw_phases(
+        x, "qpsk", **kw), lambda: JOF.cpe_raw_phases(CELLS, "qpsk"), CELLS,
+        "close"),
+    "cpe_unwrap": (PDV, "on_device", lambda x, **kw: POF.cpe_unwrap(
+        x, "qpsk", **kw), lambda: JOF.cpe_unwrap(D_RE, "qpsk"), D_RE,
+        "close"),
+    "dft_precode": (PDV, "on_device", lambda x, **kw: POF.dft_precode(
+        x, **kw), lambda: JOF.dft_precode(CELLS), CELLS, "close"),
+    "dft_deprecode": (PDV, "on_device", lambda x, **kw: POF.dft_deprecode(
+        x, **kw), lambda: JOF.dft_deprecode(CELLS), CELLS, "close"),
+    "zf_equalize": (PDV, "on_device", lambda x, **kw: POF.zf_equalize(
+        x, H, **kw), lambda: JOF.zf_equalize(FREQ, H), FREQ, "close"),
+    "mmse_equalize": (PDV, "on_device", lambda x, **kw: POF.mmse_equalize(
+        x, H, 0.1, **kw), lambda: JOF.mmse_equalize(FREQ, H, 0.1), FREQ,
+        "close"),
+}
+
+
+def _resolver_spy(mod, attr, asked, monkeypatch):
+    """Wrap ``mod.attr`` (an ``on_device`` or the chain's
+    ``_outer_device``) so that each call records the device it resolves
+    and then runs on the CPU."""
+    real = getattr(mod, attr)
+    if attr == "on_device":
+        def spy(x, device=None, dtype=None):
+            if device is None:
+                device = x.device if isinstance(x, torch.Tensor) else "cuda"
+            asked.append(torch.device(device).type)
+            return real(x, "cpu" if asked[-1] == "cuda" else device, dtype)
+    else:
+        def spy(x, device):
+            d = real(x, device)
+            asked.append(d.type)
+            return torch.device("cpu") if d.type == "cuda" else d
+    monkeypatch.setattr(mod, attr, spy)
+
+
+@pytest.mark.parametrize("name", sorted(SWEPT))
+def test_swept_numpy_input_asks_for_the_card_by_default(name, monkeypatch):
+    mod, attr, call, _, x, how, *pick = SWEPT[name]
+    asked = []
+    _resolver_spy(mod, attr, asked, monkeypatch)
+    got = call(x)
+    assert asked and asked[0] == "cuda"
+    monkeypatch.undo()
+    _agree(call(x, device="cpu"), got, how, *pick)
+
+
+@pytest.mark.parametrize("name", sorted(SWEPT))
+def test_swept_numpy_input_on_the_cpu_equals_jax(name):
+    _, _, call, jax_call, x, how, *pick = SWEPT[name]
+    _agree(jax_call(), call(x, device="cpu"), how, *pick)
+
+
+@pytest.mark.parametrize("name", sorted(SWEPT))
+def test_swept_tensor_input_keeps_its_device(name):
+    _, _, call, _, x, how, *pick = SWEPT[name]
+    _agree(call(x, device="cpu"), call(torch.as_tensor(x)), how, *pick)
+
+
+
+def _placed(x, y=None, scale=1.0):
+    """A decorated probe: where its array arguments ended up."""
+    return x, y, scale
+
+
+_probe = PDV.takes_host_data("x", "y")(_placed)
+_HOST = np.arange(4, dtype=np.float64)
+_T = torch.arange(4, dtype=torch.float32)
+
+# call → the devices its host arguments resolve to (none: the fast path)
+PATHS = {
+    "tensor": (lambda: _probe(_T), []),
+    "tensors": (lambda: _probe(_T, _T, 2.0), []),
+    "keywords": (lambda: _probe(x=_T, y=_T), []),
+    "device_given": (lambda: _probe(_T, device="cpu"), []),
+    "host": (lambda: _probe(_HOST), ["cuda"]),
+    "host_device_given": (lambda: _probe(_HOST, device="cpu"), ["cpu"]),
+    "host_after_tensor": (lambda: _probe(_T, _HOST), ["cpu"]),
+    "host_by_keyword": (lambda: _probe(x=_HOST, y=_T), ["cpu"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_takes_host_data_fast_and_bound_paths(name, monkeypatch):
+    """A call whose named arguments are all tensors skips the binding and
+    passes them through untouched; host data goes by ``on_device``'s rule
+    to the given device, else to the first tensor's, else to the card,
+    float64 narrowed to float32."""
+    call, want = PATHS[name]
+    asked = []
+    _resolver_spy(PDV, "on_device", asked, monkeypatch)
+    x, y, _ = call()
+    assert asked == want
+    for v in (x, y):
+        assert v is None or v is _T or (v.dtype == torch.float32
+                                        and torch.equal(v, _T))
+    if not want:
+        assert x is _T and (y is None or y is _T)

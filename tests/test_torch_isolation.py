@@ -1,6 +1,7 @@
 """The port stands alone: it builds its native host library from its own
-source, imports nothing of the JAX package (nor JAX; nor do chip_smoke.py
-and tools/torch_distributed_smoke.py), and its top level
+source, imports nothing of the JAX package (nor JAX; nor do chip_smoke.py,
+tools/torch_distributed_smoke.py, tools/gen_stub_torch.py and the thirteen
+examples under examples/torch/), and its top level
 carries the JAX package's names of the modules it has ported. Runs on the
 CPU: it reads the sources with ``ast``, imports no JAX module for the
 check, and builds nothing."""
@@ -49,10 +50,17 @@ def _imports(path):
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "torch_distributed_smoke.py")]
-    for d, _, names in os.walk(PORT):
-        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+             os.path.join(ROOT, "tools", "torch_distributed_smoke.py"),
+             os.path.join(ROOT, "tools", "gen_stub_torch.py")]
+    for top in (PORT, os.path.join(ROOT, "examples", "torch")):
+        for d, _, names in os.walk(top):
+            files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
+
+
+def test_the_ports_examples_are_all_checked():
+    ex = [p for p in _sources() if os.sep + "examples" + os.sep in p]
+    assert len(ex) == 13
 
 
 @pytest.mark.parametrize("path", _sources(),

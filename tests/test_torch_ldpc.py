@@ -132,9 +132,9 @@ def test_edge_rule_plain_matches_pallas_interpret(name):
     g = jax_ldpc_graph(name)
     best, mu = bp_decode_pallas(_graph_key(g), llr, 30, interpret=True,
                                 rule="sum_product_edge")
-    bits, unsat = port_bp_decode_pallas(ldpc_graph(name),
-                                        torch.as_tensor(llr), 30,
-                                        rule="sum_product_edge")
+    pbest, unsat = port_bp_decode_pallas(_graph_key(g), torch.as_tensor(llr),
+                                         30, rule="sum_product_edge")
+    bits = pbest[:, :g.k].to(torch.uint8)
     done = np.asarray(mu) == 0
     assert done.sum() >= 5 and (unsat.numpy() == 0).all()
     assert np.array_equal(bits.numpy()[done],
@@ -149,18 +149,22 @@ def test_edge_rule_plain_version(name):
     msg, llr = _case(name, 6, FLIPS[name], 7, garbage=2)
     g = ldpc_graph(name)
     x = torch.as_tensor(llr)
-    bits, unsat = port_bp_decode_pallas(g, x, 50, rule="sum_product_edge")
+    bits, unsat = ldpc_bp.bp_decode_kernel(g, x, 50, "sum_product_edge")
     sbits, sunsat = bp_decode(g, x, 50, "sum_product")
     assert bits.dtype == torch.uint8 and unsat.dtype == torch.int32
     assert (unsat.numpy()[:6] == 0).all()
     assert np.array_equal(bits.numpy()[:6], msg)
     assert np.array_equal(bits.numpy()[:6], sbits.numpy()[:6])
     assert (unsat.numpy()[6:] > 0).all()
-    # the alias takes every rule and gives what the wrapper gives
+    # the JAX entry point takes every rule by graph key and gives what the
+    # wrapper gives, on the whole codeword plane
     for rule in ldpc_bp.RULES:
-        a = port_bp_decode_pallas(g, x, 20, rule=rule, alpha=0.6)
+        a = port_bp_decode_pallas(f"{g.name}:{g.n}:{g.k}", x, 20, rule=rule,
+                                  alpha=0.6)
         b = ldpc_bp.bp_decode_kernel(g, x, 20, rule, 0.6)
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert a[0].shape == (x.shape[0], g.n) and a[0].dtype == torch.float32
+        assert torch.equal(a[0][:, :g.k].to(torch.uint8), b[0])
+        assert torch.equal(a[1], b[1])
 
 
 def test_jax_bp_decode_takes_the_edge_rule_as_min_sum_and_the_port_refuses():

@@ -34,8 +34,8 @@ from orion_sdr_tpu_torch.codec import varicode as PV
 from orion_sdr_tpu_torch.demodulate import psk31 as PD
 from orion_sdr_tpu_torch.modulate import psk31 as PM
 from orion_sdr_tpu_torch.ops.psk31_pll import psk31_pll
-from orion_sdr_tpu_torch.sync import psk31_sync as PY
 
+PY = importlib.import_module("orion_sdr_tpu_torch.sync.psk31_sync")
 JY = importlib.import_module("orion_sdr_tpu.sync.psk31_sync")
 
 torch.set_num_threads(1)
