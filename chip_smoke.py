@@ -6,13 +6,14 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 1. Environment: requires a CUDA card and the port's package beside the
    script (exits 1 otherwise, with the reason; there is no CPU path) and
    prints the card's name and power limit.
-2. Builds the eight kernels in parallel with nvcc, one process per source
+2. Builds the nine kernels in parallel with nvcc, one process per source
    (the LDPC belief-propagation kernel csrc/ldpc_bp.cu, the Viterbi kernel
    csrc/viterbi.cu, the BCH/RS outer-code kernel csrc/outer_fec.cu, the
    PSK31 PLL csrc/psk31_pll.cu, the two-rate one-pole
    csrc/onepole_two_rate.cu, the burst modem's DD-PLL csrc/dd_pll.cu and
-   Gardner loop csrc/gardner.cu, and the GPS tracking loops
-   csrc/gnss_track.cu), and
+   Gardner loop csrc/gardner.cu, the GPS tracking loops
+   csrc/gnss_track.cu and the QPSK31 batch Viterbi csrc/psk31_viterbi.cu),
+   and
    prints the BP kernel's build time and ptxas
    register/shared-memory report, then the BP launch for each code and rule
    at B=3072 (ops.ldpc_bp.launch_plan: threads a block, resident blocks an
@@ -198,9 +199,14 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 30. PSK31 receivers (tests/test_psk31.py's setups) on the card, each run's
    PLL launches counted from 0: psk31_decode_band on three BPSK31 texts off
    the waterfall grid and on a QPSK31 text; Psk31Stream at -5 dB (BPSK31)
-   and -6 dB (QPSK31), five seeds each; every text back. The batch
-   viterbi_decode (a torch loop, no kernel yet) on 16 x 2048 noisy symbols,
-   timed, exact against the CPU on two rows and every bit back.
+   and -6 dB (QPSK31), five seeds each; every text back. Then kernel H
+   (ptxas's report): codec.psk31's viterbi_decode on 16 x 2048 noisy
+   differential products and viterbi_decode_coherent on 16 x 2048 noisy
+   absolute symbols (noise 0.3 a component), one launch each, held to the
+   plain version (exact), every bit back, rows 0-1 equal to the CPU path;
+   the kernel and the plain version timed there (CUDA events) beside the
+   bound and the kernel's time a symbol; the kernel alone on one row of
+   120 000 symbols (an hour-long flush), timed, every bit back.
 31. The two-rate one-pole kernel against its plain version, exact, at 64 x
    8192 on agc_rms's real and complex powers (x^2 > env) and cw_mod's keys
    (target >= env), both timed; then agc_rms on 64 x 2^20 complex IQ
@@ -356,7 +362,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 49. The Block classes (slice 6b): 60 s of BPSK31 and QPSK31 text at 8 kHz
    through Bpsk31Mod/Bpsk31Demod/Bpsk31Decider and Qpsk31Demod.flush in
    4 096-sample process() calls (the text back, one PLL launch a call,
-   each held to the plain version); 10 s of Morse through CwKeyedMod at
+   each held to the plain version; the flush one launch of kernel H, held
+   to the plain version); 10 s of Morse through CwKeyedMod at
    48 kHz in 1 s calls (each kernel B launch held at every step);
    Ft8Codec.decode_soft on 256 noisy codewords, one call and one BP launch
    each (every payload back, each launch held); the analog and digital
@@ -382,7 +389,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    and relative); dvb_t_receive_sharded on 64 aligned QPSK r1/2 frames at
    10 dB (LLRs 1e-3, TPS cells 1e-4); psk31_demod_sharded on [49]'s 60 s of
    BPSK31 and QPSK31 (1e-5, one PLL launch a call) and the sharded stream
-   decode's texts; each against the port's one-device path on the card,
+   decode's texts (QPSK31's through one launch of kernel H); each against the port's one-device path on the card,
    on the same inputs (tests/test_parallel.py's tolerances). Then the
    capstones: dvb_t_decode_time_sharded on a 16-QAM r3/4 GI 1/32 capture
    at 18 dB and a noiseless one of tests/test_parallel.py's QPSK r1/2 GI
@@ -435,6 +442,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    batch, the sweeps and crossovers and the threshold; for the PSK31 PLL
    and the two-rate one-pole, which replace lax.scan recurrences, the
    launches by phase, the dependent steps a row and [28]-[30]'s rates;
+   for kernel H, which replaces the QPSK31 decoders' lax.scans, the
+   launches by phase ([30] by decoder, [49]'s flush, [51]), viterbi_decode's
+   times and bound at 16 x 2048, both decoders' readings (at 16 x 2048 and
+   the kernel alone at 1 x 120 000) under "by_decoder", its time a symbol
+   and ptxas's report for both;
    the two-rate one-pole's ms, plain_ms and bound_ms are at 64 x 8192,
    where the plain loop runs, and its 64 x 2^20 time and bound are under
    ms_full and bound_ms_full; for the DD-PLL, Gardner and tracking
@@ -557,6 +569,10 @@ FM_ROWS, FM_LOG2_N, FM_FS, FM_LP_HZ, FM_RUNS = 64, 20, 480e3, 5e3, 7
 FM_K = float(np.float32(1.0 / 75e3))
 FM_TONE_HZ, FM_DEV_HZ, FM_AUDIO_BW_HZ = 1000.0, 75e3, 5000.0
 PSK_FS, PSK_ROWS, PSK_BITS, PSK_RUNS = 8000.0, 16, 2048, 7
+# [30]'s batch Viterbi: noise a component on the unit symbols; kernel H's
+# float32 operations a symbol for its bound; the symbols of an hour-long
+# QPSK31 flush (31.25 baud), timed as one row
+PSK_VIT_NOISE, PSK_VIT_OPS, PSK_VIT_LONG = 0.3, 99, 120_000
 ONEPOLE_FS, ONEPOLE_ROWS, ONEPOLE_CMP, ONEPOLE_LOG2_N = 8000.0, 64, 8192, 20
 # slice 5a (phases 32-36): the JAX bench's family shapes (bench.py:742-815):
 # the PFB at C = 64, n = 2^20 (P = 12 taps a phase), the FM stereo program
@@ -2772,9 +2788,7 @@ def psk31_phase(P, pll, dev):
 def psk31_receivers(P, pll, dev):
     """[30]: tests/test_psk31.py's receivers on the card: the three-carrier
     band decode, the QPSK band smoke, the stream decoders at their floors
-    (five seeds each) and the batch Viterbi, timed. Returns {run: PLL
-    launches}."""
-    from orion_sdr_tpu_torch.codec import psk31 as C
+    (five seeds each). Returns {run: PLL launches}."""
     psk31_pll = pll.psk31_pll
     runs = {}
     fs, baud = PSK_FS, P.modulate.psk31.PSK31_BAUD
@@ -2846,28 +2860,91 @@ def psk31_receivers(P, pll, dev):
               f"({runs[f'30 stream {mode}']} PLL launches)")
         if ok != 5:
             fail(f"[30] the {mode} stream decoder lost a text at its floor")
-    rng = np.random.default_rng(5)
-    bits = rng.integers(0, 2, (PSK_ROWS, PSK_BITS)).astype(np.uint8)
-    pairs = []
-    for row in bits:
-        c = C.conv_encode(row)
-        d = C.DQPSK_EXP[c[0::2] * 2 + c[1::2]] + 0.3 * (
-            rng.standard_normal(PSK_BITS) + 1j * rng.standard_normal(PSK_BITS))
-        pairs.append(np.stack([d.real, d.imag], -1).astype(np.float32))
-    pairs = torch.as_tensor(np.stack(pairs), device=dev)
-    vit_ms, vit_runs = median_ms(lambda: C.viterbi_decode(pairs, device=dev),
-                                 3)
-    out = C.viterbi_decode(pairs, device=dev).cpu().numpy()
-    cpu = C.viterbi_decode(pairs[:2].cpu(), device="cpu").numpy()
-    print(f"  psk31 viterbi_decode (torch loop) on {PSK_ROWS} x {PSK_BITS} "
-          f"symbols: {vit_ms:.1f} ms (median of 3); bit errors "
-          f"{int((out != bits).sum())}; rows 0-1 equal to the CPU "
-          f"{np.array_equal(out[:2], cpu)}")
-    if not np.array_equal(out[:2], cpu) or (out != bits).any():
-        fail("[30] the batch Viterbi on the card")
     if min(runs.values()) <= 0:
         fail("[30] a PSK31 receiver launched no PLL kernel")
-    return runs, vit_ms
+    return runs
+
+
+def psk31_viterbi_bound(rows: int, n: int):
+    """Kernel H's bound from its inputs: a pair read (8 B) and a bit written
+    (1 B) a symbol; PSK_VIT_OPS float32 operations a symbol (four metrics,
+    32 adds, 16 compares, a 15-min reduction, 16 subtracts); the chain is n
+    dependent steps a row."""
+    return bound_ms(rows * n * 9, rows * n * PSK_VIT_OPS)
+
+
+def psk31_viterbi_phase(P, pv, dev):
+    """[30] (cont.): codec.psk31's batch decoders on PSK_ROWS x PSK_BITS
+    noisy symbols through kernel H (module ``pv``), each launch counted and
+    held to the plain version; every bit back, rows 0-1 equal to the CPU
+    path; the kernel and the plain version timed there beside the bound,
+    and the kernel alone on one row of PSK_VIT_LONG symbols (an hour-long
+    flush; every bit back). → ({run: launches}, max |kernel − plain|,
+    {decoder: readings})."""
+    from orion_sdr_tpu_torch.codec import psk31 as C
+    rng = np.random.default_rng(5)
+
+    def coded(rows, n):
+        """(sent bits, {coherent: (rows, n, 2) noisy pairs on the card})."""
+        bits = rng.integers(0, 2, (rows, n)).astype(np.uint8)
+        pairs = {False: [], True: []}
+        for row in bits:
+            c = C.conv_encode(row)
+            d = C.DQPSK_EXP[c[0::2] * 2 + c[1::2]]
+            for coh, sym in ((False, d), (True, np.cumprod(d))):
+                sym = sym + PSK_VIT_NOISE * (rng.standard_normal(n) + 1j
+                                             * rng.standard_normal(n))
+                pairs[coh].append(np.stack([sym.real, sym.imag], -1))
+        return bits, {k: torch.as_tensor(np.asarray(v, np.float32),
+                                         device=dev)
+                      for k, v in pairs.items()}
+    bits, rows = coded(PSK_ROWS, PSK_BITS)
+    long_bits, long_rows = coded(1, PSK_VIT_LONG)
+    runs, stats, err = {}, {}, 0.0
+    for name, fn, coherent in (
+            ("viterbi_decode", C.viterbi_decode, False),
+            ("viterbi_decode_coherent", C.viterbi_decode_coherent, True)):
+        pairs = rows[coherent]
+        pv.psk31_viterbi.launches = 0
+        with recording(C, "psk31_viterbi") as seen:
+            out = fn(pairs, device=dev)
+            torch.cuda.synchronize()
+        runs[f"30 {name}"] = n = pv.psk31_viterbi.launches
+        exact, e = held_to_plain(seen, pv.psk31_viterbi_reference)
+        err = max(err, e)
+        out = out.cpu().numpy()
+        cpu = fn(pairs[:2].cpu(), device="cpu").numpy()
+        k_ms = cuda_ms(lambda: pv.psk31_viterbi(pairs, coherent))
+        p_ms = cuda_ms(lambda: pv.psk31_viterbi_reference(pairs, coherent),
+                       reps=2, warmup=1)
+        bnd = psk31_viterbi_bound(PSK_ROWS, PSK_BITS)
+        long = long_rows[coherent]
+        long_errors = int((pv.psk31_viterbi(long, coherent).cpu().numpy()
+                           != long_bits).sum())
+        long_ms = cuda_ms(lambda: pv.psk31_viterbi(long, coherent), reps=3,
+                          warmup=1)
+        stats[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                       "bound_by": bnd[1],
+                       "us_per_symbol": k_ms / PSK_BITS * 1e3,
+                       "bit_errors": int((out != bits).sum()),
+                       f"ms_1x{PSK_VIT_LONG}": long_ms,
+                       f"us_per_symbol_1x{PSK_VIT_LONG}":
+                           long_ms / PSK_VIT_LONG * 1e3,
+                       f"bit_errors_1x{PSK_VIT_LONG}": long_errors}
+        print(f"  {name} (kernel H) on {PSK_ROWS} x {PSK_BITS} symbols at "
+              f"noise {PSK_VIT_NOISE:g}: {n} launch, equal to the plain "
+              f"version {exact}; bit errors {stats[name]['bit_errors']}; "
+              f"rows 0-1 equal to the CPU {np.array_equal(out[:2], cpu)}; "
+              f"kernel {k_ms:.4f} ms ({stats[name]['us_per_symbol']:.4f} us "
+              f"a symbol), plain {p_ms:.1f} ms, bound {bnd[0]:.6f} ms "
+              f"({bnd[1]}; {PSK_BITS} dependent steps a row); one row of "
+              f"{PSK_VIT_LONG}: {long_ms:.3f} ms "
+              f"({long_ms / PSK_VIT_LONG * 1e3:.4f} us a symbol), bit errors "
+              f"{long_errors}")
+        if (n != 1 or len(seen) != 1 or not exact or (out != bits).any()
+                or not np.array_equal(out[:2], cpu) or long_errors):
+            fail(f"[30] {name} through kernel H")
+    return runs, err, stats
 
 
 def onepole_steps_exact(one, x, env0, a_hi, a_lo, ge, env, last) -> bool:
@@ -5031,15 +5108,19 @@ def s6b_chunks(x, n):
     return [np.ascontiguousarray(x[i:i + n]) for i in range(0, len(x), n)]
 
 
-def psk31_blocks(P, pll, dev):
+def psk31_blocks(P, pll, pv, dev):
     """[49] BPSK31 and QPSK31 sessions through the blocks in 4096-sample
-    process() calls: → (PLL launches, max |kernel − plain|, readings)."""
+    process() calls: → (PLL launches, max |kernel − plain|, readings,
+    kernel H launches (the QPSK31 flush), its max |kernel − plain|)."""
+    from orion_sdr_tpu_torch.codec import psk31 as psk31_codec
     from orion_sdr_tpu_torch.demodulate import psk31 as psk31_mod
     fs = 8000.0
     text = s6b_psk_text(P, BLOCK_PSK_S, fs)
     out = {}
     pll.psk31_pll.launches = 0
-    with recording(psk31_mod, "psk31_pll") as seen:
+    pv.psk31_viterbi.launches = 0
+    with recording(psk31_mod, "psk31_pll") as seen, \
+            recording(psk31_codec, "psk31_viterbi") as seen_vit:
         for mode in ("bpsk", "qpsk"):
             mod = (P.Bpsk31Mod if mode == "bpsk" else P.Qpsk31Mod)(
                 fs, 1000.0, device=dev)
@@ -5076,6 +5157,13 @@ def psk31_blocks(P, pll, dev):
           f"{exact} (max |diff| {err:g})")
     if n != len(seen) or not exact:
         fail("[49] a PSK31 PLL launch differs from its plain version")
+    n_vit = pv.psk31_viterbi.launches
+    vit_exact, vit_err = held_to_plain(seen_vit, pv.psk31_viterbi_reference)
+    print(f"  kernel H launches {n_vit} (Qpsk31Demod.flush, "
+          f"{[tuple(a[0].shape) for a, _ in seen_vit]} pairs), against the "
+          f"plain version: exact {vit_exact}")
+    if n_vit != 1 or len(seen_vit) != 1 or not vit_exact:
+        fail("[49] Qpsk31Demod.flush's kernel H launch")
     for mode, o in out.items():             # timed apart from the counted run
         n_s = int(o["seconds_of_signal"] * fs)
         out[mode] = {**s6b_rate(
@@ -5084,7 +5172,7 @@ def psk31_blocks(P, pll, dev):
             f"its first {BLOCK_PSK_BUSY_CALLS} calls)", o.pop("run"), n_s,
             "Msps", n_s * 8, busy_fn=o.pop("busy_run")), **o,
             "busy_share_calls": BLOCK_PSK_BUSY_CALLS}
-    return n, err, out
+    return n, err, out, n_vit, vit_err
 
 
 def cw_block(P, one, dev):
@@ -5269,16 +5357,16 @@ def ofdm_blocks(P, dev):
     return out
 
 
-def blocks_phase(P, ldpc_bp, pll, one, dev):
+def blocks_phase(P, ldpc_bp, pll, one, pv, dev):
     """[49]: → ({kernel: launches}, {kernel: max |kernel − plain|},
     readings)."""
-    n_pll, pll_err, psk = psk31_blocks(P, pll, dev)
+    n_pll, pll_err, psk, n_vit, vit_err = psk31_blocks(P, pll, pv, dev)
     n_one, cw = cw_block(P, one, dev)
     n_bp, bp_err, ft8 = ft8_codec_block(P, ldpc_bp, dev)
     streams_ = stream_blocks(P, dev)
     ofdm = ofdm_blocks(P, dev)
-    return ({"bp": n_bp, "pll": n_pll, "one": n_one},
-            {"bp": bp_err, "pll": pll_err},
+    return ({"bp": n_bp, "pll": n_pll, "one": n_one, "vit": n_vit},
+            {"bp": bp_err, "pll": pll_err, "vit": vit_err},
             {"psk31": psk, "cw": cw, "ft8_codec": ft8, "chunked": streams_,
              "ofdm": ofdm})
 
@@ -5877,12 +5965,12 @@ def s7_two_processes(dev, bad):
     return {"ok": ok, "seconds": dt}
 
 
-def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
+def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, pv, dev):
     """[51] the multi-device layer on one Mesh of 8 shards of the card,
     each sharded path against the port's one-device path on the same
-    inputs; every BP, Viterbi, PSK31 PLL and outer-code launch recorded and
-    held to its plain version: → ({kernel: launches}, {kernel: max |kernel
-    − plain|}, readings)."""
+    inputs; every BP, Viterbi, PSK31 PLL, outer-code and kernel H launch
+    recorded and held to its plain version: → ({kernel: launches},
+    {kernel: max |kernel − plain|}, readings)."""
     from orion_sdr_tpu_torch import graft_entry
     from orion_sdr_tpu_torch import parallel as PP
     devs = [dev] * S7_SHARDS
@@ -5893,6 +5981,7 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     ldpc_bp.bp_decode_kernel.launches = 0
     zero_vit(viterbi)
     pll.psk31_pll.launches = 0
+    pv.psk31_viterbi.launches = 0
     OUTER.zero()
     with recording_kernel(ldpc_bp, "bp_decode_kernel",
                           ("launches", "launches_edge")) as seen_bp, \
@@ -5900,7 +5989,8 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
                              ("launches", "launches_radix4")) as seen_vit, \
             recording_kernel(pll, "psk31_pll") as seen_pll, \
             recording_kernel(outer_fec, "bch_decode_kernel") as seen_bch, \
-            recording_kernel(outer_fec, "rs_decode_kernel") as seen_rs:
+            recording_kernel(outer_fec, "rs_decode_kernel") as seen_rs, \
+            recording_kernel(pv, "psk31_viterbi") as seen_h:
         t0 = tick = time.perf_counter()
 
         def took():
@@ -5954,6 +6044,7 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     n_bp = ldpc_bp.bp_decode_kernel.launches
     n_vit = read_vit(viterbi)
     n_pll = pll.psk31_pll.launches
+    n_h = pv.psk31_viterbi.launches
     outer = OUTER.read("51")
     t2 = time.perf_counter()
     bp_exact, bp_err = held_to_plain(seen_bp, ldpc_bp.bp_decode_reference)
@@ -5964,23 +6055,26 @@ def parallel_phase(P, ldpc_bp, viterbi, pll, outer_fec, bd, dev):
     bch_exact, bch_err = held_to_plain(seen_bch,
                                        bd.bch_decode_batch_reference)
     rs_exact, rs_err = held_to_plain(seen_rs, bd.rs_decode_batch_reference)
+    h_exact, h_err = held_to_plain(seen_h, pv.psk31_viterbi_reference)
     out["held_s"] = time.perf_counter() - t2
     print(f"  [51] launches: BP {n_bp}, Viterbi radix 2 {n_vit[0]} radix 4 "
           f"{n_vit[1]}, PSK31 PLL {n_pll}, BCH {outer['bch']}, RS "
-          f"{outer['rs']}; each against its plain version on its own inputs "
+          f"{outer['rs']}, kernel H {n_h} (the sharded QPSK31 text); each "
+          f"against its plain version on its own inputs "
           f"({out['held_s']:.1f} s): exact {bp_exact}, {vit_exact}, "
-          f"{pll_exact}, {bch_exact}, {rs_exact}")
+          f"{pll_exact}, {bch_exact}, {rs_exact}, {h_exact}")
     if (bad or n_bp <= 0 or n_vit[0] <= 0 or n_vit[1] or n_pll <= 0
-            or outer["rs"] <= 0
-            or (n_bp, n_vit[0], n_pll, outer["bch"], outer["rs"])
+            or outer["rs"] <= 0 or n_h != 1
+            or (n_bp, n_vit[0], n_pll, outer["bch"], outer["rs"], n_h)
             != (len(seen_bp), len(seen_vit), len(seen_pll), len(seen_bch),
-                len(seen_rs))
+                len(seen_rs), len(seen_h))
             or not (bp_exact and vit_exact and pll_exact and bch_exact
-                    and rs_exact)):
+                    and rs_exact and h_exact)):
         fail(f"[51] the multi-device layer: {bad}")
-    return ({"bp": n_bp, "vit": n_vit, "pll": n_pll, "outer": outer},
+    return ({"bp": n_bp, "vit": n_vit, "pll": n_pll, "outer": outer,
+             "h": n_h},
             {"bp": bp_err, "vit": vit_err, "pll": pll_err,
-             "outer": max(bch_err, rs_err), "paths": errs}, out)
+             "outer": max(bch_err, rs_err), "h": h_err, "paths": errs}, out)
 
 
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -6085,7 +6179,7 @@ def ops_names_on_card(P, ldpc_bp, viterbi, dev):
 
 
 def examples_phase(P, ldpc_bp, viterbi, pll, one, outer_fec, bd, tk, dd, ga,
-                   dev):
+                   pv, dev):
     """[52] the port's thirteen examples on the card, two runs each, every
     launch of a hand-written kernel recorded and held to its plain version:
     → ({kernel: launches of the phase}, {kernel: max |kernel − plain|},
@@ -6113,6 +6207,8 @@ def examples_phase(P, ldpc_bp, viterbi, pll, one, outer_fec, bd, tk, dd, ga,
         "dd": (dd, "dd_pll", ("launches",), dd.dd_pll_reference),
         "gardner": (ga, "gardner", ("launches",),
                     lambda *a: gardner_plain(ga, *a)),
+        "psk31_viterbi": (pv, "psk31_viterbi", ("launches",),
+                          pv.psk31_viterbi_reference),
     }
     names = sorted(EXAMPLE_CHECKS)
     found = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
@@ -6203,12 +6299,13 @@ def main() -> int:
     from orion_sdr_tpu_torch.frame import chain
     from orion_sdr_tpu_torch.ops import onepole_two_rate, psk31_pll
     from orion_sdr_tpu_torch.ops import dd_pll, gardner, gnss_track
-    with ThreadPoolExecutor(8) as pool:       # one nvcc per source, together
+    from orion_sdr_tpu_torch.ops import psk31_viterbi
+    with ThreadPoolExecutor(9) as pool:       # one nvcc per source, together
         builds = [pool.submit(m.build) for m in (
             ldpc_bp, viterbi, outer_fec, psk31_pll, onepole_two_rate, dd_pll,
-            gardner, gnss_track)]
+            gardner, gnss_track, psk31_viterbi)]
         (built, vit_built, outer_built, pll_built, one_built, dd_built,
-         ga_built, tk_built) = [b.result() for b in builds]
+         ga_built, tk_built, h_built) = [b.result() for b in builds]
     global OUTER
     OUTER = OuterSpy(chain, outer_fec, bch_device)
     print(f"[2] built {built.path} in {built.seconds:.2f} s")
@@ -6385,10 +6482,13 @@ def main() -> int:
     print(f"  [29] took {time.perf_counter() - t_s4:.1f} s")
     t_s4 = time.perf_counter()
     print("[30] PSK31 receivers: three-carrier band decode, QPSK band, "
-          "Psk31Stream at -5 / -6 dB (five seeds each), batch Viterbi")
-    runs30, vit_psk_ms = psk31_receivers(P, psk31_pll, dev)
-    pll_runs.update(runs30)
+          "Psk31Stream at -5 / -6 dB (five seeds each), batch Viterbi "
+          "(kernel H)")
+    pll_runs.update(psk31_receivers(P, psk31_pll, dev))
     print(f"  PLL launches by phase: {pll_runs}")
+    print(f"  built {h_built.path} in {h_built.seconds:.2f} s")
+    print_ptxas(h_built)
+    h_runs, h_err, h_stats = psk31_viterbi_phase(P, psk31_viterbi, dev)
     print(f"  [30] took {time.perf_counter() - t_s4:.1f} s")
     t_s4 = time.perf_counter()
     print(f"[31] two-rate one-pole kernel: agc_rms (real, complex) and cw_mod "
@@ -6549,9 +6649,12 @@ def main() -> int:
           f"codewords, 2^{BLOCK_LOG2_N} samples of the analog and digital "
           f"blocks in 2^{BLOCK_LOG2_CHUNK}-sample calls, OfdmMod/OfdmDemod")
     n49, err49, blocks49_stats = blocks_phase(P, ldpc_bp, psk31_pll,
-                                              onepole_two_rate, dev)
+                                              onepole_two_rate, psk31_viterbi,
+                                              dev)
     bp_runs["49"], pll_runs["49"], one_runs["49"] = (n49["bp"], n49["pll"],
                                                      n49["one"])
+    h_runs["49 flush"] = n49["vit"]
+    h_err = max(h_err, err49["vit"])
     max_err = max(max_err, err49["bp"])
     print(f"  [49] took {time.perf_counter() - t_s6:.1f} s")
     t_s6 = time.perf_counter()
@@ -6577,7 +6680,10 @@ def main() -> int:
     outer_err = max(outer_err, err_rest)
     outer_held_n = {k: outer_held_n[k] + n_rest[k] for k in outer_held_n}
     n51, err51, par51_stats = parallel_phase(P, ldpc_bp, viterbi, psk31_pll,
-                                             outer_fec, bch_device, dev)
+                                             outer_fec, bch_device,
+                                             psk31_viterbi, dev)
+    h_runs["51"] = n51["h"]
+    h_err = max(h_err, err51["h"])
     bp_runs["51"], vit_runs["51"], pll_runs["51"] = (n51["bp"], n51["vit"],
                                                      n51["pll"])
     outer_runs["51"] = n51["outer"]
@@ -6611,11 +6717,12 @@ def main() -> int:
     OUTER.zero()
     n52, err52, examples52 = examples_phase(
         P, ldpc_bp, viterbi, psk31_pll, onepole_two_rate, outer_fec,
-        bch_device, gnss_track, dd_pll, gardner, dev)
+        bch_device, gnss_track, dd_pll, gardner, psk31_viterbi, dev)
     outer_runs["52"] = OUTER.read("52")
     for runs, key in ((bp_runs, "bp"), (pll_runs, "pll"),
                       (one_runs, "one"), (tk_runs, "track"),
-                      (dd_runs, "dd"), (ga_runs, "gardner")):
+                      (dd_runs, "dd"), (ga_runs, "gardner"),
+                      (h_runs, "psk31_viterbi")):
         if n52[key]:
             runs["52"] = n52[key]
     vit_runs["52"] = (n52["vit"] + n52["vit_t"], 0)
@@ -6624,6 +6731,9 @@ def main() -> int:
     outer_err = max(outer_err, err52["bch"], err52["rs"])
     pll6b_err = max(pll6b_err, err52["pll"])
     tk_err = max(tk_err, err52["track"])
+    h_err = max(h_err, err52["psk31_viterbi"])
+    print(f"  kernel H (QPSK31 batch Viterbi) launches by phase: {h_runs}, "
+          f"each held to its plain version (max |diff| {h_err:g})")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
@@ -6737,8 +6847,7 @@ def main() -> int:
                      for q, mode in enumerate(("bpsk", "qpsk"))},
               qpsk={k: v for k, v in pll_stats["qpsk"].items()
                     if k != "bound"},
-              psk31_roundtrip=psk_stats, fm_demod_chain=fm_stats,
-              viterbi_decode_torch_loop_ms=vit_psk_ms),
+              psk31_roundtrip=psk_stats, fm_demod_chain=fm_stats),
         entry("onepole_two_rate", "onepole_two_rate.cu",
               "orion_sdr_tpu/dsp/agc.py:59", sum(one_runs.values()),
               one_stats["max_abs_err"], one_stats["ms"],
@@ -6817,7 +6926,33 @@ def main() -> int:
               ephemeris_epochs=tk_stats["ephemeris_epochs"],
               ephemeris_launch_ms=tk_stats["ephemeris_launch_ms"],
               ephemeris_window_misses=tk_stats[
-                  "ephemeris_window_misses"])],
+                  "ephemeris_window_misses"]),
+        entry("psk31_viterbi", "psk31_viterbi.cu",
+              "orion_sdr_tpu/codec/psk31.py:111", sum(h_runs.values()),
+              h_err, h_stats["viterbi_decode"]["ms"],
+              h_stats["viterbi_decode"]["plain_ms"],
+              (h_stats["viterbi_decode"]["bound_ms"],
+               h_stats["viterbi_decode"]["bound_by"]),
+              pallas_counterpart=None,
+              note="no Pallas kernel in the JAX package computes this: it "
+                   "replaces the lax.scans of viterbi_decode "
+                   "(codec/psk31.py:111-135), viterbi_decode_coherent "
+                   "(:139-164) and their traceback (:98-107); latency-bound "
+                   "by design (one row a thread, the 16 metrics in "
+                   "registers, each tile's branch terms formed by the whole "
+                   "warp in shared memory before the chains run through "
+                   "it, masks step-major); ms, plain_ms and "
+                   "bound_ms are viterbi_decode's at "
+                   f"{PSK_ROWS}x{PSK_BITS}; by_decoder holds both decoders' "
+                   f"readings, with the kernel alone at 1x{PSK_VIT_LONG}",
+              also_replaces="orion_sdr_tpu/codec/psk31.py:139",
+              launches_by_phase=h_runs, shape=f"{PSK_ROWS}x{PSK_BITS}",
+              chain_steps_per_row=PSK_BITS,
+              us_per_symbol=h_stats["viterbi_decode"]["us_per_symbol"],
+              by_decoder=h_stats,
+              ptxas={mode: ptxas_report(h_built,
+                                        f"psk31_viterbi_kernelILb{c}E")
+                     for c, mode in enumerate(("noncoherent", "coherent"))})],
         "slice5": {"32 pfb_channelizer_throughput": pfb_stats,
                    "33 band_receivers": band_stats,
                    "34 fm_stereo_rds_throughput": stereo_stats,

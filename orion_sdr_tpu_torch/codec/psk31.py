@@ -8,12 +8,12 @@ G0 = 0o25 = 0b10101, G1 = 0o23 = 0b10011. For input x[n] the coded pair is
 most recent inputs, newest at bit 3).
 
 The encoder is a shift-XOR in numpy. The batch decoders
-(:func:`viterbi_decode`, :func:`viterbi_decode_coherent`) run the JAX
-package's ``lax.scan`` as a torch loop over symbols, every row of the
-leading axes and all 16 states at once, on the input's device: the
-first-index tie rule of ``argmin`` and the per-step renormalisation are
-kept. They are off the receive path (the text pipeline decodes with the
-fixed-lag :class:`StreamingViterbi`, a numpy copy) and have no kernel yet.
+(:func:`viterbi_decode`, :func:`viterbi_decode_coherent`) decode every row
+of the leading axes in one launch of the kernel ``csrc/psk31_viterbi.cu``
+on a CUDA device, forward pass and traceback, or run its plain torch
+version on the CPU (``ops/psk31_viterbi.py``), with the JAX scans' branch
+metrics, tie rules and per-step renormalisation. The text pipeline
+decodes with the fixed-lag :class:`StreamingViterbi`, a numpy copy.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..dsp.device import to_device
+from ..ops.psk31_viterbi import psk31_viterbi
 
 NUM_STATES = 16
 TRACEBACK_DEPTH = 32  # fldigi-style fixed lag; textbook 5·(K−1)=20 + margin
@@ -83,81 +84,20 @@ def _trellis():
 _INF = np.float32(3.0e38) / 2
 
 
-def _acs_tables(device):
-    pred, bit_of_ns, dibit = _trellis()
-    trans_dibit = dibit[pred, bit_of_ns[:, None]]            # (16, 2)
-    return (torch.as_tensor(pred, dtype=torch.int64, device=device),
-            torch.as_tensor(trans_dibit, dtype=torch.int64, device=device))
-
-
-def _traceback(choices: list, pm: torch.Tensor) -> torch.Tensor:
-    """Follow the predecessor chain from the best final state (the first
-    on a tie): (..., n) uint8 bits."""
-    state = torch.argmin(pm, dim=-1, keepdim=True)
-    bits = []
-    for tbl in reversed(choices):
-        bits.append(((state[..., 0] >> 3) & 1).to(torch.uint8))
-        state = torch.gather(tbl, -1, state)
-    if not bits:
-        return torch.zeros(pm.shape[:-1] + (0,), dtype=torch.uint8,
-                           device=pm.device)
-    return torch.stack(bits[::-1], dim=-1)
-
-
-def _pick(cand: torch.Tensor):
-    """(..., 16, 2) candidates → (index of the smaller, first on a tie;
-    its value)."""
-    j = cand[..., 1] < cand[..., 0]
-    return j, torch.where(j, cand[..., 1], cand[..., 0])
-
-
-def _pm0(lead, device):
-    pm = torch.full(tuple(lead) + (NUM_STATES,), float(_INF),
-                    dtype=torch.float32, device=device)
-    pm[..., 0] = 0.0
-    return pm
-
-
 def viterbi_decode(soft_pairs, device="cuda") -> torch.Tensor:
     """Non-coherent soft Viterbi over DQPSK differential products.
     ``soft_pairs``: (..., n_syms, 2) float32 [Re(d), Im(d)]. Returns
     (..., n_syms) uint8 bits. Branch metric |d − DQPSK_EXP[dibit]|²."""
-    s = to_device(soft_pairs, device, torch.float32)
-    pred, trans = _acs_tables(s.device)
-    exp = torch.as_tensor(DQPSK_EXP, device=s.device)
-    d = torch.complex(s[..., 0], s[..., 1])
-    pm = _pm0(d.shape[:-1], s.device)
-    choices = []
-    for t in range(d.shape[-1]):
-        bm4 = (d[..., t, None] - exp).abs() ** 2              # (..., 4)
-        cand = pm[..., pred] + bm4[..., trans]               # (..., 16, 2)
-        j, new_pm = _pick(cand)
-        choices.append(pred[:, 0] + j.to(torch.int64))       # pred[ns, j]
-        pm = new_pm - new_pm.min(dim=-1, keepdim=True).values
-    return _traceback(choices, pm)
+    return psk31_viterbi(to_device(soft_pairs, device, torch.float32),
+                         coherent=False)
 
 
 def viterbi_decode_coherent(soft_pairs, device="cuda") -> torch.Tensor:
     """Coherent MLSE: each state carries a hypothesised absolute phasor
     (initially (1, 0), as the modulator starts); branch metric
     |sym_c − hyp·step|²."""
-    s = to_device(soft_pairs, device, torch.float32)
-    pred, trans = _acs_tables(s.device)
-    steps = torch.as_tensor(DQPSK_EXP, device=s.device)
-    sym = torch.complex(s[..., 0], s[..., 1])
-    lead = sym.shape[:-1]
-    pm = _pm0(lead, s.device)
-    hyp = torch.ones(tuple(lead) + (NUM_STATES,), dtype=torch.complex64,
-                     device=s.device)
-    choices = []
-    for t in range(sym.shape[-1]):
-        nh = hyp[..., pred] * steps[trans]                   # (..., 16, 2)
-        cand = pm[..., pred] + (sym[..., t, None, None] - nh).abs() ** 2
-        j, new_pm = _pick(cand)
-        hyp = torch.where(j, nh[..., 1], nh[..., 0])
-        choices.append(pred[:, 0] + j.to(torch.int64))
-        pm = new_pm - new_pm.min(dim=-1, keepdim=True).values
-    return _traceback(choices, pm)
+    return psk31_viterbi(to_device(soft_pairs, device, torch.float32),
+                         coherent=True)
 
 
 def viterbi_decode_hard(bits, device="cuda") -> torch.Tensor:

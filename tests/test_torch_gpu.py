@@ -16,7 +16,10 @@ kernel); and slice 4's two recurrence kernels (the PSK31 PLL against its
 plain version, also from a phase anywhere in ±60 rad and at 200 rows,
 decisions exact and soft values within 1e-5 of the peak;
 the two-rate one-pole exact) with the entry points that launch them, the
-FM chain on the card against the CPU, and the float32 products unmoved by
+QPSK31 batch Viterbi (kernel H) against its plain version bit for bit
+(ties, NaN pairs, a 120 000-symbol row, a part block) with its branch
+lengths against torch's complex abs and the entry points that launch it,
+the FM chain on the card against the CPU, and the float32 products unmoved by
 a caller's TF32 switches; and slice 5a on the card against the CPU path
 (the channelizer on both FIR routes and under two chunkings, the PFB,
 band_compose, AM/SSB band audio, the FM stereo program and RDS, the CSS
@@ -849,6 +852,117 @@ def test_psk31_pll_kernel_from_any_phase(cuda, rows, n, qpsk):
         assert float(a.abs().max()) <= np.pi
     assert float((p - rp).abs().max()) <= 1e-5
     assert float((a - ra).abs().max()) <= 1e-5
+
+
+def _psk31_coded(rows, n, coherent, flip=0.0, noise=0.0, seed=1):
+    """(sent bits, (rows, n, 2) float32 pairs) of random bits through the
+    QPSK31 code, a coded bit flipped at rate ``flip``, complex noise of
+    ``noise`` a component: differential products, or absolute symbols for
+    the coherent decoder."""
+    from orion_sdr_tpu_torch.codec import psk31 as C
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (rows, n)).astype(np.uint8)
+    out = []
+    for row in bits:
+        c = C.conv_encode(row) ^ (rng.random(2 * n) < flip).astype(np.uint8)
+        sym = C.DQPSK_EXP[c[0::2] * 2 + c[1::2]]
+        sym = (np.cumprod(sym) if coherent else sym) + noise * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        out.append(np.stack([sym.real, sym.imag], -1))
+    return bits, np.asarray(out, np.float32).reshape(rows, n, 2)
+
+
+@pytest.mark.parametrize("case", ["16x2048", "1x120000", "ties", "nan",
+                                  "ragged"])
+@pytest.mark.parametrize("coherent", [False, True])
+def test_psk31_viterbi_kernel_matches_plain_version(cuda, case, coherent):
+    """Kernel H against its plain version on the card, bit for bit, one
+    launch a call: [30]'s 16 x 2048 at noise 0.3 and one row of 120 000
+    symbols (an hour-long flush), every bit back; hard symbols with 8 % of
+    the coded bits flipped (exact ties); NaN pairs at the first, a middle
+    and the last symbol and an infinite one; 33 rows of 300 (a block and one
+    row, a part tile), one symbol, and empty shapes (no launch)."""
+    from orion_sdr_tpu_torch.ops import psk31_viterbi as K
+    rows, n, flip, noise = {"16x2048": (16, 2048, 0.0, 0.3),
+                            "1x120000": (1, 120_000, 0.0, 0.3),
+                            "ties": (16, 2048, 0.08, 0.0),
+                            "nan": (5, 37, 0.0, 0.5),
+                            "ragged": (33, 300, 0.02, 0.2)}[case]
+    sent, pairs = _psk31_coded(rows, n, coherent, flip, noise)
+    if case == "nan":
+        pairs[0, 0, 0] = pairs[1, 20, 1] = pairs[2, 36, 0] = np.nan
+        pairs[3, 10, 0] = np.inf
+    shapes = [pairs] + ([pairs[:1, :1], pairs[:2, :0], pairs[:0]]
+                        if case == "ragged" else [])
+    for x in shapes:
+        x = torch.as_tensor(x, device=cuda)
+        before = K.psk31_viterbi.launches
+        got = K.psk31_viterbi(x, coherent)
+        ref = K.psk31_viterbi_reference(x, coherent)
+        torch.cuda.synchronize()
+        assert K.psk31_viterbi.launches == before + (1 if x.numel() else 0)
+        assert got.shape == x.shape[:-1] and torch.equal(got, ref)
+    if noise and not flip and case != "nan":
+        assert np.array_equal(got.cpu().numpy(), sent)
+
+
+def test_psk31_viterbi_lengths_are_torchs_complex_abs(cuda):
+    """The kernel's branch length, hypotf(re, im), gives the bits of torch's
+    complex abs on the card (the plain version's form) on 2^22 pairs at
+    each of six scales and on every pair of sixteen special values."""
+    from orion_sdr_tpu_torch.ops import psk31_viterbi as K
+    rng = np.random.default_rng(4)
+
+    def same(a, b):
+        return bool((a.view(torch.int32) == b.view(torch.int32))
+                    .logical_or(a.isnan() & b.isnan()).all())
+    for scale in (1e-20, 0.01, 1.0, 3.0, 1e3, 1e19):
+        x = torch.as_tensor((rng.standard_normal((1 << 22, 2)) * scale)
+                            .astype(np.float32), device=cuda)
+        z = torch.complex(x[:, 0], x[:, 1])
+        assert same(K.branch_lengths(z), z.abs())
+    sp = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, 0.5, 1e-45, 1e-38,
+                       1.5e38, 3.4e38, np.inf, -np.inf, np.nan, 1e19, 1e-19,
+                       -3.0], device=cuda)
+    z = torch.complex(sp[:, None].expand(16, 16).reshape(-1),
+                      sp[None, :].expand(16, 16).reshape(-1))
+    assert same(K.branch_lengths(z), z.abs())
+
+
+def test_qpsk31_entry_points_launch_the_viterbi_kernel(cuda):
+    """codec.psk31's three batch decoders, Qpsk31Demod.flush and
+    psk31_stream_decode_sharded(qpsk=True): one launch of kernel H each,
+    their bits equal to the CPU path's and their texts back."""
+    from orion_sdr_tpu_torch.codec import psk31 as C
+    from orion_sdr_tpu_torch.ops import psk31_viterbi as K
+    sent, pairs = _psk31_coded(3, 500, False, noise=0.3)
+    _, absolute = _psk31_coded(3, 500, True, noise=0.3)
+    for fn, x in ((C.viterbi_decode, pairs),
+                  (C.viterbi_decode_coherent, absolute)):
+        K.psk31_viterbi.launches = 0
+        got = fn(x, device=cuda)
+        assert K.psk31_viterbi.launches == 1 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), fn(x, device="cpu"))
+    K.psk31_viterbi.launches = 0
+    coded = C.conv_encode(sent[0])
+    assert np.array_equal(C.viterbi_decode_hard(coded).cpu().numpy(),
+                          sent[0])
+    assert K.psk31_viterbi.launches == 1
+    assert C.viterbi_decode(np.zeros((0, 2), np.float32)).shape == (0,)
+    assert K.psk31_viterbi.launches == 1
+    msg = "QPSK31 FLUSH ON THE CARD"
+    iq = P.qpsk31_mod_text(msg, 8000.0, 1000.0, device="cpu").numpy()
+    demod = P.Qpsk31Demod(8000.0, 1000.0, device=cuda)
+    for i in range(0, len(iq), 4096):
+        demod.process(iq[i:i + 4096])
+    K.psk31_viterbi.launches = 0
+    assert msg in P.VaricodeDecoder().push_bits(demod.flush())
+    assert K.psk31_viterbi.launches == 1
+    K.psk31_viterbi.launches = 0
+    text = P.parallel.psk31_stream_decode_sharded(
+        torch.as_tensor(iq, device=cuda), _card_mesh(cuda), 8000.0, 1000.0,
+        qpsk=True)
+    assert msg in text and K.psk31_viterbi.launches == 1
 
 
 @pytest.mark.parametrize("rows,n", [(1, 1), (33, 5000), (64, 8192), (3, 0)])

@@ -20,7 +20,7 @@ from orion_sdr_tpu_torch.buildlib import CudaLib, F32, I64, INT, PTR
 torch.set_num_threads(1)
 
 MODULES = ["ldpc_bp", "viterbi", "outer_fec", "psk31_pll", "onepole_two_rate",
-           "dd_pll", "gardner", "gnss_track"]
+           "dd_pll", "gardner", "gnss_track", "psk31_viterbi"]
 
 
 def _libs():

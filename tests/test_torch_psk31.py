@@ -14,6 +14,7 @@ refined carriers 1e-3 Hz. The SNR floors are the JAX test's: every one of
 five seeds decodes at −5 dB (BPSK31) and −6 dB (QPSK31)."""
 
 import importlib
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from orion_sdr_tpu_torch.codec import psk31_stream as PS
 from orion_sdr_tpu_torch.codec import varicode as PV
 from orion_sdr_tpu_torch.demodulate import psk31 as PD
 from orion_sdr_tpu_torch.modulate import psk31 as PM
+from orion_sdr_tpu_torch.ops import psk31_viterbi as PVK
 from orion_sdr_tpu_torch.ops.psk31_pll import psk31_pll
 
 PY = importlib.import_module("orion_sdr_tpu_torch.sync.psk31_sync")
@@ -118,6 +120,138 @@ def test_batch_viterbis_equal(noise):
     c = JC.conv_encode(bits[0])
     assert np.array_equal(PC.viterbi_decode_hard(c, device=CPU).numpy(),
                           JC.viterbi_decode_hard(c))
+
+
+DECODERS = {False: (JC.viterbi_decode, PC.viterbi_decode),
+            True: (JC.viterbi_decode_coherent, PC.viterbi_decode_coherent)}
+
+
+def coded_pairs(rng, rows, n, coherent, flip=0.0, noise=0.0):
+    """(rows, n, 2) float32 pairs of random bits through the code, a coded
+    bit flipped at rate ``flip``, complex noise of ``noise`` a component:
+    differential products, or absolute symbols for the coherent decoder."""
+    out = []
+    for row in rng.integers(0, 2, (rows, n)).astype(np.uint8):
+        c = JC.conv_encode(row) ^ (rng.random(2 * n) < flip).astype(np.uint8)
+        sym = JC.DQPSK_EXP[c[0::2] * 2 + c[1::2]]
+        sym = (np.cumprod(sym) if coherent else sym) + noise * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        out.append(np.stack([sym.real, sym.imag], -1))
+    return np.asarray(out, dtype=np.float32).reshape(rows, n, 2)
+
+
+def decode_against_jax(pairs, coherent):
+    """The port's decoder on the CPU (the kernel's plain version) on all rows
+    at once; each row held to the JAX decoder of that row."""
+    jfn, pfn = DECODERS[coherent]
+    got = pfn(pairs, device=CPU)
+    assert got.dtype == torch.uint8 and got.shape == pairs.shape[:-1]
+    ref = np.stack([np.asarray(jfn(jnp.asarray(p))) for p in pairs])
+    assert np.array_equal(got.numpy(), ref.reshape(got.shape))
+    return got
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_batch_viterbi_exact_ties_match_jax(coherent):
+    """Hard phasors with 8 % of the coded bits flipped: every branch metric
+    is 0, |1 ± j|² or 4, so candidates tie exactly and the tie rules decide,
+    and so does how a candidate rounds (the coherent one once, as XLA's
+    fused multiply-add; rounded twice, as the port's torch loop did, some
+    of these coherent rows read other bits than the JAX decoder)."""
+    rng = np.random.default_rng(11)
+    for _ in range(4):
+        decode_against_jax(coded_pairs(rng, 3, 120, coherent, flip=0.08),
+                           coherent)
+
+
+def _loop_decode(pairs: torch.Tensor, coherent: bool) -> torch.Tensor:
+    """The port's decoders as they were before the kernel: torch loops with
+    a table of predecessors a step and a gather traceback."""
+    pred, bit_of_ns, dibit = PC._trellis()
+    pred = torch.as_tensor(pred, dtype=torch.int64)
+    trans = torch.as_tensor(dibit[pred, bit_of_ns[:, None]],
+                            dtype=torch.int64)
+    exp = torch.as_tensor(PC.DQPSK_EXP)
+    z = torch.complex(pairs[..., 0], pairs[..., 1])
+    pm = torch.full(z.shape[:-1] + (16,), float(PC._INF))
+    pm[..., 0] = 0.0
+    hyp = torch.ones(pm.shape, dtype=torch.complex64)
+    choices = []
+    for t in range(z.shape[-1]):
+        if coherent:
+            nh = hyp[..., pred] * exp[trans]
+            cand = pm[..., pred] + (z[..., t, None, None] - nh).abs() ** 2
+        else:
+            bm4 = (z[..., t, None] - exp).abs() ** 2
+            cand = pm[..., pred] + bm4[..., trans]
+        j = cand[..., 1] < cand[..., 0]
+        new = torch.where(j, cand[..., 1], cand[..., 0])
+        if coherent:
+            hyp = torch.where(j, nh[..., 1], nh[..., 0])
+        choices.append(pred[:, 0] + j.to(torch.int64))
+        pm = new - new.min(dim=-1, keepdim=True).values
+    state = torch.argmin(pm, dim=-1, keepdim=True)
+    bits = []
+    for tbl in reversed(choices):
+        bits.append(((state[..., 0] >> 3) & 1).to(torch.uint8))
+        state = torch.gather(tbl, -1, state)
+    return torch.stack(bits[::-1], dim=-1)
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_batch_viterbi_non_finite_rows(coherent):
+    """Noisy rows with a NaN pair at the first, a middle or the last symbol,
+    or an infinite one: every metric is NaN from there on (torch.min and
+    argmin propagate it, and so do the kernel's min and argmin); each row's
+    bits equal what the port's torch loops returned before the kernel, and
+    the JAX decoder's."""
+    pairs = coded_pairs(np.random.default_rng(12), 4, 120, coherent,
+                        noise=0.3)
+    pairs[0, 0, 0] = pairs[1, 60, 1] = pairs[2, 119, 0] = np.nan
+    pairs[3, 40, 0] = np.inf
+    got = decode_against_jax(pairs, coherent)
+    assert torch.equal(got, _loop_decode(torch.as_tensor(pairs), coherent))
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_batch_viterbi_short_rows(n):
+    """n = 0 and n = 1 against the JAX decoders, leading axes kept; an empty
+    batch returns its empty shape."""
+    pairs = np.random.default_rng(13).standard_normal((2, n, 2))
+    for coherent in (False, True):
+        decode_against_jax(pairs.astype(np.float32), coherent)
+        empty = DECODERS[coherent][1](np.zeros((0, 3, 2), np.float32),
+                                      device=CPU)
+        assert empty.shape == (0, 3) and empty.dtype == torch.uint8
+
+
+def _f32_exact(x: Fraction) -> np.float32:
+    """The float32 nearest ``x`` (ties to even)."""
+    c = np.float32(float(x))
+    near = [np.nextafter(c, np.float32(-np.inf)), c,
+            np.nextafter(c, np.float32(np.inf))]
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x),
+                                    int(v.view(np.uint32)) & 1))
+
+
+def test_coherent_candidates_round_once():
+    """The coherent candidate h·h + pm of the plain version
+    (``ops.psk31_viterbi._fma``, fmaf on the card) against the exact sum
+    rounded once, on random magnitudes and on sums at and a hair off a
+    float32 midpoint (1 + 2^-24)."""
+    rng = np.random.default_rng(14)
+    h = (2.0 ** rng.uniform(-40, 60, 400)).astype(np.float32)
+    a = (2.0 ** rng.uniform(-60, 126, 400) * (rng.random(400) < 0.9)
+         ).astype(np.float32)
+    mid = np.float32(2.0 ** -12)
+    h = np.concatenate([h, [mid, np.nextafter(mid, np.float32(1)),
+                            np.nextafter(mid, np.float32(0)), 0.0]])
+    a = np.concatenate([a, [1.0, 1.0, 1.0, 0.0]]).astype(np.float32)
+    got = PVK._fma(torch.as_tensor(h).double() ** 2,
+                   torch.as_tensor(a)).numpy()
+    want = [_f32_exact(Fraction(float(x)) ** 2 + Fraction(float(y)))
+            for x, y in zip(h, a)]
+    assert got.tobytes() == np.asarray(want, np.float32).tobytes()
 
 
 def test_streaming_viterbi_equal():
