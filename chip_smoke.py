@@ -447,7 +447,22 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    its plain version on its own inputs, exact. Its readings (each point's count and
    seconds, the stop band, the launches by mode, the card's name and power
    limit) go to the kernels line's "sweeps" object.
-54. Prints the kernels' JSON line (each kernel's main-path launches, error
+54. The JAX package's own tier-1 test files on the card: the card file
+   tests/test_torch_contracts_gpu.py (tests/torch_contracts.py loads each
+   JAX tier-1 file with its imports sent to the port, less what its
+   EXCLUDED table leaves out, plus the twins of tests/torch_contract_twins.py)
+   run in this process by pytest, with the port's defaults so host data
+   goes to the card, every kernel launch recorded. One line a JAX file: its
+   cases passed, failed and skipped, its EXCLUDED entries and each
+   kernel's launches; the launches of the phase by kernel (and those made
+   while collecting, outside any case), the Viterbi's radix-2 and radix-4
+   launches apart (radix 4 fails the phase), the seconds. The first launch
+   of each kernel in each file is held to its plain version on its own
+   inputs, exact (the two-rate one-pole's step by step). Any failed case
+   fails the phase. Its readings (each file's counts and launches, the
+   seconds, the card's name and power limit) go to the kernels line's
+   "contracts" object.
+55. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -490,7 +505,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    "examples" object with [52]'s seconds and launches by example ([52]
    adds to the launches by phase of each kernel the examples launch), a
    "sweeps" object with [53]'s readings ([53] adds to the BP, radix-2 and
-   PSK31 PLL launches by phase, and to the outer code's where it runs);
+   PSK31 PLL launches by phase, and to the outer code's where it runs), a
+   "contracts" object with [54]'s ([54] adds to the launches by phase of
+   each kernel the JAX files launch);
    the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
@@ -6438,6 +6455,124 @@ def sweeps_phase(P, kernels, smi_line):
     return launches, errs, {"points": points, "card": smi_line}, radices
 
 
+
+CONTRACTS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "test_torch_contracts_gpu.py")
+
+
+def contracts_phase(kernels, smi_line):
+    """[54] the JAX package's own tier-1 test files on the card: the card
+    file tests/test_torch_contracts_gpu.py run in this process by pytest,
+    every kernel launch recorded; each case's outcome and each kernel's
+    launches counted by JAX file, the first launch of each kernel in each
+    file held to its plain version (exact): → ({kernel: launches by file},
+    {kernel: max |kernel - plain|}, the "contracts" readings, the Viterbi
+    launches (radix 2, radix 4)). ``kernels``: ``path_kernels``."""
+    import pytest
+    outcome, by_file, firsts, files = {}, {}, {}, {}
+    with contextlib.ExitStack() as stack:
+        seens = {k: stack.enter_context(recording_kernel(m, a, c))
+                 for k, (m, a, c, _) in kernels.items()}
+        recs = {k: getattr(m, a) for k, (m, a, _, _) in kernels.items()}
+
+        def counts():
+            return {k: sum(n.values())
+                    for k, n in launch_counts(kernels, recs).items()}
+
+        class Recorder:
+            """Each case's JAX file, outcome and launches; the first launch
+            of each kernel in each file kept, the later ones dropped once
+            counted."""
+
+            @pytest.hookimpl(hookwrapper=True)
+            def pytest_runtest_protocol(self, item, nextitem):
+                C = sys.modules["torch_contracts"]
+                f = files[item.nodeid] = C.jax_id(
+                    item, item.module.ORIGIN).split("::")[0]
+                before = counts()
+                yield
+                after = counts()
+                n = by_file.setdefault(f, {})
+                for k, seen in seens.items():
+                    if after[k] > before[k]:
+                        n[k] = n.get(k, 0) + after[k] - before[k]
+                        if seen and (k, f) not in firsts:
+                            firsts[(k, f)] = seen[0]
+                    del seen[:]
+
+            def pytest_runtest_logreport(self, report):
+                was = outcome.get(report.nodeid)
+                if report.failed:
+                    outcome[report.nodeid] = "failed"
+                elif report.skipped and was != "failed":
+                    outcome[report.nodeid] = "skipped"
+                elif report.when == "call" and was is None:
+                    outcome[report.nodeid] = "passed"
+
+        OUTER.hold = False                 # [54] calls the decoders directly
+        t0 = time.perf_counter()
+        before = counts()
+        rc = pytest.main([CONTRACTS_FILE, "-q", "-m", "gpu", "--noconftest",
+                          "-p", "no:cacheprovider", "-p", "no:randomly",
+                          "--no-header", "-rfE"], plugins=[Recorder()])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        OUTER.hold = True
+        after = counts()
+        radices = viterbi_radices(launch_counts(kernels, recs))
+    C = sys.modules["torch_contracts"]
+    per_file, bad = {}, []
+    for name in C.FILES:
+        got = [outcome[n] for n, f in files.items() if f == name]
+        left = sorted(k for k, o in C.EXCLUDED.items()
+                      if k.split("::")[0] == name)
+        per_file[name] = {"passed": got.count("passed"),
+                          "failed": got.count("failed"),
+                          "skipped": got.count("skipped"),
+                          "excluded_entries": len(left),
+                          "launches": by_file.get(name, {})}
+        print(f"  [54] {name}: {got.count('passed')} passed, "
+              f"{got.count('failed')} failed, {got.count('skipped')} skipped "
+              f"by params, {len(left)} EXCLUDED entries; launches "
+              f"{by_file.get(name, {})}")
+        if got.count("failed") or not (got or left):
+            bad.append(name)
+    total = {k: after[k] - before[k] for k in after}
+    outside = {k: total[k] - sum(n.get(k, 0) for n in by_file.values())
+               for k in total}
+    print(f"  [54] launches of the phase by kernel ({smi_line}): "
+          f"{ {k: n for k, n in total.items() if n} }; outside any case "
+          f"(collection) { {k: n for k, n in outside.items() if n} }")
+    t1 = time.perf_counter()
+    exact, errs = {}, {}
+    for (k, f), call in firsts.items():
+        if kernels[k][3] is None:      # the two-rate one-pole, step by step
+            same = onepole_steps_exact(kernels[k][0], *call[0][:5], *call[1])
+            err = 0.0 if same else float("inf")
+        else:
+            same, err = held_to_plain([call], kernels[k][3])
+        exact[f"{k} {f}"] = same
+        errs[k] = max(errs.get(k, 0.0), err)
+    print(f"  [54] the first launch of each kernel in each JAX file against "
+          f"its plain version on its own inputs "
+          f"({time.perf_counter() - t1:.1f} s): {exact}")
+    print(f"  [54] Viterbi launches (radix 2, radix 4): {radices}")
+    print(f"  [54] pytest exit {int(rc)}; {sum(v['passed'] for v in per_file.values())} "
+          f"passed, {sum(v['failed'] for v in per_file.values())} failed in "
+          f"{secs:.1f} s ({smi_line})")
+    if int(rc) != 0 or bad or radices[1] or not all(exact.values()):
+        fail(f"[54] the JAX contracts on the card: pytest exit {int(rc)}, "
+             f"failed or empty files {bad}, radix 4 {radices[1]}, exact "
+             f"{exact}")
+    launches = {k: {f: n[k] for f, n in by_file.items() if k in n}
+                for k in kernels}
+    return launches, errs, {"files": per_file, "s": secs,
+                            "launches": {k: n for k, n in total.items() if n},
+                            "launches_outside_cases": {
+                                k: n for k, n in outside.items() if n},
+                            "card": smi_line}, radices
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -6928,10 +7063,37 @@ def main() -> int:
     h_err = max(h_err, e53["psk31_viterbi"])
     sweeps53["launches_by_mode"] = {k: v for k, v in n53.items() if v}
     sweeps53["s"] = time.perf_counter() - t_sw
+    print(f"  [53] took {sweeps53['s']:.1f} s")
+    print(f"[54] the JAX package's own tier-1 test files on the card "
+          f"(tests/test_torch_contracts_gpu.py through pytest, the port's "
+          f"defaults): each case's outcome and each kernel's launches by "
+          f"JAX file, the first launch of each kernel in each file held to "
+          f"its plain version")
+    OUTER.zero()
+    n54, err54, contracts54, vit_runs["54"] = contracts_phase(path_kernels(
+        ldpc_bp, viterbi, psk31_pll, onepole_two_rate, outer_fec, bch_device,
+        gnss_track, dd_pll, gardner, psk31_viterbi), smi_line)
+    outer_runs["54"] = {k: sum(n54[k].values()) for k in ("bch", "rs")}
+    for runs, key in ((bp_runs, "bp"), (pll_runs, "pll"),
+                      (one_runs, "one"), (tk_runs, "track"),
+                      (dd_runs, "dd"), (ga_runs, "gardner"),
+                      (h_runs, "psk31_viterbi")):
+        if sum(n54[key].values()):
+            runs["54"] = sum(n54[key].values())
+    e54 = {k: err54.get(k, 0.0) for k in n54}
+    max_err = max(max_err, e54["bp"])
+    vit_err = max(vit_err, e54["vit"], e54["vit_t"])
+    outer_err = max(outer_err, e54["bch"], e54["rs"])
+    pll6b_err = max(pll6b_err, e54["pll"])
+    tk_err = max(tk_err, e54["track"])
+    dd_err = max(dd_err, e54["dd"])
+    ga_err = max(ga_err, e54["gardner"])
+    h_err = max(h_err, e54["psk31_viterbi"])
+    contracts54["launches_by_file"] = {k: v for k, v in n54.items() if v}
+    print(f"  [54] took {contracts54['s']:.1f} s")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
-    print(f"  [53] took {sweeps53['s']:.1f} s")
     print(f"  kernel H (QPSK31 batch Viterbi) launches by phase: {h_runs}, "
           f"each held to its plain version (max |diff| {h_err:g})")
 
@@ -7173,7 +7335,8 @@ def main() -> int:
         "slice7": {"51 parallel": {**par51_stats,
                                    "max_abs_err_by_path": err51["paths"]}},
         "examples": {"52": examples52},
-        "sweeps": {"53": sweeps53}}))
+        "sweeps": {"53": sweeps53},
+        "contracts": {"54": contracts54}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

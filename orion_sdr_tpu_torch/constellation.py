@@ -4,12 +4,17 @@ and max-log soft LLRs (counterpart of ``orion_sdr_tpu/constellation.py``).
 Per-axis independent Gray coding, unit average symbol energy
 (axis scale = 1/sqrt(2(M²−1)/3)), bit layout per symbol = BITS/2 I-axis bits
 MSB-first then BITS/2 Q-axis bits MSB-first. Positive LLR ⇒ bit 0.
+:func:`map_bits`, :func:`soft_llr` and :func:`decide` take host data as the
+JAX ones do: a tensor stays on its device, host data goes to ``device``
+(None: the card), ``"cpu"`` runs the plain path.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .dsp.device import takes_host_data
 
 ORDERS = ("bpsk", "qpsk", "qam16", "qam64", "qam256")
 
@@ -42,6 +47,7 @@ def _axis_levels(bits: int) -> np.ndarray:
     return ((2 * np.arange(m) + 1 - m) * axis_scale(bits)).astype(np.float32)
 
 
+@takes_host_data("bits")
 def map_bits(bits: torch.Tensor, order: str) -> torch.Tensor:
     """Bits (..., n_bits) integer tensor → unit-energy symbols (..., n_syms)
     complex64; n_bits must be a multiple of the bits per symbol."""
@@ -70,6 +76,7 @@ def map_bits(bits: torch.Tensor, order: str) -> torch.Tensor:
     return torch.complex(amp(b[..., :k]), amp(b[..., k:]))
 
 
+@takes_host_data("symbols")
 def soft_llr(symbols: torch.Tensor, order: str, gain: float = 1.0
              ) -> torch.Tensor:
     """Max-log LLRs, positive ⇒ bit 0: for each bit, the min distance² over
@@ -115,6 +122,7 @@ def _axis_nat(v: torch.Tensor, thr: np.ndarray) -> torch.Tensor:
     return (v[..., None] > t).sum(-1, dtype=torch.int32)
 
 
+@takes_host_data("symbols")
 def decide(symbols: torch.Tensor, order: str) -> torch.Tensor:
     """Hard decision: symbols (..., n_syms) → bits (..., n_syms·bps) uint8,
     the reference deciders' Gray coding. BPSK and QPSK decide by sign

@@ -19,7 +19,7 @@ from math import gcd
 import numpy as np
 import torch
 
-from .device import on_device
+from .device import on_device, takes_host_data
 from .fir import to_rows, from_rows, conv1d_f32, kaiser_lowpass_taps
 
 
@@ -112,7 +112,9 @@ class Resampler:
     """Streaming rational resampler (chunk-boundary invariant): ``feed``
     returns the causal output (lagging by the prototype's group delay), and
     the outputs of any chunking concatenate to the one-shot causal
-    resample; ``flush`` drains the group-delay tail."""
+    resample; ``flush`` drains the group-delay tail. ``feed`` takes host
+    data as the JAX one does: a tensor stays on its device, host data goes
+    to its ``device`` keyword (None: the card)."""
 
     def __init__(self, up: int, down: int, taps=None,
                  taps_per_phase: int = 24, stopband_db: float = 70.0):
@@ -129,6 +131,7 @@ class Resampler:
         self._m_next = 0          # next output index on the global grid
         self._n_in = 0            # total inputs consumed
 
+    @takes_host_data("x")
     def feed(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] == 0:
             return x[..., :0]

@@ -129,6 +129,12 @@ def ldpc_graph(name: str) -> LdpcGraph:
                      check_bits=cb, check_mask=mask, max_deg=max_deg)
 
 
+def _graph_key(g: LdpcGraph) -> str:
+    """The key ``"name:n:k"`` the JAX package names a graph by, which
+    ``ops.bp_decode_pallas`` takes (``ops.ldpc_bp.graph_by_key``)."""
+    return f"{g.name}:{g.n}:{g.k}"
+
+
 def ldpc_encode(name: str, message, device=None) -> torch.Tensor:
     """Systematic encode (..., K) bits → (..., N) uint8 codeword on the
     message's device (host data: ``device``, None for the card): s = A·msg

@@ -6,7 +6,9 @@ Everything but :func:`atan2_approx` and the Welch periodogram behind
 also runs it in numpy): it is measurement code, not the hot path.
 :func:`atan2_approx` is the FM/PM discriminators' arctangent on torch
 tensors, with the JAX version's float32 operation order (equal to it on
-the CPU). :class:`trace` and :func:`measure` are the observability pair:
+the CPU). Both take host data as the JAX ones do: a tensor stays on its
+device, host data goes to ``device`` (None: the card), ``"cpu"`` runs the
+plain path. :class:`trace` and :func:`measure` are the observability pair:
 a ``torch.profiler`` trace of a block, and wall-clock throughput with the
 card's queue drained on both sides of the work.
 """
@@ -19,6 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .dsp.device import on_device, takes_host_data
 
 SIGNAL_THRESHOLD = 0.1  # RMS below which a block is treated as silence (util.rs:297)
 PSK31_BW_HZ = 62.5      # raised-cosine pulse: 2x baud (util.rs:300)
@@ -228,6 +232,7 @@ def measure(fn, n_samples: int, repeats: int = 1):
     return (n_samples * repeats / 1e6 / dt if dt > 0 else float("inf")), dt
 
 
+@takes_host_data("y", "x")
 def atan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Fast atan2: Rajan-family minimax polynomial, max error ≈ 0.0015 rad,
     continuous at the octant seam (the reference's util.rs:302-322 variant
@@ -276,13 +281,14 @@ def _welch_psd(iq: torch.Tensor, nfft: int) -> np.ndarray:
 def spectrum_scan(iq, fs: float, rbw_hz: float | None = None,
                   threshold_db: float = 10.0,
                   min_bw_hz: float | None = None,
-                  gap_bins: int = 2, device="cuda"):
+                  gap_bins: int = 2, device=None):
     """Detect occupied sub-bands in a complex wideband capture: Welch PSD
-    (one batched FFT on ``device``), noise floor = median bin, bins
+    (one batched FFT where the capture is: a tensor on its device, host
+    data on ``device``, None the card), noise floor = median bin, bins
     ``threshold_db`` above it, gaps of up to ``gap_bins`` closed, segments
     closer than ``min_bw_hz`` merged; each segment at least ``min_bw_hz``
     wide as a :class:`SpectrumSegment`, strongest first."""
-    iq = _np(iq)
+    iq = on_device(iq, device, torch.complex64)
     if iq.ndim != 1:
         raise ValueError("spectrum_scan takes a 1-D capture")
     if len(iq) < 256:
@@ -292,8 +298,7 @@ def spectrum_scan(iq, fs: float, rbw_hz: float | None = None,
     nfft = 1 << int(np.clip(np.round(np.log2(fs / max(rbw_hz, 1e-9))),
                             8, 16))
     nfft = min(nfft, 1 << int(np.floor(np.log2(len(iq)))))
-    psd = _welch_psd(torch.as_tensor(iq.astype(np.complex64), device=device),
-                     nfft)
+    psd = _welch_psd(iq, nfft)
     psd_db = 10.0 * np.log10(psd + 1e-20)
     freqs = (np.arange(nfft) - nfft // 2) * (fs / nfft)
     floor_db = float(np.median(psd_db))

@@ -27,7 +27,9 @@ filtered, resampled, mixed and scanned values within 1e-5 of the output's
 largest magnitude, as tests/test_torch_dsp_misc.py and
 tests/test_torch_dsp_iir.py state for the same functions."""
 
+import dataclasses
 import importlib
+import inspect
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -647,3 +649,306 @@ def test_takes_host_data_fast_and_bound_paths(name, monkeypatch):
                                         and torch.equal(v, _T))
     if not want:
         assert x is _T and (y is None or y is _T)
+
+
+# ── constellation.py and util.py ───────────────────────────────────────────
+#
+# Added to SWEPT: the three constellation functions and the FM
+# discriminator's arctangent take host data through takes_host_data (the
+# spy sits on dsp.device's on_device), spectrum_scan through util's own
+# on_device. Hard decisions and mapped points exact; LLRs, angles and the
+# scanned segments within 1e-5 of the largest magnitude.
+
+JCON = importlib.import_module("orion_sdr_tpu.constellation")
+JU = importlib.import_module("orion_sdr_tpu.util")
+PCON = importlib.import_module("orion_sdr_tpu_torch.constellation")
+PU = importlib.import_module("orion_sdr_tpu_torch.util")
+
+QBITS = R2.integers(0, 2, (2, 48)).astype(np.uint8)
+QSYMS = (0.3 * R2.standard_normal((2, 40))
+         + 0.3j * R2.standard_normal((2, 40))).astype(np.complex64)
+SCAN = ((0.01 * (R2.standard_normal(8192) + 1j * R2.standard_normal(8192)))
+        + np.exp(2j * np.pi * 0.1 * np.arange(8192))).astype(np.complex64)
+
+
+def _segments(out):
+    return [torch.as_tensor(np.array([[s.center_hz, s.bw_hz, s.power_db,
+                                       s.snr_db] for s in out], np.float64))]
+
+
+SWEPT.update({
+    "map_bits": (PDV, "on_device", lambda x, **kw: PCON.map_bits(
+        x, "qam16", **kw), lambda: JCON.map_bits(QBITS, "qam16"), QBITS,
+        "exact"),
+    "soft_llr": (PDV, "on_device", lambda x, **kw: PCON.soft_llr(
+        x, "qam64", 2.0, **kw), lambda: JCON.soft_llr(QSYMS, "qam64", 2.0),
+        QSYMS, "close"),
+    "decide": (PDV, "on_device", lambda x, **kw: PCON.decide(
+        x, "qam256", **kw), lambda: JCON.decide(QSYMS, "qam256"), QSYMS,
+        "exact"),
+    "atan2_approx": (PDV, "on_device", lambda x, **kw: PU.atan2_approx(
+        x, D_IM, **kw), lambda: JU.atan2_approx(D_RE, D_IM), D_RE, "close"),
+    "spectrum_scan": (PU, "on_device", lambda x, **kw: PU.spectrum_scan(
+        x, 48e3, **kw), lambda: JU.spectrum_scan(SCAN, 48e3), SCAN, "close",
+        _segments),
+})
+
+
+# ── the streaming classes' feed and push ─────────────────────────────────
+#
+# Each streaming receiver with a JAX counterpart takes host chunks as the
+# JAX one does: built with its defaults it asks for the card (the
+# Resampler, which has no device of its own, resolves host data by
+# takes_host_data: the spy sits on dsp.device's on_device; the others run
+# on the device they are built with, whose default is "cuda"); built on the
+# CPU and fed numpy chunks it gives the JAX stream's results on the same
+# chunks; fed tensor chunks it gives the same results, its tensors on the
+# tensor's device (the CPU). Tolerances as above: texts, frames and
+# payloads exact, resampled and channelized samples within 1e-5 of the
+# largest magnitude. DvbTBandStreamDemod's host chunks are held to the JAX
+# receiver by tests/test_torch_band.py::test_dvb_t_band_two_muxes (a DVB-T
+# band capture is too long for this sweep).
+
+from orion_sdr_tpu_torch.dsp.channelizer import Channelizer as PChan  # noqa: E402
+from orion_sdr_tpu_torch.fec.scrambler import PnScramblerStream as PPn  # noqa: E402
+
+JChan = importlib.import_module("orion_sdr_tpu.dsp.channelizer").Channelizer
+JPn = importlib.import_module("orion_sdr_tpu.fec.scrambler").PnScramblerStream
+
+
+def _chunks(x, n):
+    return [x[i:i + n] for i in range(0, len(x), n)]
+
+
+def _afsk_audio():
+    f = J.Ax25Frame(dest="APRS", src="N0CALL", payload=b"host chunks")
+    return np.asarray(J.ax25_beacon([f], 48_000.0), np.float32)
+
+
+def _psk31_audio():
+    return np.asarray(J.bpsk31_mod_text("cq de n0call", 8000.0, 800.0),
+                      np.complex64)
+
+
+def _ft8_frame():
+    p = J.pack77(J.Ft8Standard("CQ", "KA1ABC", "FN42"),
+                 J.CallsignHashTable())
+    x = np.asarray(J.ft8_mod(J.ft8_encode(p), 12000.0, base_hz=1012.5))
+    return np.concatenate([x, np.zeros(180_000 - len(x), np.complex64)])
+
+
+def _ofdm_link(pkg):
+    plan = pkg.CarrierPlan(256, 64).with_contiguous_data(edge_guard=16)
+    cfg = pkg.OfdmConfig(plan, fs=1e6)
+    pre = pkg.OfdmPreamble(repeat_len=128, num_repeats=4) \
+        .with_training_symbol(256, 64)
+    return cfg, pkg.McsTable.default_ladder(), pre
+
+
+def _ofdm_stream_iq():
+    from orion_sdr_tpu.frame.types import FrameMetadata
+    cfg, table, pre = _ofdm_link(J)
+    mod = J.OfdmFrameMod(cfg, table, pre)
+    frame = np.asarray(mod.modulate_frame(J.FramePacket(
+        FrameMetadata(1, 1), np.arange(120, dtype=np.uint8)), 5))
+    gap = np.zeros(700, np.complex64)
+    return np.concatenate([gap, frame, gap]).astype(np.complex64)
+
+
+DVB_LINK = ("1/32", "qpsk", "1/2")
+
+
+def _dvb_t_stream_iq():
+    params = J.DvbTFrameParams(J.DvbTLinkParams(*DVB_LINK), 0, 0)
+    f = J.DvbTFrameMod(params).modulate(np.arange(184, dtype=np.uint8))
+    return np.concatenate([f.iq, np.zeros(f.samples_per_symbol,
+                                          np.complex64)]), f.n_symbols
+
+
+HIER_FIELDS = ("1/32", "qam16", 2, "1/2", "2/3")
+
+
+def _hier_make(pkg, **kw):
+    params = pkg.DvbTHierFrameParams(pkg.DvbTHierLinkParams(*HIER_FIELDS))
+    return pkg.DvbTHierFrameStreamDemod(params, _hier_iq()[1], 100, 200,
+                                        **kw)
+
+
+def _hier_iq():
+    params = J.DvbTHierFrameParams(J.DvbTHierLinkParams(*HIER_FIELDS))
+    f = J.DvbTHierFrameMod(params).modulate(np.arange(100, dtype=np.uint8),
+                                            np.arange(200, dtype=np.uint8))
+    return np.concatenate([np.zeros(500, np.complex64), f.iq,
+                           np.zeros(300, np.complex64)]), f.n_symbols
+
+
+BAND_CENTER, BAND_FS_WIDE = 0.5e6, 4e6
+
+
+def _band_iq():
+    """The COFDM stream's frame composed at BAND_CENTER into a 4 Msps
+    capture (the channelizer's TX mirror)."""
+    x = _ofdm_stream_iq()
+    return np.asarray(J.dsp.band_compose(x[None], [BAND_CENTER],
+                                         BAND_FS_WIDE, 1e6)).astype(
+        np.complex64)
+
+
+def _band_view(out):
+    return sum((_payload_view(o.get(0, [])) for o in out), [])
+
+
+def _hier_view(out):
+    return [(bytes(np.asarray(r.hp_payload, np.uint8)),
+             None if r.lp_payload is None else
+             bytes(np.asarray(r.lp_payload, np.uint8)))
+            for o in out for r in o if hasattr(r, "hp_payload")]
+
+
+def _frames(out):
+    return [vars(f) for f in out]
+
+
+def _payload_view(out):
+    """The payloads of the frames of a COFDM (RxFrame.packet) or DVB-T
+    stream."""
+    return [bytes(np.asarray(getattr(r, "packet", r).payload, np.uint8))
+            for r in out if hasattr(getattr(r, "packet", r), "payload")]
+
+
+def _ft8_view(out):
+    return [(type(r.message).__name__, tuple(
+        bytes(np.asarray(v, np.uint8)) if isinstance(v, np.ndarray) else v
+        for v in dataclasses.astuple(r.message)), r.carrier_hz) for r in out]
+
+
+def _dvb_t_make(pkg, n_sym, **kw):
+    params = pkg.DvbTFrameParams(pkg.DvbTLinkParams(*DVB_LINK), 0, 0)
+    return pkg.DvbTFrameStreamDemod(params, n_sym, 184, **kw)
+
+
+# name: (the port class whose "device" default is checked, "feed" where the
+# device goes with each call (the Resampler: the spy's check), or None for
+# host bits in both packages; make(pkg, **kw) → a stream; the method; the
+# chunks; what the outputs of one run compare as; "exact" or "close")
+STREAMS = {
+    "Resampler.feed": ("feed", lambda pkg, **kw: pkg.dsp.Resampler(3, 2),
+                       "feed", lambda: _chunks(AUDIO[0], 300),
+                       lambda outs: [torch.cat([torch.as_tensor(np.array(
+                           o)) for o in outs])], "close"),
+    "Channelizer.push": (PChan, lambda pkg, **kw: (JChan if pkg is J
+                                                   else PChan)(
+        48e3, 12e3, [-9e3, 6e3], **kw), "push",
+        lambda: _chunks(np.tile(IQ[0], 20), 1111),
+        lambda outs: [torch.cat([torch.as_tensor(np.array(o))
+                                 for o in outs], dim=-1)], "close"),
+    "PnScramblerStream.feed": (None, lambda pkg, **kw: (
+        JPn if pkg is J else PPn)(0b1001, 15, 0x3C3), "feed",
+        lambda: _chunks(BITS[0], 17),
+        lambda outs: [torch.as_tensor(np.concatenate([np.asarray(o)
+                                                      for o in outs]))],
+        "exact"),
+    "Afsk1200Stream.feed": (P.Afsk1200Stream, lambda pkg, **kw:
+                            pkg.Afsk1200Stream(48_000.0, **kw), "feed",
+                            lambda: _chunks(_afsk_audio(), 9_000),
+                            lambda outs: sum((_frames(o) for o in outs), []),
+                            "exact"),
+    "Psk31Stream.feed": (P.Psk31Stream, lambda pkg, **kw:
+                         pkg.Psk31Stream.new_bpsk(8000.0, 800.0, **kw),
+                         "feed", lambda: _chunks(_psk31_audio(), 3_001),
+                         lambda outs: ["".join(outs)], "exact"),
+    "Ft8StreamDecoder.feed": (P.Ft8StreamDecoder, lambda pkg, **kw:
+                              pkg.Ft8StreamDecoder(12000.0, 950.0, 1150.0,
+                                                   **kw), "feed",
+                              lambda: _chunks(_ft8_frame(), 60_000),
+                              lambda outs: sum((_ft8_view(o) for o in outs),
+                                               []), "exact"),
+    "OfdmFrameStreamDemod.feed": (P.OfdmFrameStreamDemod, lambda pkg, **kw:
+                                  pkg.OfdmFrameStreamDemod(*_ofdm_link(pkg),
+                                                           **kw), "feed",
+                                  lambda: _chunks(_ofdm_stream_iq(), 2_500),
+                                  lambda outs: sum((_payload_view(o)
+                                                    for o in outs), []),
+                                  "exact"),
+    "DvbTFrameStreamDemod.feed": (P.DvbTFrameStreamDemod, lambda pkg, **kw:
+                                  _dvb_t_make(pkg, _dvb_t_stream_iq()[1],
+                                              **kw), "feed",
+                                  lambda: _chunks(_dvb_t_stream_iq()[0],
+                                                  40_000),
+                                  lambda outs: sum((_payload_view(o)
+                                                    for o in outs), []),
+                                  "exact"),
+    "DvbTHierFrameStreamDemod.feed": (P.DvbTHierFrameStreamDemod, _hier_make,
+                                      "feed", lambda: _chunks(_hier_iq()[0],
+                                                              40_000),
+                                      _hier_view, "exact"),
+    "OfdmFrameBandStreamDemod.feed": (P.OfdmFrameBandStreamDemod,
+                                      lambda pkg, **kw:
+                                      pkg.OfdmFrameBandStreamDemod(
+                                          *_ofdm_link(pkg), [BAND_CENTER],
+                                          BAND_FS_WIDE, **kw), "feed",
+                                      lambda: _chunks(_band_iq(), 7_001),
+                                      _band_view, "exact"),
+}
+
+
+def _run_stream(name, pkg, chunks, device=None):
+    """The outputs of every chunk, and of ``flush`` where the stream holds
+    a tail (the FT8 decoder's flush decodes its buffer again); ``device``
+    goes where the stream takes it."""
+    where, make, method, _, view, _ = STREAMS[name]
+    kw = {} if device is None else {"device": device}
+    st = make(pkg, **(kw if where not in ("feed", None) else {}))
+    call = getattr(st, method)
+    outs = [call(c, **kw) if where == "feed" else call(c) for c in chunks]
+    if hasattr(st, "flush") and not name.startswith("Ft8"):
+        outs.append(st.flush())
+    return view(outs)
+
+
+def _same(ref, got, how):
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        if isinstance(g, torch.Tensor):
+            assert g.device.type == "cpu"
+            close(r, g) if how == "close" else \
+                np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        else:
+            assert g == r
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_stream_asks_for_the_card_by_default(name, monkeypatch):
+    where, make, method, chunks, _, _ = STREAMS[name]
+    if where is None:                       # host bits in both packages
+        assert isinstance(make(P).feed(BITS[0][:8]), np.ndarray)
+        return
+    if where != "feed":
+        assert inspect.signature(where).parameters["device"].default == \
+            "cuda"
+        return
+    asked = []
+    _resolver_spy(PDV, "on_device", asked, monkeypatch)
+    getattr(make(P), method)(chunks()[0])
+    assert asked and asked[0] == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_stream_numpy_chunks_on_the_cpu_equal_jax(name):
+    where, _, _, chunks, _, how = STREAMS[name]
+    c = chunks()
+    ref = _run_stream(name, J, c)
+    got = _run_stream(name, P, c, None if where is None else "cpu")
+    assert ref or name.startswith(("Resampler", "Channelizer", "Pn"))
+    _same(ref, got, how)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_stream_tensor_chunks_keep_the_device(name):
+    where, _, _, chunks, _, how = STREAMS[name]
+    c = chunks()
+    dev = None if where in ("feed", None) else "cpu"
+    host = _run_stream(name, P, c, None if where is None else "cpu")
+    got = _run_stream(name, P, [torch.as_tensor(np.array(x)) for x in c],
+                      dev)
+    _same(host, got, how)

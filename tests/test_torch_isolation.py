@@ -1,9 +1,12 @@
 """The port stands alone: it builds its native host library from its own
 source, imports nothing of the JAX package (nor JAX; nor do chip_smoke.py,
 tools/torch_distributed_smoke.py, tools/gen_stub_torch.py, the thirteen
-examples under examples/torch/, and the sweeps' helper and card file that
-run on a card machine, tests/torch_sweeps.py and
-tests/test_torch_perf_sweeps.py), and its top level
+examples under examples/torch/, and the helpers and card files that run
+on a card machine: the sweeps', tests/torch_sweeps.py and
+tests/test_torch_perf_sweeps.py, and the JAX tier-1 contracts' loader,
+twins, contract modules and card file, tests/torch_contracts.py,
+tests/torch_contract_twins.py and tests/test_torch_contracts_*.py), and its
+top level
 carries the JAX package's names of the modules it has ported. Runs on the
 CPU: it reads the sources with ``ast``, imports no JAX module for the
 check, and builds nothing."""
@@ -55,7 +58,12 @@ def _sources():
              os.path.join(ROOT, "tools", "torch_distributed_smoke.py"),
              os.path.join(ROOT, "tools", "gen_stub_torch.py"),
              os.path.join(ROOT, "tests", "torch_sweeps.py"),
-             os.path.join(ROOT, "tests", "test_torch_perf_sweeps.py")]
+             os.path.join(ROOT, "tests", "test_torch_perf_sweeps.py"),
+             os.path.join(ROOT, "tests", "torch_contracts.py"),
+             os.path.join(ROOT, "tests", "torch_contract_twins.py")]
+    tests = os.path.join(ROOT, "tests")
+    files += [os.path.join(tests, n) for n in os.listdir(tests)
+              if n.startswith("test_torch_contracts_") and n.endswith(".py")]
     for top in (PORT, os.path.join(ROOT, "examples", "torch")):
         for d, _, names in os.walk(top):
             files += [os.path.join(d, n) for n in names if n.endswith(".py")]
