@@ -216,7 +216,14 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    version at once (each step recomputed from the launch's own previous
    envelope in the plain version's float32 operations, exact at every
    step, so exact over the whole run by induction), and the kernel is
-   timed at 64 x 2^20.
+   timed at 64 x 2^20. The 64 x 2^20 sequence runs under a watch
+   (tests/torch_kernel_safety.py's agc_sequence): exact copies of
+   iq[:2, :8192] right after the draw, of the agc launch's own x^2 and
+   initial-envelope slices right after it and of the CPU path's input
+   copy right after it is made, compared byte for byte after agc_rms on
+   the card, after cw_mod, after the synchronise, after the CPU copy and
+   after the CPU agc_rms; when the CPU check parts, the first window in
+   which bytes changed is printed with its side and step.
 32. PFB (slice 5a; the JAX bench's pfb_channelizer_throughput, bench.py:
    749-761): pfb_channelize at C = 64, n = 2^20 on the card; four unit
    tones at channel centers (3, 17, -20, -31) must land in their rows more
@@ -462,7 +469,19 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    fails the phase. Its readings (each file's counts and launches, the
    seconds, the card's name and power limit) go to the kernels line's
    "contracts" object.
-55. Prints the kernels' JSON line (each kernel's main-path launches, error
+55. Memory safety and run-to-run determinism of every kernel
+   (tests/torch_kernel_safety.py): the smallest case of each branch each
+   launching C entry selects, launched through the wrapper's own
+   _launch_into on guarded buffers: the bands around each output
+   unchanged and every output element equal to the plain version's; three
+   halo fills around each input (two random, then NaN/+-inf for floats)
+   giving bit-identical outputs; every input buffer byte-equal after the
+   launches; 20 repeat launches bit-identical alone, beside a stream busy
+   with float32 products, with the rows permuted and at every launch shape
+   the entry takes (BP's grid, the outer decoders' lanes and codewords a
+   block). Any failure fails the phase. One line a kernel; the readings
+   go to the kernels line's "safety" object.
+56. Prints the kernels' JSON line (each kernel's main-path launches, error
    against its plain version, kernel and plain times, its bound on this
    card from this run's inputs, no library call; for the Viterbi kernels
    also the launches by phase, "13 FORCE_RADIX4" being [13]'s forced run,
@@ -507,7 +526,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    "sweeps" object with [53]'s readings ([53] adds to the BP, radix-2 and
    PSK31 PLL launches by phase, and to the outer code's where it runs), a
    "contracts" object with [54]'s ([54] adds to the launches by phase of
-   each kernel the JAX files launch);
+   each kernel the JAX files launch), a "safety" object with [55]'s
+   (by kernel: its cases, the entries they launch, whether every band,
+   halo, input, plain-version and determinism check held, the launches,
+   the seconds and the cases that failed);
    the card's name and power limit, then the
    result line
    {"ok": true, "device": {...}} last. Any failure exits non-zero before
@@ -2986,19 +3008,6 @@ def psk31_viterbi_phase(P, pv, dev):
     return runs, err, stats
 
 
-def onepole_steps_exact(one, x, env0, a_hi, a_lo, ge, env, last) -> bool:
-    """Holds a two-rate one-pole run to its plain version at every step at
-    once: each step recomputed from the run's own previous envelope (env0
-    before the first) in the plain version's float32 operations (the two
-    products rounded apart, then the sum). Exact at every step is exact
-    over the whole run, by induction from env0."""
-    ah, bh, al, bl = (float(v) for v in one._poles(a_hi, a_lo))
-    prev = torch.cat([env0[..., None], env[..., :-1]], dim=-1)
-    hi = x >= prev if ge else x > prev
-    expect = torch.where(hi, ah * prev + bh * x, al * prev + bl * x)
-    return torch.equal(expect, env) and torch.equal(last, env[..., -1])
-
-
 def first_difference(a: torch.Tensor, b: torch.Tensor):
     """(torch.equal(a, b), the index of the first element where they
     differ, None when equal)."""
@@ -3049,12 +3058,11 @@ def onepole_phase(P, one, dev):
     """[31]: the two-rate one-pole kernel on the paths that launch it
     (agc_rms with attack != release, real and complex, and cw_mod) against
     its plain loop at 64 x 8192 (exact) and timed there; then the entry
-    points at 64 x 2^20 with the launches counted, every step of those
+    points at 64 x 2^20 with the launches counted (under the watch of
+    tests/torch_kernel_safety.py's agc_sequence), every step of those
     launches held to the plain version (exact), and the kernel timed at
     that width."""
-    import orion_sdr_tpu_torch.dsp.agc as agc_mod
-    import orion_sdr_tpu_torch.modulate.analog as analog_mod
-    from orion_sdr_tpu_torch.dsp.agc import agc_rms, design_agc
+    from orion_sdr_tpu_torch.dsp.agc import design_agc
     onepole = one.onepole_two_rate
     rng = np.random.default_rng(31)
     p = design_agc(ONEPOLE_FS, 5.0, 50.0, 0.3)
@@ -3085,45 +3093,19 @@ def onepole_phase(P, one, dev):
             fail(f"[31] the two-rate one-pole kernel disagrees with its "
                  f"plain version ({label})")
     n = 1 << ONEPOLE_LOG2_N
-    iq = torch.complex(*(torch.randn((ONEPOLE_ROWS, n), device=dev,
-                                     generator=torch.Generator(dev)
-                                     .manual_seed(s)) for s in (1, 2))) * 3.0
-    keys = ((torch.arange(n, device=dev)[None, :] // 4000
-             + torch.arange(ONEPOLE_ROWS, device=dev)[:, None]) % 2).float()
-    seen = []
-
-    def rec(x, env0, a_hi, a_lo, ge):
-        env, last = onepole(x, env0, a_hi, a_lo, ge)
-        seen.append((x, env0, a_hi, a_lo, ge, env, last))
-        return env, last
-    for m in (agc_mod, analog_mod):
-        m.onepole_two_rate = rec
-    try:
-        onepole.launches = 0
-        y, _ = agc_rms(iq, p)
-        cw, _ = P.cw_mod(keys, ONEPOLE_FS, 700.0, device=dev)
-        torch.cuda.synchronize()
-        launches = onepole.launches
-    finally:
-        for m in (agc_mod, analog_mod):
-            m.onepole_two_rate = onepole
-    steps_exact = [onepole_steps_exact(one, *r) for r in seen]
+    run = load_safety().agc_sequence(P, dev, ONEPOLE_FS, ONEPOLE_ROWS,
+                                     ONEPOLE_LOG2_N, ONEPOLE_CMP)
+    seen, iq, y, watch = run.pop("seen"), run["iq"], run["y"], run["watch"]
+    launches, tail_rms, on = run["launches"], run["tail_rms"], run["on"]
+    steps_exact = [load_safety().onepole_steps_exact(*r) for r in seen]
     agc_env = seen[0][5][:2, :ONEPOLE_CMP].cpu() if seen else None
     del seen
-    tail_rms = float(y[:, n // 2:].abs().pow(2).mean().sqrt())
-    mark = keys[:, 7999] > 0                    # rows keyed over 4000-7999
-    on = float(cw[mark, 7999].abs().min())
-    # the first CMP samples of two rows through the CPU path
     head = slice(0, ONEPOLE_CMP)
-    x_kept = iq[:2, head].cpu()      # the CPU path's input copy
-    y_cpu, _ = agc_rms(x_kept, p)
-    cw_cpu, _ = P.cw_mod(keys[:2, head].cpu(), ONEPOLE_FS, 700.0,
-                         device="cpu")
-    err_agc = float((y[:2, head].cpu() - y_cpu).abs().max())
-    err_cw = float((cw[:2, head].cpu() - cw_cpu).abs().max())
+    err_agc, err_cw = run["err_agc"], run["err_cw"]
+    print(f"  [31] watch over the sequence: {watch.report()}")
     if not err_agc <= 1e-5:
-        agc_parting(one, p, iq[:2, head], y[:2, head], y_cpu, agc_env,
-                    x_kept)
+        agc_parting(one, p, iq[:2, head], y[:2, head], run["y_cpu"],
+                    agc_env, run["x_kept"])
     in_rms = float(iq[:, n // 2:].abs().pow(2).mean().sqrt())
     print(f"  agc_rms on {ONEPOLE_ROWS} x {n} complex IQ (rms {in_rms:.3f}): "
           f"tail rms {tail_rms:.4f} (target {p.target_rms}; the fast attack "
@@ -3133,6 +3115,9 @@ def onepole_phase(P, one, dev):
           f"{err_agc:.2e}, cw {err_cw:.2e} (tolerance 1e-5); two-rate "
           f"launches {launches}; every step of each launch at {ONEPOLE_ROWS}"
           f" x {n} against the plain version's step: exact {steps_exact}")
+    if watch.parted is not None:
+        fail(f"[31] bytes of a kept tensor changed in the AGC sequence: "
+             f"{watch.report()}")
     if launches != 2 or not 0.5 < tail_rms / p.target_rms < 2.0 \
             or not on > 0.99 or not max(err_agc, err_cw) <= 1e-5:
         fail("[31] agc_rms / cw_mod on the card")
@@ -4737,7 +4722,8 @@ def keyed(P, one, dev, stations, fs, n, noise, seed):
             buf[start:start + iq.shape[0]] += amp * iq
         torch.cuda.synchronize()
     launches = one.onepole_two_rate.launches
-    exact = [onepole_steps_exact(one, *args, *out) for args, out in seen]
+    steps_exact = load_safety().onepole_steps_exact
+    exact = [steps_exact(*args, *out) for args, out in seen]
     if launches != len(stations) or len(seen) != launches or not all(exact):
         fail(f"cw_mod's two-rate one-pole launches: {launches} for "
              f"{len(stations)} stations, each exact at every step: {exact}")
@@ -5256,7 +5242,8 @@ def cw_block(P, one, dev):
         iq = run()
         torch.cuda.synchronize()
     launches = one.onepole_two_rate.launches
-    exact = [onepole_steps_exact(one, *args, *o) for args, o in seen]
+    steps_exact = load_safety().onepole_steps_exact
+    exact = [steps_exact(*args, *o) for args, o in seen]
     mag = np.abs(iq)
     on = mag[(np.convolve(key, np.ones(961), "same") > 960.5)]
     off = mag[(np.convolve(key, np.ones(961), "same") < 0.5)]
@@ -6341,7 +6328,8 @@ def examples_phase(P, ldpc_bp, viterbi, pll, one, outer_fec, bd, tk, dd, ga,
     for k, (_, _, _, plain) in kernels.items():
         seen = seens[k]
         if k == "one":
-            exact[k] = all(onepole_steps_exact(one, *args[:5], *out)
+            steps_exact = load_safety().onepole_steps_exact
+            exact[k] = all(steps_exact(*args[:5], *out)
                            for args, out in seen)
             errs[k] = 0.0 if exact[k] else float("inf")
         else:
@@ -6359,6 +6347,8 @@ def examples_phase(P, ldpc_bp, viterbi, pll, one, outer_fec, bd, tk, dd, ga,
     return launches, errs, readings, radices
 
 
+SAFETY_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_kernel_safety.py")
 SWEEPS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "torch_sweeps.py")
 # [53]: the JAX sweeps whose documented floors (each Sweep's ``floor`` in
@@ -6367,6 +6357,46 @@ SMOKE_SWEEPS = ("test_snr_sweep_ft8", "test_snr_sweep_ft4",
                 "test_snr_sweep_psk31", "test_snr_sweep_dvb_t",
                 "test_snr_sweep_cofdm_stream_waterline",
                 "test_sync_lock_sweep_ofdm")
+
+
+def load_safety():
+    """tests/torch_kernel_safety.py (numpy, torch and the port) as a
+    module."""
+    import importlib.util
+    if "torch_kernel_safety" in sys.modules:
+        return sys.modules["torch_kernel_safety"]
+    spec = importlib.util.spec_from_file_location("torch_kernel_safety",
+                                                  SAFETY_FILE)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # its dataclasses look it up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def safety_phase(smi_line):
+    """[55] the smallest case of each branch of every kernel through every
+    check of tests/torch_kernel_safety.py; fails on any case that does not
+    hold. Returns (the readings by kernel, seconds)."""
+    S = load_safety()
+    t0 = time.perf_counter()
+    results = [S.run_case(c, torch.device("cuda")) for c in S.CASES
+               if c.smoke]
+    by_kernel = S.summary(results)
+    for name, e in by_kernel.items():
+        print(f"  [55] {name} ({', '.join(e['entries'])}): {e['cases']} "
+              f"cases, bands {e['bands']}, halos {e['halos']}, inputs "
+              f"{e['inputs']}, plain {e['plain']}, determinism "
+              f"{e['determinism']}, {e['launches']} launches, "
+              f"{e['s']:.2f} s")
+    secs = time.perf_counter() - t0
+    print(f"  [55] {len(results)} cases ({smi_line})")
+    bad = [r for r in results if not r["ok"]]
+    for r in bad:
+        print(f"  [55] FAILED {r['case']}: {r['failed']}")
+    if bad or len(by_kernel) != 12:
+        fail(f"[55] memory safety and determinism: {len(bad)} of "
+             f"{len(results)} cases failed, {len(by_kernel)} kernels")
+    return by_kernel, secs
 
 
 def load_sweeps():
@@ -6437,7 +6467,8 @@ def sweeps_phase(P, kernels, smi_line):
     exact, errs = {}, {}
     for (k, label), call in firsts.items():
         if kernels[k][3] is None:      # the two-rate one-pole, step by step
-            same = onepole_steps_exact(kernels[k][0], *call[0][:5], *call[1])
+            same = load_safety().onepole_steps_exact(*call[0][:5],
+                                                     *call[1])
             err = 0.0 if same else float("inf")
         else:
             same, err = held_to_plain([call], kernels[k][3])
@@ -6547,7 +6578,8 @@ def contracts_phase(kernels, smi_line):
     exact, errs = {}, {}
     for (k, f), call in firsts.items():
         if kernels[k][3] is None:      # the two-rate one-pole, step by step
-            same = onepole_steps_exact(kernels[k][0], *call[0][:5], *call[1])
+            same = load_safety().onepole_steps_exact(*call[0][:5],
+                                                     *call[1])
             err = 0.0 if same else float("inf")
         else:
             same, err = held_to_plain([call], kernels[k][3])
@@ -7091,6 +7123,13 @@ def main() -> int:
     h_err = max(h_err, e54["psk31_viterbi"])
     contracts54["launches_by_file"] = {k: v for k, v in n54.items() if v}
     print(f"  [54] took {contracts54['s']:.1f} s")
+    print("[55] memory safety and run-to-run determinism of every kernel "
+          "(tests/torch_kernel_safety.py): the smallest case of each branch "
+          "of each launching C entry, in guarded buffers: output bands, "
+          "three input halo fills, inputs untouched, 20 repeat launches "
+          "alone, beside a busy stream, rows permuted, at each launch shape")
+    safety55, s55 = safety_phase(smi_line)
+    print(f"  [55] took {s55:.1f} s")
     default = [p for p in vit_runs if p != FORCED]
     by_phase = {radix: {p: n[k] for p, n in vit_runs.items()}
                 for k, radix in enumerate((2, 4))}
@@ -7163,6 +7202,7 @@ def main() -> int:
     k_ms, p_ms = times["sum_product"]
     vit_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 2)
     r4_bnd = viterbi_bound(VIT_LANES, VIT_SPAN, "dvb_k7", 4)
+    print("[56] the kernels line")
     print(json.dumps({"kernels": [
         entry("ldpc_bp_decode", "ldpc_bp.cu",
               "orion_sdr_tpu/ops/ldpc_bp.py:256", sum(bp_runs.values()),
@@ -7336,7 +7376,8 @@ def main() -> int:
                                    "max_abs_err_by_path": err51["paths"]}},
         "examples": {"52": examples52},
         "sweeps": {"53": sweeps53},
-        "contracts": {"54": contracts54}}))
+        "contracts": {"54": contracts54},
+        "safety": {"55": {"s": s55, "kernels": safety55}}}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

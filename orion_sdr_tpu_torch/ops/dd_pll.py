@@ -109,13 +109,22 @@ def dd_pll(z: torch.Tensor, order: str, loop_bw: float) -> torch.Tensor:
     zz = z.reshape(rows, n).contiguous()
     out = torch.empty_like(zz)
     if rows and n:
-        kp, ki = loop_gains(loop_bw)
-        thr, lv, sign = _tables(order, z.device)
-        _LIB.launch("dd_pll", z.device, zz.data_ptr(), rows, n,
-                    thr.data_ptr(), thr.numel(), lv.data_ptr(), int(sign),
-                    int(order == "bpsk"), kp, ki, out.data_ptr())
+        _launch_into(zz, order, loop_bw, _tables(order, z.device), out)
         dd_pll.launches += 1
     return out.reshape(z.shape)
+
+
+def _launch_into(z: torch.Tensor, order: str, loop_bw: float, tables,
+                 out: torch.Tensor) -> None:
+    """Launches the kernel on the caller's buffers: ``z`` and ``out``
+    (rows, n) complex64 contiguous CUDA tensors, ``tables`` ``_tables``'s
+    (thresholds, levels, sign) for ``order``."""
+    rows, n = z.shape
+    thr, lv, sign = tables
+    kp, ki = loop_gains(loop_bw)
+    _LIB.launch("dd_pll", z.device, z.data_ptr(), rows, n, thr.data_ptr(),
+                thr.numel(), lv.data_ptr(), int(sign), int(order == "bpsk"),
+                kp, ki, out.data_ptr())
 
 
 dd_pll.launches = 0
@@ -128,6 +137,12 @@ def sincos_mismatches(device="cuda", lo: int = 0, count: int = 1 << 32
     ``cosf`` and ``sinf`` (any NaN agrees with any NaN): the premise of the
     kernel's one range reduction. Card only."""
     bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _sincos_into(lo, count, bad)
+    return int(bad.item())
+
+
+def _sincos_into(lo: int, count: int, bad: torch.Tensor) -> None:
+    """Adds :func:`sincos_mismatches`'s count to ``bad``, a (1,) int64
+    CUDA tensor."""
     _LIB.launch("dd_pll_sincos_mismatches", bad.device, int(lo), int(count),
                 bad.data_ptr())
-    return int(bad.item())

@@ -108,17 +108,27 @@ def gardner_rows(zn: torch.Tensor, sps: float, n_out: int,
     if zn.device.type != "cuda":
         raise ValueError(f"no Gardner kernel for device {zn.device}")
     rows, n = zn.shape
-    pos0, rate0, kp, ki, lo, hi = loop_constants(sps, loop_bw, mu0)
+    pos0 = loop_constants(sps, loop_bw, mu0)[0]
     out = torch.empty((rows, n_out), dtype=torch.complex64, device=zn.device)
     pos = torch.full((rows,), pos0, dtype=torch.float32, device=zn.device)
     if rows and n_out:
         misses = torch.zeros(rows, dtype=torch.int32, device=zn.device)
-        _LIB.launch("gardner", zn.device, zn.data_ptr(), rows, n, n_out,
-                    pos0, rate0, kp, ki, lo, hi, out.data_ptr(),
-                    pos.data_ptr(), misses.data_ptr())
+        _launch_into(zn, sps, loop_bw, mu0, out, pos, misses)
         gardner.launches += 1
         gardner.last_misses = misses
     return out, pos
+
+
+def _launch_into(zn: torch.Tensor, sps: float, loop_bw: float, mu0: float,
+                 out: torch.Tensor, pos: torch.Tensor,
+                 misses: torch.Tensor) -> None:
+    """Launches the kernel on the caller's buffers: ``zn`` (rows, n)
+    complex64 and ``out`` (rows, n_out) complex64, ``pos`` (rows,) float32
+    and ``misses`` (rows,) int32, all contiguous CUDA tensors."""
+    rows, n = zn.shape
+    _LIB.launch("gardner", zn.device, zn.data_ptr(), rows, n, out.shape[1],
+                *loop_constants(sps, loop_bw, mu0), out.data_ptr(),
+                pos.data_ptr(), misses.data_ptr())
 
 
 def gardner(z: torch.Tensor, sps: float, n_out: int, loop_bw: float = 0.02,

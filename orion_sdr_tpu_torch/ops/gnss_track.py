@@ -63,12 +63,12 @@ def loop_constants(fs: float, spms: int, k_pll_f: float, k_pll_p: float,
             "kd": float(f(k_dll))}
 
 
-def _sum_fixed(p: torch.Tensor) -> torch.Tensor:
-    """(..., spms) → (...,): the kernel's order at ``THREADS`` threads —
-    each thread's strided partial sum in turn (zero padded), pairs (l,
-    l + s) for s = 16 .. 1 within each warp of 32, then pairs (w, w + s)
-    for s = THREADS/64 .. 1 over the warp sums."""
-    T = THREADS
+def _sum_fixed(p: torch.Tensor, threads: int | None = None) -> torch.Tensor:
+    """(..., spms) → (...,): the kernel's order at ``threads`` threads
+    (default ``THREADS``) — each thread's strided partial sum in turn (zero
+    padded), pairs (l, l + s) for s = 16 .. 1 within each warp of 32, then
+    pairs (w, w + s) for s = threads/64 .. 1 over the warp sums."""
+    T = THREADS if threads is None else threads
     spms = p.shape[-1]
     J = -(-spms // T)
     p = torch.nn.functional.pad(p, (0, J * T - spms))
@@ -126,9 +126,10 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
 def track_reference(z: torch.Tensor, codes: torch.Tensor,
                     starts: torch.Tensor, f0: torch.Tensor, fs: float,
                     n_epochs: int, k_pll_f: float, k_pll_p: float,
-                    k_dll: float):
+                    k_dll: float, threads: int | None = None):
     """Plain version: one epoch a loop iteration, all satellites at once,
-    in the kernel's real operations and sum order."""
+    in the kernel's real operations and sum order at ``threads`` threads a
+    satellite (default ``THREADS``)."""
     S, spms = codes.shape
     n = z.shape[-1]
     c = loop_constants(fs, spms, k_pll_f, k_pll_p, k_dll)
@@ -156,7 +157,8 @@ def track_reference(z: torch.Tensor, codes: torch.Tensor,
             xr, xi = zr[idx], zi[idx]
             prods.append(codes * (xr * cs + xi * sn))
             prods.append(codes * (xi * cs - xr * sn))
-        er, ei, pr, pi, lr, li = _sum_fixed(torch.stack(prods))
+        er, ei, pr, pi, lr, li = _sum_fixed(torch.stack(prods),
+                                                threads)
         pll = torch.atan2(pi * _sign(pr), torch.maximum(pr.abs(), tiny))
         ae = torch.sqrt(er * er + ei * ei)
         al = torch.sqrt(lr * lr + li * li)
@@ -202,7 +204,6 @@ def gnss_track(z: torch.Tensor, codes: torch.Tensor, starts: torch.Tensor,
         raise ValueError("the tracking kernel takes captures of up to 2^31 - 1 "
                          "samples")
     E = int(n_epochs)
-    c = loop_constants(fs, spms, k_pll_f, k_pll_p, k_dll)
     prompts = torch.empty((S, E), dtype=torch.complex64, device=dev)
     freqs = torch.empty((S, E), dtype=torch.float32, device=dev)
     bases = torch.empty((S, E), dtype=torch.int32, device=dev)
@@ -212,16 +213,32 @@ def gnss_track(z: torch.Tensor, codes: torch.Tensor, starts: torch.Tensor,
         zc = z.contiguous()
         if zc.data_ptr() % 16:
             zc = zc.clone()         # the window's bulk copy reads 16-byte units
-        _LIB.launch("gnss_track", dev, zc.data_ptr(), zc.shape[0],
-                    codes.data_ptr(), S, spms, starts.data_ptr(),
-                    f0.data_ptr(), E, c["d_el"], WINDOW_MARGIN, THREADS,
-                    c["w0"], c["spms_f"], c["tau"], c["l1"], c["spc"],
-                    c["kf"], c["kp"], c["kd"], prompts.data_ptr(),
-                    freqs.data_ptr(), bases.data_ptr(), fracs.data_ptr(),
-                    misses.data_ptr())
+        _launch_into(zc, codes, starts, f0, fs, k_pll_f, k_pll_p, k_dll,
+                     prompts, freqs, bases, fracs, misses)
         gnss_track.launches += 1
     gnss_track.last_misses = misses
     return prompts, freqs, bases, fracs
+
+
+def _launch_into(z: torch.Tensor, codes: torch.Tensor, starts: torch.Tensor,
+                 f0: torch.Tensor, fs: float, k_pll_f: float, k_pll_p: float,
+                 k_dll: float, prompts: torch.Tensor, freqs: torch.Tensor,
+                 bases: torch.Tensor, fracs: torch.Tensor,
+                 misses: torch.Tensor, threads: int | None = None) -> None:
+    """Launches the kernel on the caller's buffers, all contiguous CUDA
+    tensors: :func:`gnss_track`'s inputs, its four (S, E) outputs and the
+    (S,) int32 window misses, at ``threads`` threads a satellite (default
+    ``THREADS``). A capture that is not 16-byte aligned reads every
+    epoch from device memory."""
+    S, spms = codes.shape
+    c = loop_constants(fs, spms, k_pll_f, k_pll_p, k_dll)
+    _LIB.launch("gnss_track", z.device, z.data_ptr(), z.shape[0],
+                codes.data_ptr(), S, spms, starts.data_ptr(), f0.data_ptr(),
+                prompts.shape[1], c["d_el"], WINDOW_MARGIN,
+                THREADS if threads is None else threads, c["w0"],
+                c["spms_f"], c["tau"], c["l1"], c["spc"], c["kf"], c["kp"],
+                c["kd"], prompts.data_ptr(), freqs.data_ptr(),
+                bases.data_ptr(), fracs.data_ptr(), misses.data_ptr())
 
 
 gnss_track.launches = 0

@@ -341,21 +341,34 @@ def bp_decode_kernel(g, llr: torch.Tensor, max_iter: int = 50,
     unsat = torch.empty((B,), dtype=torch.int32, device=llr.device)
     if B == 0:
         return bits, unsat
-    t = graph_tables(g, llr.device)
+    _launch_into(graph_tables(g, llr.device), llr, max_iter, rule, alpha,
+                 bits, unsat)
+    if rule == "sum_product_edge":
+        bp_decode_kernel.launches_edge += 1
+    else:
+        bp_decode_kernel.launches += 1
+    return bits, unsat
+
+
+def _launch_into(t: BpTables, llr: torch.Tensor, max_iter: int, rule: str,
+                 alpha: float, bits: torch.Tensor, unsat: torch.Tensor,
+                 grid: int | None = None) -> None:
+    """Launches the kernel on the caller's buffers, all contiguous CUDA
+    tensors: ``t`` the graph's tables, ``llr`` (B, n) float32, ``bits``
+    (B, width) uint8 (width k or n), ``unsat`` (B,) int32; on ``grid``
+    persistent blocks (default :func:`launch_plan`'s, the resident blocks
+    at most B)."""
+    B, width = bits.shape
     code = _RULE_CODE[rule]
     plan = _resident(t, code, llr.device)
-    grid = min(B, plan["blocks_per_sm"] * plan["sms"])
+    if grid is None:
+        grid = min(B, plan["blocks_per_sm"] * plan["sms"])
     scale = float(alpha) if rule == "scaled_min_sum" else 1.0
     _LIB.launch("ldpc_bp_decode", llr.device, llr.data_ptr(), B, t.n, width,
                 t.m, t.D, t.C, t.check_slots.data_ptr(),
                 t.bit_slots.data_ptr(), int(max_iter), code, scale, grid,
                 plan["threads"], plan["smem"], bits.data_ptr(),
                 unsat.data_ptr())
-    if rule == "sum_product_edge":
-        bp_decode_kernel.launches_edge += 1
-    else:
-        bp_decode_kernel.launches += 1
-    return bits, unsat
 
 
 bp_decode_kernel.launches = 0

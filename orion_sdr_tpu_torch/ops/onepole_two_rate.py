@@ -74,14 +74,23 @@ def onepole_two_rate(x: torch.Tensor, env0: torch.Tensor, a_hi: float,
     env = torch.empty_like(xs)
     last = torch.empty_like(e0)
     if rows and n:
-        _LIB.launch("onepole_two_rate", x.device, xs.data_ptr(),
-                    e0.data_ptr(), rows, n,
-                    *(float(v) for v in _poles(a_hi, a_lo)), int(bool(ge)),
-                    env.data_ptr(), last.data_ptr())
+        _launch_into(xs, e0, a_hi, a_lo, ge, env, last)
         onepole_two_rate.launches += 1
     else:
         last = e0.clone()
     return env.reshape(x.shape), last.reshape(env0.shape)
+
+
+def _launch_into(x: torch.Tensor, env0: torch.Tensor, a_hi: float,
+                 a_lo: float, ge: bool, env: torch.Tensor,
+                 last: torch.Tensor) -> None:
+    """Launches the kernel on the caller's buffers: ``x`` and ``env``
+    (rows, n), ``env0`` and ``last`` (rows,), float32 contiguous CUDA
+    tensors."""
+    rows, n = x.shape
+    _LIB.launch("onepole_two_rate", x.device, x.data_ptr(), env0.data_ptr(),
+                rows, n, *(float(v) for v in _poles(a_hi, a_lo)),
+                int(bool(ge)), env.data_ptr(), last.data_ptr())
 
 
 onepole_two_rate.launches = 0

@@ -120,18 +120,31 @@ def _check_rows(x: torch.Tensor, n: int, what: str) -> None:
 
 def _launch(fn: str, kind: str, x: torch.Tensor, k: int, args, tables):
     """Allocates (B, k) uint8 messages and (B,) int32 flags on ``x``'s card
-    and launches ``fn`` on the current stream at :func:`launch_plan`'s
-    lanes and groups; raises on a CUDA error."""
+    and launches ``fn`` on them; returns them and whether it launched."""
     B = x.shape[0]
     out = torch.empty((B, k), dtype=torch.uint8, device=x.device)
     ok = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return out, ok, False
-    plan = launch_plan(kind, B, x.device)
-    _LIB.launch(fn, x.device, x.data_ptr(), B, *args,
-                *[t.data_ptr() for t in tables], plan["lanes"],
-                plan["groups_per_block"], out.data_ptr(), ok.data_ptr())
+    _launch_into(fn, kind, x, args, tables, out, ok)
     return out, ok, True
+
+
+def _launch_into(fn: str, kind: str, x: torch.Tensor, args, tables,
+                 out: torch.Tensor, ok: torch.Tensor,
+                 lanes: int | None = None, groups: int | None = None
+                 ) -> None:
+    """Launches ``fn`` on the caller's buffers (contiguous CUDA tensors)
+    on the current stream, at ``lanes`` a codeword and ``groups``
+    codewords a block (default :func:`launch_plan`'s); raises on a CUDA
+    error."""
+    B = x.shape[0]
+    if lanes is None:
+        plan = launch_plan(kind, B, x.device)
+        lanes, groups = plan["lanes"], plan["groups_per_block"]
+    _LIB.launch(fn, x.device, x.data_ptr(), B, *args,
+                *[t.data_ptr() for t in tables], lanes, groups,
+                out.data_ptr(), ok.data_ptr())
 
 
 def bch_decode_kernel(n: int, k: int, t: int, bits: torch.Tensor):

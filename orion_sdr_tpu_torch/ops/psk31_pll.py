@@ -106,13 +106,26 @@ def psk31_pll(dots: torch.Tensor, prev0: torch.Tensor, acc0: torch.Tensor,
     prev_out = p0.clone()
     acc_out = a0.clone()
     if rows and n:
-        _LIB.launch("psk31_pll", dots.device, d.data_ptr(), p0.data_ptr(),
-                    a0.data_ptr(), rows, n, float(c_fb), float(scale),
-                    float(gain), int(bool(qpsk)), soft.data_ptr(),
-                    prev_out.data_ptr(), acc_out.data_ptr())
+        _launch_into(d, p0, a0, c_fb, scale, gain, qpsk, soft, prev_out,
+                     acc_out)
         psk31_pll.launches += 1
     return (soft.reshape(lead + soft.shape[1:]), prev_out.reshape(lead),
             acc_out.reshape(lead))
+
+
+def _launch_into(dots: torch.Tensor, prev0: torch.Tensor, acc0: torch.Tensor,
+                 c_fb: float, scale: float, gain: float, qpsk: bool,
+                 soft: torch.Tensor, prev_out: torch.Tensor,
+                 acc_out: torch.Tensor) -> None:
+    """Launches the kernel on the caller's buffers, all contiguous CUDA
+    tensors: ``dots`` (rows, n) complex64, ``prev0`` and ``prev_out``
+    (rows,) complex64, ``acc0`` and ``acc_out`` (rows,) float32, ``soft``
+    (rows, n) or (rows, n, 2) float32."""
+    rows, n = dots.shape
+    _LIB.launch("psk31_pll", dots.device, dots.data_ptr(), prev0.data_ptr(),
+                acc0.data_ptr(), rows, n, float(c_fb), float(scale),
+                float(gain), int(bool(qpsk)), soft.data_ptr(),
+                prev_out.data_ptr(), acc_out.data_ptr())
 
 
 psk31_pll.launches = 0

@@ -142,10 +142,19 @@ def psk31_viterbi(pairs: torch.Tensor, coherent: bool) -> torch.Tensor:
         if p.data_ptr() % 8:                # the kernel reads 8-byte pairs
             p = p.clone()
         masks = torch.empty((n, rows), dtype=torch.int16, device=p.device)
-        _LIB.launch("psk31_viterbi", p.device, p.data_ptr(), rows, n,
-                    int(bool(coherent)), masks.data_ptr(), bits.data_ptr())
+        _launch_into(p, coherent, masks, bits)
         psk31_viterbi.launches += 1
     return bits.reshape(tuple(lead) + (n,))
+
+
+def _launch_into(pairs: torch.Tensor, coherent: bool, masks: torch.Tensor,
+                 bits: torch.Tensor) -> None:
+    """Launches the kernel on the caller's buffers, all contiguous CUDA
+    tensors: ``pairs`` (rows, n, 2) float32 (8-byte aligned), ``masks``
+    (n, rows) int16 survivor scratch, ``bits`` (rows, n) uint8."""
+    rows, n = bits.shape
+    _LIB.launch("psk31_viterbi", pairs.device, pairs.data_ptr(), rows, n,
+                int(bool(coherent)), masks.data_ptr(), bits.data_ptr())
 
 
 psk31_viterbi.launches = 0
@@ -157,6 +166,12 @@ def branch_lengths(z: torch.Tensor) -> torch.Tensor:
     z = z.to(torch.complex64).contiguous()
     h = torch.empty(z.shape, dtype=torch.float32, device=z.device)
     if z.numel():
-        _LIB.launch("psk31_viterbi_lengths", z.device, z.data_ptr(),
-                    z.numel(), h.data_ptr())
+        _lengths_into(z, h)
     return h
+
+
+def _lengths_into(z: torch.Tensor, h: torch.Tensor) -> None:
+    """:func:`branch_lengths` into the caller's ``h``: ``z`` complex64 and
+    ``h`` float32 of as many elements, contiguous CUDA tensors."""
+    _LIB.launch("psk31_viterbi_lengths", z.device, z.data_ptr(), z.numel(),
+                h.data_ptr())

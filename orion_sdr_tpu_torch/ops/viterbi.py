@@ -344,24 +344,40 @@ def launch_plan(L: int, T: int, code: str, radix: int,
             "waves": -(-grid // (b.value * sms))}
 
 
-def _launch(l0_ptr: int, l1_ptr: int, ld: int, es: int, pm0, L: int, T: int,
-            code: str, radix: int, device) -> torch.Tensor:
-    c = CONV_CODES[code]
-    bits = torch.empty((L, T), dtype=torch.uint8, device=device)
-    # global decision scratch, both radices: 256 bytes a 32-step block
+def _launch(l0: torch.Tensor, l1: torch.Tensor, pm0, code: str,
+            radix: int) -> torch.Tensor:
+    """Allocates the (L, T) bits, the global decision scratch where T
+    needs it (both radices: 256 bytes a 32-step block) and the radix-4
+    tables, and launches on them."""
+    L, T = l0.shape
+    dev = l0.device
+    bits = torch.empty((L, T), dtype=torch.uint8, device=dev)
     scratch = (torch.empty((L, -(-T // 32) * 256), dtype=torch.uint8,
-                           device=device)
+                           device=dev)
                if T > MAX_SMEM_STEPS else None)
-    index = spec = None
-    if radix == 4:
-        index, spec = _r4_device_tables(code, torch.device(device))
-    _LIB.launch("viterbi_acs_traceback", device, l0_ptr, l1_ptr, ld, es,
+    r4 = _r4_device_tables(code, dev) if radix == 4 else None
+    _launch_into(l0, l1, pm0, code, radix, r4, bits, scratch)
+    return bits
+
+
+def _launch_into(l0: torch.Tensor, l1: torch.Tensor, pm0, code: str,
+                 radix: int, r4, bits: torch.Tensor, scratch) -> None:
+    """Launches the kernel on the caller's buffers: ``l0``/``l1`` (L, T)
+    float32 LLR views of one stride (a row's, a step's), ``pm0`` (L, S)
+    contiguous initial metrics or None (state 0 pinned), ``r4`` the
+    radix-4 tables (index, spec) or None, ``bits`` (L, T) uint8 and
+    ``scratch`` the global decisions (None when T <= MAX_SMEM_STEPS), all
+    on the card."""
+    L, T = bits.shape
+    c = CONV_CODES[code]
+    index, spec = (None, None) if r4 is None else r4
+    _LIB.launch("viterbi_acs_traceback", l0.device, l0.data_ptr(),
+                l1.data_ptr(), l0.stride(0), l0.stride(1),
                 None if pm0 is None else pm0.data_ptr(), L, T, c["K"],
                 c["g0"], c["g1"], radix,
                 None if index is None else index.data_ptr(),
                 None if spec is None else spec.data_ptr(), bits.data_ptr(),
                 None if scratch is None else scratch.data_ptr())
-    return bits
 
 
 def _count(wrapper, radix: int) -> None:
@@ -389,8 +405,7 @@ def viterbi_chunks_kernel(c0: torch.Tensor, c1: torch.Tensor,
         return viterbi_chunks_reference(c0, c1, pm0, code, radix)
     if L == 0 or T == 0:
         return torch.empty((L, T), dtype=torch.uint8, device=c0.device)
-    bits = _launch(c0.data_ptr(), c1.data_ptr(), T, 1, pm0, L, T, code,
-                   radix, c0.device)
+    bits = _launch(c0, c1, pm0, code, radix)
     _count(viterbi_chunks_kernel, radix)
     return bits
 
@@ -417,8 +432,7 @@ def viterbi_decode_soft_kernel(llrs: torch.Tensor, info_bits: int,
         return torch.empty((0, info_bits), dtype=torch.uint8,
                            device=llrs.device)
     full = depuncture_llrs(llrs, info_bits, rate, code).contiguous()
-    bits = _launch(full.data_ptr(), full.data_ptr() + 4, 2 * T, 2, None, B,
-                   T, code, radix, llrs.device)
+    bits = _launch(full[:, 0::2], full[:, 1::2], None, code, radix)
     _count(viterbi_decode_soft_kernel, radix)
     return bits[:, :info_bits]
 

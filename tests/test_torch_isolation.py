@@ -5,9 +5,10 @@ examples under examples/torch/, and the helpers and card files that run
 on a card machine: the sweeps', tests/torch_sweeps.py and
 tests/test_torch_perf_sweeps.py, and the JAX tier-1 contracts' loader,
 twins, contract modules and card file, tests/torch_contracts.py,
-tests/torch_contract_twins.py and tests/test_torch_contracts_*.py), and its
-top level
-carries the JAX package's names of the modules it has ported. Runs on the
+tests/torch_contract_twins.py and tests/test_torch_contracts_*.py; and
+the kernels' memory-safety harness and its card file,
+tests/torch_kernel_safety.py and tests/test_torch_kernel_safety_gpu.py),
+and its top level carries the JAX package's names of the modules it has ported. Runs on the
 CPU: it reads the sources with ``ast``, imports no JAX module for the
 check, and builds nothing."""
 
@@ -60,7 +61,9 @@ def _sources():
              os.path.join(ROOT, "tests", "torch_sweeps.py"),
              os.path.join(ROOT, "tests", "test_torch_perf_sweeps.py"),
              os.path.join(ROOT, "tests", "torch_contracts.py"),
-             os.path.join(ROOT, "tests", "torch_contract_twins.py")]
+             os.path.join(ROOT, "tests", "torch_contract_twins.py"),
+             os.path.join(ROOT, "tests", "torch_kernel_safety.py"),
+             os.path.join(ROOT, "tests", "test_torch_kernel_safety_gpu.py")]
     tests = os.path.join(ROOT, "tests")
     files += [os.path.join(tests, n) for n in os.listdir(tests)
               if n.startswith("test_torch_contracts_") and n.endswith(".py")]
