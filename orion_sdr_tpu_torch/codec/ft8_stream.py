@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..dsp.device import sanitize_iq
 from ..message import CallsignHashTable, unpack77, Ft8Message
 from ..modulate.ft8 import (FT8_FRAME_LEN, FT4_FRAME_LEN,
@@ -38,7 +39,9 @@ class Ft8DecodeResult:
 
 
 def _iq(iq, device) -> torch.Tensor:
-    return sanitize_iq(torch.as_tensor(iq, device=device))
+    x = torch.as_tensor(iq, device=device)
+    obs.count_h2d(iq, x)
+    return sanitize_iq(x)
 
 
 def _first_decode(cands, payloads_by_prior, ht, carrier):
@@ -126,6 +129,7 @@ class Ft8StreamDecoder:
         return [hit] if hit is not None else []
 
 
+@obs.rooted("orion.ft8.decode_windows")
 def _decode_windows(windows, fs, base_hz, max_hz, max_cand, hash_table, ft8,
                     ap, device):
     from ..sync.ft8_sync import _sync_batch_llrs
@@ -134,11 +138,13 @@ def _decode_windows(windows, fs, base_hz, max_hz, max_cand, hash_table, ft8,
     if x.dim() != 2:
         raise ValueError(f"windows must be (B, n), got {tuple(x.shape)}")
     W = x.shape[0]
+    obs.count("windows", W)
     ht = hash_table if hash_table is not None else CallsignHashTable()
     spacing = FT8_TONE_SPACING_HZ if ft8 else FT4_TONE_SPACING_HZ
-    got = None if W == 0 else _sync_batch_llrs(
-        x, fs, base_hz, max(max_hz + spacing, base_hz + spacing), max_cand,
-        "ft8" if ft8 else "ft4")
+    with obs.span("orion.ft8.sync"):
+        got = None if W == 0 else _sync_batch_llrs(
+            x, fs, base_hz, max(max_hz + spacing, base_hz + spacing),
+            max_cand, "ft8" if ft8 else "ft4")
     if got is None:
         return [None] * W
     f_count, vals, idx, llr = got
@@ -148,36 +154,42 @@ def _decode_windows(windows, fs, base_hz, max_hz, max_cand, hash_table, ft8,
     # prior the clamped retry rows (amplitude from the whole matrix) ride
     # the SAME batch
     priors = (None,) if ap is None else (None, ap)
-    bits, ok = _decode_rows(llr, 20, priors, per_row=False)
-    # an all-zero (scrambled) payload is rejected: bits 0..79 of a91
-    ok = ok & bits[:, :80].bool().any(-1)
-    # each window's first passing row, plain rows before AP rows
-    P = len(priors)
-    okw = ok.reshape(P, W, k).transpose(0, 1).reshape(W, P * k)
-    order = torch.arange(P * k, device=okw.device)
-    first = torch.where(okw, order, P * k).amin(-1)
-    hit = first < P * k
-    first = torch.where(hit, first, 0)
-    row = (first // k) * (W * k) + torch.arange(W, device=okw.device) * k \
-        + first % k
-    win_bits = bits[row]
-    cand = first % k
-    flat = idx.gather(1, cand[:, None])[:, 0]
-    score = vals.gather(1, cand[:, None])[:, 0]
-    # only the winners go to the host
-    packed = torch.cat([hit[:, None].long(), flat[:, None],
-                        win_bits.long()], 1).cpu().numpy()
-    score = score.cpu().numpy()
+    obs.count("bp.rows", llr.shape[0] * len(priors))
+    with obs.span("orion.ft8.bp_crc"):
+        bits, ok = _decode_rows(llr, 20, priors, per_row=False)
+    with obs.span("orion.ft8.select"):
+        # an all-zero (scrambled) payload is rejected: bits 0..79 of a91
+        ok = ok & bits[:, :80].bool().any(-1)
+        # each window's first passing row, plain rows before AP rows
+        P = len(priors)
+        okw = ok.reshape(P, W, k).transpose(0, 1).reshape(W, P * k)
+        order = torch.arange(P * k, device=okw.device)
+        first = torch.where(okw, order, P * k).amin(-1)
+        hit = first < P * k
+        first = torch.where(hit, first, 0)
+        row = (first // k) * (W * k) + \
+            torch.arange(W, device=okw.device) * k + first % k
+        win_bits = bits[row]
+        cand = first % k
+        flat = idx.gather(1, cand[:, None])[:, 0]
+        score = vals.gather(1, cand[:, None])[:, 0]
+        # only the winners go to the host
+        packed = obs.to_host(torch.cat([hit[:, None].long(), flat[:, None],
+                                        win_bits.long()], 1))
+        score = obs.to_host(score)
     results: List[Optional[Ft8DecodeResult]] = []
-    for w in range(W):
-        if not packed[w, 0]:
-            results.append(None)
-            continue
-        payload = _payload(packed[w, 2:], ft4=not ft8)
-        results.append(Ft8DecodeResult(
-            message=unpack77(payload, ht),
-            carrier_hz=base_hz + int(packed[w, 1] % f_count) * spacing,
-            snr_db=float(score[w])))
+    with obs.span("orion.ft8.results"):
+        for w in range(W):
+            if not packed[w, 0]:
+                results.append(None)
+                continue
+            payload = _payload(packed[w, 2:], ft4=not ft8)
+            results.append(Ft8DecodeResult(
+                message=unpack77(payload, ht),
+                carrier_hz=base_hz + int(packed[w, 1] % f_count) * spacing,
+                snr_db=float(score[w])))
+    if obs.recording():
+        obs.count("windows.decoded", int(packed[:, 0].sum()))
     return results
 
 

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..dsp.device import on_device
 from ..fec.bch_device import (MAX_DEVICE_T, bch_decode_batch_device,
                               bch_encode_batch_device, bits_from_bytes,
@@ -436,9 +437,10 @@ def inner_decode_batch(inner: InnerFec, coded_llrs, info_len: int,
     blocks = coded_llrs[:, : n_full * g.n].reshape(nb * n_full, g.n)
     rms = torch.sqrt(torch.mean(blocks ** 2, dim=-1, keepdim=True))
     blocks = (blocks * (4.0 / torch.clamp(rms, min=1e-9))).contiguous()
+    obs.count("bp.rows", blocks.shape[0])
     msg, unsat = ldpc_decode(inner.code, blocks, 50, ldpc_rule)
     ok = (n_full * g.n == coded_llrs.shape[1]) & \
-        (unsat.reshape(nb, n_full) == 0).all(dim=1).cpu().numpy()
+        obs.to_host((unsat.reshape(nb, n_full) == 0).all(dim=1))
     return msg.reshape(nb, -1), ok
 
 
@@ -455,7 +457,7 @@ def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
     nb, nbits = coded_bits.shape
 
     def host(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return obs.to_host(x) if isinstance(x, torch.Tensor) else x
 
     def on_device(x):
         return torch.as_tensor(x, device=device).to(torch.uint8).contiguous()
@@ -470,9 +472,12 @@ def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
         if _outer_device_ok(outer.t, nb * n_full, device):
             msg, ok = bch_decode_batch_device(code.n, code.k, code.t,
                                               on_device(blocks))
-            msg, ok = msg.cpu().numpy(), ok.cpu().numpy().astype(bool)
+            msg, ok = host(msg), host(ok).astype(bool)
         else:
             msg, ok = code.decode_batch(host(blocks))
+        if obs.recording():
+            obs.count("bch.words", ok.size)
+            obs.count("bch.words_failed", ok.size - int(ok.sum()))
         ok = ok.reshape(nb, n_full).all(axis=1) & (nbits % code.n == 0)
         return msg.reshape(nb, -1), ok
     rs = rs_for(outer.n, outer.n_parity)
@@ -494,7 +499,7 @@ def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
         # bytes cross to the card and back, a bit a bit only on the host
         msg, ok = rs_decode_batch_device(rs.n, rs.n_parity,
                                          on_device(blocks))
-        msg, ok = msg.cpu().numpy(), ok.cpu().numpy().astype(bool)
+        msg, ok = host(msg), host(ok).astype(bool)
     else:
         msg, ok = rs.decode_batch(blocks)
     ok = ok.reshape(nb, n_full).all(axis=1) & (n_bytes % rs.n == 0)
@@ -538,36 +543,43 @@ def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
     nb = llrs.shape[0]
     if len(seeds) != nb:
         raise ValueError(f"{len(seeds)} seeds for {nb} frames")
-    if scrambler_pos == SCRAMBLER_AFTER_INNER and scrambler.kind != "none":
-        llrs = _apply_pn_rows(scrambler, seeds, llrs)
-    inner_de = deinterleave_llrs(inner_il, llrs)[:, : plan.inner_coded_bits]
-    inner_bits, inner_ok = inner_decode_batch(inner, inner_de,
-                                              plan.outer_il_bits, ldpc_rule)
+    with obs.span("orion.chain.deinterleave"):
+        if scrambler_pos == SCRAMBLER_AFTER_INNER and \
+                scrambler.kind != "none":
+            llrs = _apply_pn_rows(scrambler, seeds, llrs)
+        inner_de = deinterleave_llrs(inner_il, llrs)[
+            :, : plan.inner_coded_bits]
+    with obs.span("orion.chain.inner"):
+        inner_bits, inner_ok = inner_decode_batch(
+            inner, inner_de, plan.outer_il_bits, ldpc_rule)
     inner_bits = inner_bits[:, : plan.outer_il_bits]
     if outer_il.kind == "none":
         # nothing to undo: the bits stay on their device for the outer code
         outer_de = inner_bits[:, : plan.outer_coded_bits]
     else:
-        outer_de = deinterleave_bits(outer_il, inner_bits.cpu().numpy())[
-            :, : plan.outer_coded_bits]
-    framed_bits, outer_ok = outer_decode_batch(outer, outer_de,
-                                               device=coded_llrs.device)
+        with obs.span("orion.chain.deinterleave"):
+            outer_de = deinterleave_bits(outer_il, obs.to_host(inner_bits))[
+                :, : plan.outer_coded_bits]
+    with obs.span("orion.chain.outer"):
+        framed_bits, outer_ok = outer_decode_batch(outer, outer_de,
+                                                   device=coded_llrs.device)
     datas, oks = [], np.zeros(nb, bool)
-    for b in range(nb):
-        fb = framed_bits[b][: plan.framed_bytes * 8]
-        if len(fb) < plan.framed_bytes * 8:
-            datas.append(None)
-            continue
-        framed = bits_to_bytes(fb)
-        if scrambler_pos == SCRAMBLER_BEFORE_OUTER:
-            framed = scramble_bytes(scrambler, seeds[b], framed)
-        stripped = check_and_strip_crc(crc, framed)
-        if stripped is None:
-            datas.append(None)
-            continue
-        data, crc_ok = stripped
-        datas.append(data)
-        oks[b] = bool(crc_ok) and bool(inner_ok[b]) and bool(outer_ok[b])
+    with obs.span("orion.chain.crc"):
+        for b in range(nb):
+            fb = framed_bits[b][: plan.framed_bytes * 8]
+            if len(fb) < plan.framed_bytes * 8:
+                datas.append(None)
+                continue
+            framed = bits_to_bytes(fb)
+            if scrambler_pos == SCRAMBLER_BEFORE_OUTER:
+                framed = scramble_bytes(scrambler, seeds[b], framed)
+            stripped = check_and_strip_crc(crc, framed)
+            if stripped is None:
+                datas.append(None)
+                continue
+            data, crc_ok = stripped
+            datas.append(data)
+            oks[b] = bool(crc_ok) and bool(inner_ok[b]) and bool(outer_ok[b])
     return datas, oks
 
 

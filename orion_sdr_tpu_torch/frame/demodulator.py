@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..constellation import BITS_PER_SYMBOL, bits_per_symbol, soft_llr
 from ..dsp.device import on_device, sanitize_iq, takes_host_data
 from ..dsp.osc import rotate
@@ -152,8 +153,10 @@ def _parse_header(fields):
 
 
 def _as_iq(iq, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(iq, np.complex64) if not isinstance(
+    x = torch.as_tensor(np.asarray(iq, np.complex64) if not isinstance(
         iq, torch.Tensor) else iq, device=device).to(torch.complex64)
+    obs.count_h2d(iq, x)
+    return x
 
 
 class OfdmFrameDemod:
@@ -176,24 +179,28 @@ class OfdmFrameDemod:
             raise RxError(RxError.MALFORMED_HEADER) from None
         return packet
 
+    @obs.rooted("orion.frame.decode_batch")
     def decode_batch(self, iq_batch) -> List[Union[FramePacket, RxError]]:
         """Decode B ALIGNED frame captures (iq[b, 0] = first post-preamble
         sample, flat channel) → per-frame FramePacket or RxError, in order.
         One demap and one BP launch decode every header, then frames group
         by (mcs_index, payload_len) and each group's payload demap + FEC
-        chain runs batched across the group."""
+        chain runs batched across the group. Under the profiler each call
+        is the root ``orion.frame.decode_batch`` (``obs``)."""
         cfg = self.cfg
         iq = _as_iq(iq_batch, self.device)
         if iq.dim() != 2:
             raise ValueError("iq_batch must be (B, T)")
         n_frames = iq.shape[0]
+        obs.count("frames", n_frames)
         sps = cfg.carrier_plan.n_fft + cfg.carrier_plan.cp_len
         results: List[Union[FramePacket, RxError, None]] = [None] * n_frames
 
         hplan = header_block_plan(cfg)
         n_sym_h = symbols_for_coded_bits(cfg, HEADER_CONSTELLATION,
                                          hplan.coded_bits)
-        hllrs = soft_demap(cfg, HEADER_CONSTELLATION, iq, n_sym_h)
+        with obs.span("orion.frame.soft_demap"):
+            hllrs = soft_demap(cfg, HEADER_CONSTELLATION, iq, n_sym_h)
         if hllrs is None:
             raise RxError(RxError.MALFORMED_HEADER)
         fields, hok = decode_chain_batch(
@@ -202,53 +209,69 @@ class OfdmFrameDemod:
             InterleaverKind.none(), ScramblerKind.none(),
             SCRAMBLER_BEFORE_OUTER, [0] * n_frames, ldpc_rule="sum_product")
 
-        headers = [None] * n_frames
-        for b in range(n_frames):
-            if not hok[b] or fields[b] is None:
-                results[b] = RxError(RxError.HEADER_CRC_MISMATCH)
-                continue
-            h = _parse_header(fields[b])
-            if isinstance(h, RxError):
-                results[b] = h
-            else:
-                headers[b] = h
+        with obs.span("orion.frame.header_parse"):
+            headers = [None] * n_frames
+            for b in range(n_frames):
+                if not hok[b] or fields[b] is None:
+                    results[b] = RxError(RxError.HEADER_CRC_MISMATCH)
+                    continue
+                h = _parse_header(fields[b])
+                if isinstance(h, RxError):
+                    results[b] = h
+                else:
+                    headers[b] = h
+
+            groups: dict = {}
+            for b, h in enumerate(headers):
+                if h is None:
+                    continue
+                if self.mcs_table.get(h[0]) is None:
+                    results[b] = RxError(RxError.MALFORMED_HEADER)
+                    continue
+                groups.setdefault((h[0], h[1]), []).append(b)
+        obs.count("frames.header_fail", n_frames - sum(
+            len(idxs) for idxs in groups.values()))
 
         cursor = n_sym_h * sps
-        groups: dict = {}
-        for b, h in enumerate(headers):
-            if h is None:
-                continue
-            if self.mcs_table.get(h[0]) is None:
-                results[b] = RxError(RxError.MALFORMED_HEADER)
-                continue
-            groups.setdefault((h[0], h[1]), []).append(b)
-
+        decoded = []
         for (mcs_index, payload_len), idxs in groups.items():
-            mcs = self.mcs_table.get(mcs_index)
-            pplan = block_plan(payload_len, cfg.payload_crc, mcs.outer_fec,
-                               mcs.inner_fec, cfg.outer_interleaver,
-                               cfg.inner_interleaver)
-            n_sym = symbols_for_coded_bits(cfg, mcs.constellation,
-                                           pplan.coded_bits)
-            rows = iq[torch.as_tensor(idxs, device=iq.device), cursor:]
-            llr = soft_demap(cfg, mcs.constellation, rows, n_sym)
-            if llr is None:
-                for b in idxs:
-                    results[b] = RxError(RxError.MALFORMED_HEADER)
-                continue
-            datas, pok = decode_chain_batch(
-                llr, pplan, cfg.payload_crc, mcs.outer_fec, mcs.inner_fec,
-                cfg.outer_interleaver, cfg.inner_interleaver, cfg.scrambler,
-                cfg.scrambler_pos, [headers[b][4] for b in idxs],
-                ldpc_rule=cfg.ldpc_decode_rule)
-            for j, b in enumerate(idxs):
-                if not pok[j] or datas[j] is None:
-                    results[b] = RxError(RxError.CRC_MISMATCH)
+            with obs.span("orion.frame.group"):
+                obs.count(f"group.mcs{mcs_index}.len{payload_len}",
+                          len(idxs))
+                mcs = self.mcs_table.get(mcs_index)
+                pplan = block_plan(payload_len, cfg.payload_crc,
+                                   mcs.outer_fec, mcs.inner_fec,
+                                   cfg.outer_interleaver,
+                                   cfg.inner_interleaver)
+                n_sym = symbols_for_coded_bits(cfg, mcs.constellation,
+                                               pplan.coded_bits)
+                rows = iq[torch.as_tensor(idxs, device=iq.device), cursor:]
+                with obs.span("orion.frame.soft_demap"):
+                    llr = soft_demap(cfg, mcs.constellation, rows, n_sym)
+                if llr is None:
+                    for b in idxs:
+                        results[b] = RxError(RxError.MALFORMED_HEADER)
                     continue
-                h = headers[b]
-                meta = FrameMetadata(sequence_num=h[2], mcs_index=h[0],
-                                     flags=h[3])
-                results[b] = FramePacket(meta, datas[j][:payload_len])
+                decoded.append((idxs, payload_len, decode_chain_batch(
+                    llr, pplan, cfg.payload_crc, mcs.outer_fec,
+                    mcs.inner_fec, cfg.outer_interleaver,
+                    cfg.inner_interleaver, cfg.scrambler, cfg.scrambler_pos,
+                    [headers[b][4] for b in idxs],
+                    ldpc_rule=cfg.ldpc_decode_rule)))
+
+        crc_fail = 0
+        with obs.span("orion.frame.packets"):
+            for idxs, payload_len, (datas, pok) in decoded:
+                for j, b in enumerate(idxs):
+                    if not pok[j] or datas[j] is None:
+                        results[b] = RxError(RxError.CRC_MISMATCH)
+                        crc_fail += 1
+                        continue
+                    h = headers[b]
+                    meta = FrameMetadata(sequence_num=h[2], mcs_index=h[0],
+                                         flags=h[3])
+                    results[b] = FramePacket(meta, datas[j][:payload_len])
+        obs.count("frames.crc_fail", crc_fail)
         return results
 
 

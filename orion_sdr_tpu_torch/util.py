@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import obs
 from .dsp.device import on_device, takes_host_data
 
 SIGNAL_THRESHOLD = 0.1  # RMS below which a block is treated as silence (util.rs:297)
@@ -185,14 +186,18 @@ class trace:
     every CPU op and, where CUDA is available, every card kernel in the
     block under ``torch.profiler``, and writes a Chrome/Perfetto trace
     (``trace_<pid>_<n>.json``) into ``log_dir`` on exit; ``.path`` names
-    the file."""
+    the file. ``.spans`` holds the :class:`obs.Root` records of the
+    receive calls made in the block (their spans are in the trace too,
+    named ``orion.*``)."""
 
     _count = 0
 
     def __init__(self, log_dir: str) -> None:
         self.log_dir = log_dir
         self.path = None
+        self.spans = []
         self._prof = None
+        self._mark = 0
 
     def __enter__(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -200,10 +205,12 @@ class trace:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=acts)
         self._prof.__enter__()
+        self._mark = obs.recorded()
         return self
 
     def __exit__(self, *exc):
         self._prof.__exit__(*exc)
+        self.spans = obs.since(self._mark)
         os.makedirs(self.log_dir, exist_ok=True)
         trace._count += 1
         self.path = os.path.join(self.log_dir,
