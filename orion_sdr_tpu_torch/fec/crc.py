@@ -1,57 +1,31 @@
 """Generic frame CRCs (counterpart of ``orion_sdr_tpu/fec/crc.py``).
 
-Host-side, table-driven; known answers:
+Host-side, through the standard library's C routines on the data's buffer
+(``binascii.crc_hqx`` is CRC-16/CCITT-FALSE from init 0xFFFF, ``zlib.crc32``
+is CRC-32/ISO-HDLC); known answers:
 crc16(b"123456789") == 0x29B1, crc32(b"123456789") == 0xCBF43926.
 """
 
 from __future__ import annotations
 
+import binascii
+import zlib
+
 import numpy as np
-
-
-def _crc16_table():
-    poly = 0x1021
-    t = np.zeros(256, np.uint16)
-    for b in range(256):
-        crc = b << 8
-        for _ in range(8):
-            crc = ((crc << 1) ^ poly if crc & 0x8000 else crc << 1) & 0xFFFF
-        t[b] = crc
-    return t
-
-
-def _crc32_table():
-    poly = 0xEDB88320
-    t = np.zeros(256, np.uint32)
-    for b in range(256):
-        crc = b
-        for _ in range(8):
-            crc = (crc >> 1) ^ poly if crc & 1 else crc >> 1
-        t[b] = crc
-    return t
-
-
-_T16 = _crc16_table().tolist()
-_T32 = _crc32_table().tolist()
 
 
 def _as_bytes(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return np.frombuffer(data, dtype=np.uint8)
-    return np.asarray(data, np.uint8)
+    return np.ascontiguousarray(data, np.uint8)
 
 
 def crc16(data) -> int:
     """CRC-16/CCITT-FALSE: poly 0x1021, init 0xFFFF, non-reflected, no xorout."""
-    crc = 0xFFFF
-    for b in _as_bytes(data).tolist():
-        crc = ((crc << 8) & 0xFFFF) ^ _T16[((crc >> 8) ^ b) & 0xFF]
-    return crc
+    return binascii.crc_hqx(_as_bytes(data), 0xFFFF)
 
 
 def crc32(data) -> int:
     """CRC-32/ISO-HDLC: reflected poly 0xEDB88320, init/xorout 0xFFFFFFFF."""
-    crc = 0xFFFFFFFF
-    for b in _as_bytes(data).tolist():
-        crc = (crc >> 8) ^ _T32[(crc ^ b) & 0xFF]
-    return crc ^ 0xFFFFFFFF
+    return zlib.crc32(_as_bytes(data))
+

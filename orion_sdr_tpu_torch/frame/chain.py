@@ -95,16 +95,29 @@ def append_crc(crc: str, data) -> np.ndarray:
 
 def check_and_strip_crc(crc: str, framed):
     """Returns (bytes, crc_ok) or None if too short."""
-    framed = np.asarray(framed, np.uint8)
-    n = crc_len_bytes(crc)
-    if len(framed) < n:
+    stripped = _check_and_strip_rows(crc, np.asarray(framed, np.uint8)[None])
+    if stripped is None:
         return None
+    (body,), ok = stripped
+    return body, bool(ok[0])
+
+
+def _check_and_strip_rows(crc: str, framed: np.ndarray):
+    """:func:`check_and_strip_crc` over the rows of a (B, m) uint8 array:
+    (list of B bodies, each its own array, (B,) crc_ok), or None if m is
+    short of the CRC. The tails are read at once as big-endian integers."""
+    n = crc_len_bytes(crc)
+    m = framed.shape[1]
+    if m < n:
+        return None
+    body = framed[:, : m - n]
     if n == 0:
-        return framed.copy(), True
-    body, tail = framed[:-n], framed[-n:]
-    if crc == "crc16":
-        return body.copy(), crc16(body) == ((int(tail[0]) << 8) | int(tail[1]))
-    return body.copy(), crc32(body) == int.from_bytes(bytes(tail), "big")
+        ok = np.ones(len(framed), bool)
+    else:
+        tail = np.ascontiguousarray(framed[:, m - n:]).view(f">u{n}")[:, 0]
+        ok = np.fromiter(map(crc16 if crc == "crc16" else crc32, body),
+                         np.uint32, len(framed)) == tail
+    return [row.copy() for row in body], ok
 
 
 # ── scramblers ───────────────────────────────────────────────────────────────
@@ -534,9 +547,9 @@ def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
     """decode_chain over B same-plan frames: (B, L) LLRs → (list of byte
     arrays or None, (B,) ok). The inner code runs batched on the device,
     the outer deinterleaver per frame (each row its own stream) and the
-    outer code batched (on the device past the block threshold), CRCs per
-    frame. A tensor stays on its device; host data goes to ``device``
-    (None: the card)."""
+    outer code batched (on the device past the block threshold), the CRCs
+    in one host pass over the batch. A tensor stays on its device; host
+    data goes to ``device`` (None: the card)."""
     coded_llrs = on_device(coded_llrs, device, torch.float32)
     seeds = [int(s) for s in per_frame_seeds]
     llrs = coded_llrs[:, : plan.coded_bits]
@@ -563,24 +576,22 @@ def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
     with obs.span("orion.chain.outer"):
         framed_bits, outer_ok = outer_decode_batch(outer, outer_de,
                                                    device=coded_llrs.device)
-    datas, oks = [], np.zeros(nb, bool)
+    framed_bytes = plan.framed_bytes
     with obs.span("orion.chain.crc"):
-        for b in range(nb):
-            fb = framed_bits[b][: plan.framed_bytes * 8]
-            if len(fb) < plan.framed_bytes * 8:
-                datas.append(None)
-                continue
-            framed = bits_to_bytes(fb)
-            if scrambler_pos == SCRAMBLER_BEFORE_OUTER:
-                framed = scramble_bytes(scrambler, seeds[b], framed)
-            stripped = check_and_strip_crc(crc, framed)
-            if stripped is None:
-                datas.append(None)
-                continue
-            data, crc_ok = stripped
-            datas.append(data)
-            oks[b] = bool(crc_ok) and bool(inner_ok[b]) and bool(outer_ok[b])
-    return datas, oks
+        obs.count("crc.rows", nb)
+        obs.count("crc.bytes", nb * framed_bytes)
+        if framed_bits.shape[1] < framed_bytes * 8:
+            return [None] * nb, np.zeros(nb, bool)
+        framed = np.packbits(framed_bits[:, : framed_bytes * 8], axis=1)
+        if scrambler_pos == SCRAMBLER_BEFORE_OUTER and \
+                scrambler.kind != "none":
+            for b, seed in enumerate(seeds):
+                framed[b] = scramble_bytes(scrambler, seed, framed[b])
+        stripped = _check_and_strip_rows(crc, framed)
+        if stripped is None:
+            return [None] * nb, np.zeros(nb, bool)
+        datas, crc_ok = stripped
+        return datas, crc_ok & inner_ok & outer_ok
 
 
 def decode_chain(coded_llrs, plan: BlockPlan, crc: str,

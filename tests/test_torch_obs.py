@@ -20,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 import orion_sdr_tpu_torch as P
 from orion_sdr_tpu_torch import obs
 from orion_sdr_tpu_torch.fec.ldpc import ldpc_graph
+from orion_sdr_tpu_torch.frame import demodulator
 from orion_sdr_tpu_torch.frame.chain import block_plan, shortened_bch_for
 from orion_sdr_tpu_torch.frame.modulator import header_block_plan
 
@@ -238,6 +239,23 @@ def test_cofdm_batch_gives_one_root_a_group_an_mcs_and_length(cofdm):
     # and the outer code's input (the host BCH coder on the CPU)
     assert c["d2h.reads"] == 2 + 2 * len(groups)
     assert r.launches == {} and "h2d.bytes" not in c
+
+
+def test_cofdm_batch_counts_the_frames_and_bytes_each_crc_stage_checked(
+        monkeypatch, cofdm):
+    calls = []
+    real = demodulator.decode_chain_batch
+
+    def chain_batch(llrs, plan, *a, **k):
+        calls.append((llrs.shape[0], plan.framed_bytes))
+        return real(llrs, plan, *a, **k)
+    monkeypatch.setattr(demodulator, "decode_chain_batch", chain_batch)
+    (r,), _ = _profiled(lambda: _decode_cofdm(cofdm))
+    # the header's call holds every frame, the groups' the frames it passed
+    assert calls[0][0] == len(SPECS) + 1
+    assert sum(rows for rows, _ in calls[1:]) == len(SPECS)
+    assert r.counters["crc.rows"] == sum(rows for rows, _ in calls)
+    assert r.counters["crc.bytes"] == sum(rows * n for rows, n in calls)
 
 
 def test_ft8_windows_give_one_root_with_four_stages(ft8):
