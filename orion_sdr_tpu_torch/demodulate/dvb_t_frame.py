@@ -8,8 +8,13 @@ The receive runs on the demodulator's device over whole frames, and
 ``decode_batch`` over the whole batch of frames in one call; all frames'
 payloads then go through one ``decode_chain_batch``, so one Viterbi launch
 covers every frame's chunks. TPS, Forney, RS and the TS layer run on the
-host. ``DvbTHierFrameDemod`` splits each cell's LLRs into the HP and LP
-streams on the device and decodes each through its own chain;
+host. ``decode_batch`` is the root ``orion.dvbt.decode_batch`` (``obs``):
+spans ``orion.dvbt.receive`` (symbol FFT, pilot estimate, LLRs and the TPS
+cells' read), ``orion.dvbt.tps`` (the per-frame TPS words) and
+``orion.dvbt.ts`` (energy dispersal and depacketizing), counters
+``dvbt.frames``, ``dvbt.tps_fail`` and ``dvbt.ts_packets``, and the chain's
+own spans inside. ``DvbTHierFrameDemod`` splits each cell's LLRs into the
+HP and LP streams on the device and decodes each through its own chain;
 ``dvb_t_blind_decode`` finds guard, TPS (hierarchy included) and payload
 extent from the signal alone.
 """
@@ -21,6 +26,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..dsp.device import takes_host_data
 from ..constellation import BITS_PER_SYMBOL
 from ..dsp.osc import rotate_host
@@ -154,7 +160,10 @@ class DvbTFrameDemod:
 
     @property
     def fs(self) -> float:
-        """Baseband rate the CFO units refer to (1 MHz occupied)."""
+        """The rate the GI acquisition's and the integer CFO correction's
+        frequency units assume (that of a 1 MHz occupied band). Only those
+        units use it: the receive itself works in samples and FFT bins at
+        any capture rate."""
         return dvb_t_fs_for_bandwidth(1_000_000.0)
 
     def _integer_cfo_correct(self, iq: torch.Tensor, cp_len: int):
@@ -203,6 +212,7 @@ class DvbTFrameDemod:
         return self._decode_payloads(llrs.reshape(1, -1), payload_len,
                                      [tps])[0]
 
+    @obs.rooted("orion.dvbt.decode_batch")
     def decode_batch(self, iq_batch, n_symbols: int, payload_len: int
                      ) -> List[DvbTRxFrame]:
         """(B, n) aligned frame captures → B DvbTRxFrame, in order: one
@@ -216,16 +226,18 @@ class DvbTFrameDemod:
             raise ValueError("iq_batch must be (B, n)")
         if iq.shape[1] < n_symbols * sps:
             raise DvbTRxError(DvbTRxError.INCOMPLETE)
-        llrs, cells = receive_frame_body(iq[:, : n_symbols * sps], n_symbols,
-                                         cp_len, self.rx_window_backoff,
-                                         vbits)
-        cells = cells.cpu().numpy()
-        words = []
-        for b in range(iq.shape[0]):
-            tps = _tps_word(cells[b], n_symbols)
-            if tps is None:
-                raise DvbTRxError(DvbTRxError.TPS_DECODE)
-            words.append(tps)
+        obs.count("dvbt.frames", iq.shape[0])
+        with obs.span("orion.dvbt.receive"):
+            llrs, cells = receive_frame_body(iq[:, : n_symbols * sps],
+                                             n_symbols, cp_len,
+                                             self.rx_window_backoff, vbits)
+            cells = obs.to_host(cells)
+        with obs.span("orion.dvbt.tps"):
+            words = [_tps_word(c, n_symbols) for c in cells]
+        failed = sum(w is None for w in words)
+        obs.count("dvbt.tps_fail", failed)
+        if failed:
+            raise DvbTRxError(DvbTRxError.TPS_DECODE)
         return self._decode_payloads(llrs.reshape(iq.shape[0], -1),
                                      payload_len, words)
 
@@ -257,9 +269,10 @@ def _decode_ts_chain(llrs: torch.Tensor, inner, n_ts: int):
         llrs, plan, "none", dvb_t_frame_outer(), inner,
         dvb_t_frame_outer_il(), InterleaverKind.none(),
         ScramblerKind.none(), SCRAMBLER_BEFORE_OUTER, [0] * llrs.shape[0])
-    return [ts_energy_disperse(ts[:ts_len])
-            if ts is not None and ok and len(ts) >= ts_len else None
-            for ts, ok in zip(datas, oks)]
+    with obs.span("orion.dvbt.ts"):
+        return [ts_energy_disperse(ts[:ts_len])
+                if ts is not None and ok and len(ts) >= ts_len else None
+                for ts, ok in zip(datas, oks)]
 
 
 def _decode_ts(llrs: torch.Tensor, inner, payload_len: int
@@ -267,10 +280,14 @@ def _decode_ts(llrs: torch.Tensor, inner, payload_len: int
     """(B, L) LLRs → B payloads of ``payload_len`` bytes, None where the
     FEC or the TS layer failed."""
     n_ts = max(-(-payload_len // TS_PAYLOAD_LEN), 1)
-    out = []
-    for ts in _decode_ts_chain(llrs, inner, n_ts):
-        payload = None if ts is None else ts_depacketize(ts)
-        out.append(None if payload is None else payload[:payload_len])
+    streams = _decode_ts_chain(llrs, inner, n_ts)
+    with obs.span("orion.dvbt.ts"):
+        out = []
+        for ts in streams:
+            payload = None if ts is None else ts_depacketize(ts)
+            out.append(None if payload is None else payload[:payload_len])
+    if obs.recording():
+        obs.count("dvbt.ts_packets", n_ts * sum(p is not None for p in out))
     return out
 
 

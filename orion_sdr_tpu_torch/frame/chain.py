@@ -437,6 +437,7 @@ def inner_decode_batch(inner: InnerFec, coded_llrs, info_len: int,
     if inner.kind == "none":
         return (coded_llrs <= 0.0).to(torch.uint8), np.ones(nb, bool)
     if inner.kind == "conv":
+        obs.count("viterbi.steps", nb * info_len)
         llrs = coded_llrs.to(torch.float32).contiguous()
         if info_len > CONV_TERMINATED_MAX_INFO:
             bits = viterbi_decode_soft_chunked(llrs, info_len, inner.rate,
@@ -515,6 +516,9 @@ def outer_decode_batch(outer: OuterFec, coded_bits, device=None):
         msg, ok = host(msg), host(ok).astype(bool)
     else:
         msg, ok = rs.decode_batch(blocks)
+    if obs.recording():
+        obs.count("rs.words", ok.size)
+        obs.count("rs.words_failed", ok.size - int(ok.sum()))
     ok = ok.reshape(nb, n_full).all(axis=1) & (n_bytes % rs.n == 0)
     return np.unpackbits(msg.reshape(nb, -1), axis=1), ok
 
