@@ -1,9 +1,10 @@
 """Shared TX/RX coding chain + BlockPlan (counterpart of
 ``orion_sdr_tpu/frame/chain.py``).
 
-The byte-domain stages (CRC, byte scramblers, the outer interleavers) run
-on the host in numpy; the inner code (LDPC or convolutional), the inner
-block interleaver, the bit-domain scrambler and the LLR normalisation run on
+The byte-domain stages (CRC, byte scramblers, the transmit side's outer
+interleaver) run on the host in numpy; the receive side's outer
+deinterleaver, the inner code (LDPC or convolutional), the inner block
+interleaver, the bit-domain scrambler and the LLR normalisation run on
 the device of the tensors they are given. The BCH and RS outer codes run on
 a CUDA device when a call holds enough codewords (``_outer_device_ok``:
 the products mod 2 of ``fec/bch_device.py`` and the kernel of
@@ -14,6 +15,7 @@ each LDPC, Viterbi or outer-code stage is one batched call.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,7 +23,7 @@ import torch
 
 from .. import obs
 from ..dsp.device import on_device
-from ..fec.bch_device import (MAX_DEVICE_T, bch_decode_batch_device,
+from ..fec.bch_device import (MAX_DEVICE_T, _const, bch_decode_batch_device,
                               bch_encode_batch_device, bits_from_bytes,
                               bytes_from_bits, rs_decode_batch_device,
                               rs_encode_batch_device)
@@ -216,9 +218,24 @@ def interleave_bits(il: InterleaverKind, bits):
     return torch.as_tensor(out, device=bits.device) if is_tensor else out
 
 
+def _forney_bit_sources(branches: int, depth: int,
+                        n_padded: int) -> np.ndarray:
+    """The input bit each output bit of a Forney deinterleave takes, for a
+    stream that starts from an empty state and keeps bytes [d, d +
+    n_padded), d the round-trip delay: output byte k takes input byte
+    k + d − (I−1−((k+d) mod I))·M·I, never one of the history, so bit
+    8k + b takes bit 8·src(k) + b."""
+    I, M = branches, depth
+    t = np.arange(n_padded) + conv_roundtrip_delay(I, M)
+    src = t - (I - 1 - t % I) * M * I
+    return (8 * src[:, None] + np.arange(8)).reshape(-1)
+
+
 def _deinterleave(il: InterleaverKind, x, is_llr: bool):
     """Inverse along the last axis; each row of a 2-D input is its own
-    frame (a Forney deinterleaver starts every row from an empty state)."""
+    frame (a Forney deinterleaver starts every row from an empty state).
+    A tensor is deinterleaved on its own device, a Forney one by one
+    gather of its bits; numpy runs the host stream."""
     if il.kind == "none":
         return x.clone() if isinstance(x, torch.Tensor) else np.array(x)
     if il.kind == "block":
@@ -232,20 +249,32 @@ def _deinterleave(il: InterleaverKind, x, is_llr: bool):
         # a Forney interleaver is never configured as the inner (LLR)
         # interleaver; degrade gracefully, as the reference does
         return x.clone() if isinstance(x, torch.Tensor) else np.array(x)
-    x = np.asarray(x, np.uint8)
     d = conv_roundtrip_delay(il.branches, il.depth)
     total = x.shape[-1] // 8
-    if total <= d:
+    n_padded = max(total - d, 0)
+    if isinstance(x, torch.Tensor):
+        obs.count("forney.rows_on_device", math.prod(x.shape[:-1]))
+        src = _const(("forney_src", il.branches, il.depth, n_padded),
+                     lambda: _forney_bit_sources(il.branches, il.depth,
+                                                 n_padded),
+                     torch.int64, x.device)
+        return x.to(torch.uint8).index_select(-1, src)
+    x = np.asarray(x, np.uint8)
+    obs.count("forney.rows_host", math.prod(x.shape[:-1]))
+    if n_padded == 0:
         return np.zeros(x.shape[:-1] + (0,), np.uint8)
-    n_padded = total - d
     byts = np.packbits(x[..., : total * 8], axis=-1)
     out, _ = forney_deinterleave(byts, il.branches, il.depth)
     return np.unpackbits(out[..., d:d + n_padded], axis=-1)
 
 
-def deinterleave_bits(il: InterleaverKind, bits) -> np.ndarray:
-    """(..., L) numpy bits → deinterleaved bits, one frame per row."""
-    return _deinterleave(il, np.asarray(bits, np.uint8), is_llr=False)
+def deinterleave_bits(il: InterleaverKind, bits):
+    """(..., L) bits → deinterleaved bits, one frame per row: numpy gives
+    numpy; a tensor stays on its device (a Forney deinterleaver is one
+    gather there, no read to the host)."""
+    if not isinstance(bits, torch.Tensor):
+        bits = np.asarray(bits, np.uint8)
+    return _deinterleave(il, bits, is_llr=False)
 
 
 def deinterleave_llrs(il: InterleaverKind, llrs):
@@ -550,10 +579,11 @@ def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
                        device=None):
     """decode_chain over B same-plan frames: (B, L) LLRs → (list of byte
     arrays or None, (B,) ok). The inner code runs batched on the device,
-    the outer deinterleaver per frame (each row its own stream) and the
-    outer code batched (on the device past the block threshold), the CRCs
-    in one host pass over the batch. A tensor stays on its device; host
-    data goes to ``device`` (None: the card)."""
+    the outer deinterleaver on the inner code's output where it lies (each
+    row its own stream), the outer code batched (on the device past the
+    block threshold, else on the host after one read of the deinterleaved
+    bits), the CRCs in one host pass over the batch. A tensor stays on its
+    device; host data goes to ``device`` (None: the card)."""
     coded_llrs = on_device(coded_llrs, device, torch.float32)
     seeds = [int(s) for s in per_frame_seeds]
     llrs = coded_llrs[:, : plan.coded_bits]
@@ -575,7 +605,7 @@ def decode_chain_batch(coded_llrs, plan: BlockPlan, crc: str,
         outer_de = inner_bits[:, : plan.outer_coded_bits]
     else:
         with obs.span("orion.chain.deinterleave"):
-            outer_de = deinterleave_bits(outer_il, obs.to_host(inner_bits))[
+            outer_de = deinterleave_bits(outer_il, inner_bits)[
                 :, : plan.outer_coded_bits]
     with obs.span("orion.chain.outer"):
         framed_bits, outer_ok = outer_decode_batch(outer, outer_de,

@@ -199,6 +199,42 @@ def test_decode_chain_batch_runs_forney_per_frame():
             device="cpu").numpy() for d in datas]))
 
 
+def _forney_lengths(branches, depth):
+    """Bit lengths below, at and above the round-trip delay d (in bytes),
+    above it by amounts that are not a multiple of 8 bits or of I bytes."""
+    d = branches * (branches - 1) * depth
+    return {"below": 8 * d - 3, "at": 8 * d, "at+5bits": 8 * d + 5,
+            "d+7": 8 * (d + 7), "d+5IM+3": 8 * (d + 5 * branches * depth
+                                                + 3) + 1}
+
+
+FORNEY_CASES = [(branches, depth, name, n)
+                for branches, depth in ((12, 17), (4, 3), (2, 1))
+                for name, n in _forney_lengths(branches, depth).items()]
+
+
+@pytest.mark.parametrize("rows", [None, 1, 5])
+@pytest.mark.parametrize("branches,depth,name,n_bits", FORNEY_CASES)
+def test_forney_deinterleave_of_a_tensor_equals_numpy(branches, depth, name,
+                                                      n_bits, rows):
+    # each row its own stream; rows None: one 1-D frame
+    il = P.InterleaverKind.convolutional(branches, depth)
+    lead = () if rows is None else (rows,)
+    bits = np.random.default_rng(n_bits).integers(
+        0, 2, lead + (n_bits,)).astype(np.uint8)
+    want = P.deinterleave_bits(il, bits)
+    got = P.deinterleave_bits(il, torch.as_tensor(bits))
+    assert isinstance(want, np.ndarray) and isinstance(got, torch.Tensor)
+    assert got.device == torch.device("cpu") and got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), want)
+    d = branches * (branches - 1) * depth
+    assert got.shape[-1] == 8 * max(n_bits // 8 - d, 0)
+    jil = J.InterleaverKind.convolutional(branches, depth)
+    refs = bits.reshape(-1, n_bits)
+    for row, ref in zip(got.reshape(len(refs), -1), refs):
+        assert np.array_equal(row.numpy(), J.deinterleave_bits(jil, ref))
+
+
 def _conv_links():
     """A COFDM link with the conv inner code, RS outer code and a block
     inner interleaver, in both packages."""

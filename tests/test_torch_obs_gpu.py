@@ -5,7 +5,9 @@ leaves one root; its BP launches are the trace's ``ldpc_bp`` kernels, its
 ``d2h.reads`` the trace's device-to-host copies inside the root's span;
 and no ``orion.*`` range is counted as device work by the benchmark's
 profile reducer (``orbench/profiling.py``), whose idle gaps the spans
-name (a share printed: between calls no span is open).
+name (a share printed: between calls no span is open). A batch of the
+DVB-T cell deinterleaves all 32 frames on the card and reads under a
+quarter of its Viterbi output.
 
 Run on a card with ``python -m pytest --noconftest -m gpu -s
 tests/test_torch_obs_gpu.py`` (nothing here imports JAX); without a card
@@ -92,6 +94,29 @@ def test_spans_and_counters_match_the_card_trace(cell):
         print(f"  d2h.reads {r.counters['d2h.reads']}, copies "
               f"{len(inside)}, {r.counters['d2h.bytes']} bytes")
         assert r.counters["d2h.reads"] == len(inside) == reads
+
+
+def test_a_dvbt_batch_deinterleaves_on_the_card(cuda):
+    """The DVB-T cell's batch of 32 frames: the Forney deinterleaver takes
+    every row on the card, and the root reads under a quarter of the
+    Viterbi output's bytes (a byte a bit, ``viterbi.steps``): the TPS cells
+    and the RS messages and flags."""
+    name = "dvbt_2k_64qam23.rx_32mux"
+    c = harness.load_cell(name)
+    params = dict(c["params"], pool=1)
+    batch = harness.part("traffic", c["generator"]).make(
+        c["config_file"], params, SEED, cuda)[0]
+    entry = harness.part("entries", c["entry"]).Entry(c["config_file"],
+                                                      params, cuda)
+    entry.call(batch.iq)
+    mark = obs.recorded()
+    with profile(activities=[ProfilerActivity.CPU]):
+        entry.call(batch.iq)
+    (r,) = obs.since(mark)
+    print(f"\n  {name}: {r.counters}")
+    assert r.counters["forney.rows_on_device"] == params["frames"]
+    assert "forney.rows_host" not in r.counters
+    assert r.counters["d2h.bytes"] < r.counters["viterbi.steps"] // 4
 
 
 def test_no_span_is_device_work_and_the_spans_name_the_idle_time(cell):
